@@ -1,0 +1,495 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the final line is printed):
+  1. build   — nvcc builds every CUDA kernel of the serving path from
+               src/repro_torch/kernels/csrc, one process per source, in
+               parallel; prints the build seconds and ptxas' register use.
+  2. kernels — each kernel against its plain PyTorch version on the card, at
+               the shapes granite-8b's serving path gives it, with the stated
+               tolerance; prints the kernel's median ms, the plain version's
+               ms, one PyTorch library call computing the same function
+               (timed here only, never used by the port) and the least time
+               the card could take (bytes over 3.35 TB/s or operations over
+               989 TFLOP/s, whichever is larger).
+  3. serve   — `repro_torch.launch.serve` on full-width granite-8b, all 36
+               layers, w4a4 weights, int8 KV, 4 slots, 8 requests of 128
+               prompt tokens and 32 new tokens, chunk 32: prints prefill and
+               decode tok/s, peak memory and the launch count of each
+               kernel over the run (each must be > 0); then holds two
+               requests' engine streams (one-chunk prefill, 4-slot pool)
+               equal to their single-request greedy_generate streams, and
+               reports the chunk-32 run's streams against them.
+  4. serve   — w8a8 weights (every N-side linear on int_matmul) with packed
+               int4 KV, 4 layers; and its logits on a 16-token prompt
+               against the same port on the CPU (the plain versions), with
+               its int4 KV cache and with an fp one. Its
+               streams are not held against greedy_generate: with 4-bit KV,
+               the chunked prefill's online-softmax merge rounds otherwise
+               than a one-shot prefill, and one ulp can flip a 4-bit code
+               (the JAX package's own int4 engine test shows the same).
+Then one JSON line with every kernel's numbers, the card's name and power
+limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
+
+Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). Imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM
+NEG_INF = -2.0e9
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Median of single-launch CUDA-event times. Before each launch a 2 GB
+    buffer is read (not written: dirty lines would be written back during
+    the timed launch): it evicts the 50 MB L2, so every launch finds its
+    inputs in HBM as the serving path does (each weight is read once a
+    step), and it keeps the device busy for ~0.7 ms while the host enqueues
+    the timed call, so the events time the device's work and not the
+    Python in front of the launch."""
+
+    def __init__(self, torch, iters: int = 15):
+        self.torch = torch
+        self.iters = iters
+        self.flush = torch.ones(512 * 2**20, dtype=torch.float32, device="cuda")
+
+    def ms(self, fn) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(self.iters):
+            self.flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
+                 gen) -> dict:
+    dev = "cuda"
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    lim = 8 if packed else 128
+    codes = torch.randint(-lim, lim, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
+    if packed:
+        from repro_torch.core.quantizer import pack_int4
+        w = pack_int4(codes, 0)
+        kern = lambda: qmm.int4_matmul(x, w, scale)
+        plain = lambda: ref.int4_matmul(x, w, scale)
+    else:
+        w = codes
+        kern = lambda: qmm.int_matmul(x, w, scale)
+        plain = lambda: ref.int_matmul(x, w, scale)
+    y_k = kern()
+    y_r = plain()
+    torch.cuda.synchronize()
+    err = (y_k - y_r).abs().max().item()
+    # only the f32 summation order differs (up to 14336 terms)
+    tol = 1e-5 * y_r.abs().max().item()
+    wd = (codes.float() * scale).to(torch.bfloat16)
+    lib = lambda: torch.matmul(x, wd)
+    nbytes = m * k * 2 + w.numel() + n * 4 + m * n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+    row = {"shape": [m, k, n], "max_abs_err": err, "tol": tol,
+           "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    name = "int4_matmul" if packed else "int_matmul"
+    log(f"  {name} M={m} K={k} N={n}: max|err| {err:.3e} (tol {tol:.3e}) "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"torch.matmul(bf16 dequant) {row['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if not err <= tol:
+        fail(f"{name} {m}x{k}x{n} disagrees with its plain version: {err} > {tol}")
+    return row
+
+
+def check_attention(torch, timer, da, ref, *, storage: str, c: int, window: int,
+                    softcap: float, gen, qdtype=None, b=4, t=160, hkv=8,
+                    q_per_kv=4, d=128) -> dict:
+    dev = "cuda"
+    qdtype = qdtype or torch.bfloat16
+    h = hkv * q_per_kv
+    q = torch.randn((b, c, h, d), generator=gen, device=dev).to(qdtype)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=dev)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=dev)
+    pos = torch.full((b, t), -1, dtype=torch.int32, device=dev)
+    pos[0, :100] = torch.arange(100, device=dev)
+    pos[1, :] = torch.arange(t, device=dev)
+    pos[2, :40] = torch.arange(40, device=dev)          # slot 3 stays idle
+    last = torch.tensor([99, t - 1, 39, -1], device=dev)
+    q_pos = (last[:, None] - c + 1 + torch.arange(c, device=dev)).to(torch.int32)
+    q_pos[3] = -1
+    if storage == "fp":
+        ks_ = vs_ = None
+        k_st, v_st = k.to(qdtype), v.to(qdtype)
+    else:
+        from repro_torch.core.quantizer import QuantSpec, pack_int4
+        from repro_torch.models.attention import _quantize_kv
+        spec = QuantSpec(bits=8 if storage == "int8" else 4)
+        k_st, ks_ = _quantize_kv(k, spec)
+        v_st, vs_ = _quantize_kv(v, spec)
+        if storage == "int4":
+            k_st, v_st = pack_int4(k_st, -1), pack_int4(v_st, -1)
+    args = (q, k_st, v_st, ks_, vs_, pos, q_pos)
+    kw = dict(q_per_kv=q_per_kv, window=window, softcap=softcap)
+    kern = lambda: da.pooled_decode_attention(*args, **kw)
+    plain = lambda: ref.pooled_decode_attention(*args, **kw)
+    acc_k, m_k, l_k = kern()
+    acc_r, m_r, l_r = plain()
+    torch.cuda.synchronize()
+    live = m_r > NEG_INF / 2
+    o_k = (acc_k / l_k[..., None])[live]
+    o_r = (acc_r / l_r[..., None])[live]
+    err = (o_k - o_r).abs().max().item()
+    if qdtype == torch.float32:
+        tol = 1e-5  # only the f32 summation order differs
+    else:
+        # P is rounded to bf16 after an f32 exp of dots summed in another
+        # order, so a P at a rounding boundary lands one bf16 ulp apart
+        tol = 2.0 ** -7 * o_r.abs().max().item()
+    m_err = (m_k[live] - m_r[live]).abs().max().item()
+    dead_ok = bool((m_k[~live] == NEG_INF).all() and (l_k[~live] > 0).all()
+                   and torch.isfinite(acc_k).all() and torch.isfinite(l_k).all())
+    kd, vd = (ref.dequant_kv(s, sc, d, qdtype) for s, sc in
+              ((k_st, ks_), (v_st, vs_)))
+    # yardstick: SDPA on the dequantized cache, GQA expanded, same masks
+    qh = (q.float() * d ** -0.5).to(qdtype).transpose(1, 2)
+    kh = kd.repeat_interleave(q_per_kv, 2).transpose(1, 2)
+    vh = vd.repeat_interleave(q_per_kv, 2).transpose(1, 2)
+    valid = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        valid &= pos[:, None, :] > q_pos[:, :, None] - window
+    mask = valid[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0)
+    esz = 2 if qdtype == torch.bfloat16 else 4
+    kv_bytes = 2 * k_st.numel() * k_st.element_size()
+    sc_bytes = 0 if ks_ is None else 2 * ks_.numel() * 4
+    nbytes = (q.numel() * esz + kv_bytes + sc_bytes + pos.numel() * 4
+              + q_pos.numel() * 4 + acc_k.numel() * 4 + 2 * m_k.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * b * c * h * t * d)
+    row = {"shape": {"B": b, "C": c, "H": h, "Hkv": hkv, "T": t, "D": d,
+                     "storage": storage, "window": window, "softcap": softcap,
+                     "q": str(qdtype).replace("torch.", "")},
+           "max_abs_err": err, "tol": tol, "ms": timer.ms(kern),
+           "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  pooled_decode_attention {storage} q={row['shape']['q']} C={c} "
+        f"T={t} window={window} softcap={softcap}: max|err| {err:.3e} "
+        f"(tol {tol:.3e}), max|dm| {m_err:.2e}, masked rows ok {dead_ok}; "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"sdpa(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    if not err <= tol:
+        fail(f"decode attention {storage} C={c} disagrees: {err} > {tol}")
+    if not m_err <= 1e-4 * max(1.0, m_r[live].abs().max().item()):
+        fail(f"decode attention {storage} C={c}: running max differs by {m_err}")
+    if not dead_ok:
+        fail(f"decode attention {storage} C={c}: fully masked rows not finite "
+             "with m = NEG_INF, l > 0")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: the serving path
+# ---------------------------------------------------------------------------
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def check_against_cpu(torch, M, run, qcfg, n_tok: int = 16) -> None:
+    """The same params and prompt through the port on the CPU, where every
+    kernel wrapper takes its plain version: the reference for the card's
+    logits. The two sum in other orders, so isolated bf16 activations land
+    one ulp apart and spread. With an fp KV cache that is all: 90th
+    percentile |dlogit| <= 2**-7 * max|logit|, max |dp| < 0.02, argmax equal
+    at >= 15 of 16 positions. A quantized KV cache turns such an ulp, where
+    it crosses a rounding boundary, into a whole code step (amax/7 of the
+    head at 4 bits), so there the bar is on what the model decides: max |dp|
+    < 0.02 and equal argmax at every position whose top-2 gap in the
+    reference exceeds twice that position's largest |dlogit|."""
+    prompt = torch.from_numpy(run.prompts[:1, :n_tok])
+    pos = torch.arange(n_tok, dtype=torch.int32)[None]
+    out = {}
+    for dev, params in ((run.device, run.params), ("cpu", _to(run.params, "cpu"))):
+        cache = M.init_cache(run.cfg, qcfg, 1, n_tok, dev)
+        lg, _ = M.prefill_step(params, cache, {"tokens": prompt.to(dev),
+                                               "pos": pos.to(dev)},
+                               run.cfg, qcfg)
+        out[str(dev)] = lg[0, :, :run.cfg.vocab_size].float().cpu()
+    a, b = out[str(run.device)], out["cpu"]
+    if not (torch.isfinite(a).all() and a.shape == (n_tok, run.cfg.vocab_size)):
+        fail("card logits not finite / wrong shape")
+    d = (a - b).abs()
+    q90 = torch.quantile(d.flatten(), 0.9).item()
+    dp = (torch.softmax(a, -1) - torch.softmax(b, -1)).abs().max().item()
+    same = a.argmax(-1) == b.argmax(-1)
+    top2 = torch.topk(b, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * d.max(-1).values
+    scale = b.abs().max().item()
+    kv = f"int{qcfg.kv_cache_bits}" if qcfg.kv_cache_bits else "fp"
+    log(f"  card vs CPU plain versions, {kv} KV, "
+        f"{n_tok}-token prefill: max|dlogit| {d.max().item():.3e}, q90 "
+        f"{q90:.3e} (max|logit| {scale:.2f}), max|dp| {dp:.3e}, argmax equal "
+        f"{int(same.sum())}/{n_tok} ({int(decided.sum())} decided beyond "
+        f"the difference, all equal: {bool(same[decided].all())})")
+    if qcfg.kv_cache_bits:
+        ok = dp < 0.02 and bool(same[decided].all())
+    else:
+        ok = q90 <= 2 ** -7 * scale and dp < 0.02 and int(same.sum()) >= n_tok - 1
+    if not ok:
+        fail("card logits depart from the CPU reference")
+
+
+def _first_difference(a: list, b: list):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def check_stream_contract(torch, M, serve, run, new_tokens: int, chunk: int):
+    """The engine's determinism contract: each request's stream equals its
+    own single-request greedy_generate stream. greedy_generate prefills the
+    whole prompt in one call and decodes one row; the engine prefills in
+    chunks and decodes the pooled slots together. On the kernel route the
+    chunking itself changes rounding (the flash-decode kernel rounds P to
+    bf16 against each partial's running max, as the TPU kernel does, and
+    the merge rescales it), so the contract is held with the engine's chunk
+    equal to the prompt length, decoding in a pool of 4 slots; the main
+    run's chunked streams are compared and reported. Printed beside it: how
+    far a 4-row step's logits are from the same rows run one at a time."""
+    from repro_torch.serve import (ModelExecutor, SamplingParams, Scheduler,
+                                   ServeEngine)
+    cfg, qcfg, params, dev = run.cfg, run.qcfg, run.params, run.device
+    plen = run.prompts.shape[1]
+    max_len = plen + new_tokens
+    step = lambda p, c, b: M.prefill_step(p, c, b, cfg, qcfg)
+    rids = (0, len(run.prompts) - 1)
+    refs = {}
+    for rid in rids:
+        cache = M.init_cache(cfg, qcfg, 1, max_len, dev)
+        prompt = torch.from_numpy(run.prompts[rid:rid + 1]).to(dev)
+        toks, _ = serve.greedy_generate(step, params, cache, prompt, new_tokens)
+        refs[rid] = toks[0].tolist()
+        got = run.engine.results[f"req-{rid}"].tokens
+        log(f"  req-{rid}: chunk-{chunk} engine stream == greedy_generate "
+            f"stream: {got == refs[rid]} (first difference at token "
+            f"{_first_difference(got, refs[rid])})")
+
+    # rows batched vs one at a time, same inputs: prefill, then one decode
+    prompts = torch.from_numpy(run.prompts[:4]).to(dev)
+    pos = torch.arange(plen, dtype=torch.int32, device=dev)[None].expand(4, -1)
+    pool = M.init_cache(cfg, qcfg, 4, max_len, dev)
+    lg4, _ = step(params, pool, {"tokens": prompts, "pos": pos})
+    nxt = torch.argmax(lg4[:, -1], -1)[:, None].to(torch.int32)
+    dpos = torch.full((4, 1), plen, dtype=torch.int32, device=dev)
+    dl4, _ = step(params, pool, {"tokens": nxt, "pos": dpos})
+    gaps = []
+    for r in range(4):
+        single = M.init_cache(cfg, qcfg, 1, max_len, dev)
+        lg1, _ = step(params, single, {"tokens": prompts[r:r + 1], "pos": pos[:1]})
+        dl1, _ = step(params, single, {"tokens": nxt[r:r + 1], "pos": dpos[:1]})
+        gaps.append(((lg4[r, -1] - lg1[0, -1]).abs().max().item(),
+                     (dl4[r, 0] - dl1[0, 0]).abs().max().item()))
+    log(f"  4 rows together vs one at a time: max|dlogit| prefill "
+        f"{max(g[0] for g in gaps):.3e}, decode {max(g[1] for g in gaps):.3e}")
+
+    ex = ModelExecutor(params, cfg, qcfg, n_slots=4, max_len=max_len, chunk=plen)
+    eng = ServeEngine(ex, Scheduler(max_len=max_len))
+    for rid in rids:
+        ok, reason = eng.submit(run.prompts[rid],
+                                SamplingParams(max_new_tokens=new_tokens),
+                                rid=f"r{rid}")
+        if not ok:
+            fail(f"engine refused req-{rid}: {reason}")
+    eng.run_until_idle()
+    for rid in rids:
+        got = eng.results[f"r{rid}"].tokens
+        first = _first_difference(got, refs[rid])
+        log(f"  req-{rid}: chunk-{plen} engine stream (4-slot pool) == "
+            f"greedy_generate stream: {first is None}")
+        if first is not None:
+            fail(f"req-{rid} engine stream departs from greedy_generate at "
+                 f"token {first}: {got} vs {refs[rid]}")
+
+
+def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
+                check_streams: bool, cpu_reference: bool) -> dict:
+    log(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tp = run.summary["throughput"]
+    log(f"  wall {wall:.1f} s (params built on the card included); prefill "
+        f"{tp['prefill_tok_s']:.1f} tok/s, decode {tp['decode_tok_s']:.1f} "
+        f"tok/s, peak {(run.peak_bytes or 0) / 2**30:.2f} GiB; launches {counts}")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on the main path: {counts}")
+    faults = {k: v for k, v in run.summary["faults"].items() if v}
+    if faults:
+        fail(f"serving faults: {faults}")
+    n_req = len(run.prompts)
+    new_tokens = int(argv[argv.index("--new-tokens") + 1])
+    for i in range(n_req):
+        res = run.engine.results[f"req-{i}"]
+        if res.finish_reason != "length" or len(res.tokens) != new_tokens:
+            fail(f"req-{i}: {res.finish_reason}, {len(res.tokens)} tokens")
+        if not all(0 <= t < run.cfg.vocab_size for t in res.tokens):
+            fail(f"req-{i}: token out of vocabulary: {res.tokens}")
+
+    if check_streams:
+        chunk = int(argv[argv.index("--chunk") + 1])
+        check_stream_contract(torch, M, serve, run, new_tokens, chunk)
+
+    if cpu_reference:  # the run's own KV cache, and an fp one
+        check_against_cpu(torch, M, run, run.qcfg)
+        check_against_cpu(torch, M, run, run.qcfg.replace(kv_cache_bits=0))
+    return {"counts": counts, "summary": run.summary, "peak": run.peak_bytes,
+            "wall": wall}
+
+
+def main() -> None:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build, decode_attention as da, ops, ref
+    from repro_torch.kernels import quant_matmul as qmm
+    dev_name = torch.cuda.get_device_name(0)
+    log(f"device: {dev_name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    report = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s wall, all sources in parallel")
+    for name, r in report.items():
+        log(f"  {name}: {r['seconds']:.1f} s")
+        for line in r["log"].splitlines():
+            if "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
+                log(f"    {line.strip()}")
+
+    # 2. kernels
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = Timer(torch)
+    log("kernels (each against its plain version on the card):")
+    rows = {"int4_matmul": [], "int_matmul": [], "pooled_decode_attention": []}
+    for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
+                    (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
+        rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
+                                                m, k, n, gen))
+    for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
+        rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
+                                               m, k, n, gen))
+    for storage, c, window, softcap, qd in (
+            ("int8", 1, 0, 0.0, None), ("fp", 1, 0, 0.0, None),
+            ("int4", 1, 0, 0.0, None), ("int8", 32, 0, 0.0, None),
+            ("int8", 1, 64, 50.0, None), ("int4", 32, 64, 50.0, None),
+            ("fp", 32, 0, 50.0, None), ("int8", 1, 0, 0.0, torch.float32),
+            ("int4", 32, 64, 50.0, torch.float32)):
+        rows["pooled_decode_attention"].append(check_attention(
+            torch, timer, da, ref, storage=storage, c=c, window=window,
+            softcap=softcap, gen=gen, qdtype=qd))
+
+    del timer  # its 2 GB buffer would count in the serving runs' peak memory
+    torch.cuda.empty_cache()
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    # 3. the main path: full-width granite-8b, all 36 layers
+    main_run = serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
+         "--batch", "8", "--slots", "4", "--prompt-len", "128",
+         "--new-tokens", "32", "--chunk", "32"],
+        ("int4_matmul", "int_matmul", "pooled_decode_attention"), 2,
+        cpu_reference=False)
+    counts = main_run["counts"]
+    # 4. second config: w8a8 weights, packed int4 KV, 4 layers
+    serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "granite-8b", "--quant", "w8a8", "--kv-bits", "4",
+         "--layers", "4", "--batch", "8", "--slots", "4",
+         "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
+        ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
+
+    sources = {"int4_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
+                               "src/repro/kernels/quant_matmul.py:863"),
+               "int_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
+                              "src/repro/kernels/quant_matmul.py:819"),
+               "pooled_decode_attention": (
+                   "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:137")}
+    kernels = []
+    for name, rs in rows.items():
+        r = rs[0]  # the decode shape of the main path
+        kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
+                        "replaces": sources[name][1], "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": r["shape"], "tol": r["tol"],
+                        "checks": len(rs)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,27 @@
+"""gemma2-2b [dense]: 26L d_model=2304 8H (GQA kv=4) d_ff=9216 vocab=256000
+— local+global alternating, logit softcap. [arXiv:2408.00118; hf]"""
+from repro_torch.configs.base import ArchConfig, BlockDef
+
+CONFIG = ArchConfig(
+    name="gemma2-2b",
+    family="dense",
+    n_layers=26,
+    d_model=2304,
+    n_heads=8,
+    n_kv_heads=4,
+    d_ff=9216,
+    vocab_size=256000,
+    head_dim=256,
+    pattern=(BlockDef(attn="local", ffn="dense"),
+             BlockDef(attn="global", ffn="dense")),
+    window=4096,
+    attn_softcap=50.0,
+    final_softcap=30.0,
+    norm="rmsnorm",
+    sandwich_norm=True,
+    act="gelu",
+    ffn_gated=True,
+    pos="rope",
+    tie_embeddings=True,
+    source="[arXiv:2408.00118; hf]",
+)
