@@ -30,6 +30,22 @@ Phases (any failure exits non-zero before the final line is printed):
                the chunked prefill's online-softmax merge rounds otherwise
                than a one-shot prefill, and one ulp can flip a 4-bit code
                (the JAX package's own int4 engine test shows the same).
+  5. qat kernels — each QAT kernel against its plain version at the shapes
+               of the training path (M = 8 x 512 tokens of qwen1.5-0.5b):
+               quant_matmul at an FFN, a K-side-scaled wo and the tied head;
+               quant_matmul_bwd at the FFN's two shapes (bf16 cotangents);
+               quant_matmul_dx / _dw at the head (f32 cotangents); with the
+               same four numbers a kernel, and the bars of the CPU tests.
+  6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
+               layers, tied head, QKV bias), w4a4, MCKD top-16, sentinel on,
+               batch 8 x 512, 3 steps saving at step 2, then a second call to
+               4 steps that restores step 2 and runs one: finite loss, health
+               0 every step, s/step, tokens/s, peak memory, and each QAT
+               kernel's launches equal to its count per step x steps.
+  7. route   — the same model cut to 2 layers, batch 2 x 256: gradients on
+               the kernel route against the unfused composition on the card
+               (run with the kernels' rule at the clip edge; the gaps against
+               the composition as it is are printed beside it).
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -48,6 +64,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM
+F32_OPS_PER_S = 67e12         # f32 outside the tensor cores, H100 SXM
 NEG_INF = -2.0e9
 
 
@@ -95,9 +112,10 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -396,7 +414,273 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
             "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the QAT kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+QAT_QS = dict(q_n_a=0, q_p_a=15, q_n_w=8, q_p_w=7)    # w4a4: LSQ+ acts, 4-bit w
+HEAD_QS = dict(q_n_a=0, q_p_a=255, q_n_w=128, q_p_w=127)  # 8-bit edges
+
+
+def _bf16_ulp(torch, v):
+    a = v.abs().double()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, 2.0 ** (e - 7), torch.zeros_like(a))
+
+
+def _bf16_close(torch, got, want, abs_products, length) -> tuple[float, float]:
+    """The CPU tests' bar for dX / dW: each element within one bf16 ulp plus
+    the order-independent bound on two f32 sums of `length` products
+    (2 * length * 2**-24 * sum|products|), and at most 1% differing.
+    Returns (worst excess over the bound, fraction differing)."""
+    d = (got.double() - want.double()).abs()
+    tol = (_bf16_ulp(torch, torch.maximum(got.abs(), want.abs()))
+           + 2 * length * 2.0 ** -24 * abs_products.double())
+    return (d - tol).max().item(), (d > 0).double().mean().item()
+
+
+def qat_operands(torch, m, k, n, k_side, gen, qs):
+    dev = "cuda"
+    x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    ws = torch.rand((k, 1) if k_side else (1, n), generator=gen, device=dev)
+    ws = ws * 0.05 + 0.02
+    if qs["q_p_w"] > 7:  # 8-bit edge: scales that use the 8-bit range
+        ws = ws * 0.1
+    a_s = torch.tensor(0.3 if qs["q_p_a"] == 15 else 0.02, device=dev)
+    a_b = torch.tensor(-0.2, device=dev)
+    return x, w, a_s, a_b, ws
+
+
+def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs) -> dict:
+    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs)
+    kern = lambda: qmm.quant_matmul(x, w, a_s, a_b, ws, **qs)
+    plain = lambda: ref.quant_matmul(x, w, a_s, a_b, ws, **qs)
+    y_k, y_r = kern(), plain()
+    torch.cuda.synchronize()
+    err = (y_k - y_r).abs().max().item()
+    tol = 1e-5 * y_r.abs().max().item()
+    _, _, xd = ref._act_codes(x, a_s, a_b, qs["q_n_a"], qs["q_p_a"])
+    _, _, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
+    xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+    lib = lambda: torch.matmul(xd, wd)
+    del y_k, y_r
+    nbytes = m * k * 2 + k * n * 4 + ws.numel() * 4 + 8 + m * n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+    row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
+           "max_abs_err": err, "tol": tol, "ms": timer.ms(kern),
+           "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  quant_matmul M={m} K={k} N={n} ({row['w_scale']} scales): max|err| "
+        f"{err:.3e} (tol {tol:.3e}); kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.matmul(bf16 dequant) "
+        f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not err <= tol:
+        fail(f"quant_matmul {m}x{k}x{n} disagrees with its plain version: {err} > {tol}")
+    return row
+
+
+def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
+                  gen, qs) -> dict:
+    """quant_matmul_bwd (combined) or quant_matmul_dx / _dw (split) against
+    the plain versions; the scalar and per-column sums within 1e-4 of their
+    sum of |summands|."""
+    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs)
+    dy = torch.randn((m, n), generator=gen, device="cuda")
+    kw = dict(round_cot=round_cot, **qs)
+    args = (dy, x, w, a_s, a_b, ws)
+    fn = getattr(qmm, name)
+    plain_fn = getattr(ref, name)
+    kern = lambda: fn(*args, **kw)
+    plain = lambda: plain_fn(*args, **kw)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    u_x, q_x, xd = ref._act_codes(x, a_s, a_b, qs["q_n_a"], qs["q_p_a"])
+    u_w, q_w, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
+    cot = ref._cotangent(dy, round_cot)
+    checks, worst = [], 0.0
+    if name in ("quant_matmul_bwd", "quant_matmul_dx"):
+        dx_abs = cot.abs() @ wd.abs().T
+        ex, frac = _bf16_close(torch, got[0], want[0], dx_abs, n)
+        del dx_abs
+        mf = ref._in_range(u_x, qs["q_n_a"], qs["q_p_a"])
+        dxd = ref._bf16(cot @ wd.T)
+        l1a = (dxd * (q_x - mf * u_x)).abs().sum().item()
+        l1b = (dxd * (1 - mf)).abs().sum().item()
+        del dxd, mf
+        checks += [("dX", ex <= 0 and frac <= 0.01, f"excess {ex:.2e}, differing {frac:.2e}"),
+                   ("dsa", abs(got[1].item() - want[1].item()) <= 1e-4 * l1a,
+                    f"{abs(got[1].item() - want[1].item()):.3e} vs 1e-4 x {l1a:.3e}"),
+                   ("dba", abs(got[2].item() - want[2].item()) <= 1e-4 * l1b,
+                    f"{abs(got[2].item() - want[2].item()):.3e} vs 1e-4 x {l1b:.3e}")]
+        worst = max(worst, (got[0] - want[0]).abs().max().item())
+    if name in ("quant_matmul_bwd", "quant_matmul_dw"):
+        gw, ww = (got[3], got[4]) if name == "quant_matmul_bwd" else got
+        rw, rws = (want[3], want[4]) if name == "quant_matmul_bwd" else want
+        dw_abs = xd.abs().T @ cot.abs()
+        ex, frac = _bf16_close(torch, gw, rw, dw_abs, m)
+        del dw_abs
+        mf = ref._in_range(u_w, qs["q_n_w"], qs["q_p_w"])
+        part = (ref._bf16(xd.T @ cot) * (q_w - mf * u_w)).abs()
+        l1 = part.sum(dim=1 if k_side else 0, keepdim=True)
+        del part, mf
+        dws_ok = bool(((ww - rws).abs() <= 1e-4 * l1).all())
+        checks += [("dW", ex <= 0 and frac <= 0.01, f"excess {ex:.2e}, differing {frac:.2e}"),
+                   ("dws", dws_ok, f"max {(ww - rws).abs().max().item():.3e}")]
+        worst = max(worst, (gw - rw).abs().max().item())
+    del got, want
+    # yardstick: the two products on operands dequantized beforehand
+    ct = cot.to(torch.bfloat16) if round_cot else cot
+    xl = xd.to(torch.bfloat16) if round_cot else xd
+    wl = wd.to(torch.bfloat16) if round_cot else wd
+    libs = {"quant_matmul_dx": lambda: ct @ wl.T, "quant_matmul_dw": lambda: xl.T @ ct,
+            "quant_matmul_bwd": lambda: (ct @ wl.T, xl.T @ ct)}
+    products = 2 if name == "quant_matmul_bwd" else 1
+    outs = {"quant_matmul_dx": m * k * 4 + 8, "quant_matmul_dw": k * n * 4 + ws.numel() * 4,
+            "quant_matmul_bwd": m * k * 4 + 8 + k * n * 4 + ws.numel() * 4}[name]
+    nbytes = m * n * 4 + m * k * 2 + k * n * 4 + ws.numel() * 4 + 8 + outs
+    b_ms, b_by = bound(nbytes, 2.0 * m * k * n * products,
+                       BF16_OPS_PER_S if round_cot else F32_OPS_PER_S)
+    row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
+           "round_cot": round_cot, "max_abs_err": worst,
+           "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands|",
+           "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(libs[name]), "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  {name} M={m} K={k} N={n} ({row['w_scale']} scales, "
+        f"{'bf16' if round_cot else 'f32'} cotangents): "
+        + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
+        + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    bad = [c for c, ok, _ in checks if not ok]
+    if bad:
+        fail(f"{name} {m}x{k}x{n} disagrees with its plain version on {bad}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: QAT training
+# ---------------------------------------------------------------------------
+
+QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
+               "quant_matmul_dw")
+
+
+def qat_launches_per_step(cfg) -> dict:
+    """Launches a train step makes, from the model: every block linear runs
+    its forward twice (remat recomputes the block in the backward) and its
+    combined backward once; the tied head, whose vocab-wide N takes the
+    split route, runs the forward once and dx / dw once each."""
+    per_layer = 4 + (3 if cfg.ffn_gated else 2)
+    return {"quant_matmul": 2 * per_layer * cfg.n_layers + 1,
+            "quant_matmul_bwd": per_layer * cfg.n_layers,
+            "quant_matmul_dx": 1, "quant_matmul_dw": 1}
+
+
+def train_phase(torch, ops, train, argv: list, expect_start: int,
+                steps: int) -> dict:
+    log(f"train: python -m repro_torch.launch.train {' '.join(argv)}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ops.launch_counts()[k] for k in QAT_KERNELS}
+    tokens = int(argv[argv.index("--batch") + 1]) * int(argv[argv.index("--seq") + 1])
+    steady = rep.step_seconds[1:] or rep.step_seconds
+    s_step = statistics.median(steady)
+    log(f"  wall {wall:.1f} s (params built on the card included), steps "
+        f"{rep.start_step}..{rep.final_step}, s/step {[round(v, 3) for v in rep.step_seconds]}"
+        f" (median after the first {s_step:.3f} s, {tokens / s_step:.0f} tokens/s), "
+        f"losses {rep.losses}, health {rep.healths}, peak "
+        f"{(rep.peak_bytes or 0) / 2**30:.2f} GiB; launches {counts}")
+    if rep.start_step != expect_start or rep.steps_run != steps:
+        fail(f"train run started at {rep.start_step} and ran {rep.steps_run} "
+             f"steps; expected {expect_start} and {steps}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), rep.losses)):
+        fail(f"non-finite training loss: {rep.losses}")
+    if any(rep.healths) or len(rep.healths) != steps:
+        fail(f"sentinel health bits set: {rep.healths}")
+    return {"report": rep, "counts": counts, "wall": wall, "s_step": s_step,
+            "tokens_s": tokens / s_step}
+
+
+def route_check(torch, gen_seed: int = 0) -> dict:
+    """Gradients of full-width qwen1.5-0.5b cut to 2 layers (batch 2 x 256,
+    one step from init) on the kernel route against the unfused composition,
+    both on the card: loss within 1e-3 relative, every non-scalar gradient
+    leaf within 1e-2 relative L2, the scalar quantizer leaves pooled per
+    kind (a single near-zero scalar's relative error means little).
+
+    At init the forward is exact on both routes (scales 1, offsets 0:
+    integer codes times bf16 weights sum without rounding), so the routes
+    differ only where a quantizer input sits exactly on the clip edge
+    u = -Q_N (the 8-bit embedding's code-0 zeros, silu underflow): there the
+    reference's kernels pass the whole gradient and its unfused clip half
+    (PERF.md, ROADMAP Queue 3). The bar is held against the unfused route
+    run with the kernels' edge rule (torch.clamp: same forward, whole
+    gradient at the edge); the gaps against the unfused route as it is are
+    printed beside it."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import quantizer
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.mckd_store import synthetic_kd_labels
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.train.sentinel import SentinelConfig
+    from repro_torch.train.state import TrainConfig, init_state
+    from repro_torch.train.train_step import make_grad_fn
+    cfg = get_config("qwen1.5-0.5b").replace(n_layers=2)
+    qcfg = get_preset("w4a4")
+    tcfg = TrainConfig(total_steps=10, warmup_steps=0, kd="mckd",
+                       sentinel=SentinelConfig())
+    state = init_state(cfg, qcfg, tcfg,
+                       torch.Generator(device="cuda").manual_seed(gen_seed), "cuda")
+    b = sample_batch(cfg, DataConfig(), 0, 2, 256)
+    b["kd_idx"], b["kd_p"] = synthetic_kd_labels(b["labels"], cfg.vocab_size, 16, seed=0)
+    b = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
+
+    def grads(route, clip=None):
+        orig = quantizer._clip
+        if clip is not None:
+            quantizer._clip = clip
+        try:
+            loss, _, g = make_grad_fn(cfg, qcfg.replace(fused_matmul=route), tcfg)(
+                state["params"], b, state["step"])
+        finally:
+            quantizer._clip = orig
+        return loss.item(), {T.path_str(p): v for p, v in T.flatten(g)}
+
+    def gaps(a, o):
+        res, pools = {}, {k: ([], []) for k in ("w_scale", "a_scale", "a_offset")}
+        for k, go in o[1].items():
+            ga = a[1][k]
+            kind = k.rsplit("/", 1)[-1]
+            if kind in pools and go.numel() == 1:
+                pools[kind][0].append(ga.reshape(()))
+                pools[kind][1].append(go.reshape(()))
+                continue
+            res[k] = ((ga - go).norm() / go.norm().clamp_min(1e-30)).item()
+        for kind, (x, y) in pools.items():
+            x, y = torch.stack(x), torch.stack(y)
+            res["pooled " + kind] = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+        top = sorted(res.items(), key=lambda kv: -kv[1])[:5]
+        return abs(a[0] - o[0]) / abs(o[0]), [(k, round(v, 7)) for k, v in top]
+
+    kern = grads("auto")
+    d_edge, top_edge = gaps(kern, grads("off", torch.clamp))
+    d_raw, top_raw = gaps(kern, grads("off"))
+    log(f"route check: kernel route vs unfused (kernels' edge rule): loss gap "
+        f"{d_edge:.3e} (bar 1e-3), worst leaves {top_edge} (bar 1e-2)")
+    log(f"  vs unfused as it is (clip splits the gradient at the edge): loss "
+        f"gap {d_raw:.3e}, worst leaves {top_raw}")
+    if not (d_edge <= 1e-3 and top_edge[0][1] <= 1e-2):
+        fail(f"kernel route departs from the unfused route: loss {d_edge}, {top_edge[0]}")
+    return {"edge_rule": {"loss": d_edge, "worst": top_edge},
+            "as_is": {"loss": d_raw, "worst": top_raw}}
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -406,6 +690,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the unfused route's bf16 products: one f32 sum rounded once, as in
+    # the reference (cuBLAS may otherwise reduce split-K partials in bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.kernels import build, decode_attention as da, ops, ref
     from repro_torch.kernels import quant_matmul as qmm
     dev_name = torch.cuda.get_device_name(0)
@@ -443,6 +730,29 @@ def main() -> None:
             torch, timer, da, ref, storage=storage, c=c, window=window,
             softcap=softcap, gen=gen, qdtype=qd))
 
+    # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
+    #    M = 8 x 512 tokens)
+    log("qat kernels (each against its plain version on the card):")
+    m = 8 * 512
+    qat_rows = {name: [] for name in QAT_KERNELS}
+    for k, n, k_side, qs in ((1024, 2816, False, QAT_QS), (1024, 1024, True, QAT_QS),
+                             (1024, 152064, False, HEAD_QS)):
+        qat_rows["quant_matmul"].append(check_qat_fwd(
+            torch, timer, qmm, ref, m, k, n, k_side, gen, qs))
+        torch.cuda.empty_cache()
+    for k, n in ((1024, 2816), (2816, 1024)):
+        qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", m, k, n, False, True,
+            gen, QAT_QS))
+    qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+        torch, timer, qmm, ref, "quant_matmul_bwd", m, 1024, 1024, True, True,
+        gen, QAT_QS))
+    for name in ("quant_matmul_dx", "quant_matmul_dw"):
+        qat_rows[name].append(check_qat_bwd(
+            torch, timer, qmm, ref, name, m, 1024, 152064, False, False, gen,
+            HEAD_QS))
+        torch.cuda.empty_cache()
+
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
     torch.cuda.empty_cache()
     from repro_torch.launch import serve
@@ -464,13 +774,46 @@ def main() -> None:
          "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
         ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
 
+    # 6. QAT training, the main path of the training slice: full-width
+    #    qwen1.5-0.5b, 3 steps saving at step 2, then a restored 4th step
+    from repro_torch.launch import train
+    import shutil
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    targv = ["--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd",
+             "--batch", "8", "--seq", "512", "--save-every", "2",
+             "--ckpt", str(ckpt_dir)]
+    first = train_phase(torch, ops, train, targv + ["--steps", "3"], 0, 3)
+    resumed = train_phase(torch, ops, train, targv + ["--steps", "4"], 3, 1)
+    from repro_torch.configs.registry import get_config
+    per_step = qat_launches_per_step(get_config("qwen1.5-0.5b"))
+    for run, n_steps in ((first, 3), (resumed, 1)):
+        want = {k: v * n_steps for k, v in per_step.items()}
+        if run["counts"] != want or min(run["counts"].values()) <= 0:
+            fail(f"QAT launches {run['counts']} != {per_step} per step x {n_steps}")
+    log(f"  launches per step {per_step}: both runs match")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # 7. the kernel route against the unfused composition, on the card
+    route = route_check(torch)
+    counts.update(first["counts"])
+    rows.update(qat_rows)
+
     sources = {"int4_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                "src/repro/kernels/quant_matmul.py:863"),
                "int_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                               "src/repro/kernels/quant_matmul.py:819"),
                "pooled_decode_attention": (
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:137")}
+                   "src/repro/kernels/decode_attention.py:137"),
+               "quant_matmul": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                "src/repro/kernels/quant_matmul.py:81"),
+               "quant_matmul_dx": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                   "src/repro/kernels/quant_matmul.py:241"),
+               "quant_matmul_dw": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                   "src/repro/kernels/quant_matmul.py:361"),
+               "quant_matmul_bwd": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                    "src/repro/kernels/quant_matmul.py:574")}
     kernels = []
     for name, rs in rows.items():
         r = rs[0]  # the decode shape of the main path
@@ -484,6 +827,12 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"train": {
+        "s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],
+        "peak_gib": (first["report"].peak_bytes or 0) / 2**30,
+        "losses": first["report"].losses + resumed["report"].losses,
+        "launches_per_step": per_step, "route": route}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.train.sentinel import SentinelState
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -68,6 +69,51 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig, device=None) -> dict:
     params["layers"] = [_convert(np_tree[key][pos], device, g)
                         for key, pos, g in _layer_paths(cfg)]
     return params
+
+
+def tree_to_jax_layout(tree: dict, cfg: ArchConfig) -> dict:
+    """The port's per-layer tree (params, or grads / moments shaped like
+    them) -> numpy in the JAX package's layout: layer i of each pattern
+    position stacked along a leading axis under "groups", the remainder
+    under "tail"; bf16 as f32. For comparing trees leaf by leaf."""
+    out = {k: _tree_numpy(v) for k, v in tree.items() if k != "layers"}
+    layers = [_tree_numpy(lay) for lay in tree["layers"]]
+    period, n_groups = cfg.period, cfg.n_groups
+    if n_groups:
+        out["groups"] = tuple(
+            _stack([layers[g * period + pos] for g in range(n_groups)])
+            for pos in range(period))
+    if cfg.n_tail:
+        out["tail"] = tuple(layers[n_groups * period:])
+    return out
+
+
+def _tree_numpy(node):
+    if isinstance(node, dict):
+        return {k: _tree_numpy(v) for k, v in node.items()}
+    return to_numpy(node)
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def state_from_jax(np_state: dict, cfg: ArchConfig, device=None) -> dict:
+    """The JAX package's train state (numpy leaves) -> the port's: params,
+    mu and nu per layer, step as an int32 CPU tensor, and the sentinel
+    state when the JAX state carries one."""
+    device = resolve_device(device)
+    state = {k: params_from_jax(np_state[k], cfg, device)
+             for k in ("params", "mu", "nu")}
+    state["step"] = torch.tensor(int(np.asarray(np_state["step"])),
+                                 dtype=torch.int32)
+    state["osc"], state["err"] = (), ()
+    sent = np_state.get("sent", ())
+    state["sent"] = (SentinelState(*(to_torch(np.asarray(v), device)
+                                     for v in sent)) if len(sent) else ())
+    return state
 
 
 def cache_from_jax(np_cache: dict, cfg: ArchConfig, device=None) -> dict:

@@ -1,10 +1,20 @@
-"""Uniform quantizers with learnable scale (LSQ) and offset (LSQ+), serving subset.
+"""Uniform quantizers with learnable scale (LSQ) and offset (LSQ+).
 
-PyTorch counterpart of `repro.core.quantizer` for the inference path: the
-integer codes (Eq. 5 without the STE), nibble packing, the LSQ scale init,
-and the forward value of `fake_quant` that the tied serving head still
-applies to its input activations. The training-side STE gradients (Eq. 6-7)
-come with the training slice.
+PyTorch counterpart of `repro.core.quantizer` (Eq. 5-7 of "Quantization
+Variation"):
+
+  x_q = s * round(clip(x/s, -Q_N, Q_P))                         (Eq. 5)
+  dL/dx   = dL/dx_q * 1[-Q_N <= x/s <= Q_P]                     (Eq. 6, STE)
+  dx_q/ds = round(x/s) - x/s   inside the range                 (Eq. 7)
+          = -Q_N / Q_P         below / above the range
+
+As in the JAX package the gradients fall out of autograd through
+`round_ste` and the clip, with no custom Function. The clip is written as
+`minimum(maximum(x, lo), hi)` because torch's max/min, like JAX's, split
+the gradient evenly at a tie (torch.clamp would pass all of it), and
+`grad_scale` keeps the JAX expression `x*g + (x - x*g)` so the forward
+value rounds the same way. Besides: the integer codes for serving, nibble
+packing, and the LSQ scale / LSQ+ offset inits.
 
 Conventions shared with the JAX package:
   * scales are stored BROADCASTABLE against their tensor (per-head scale of a
@@ -81,11 +91,10 @@ def _group_reduce_dims(scale_shape: tuple[int, ...], x_shape: tuple[int, ...]):
 
 def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
                       scale_shape: tuple[int, ...]) -> torch.Tensor:
-    """Gradient scale g for the learnable scale, shaped like the scale.
+    """Gradient scale g for the learnable scale factor, shaped like the scale.
 
-    Only its forward VALUE matters in serving: `grad_scale` is the identity
-    up to the float rounding of `s*g + (s - s*g)`, which the JAX package's
-    forward carries and this port reproduces.
+    module_l1 (paper, Sec 4.4.1): g = 1 / sqrt(Q_P * ||w||_1) per scale
+    group; lsq: g = 1 / sqrt(N * Q_P); none: g = 1.
     """
     if spec.grad_scale_mode == "none":
         return torch.ones(scale_shape, dtype=torch.float32, device=w.device)
@@ -102,40 +111,64 @@ def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
     return 1.0 / torch.sqrt(spec.q_p * torch.clamp(l1, min=EPS_SCALE))
 
 
-def grad_scale_value(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Forward value of `repro.core.quantizer.grad_scale`: x*g + (x - x*g)."""
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """round(x) in the forward pass, identity gradient in the backward pass."""
+    return x + (torch.round(x) - x).detach()
+
+
+def sign_ste(x: torch.Tensor) -> torch.Tensor:
+    """Binary (+-1) forward, clipped-identity backward (|x|<=1 window)."""
+    s = torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+    passthrough = _clip(x, -1.0, 1.0)
+    return passthrough + (s - passthrough).detach()
+
+
+def grad_scale(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Identity forward (x*g + (x - x*g), rounded as written); multiplies
+    the incoming gradient by ``g``."""
+    g = g.detach()
     xg = x * g
-    return xg + (x - xg)
+    return xg + (x - xg).detach()
 
 
-def fake_quant_forward(x: torch.Tensor, scale: torch.Tensor, spec: QuantSpec,
-                       offset: Optional[torch.Tensor] = None,
-                       grad_scale_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward value of `repro.core.quantizer.fake_quant` (no gradients).
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: maximum then minimum, a tie splitting the gradient."""
+    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
-    Same operation order and dtypes as the JAX function, so the rounding of
-    every step matches: the scale passes through the identity-valued
-    grad_scale, is floored at EPS_SCALE and cast to x's dtype before the
-    division.
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor, spec: QuantSpec,
+               offset: Optional[torch.Tensor] = None,
+               grad_scale_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantize-dequantize ``x`` with learnable ``scale`` (and LSQ+
+    ``offset``), with the STE gradients of Eq. 6-7 for x, scale and offset.
+
+    Same operation order and dtypes as `repro.core.quantizer.fake_quant`:
+    the scale passes through grad_scale (the module-wise g factor from
+    ``grad_scale_ref``, default x itself), is floored at EPS_SCALE and cast
+    to x's dtype before the division.
     """
-    ref = x if grad_scale_ref is None else grad_scale_ref
+    ref = (x if grad_scale_ref is None else grad_scale_ref).detach()
     sshape = tuple(scale.shape)
-    if len(sshape) == 0 or ref.dim() == len(sshape):
+    if grad_scale_ref is None or len(sshape) == 0 or ref.dim() == len(sshape):
         g = scale_grad_factor(spec, ref, sshape)
     else:
+        # activation scale keyed on module weights of another rank
         g = scale_grad_factor(spec, ref, ()).expand(sshape)
-    s = grad_scale_value(scale, g)
-    s = torch.clamp(s, min=EPS_SCALE).to(x.dtype)
+    s = grad_scale(scale, g)
+    s = torch.maximum(s, torch.tensor(EPS_SCALE, dtype=s.dtype,
+                                      device=s.device)).to(x.dtype)
     if offset is not None:
-        b = grad_scale_value(offset, g).to(x.dtype)
+        b = grad_scale(offset, g).to(x.dtype)
         xs = (x - b) / s
     else:
         xs = x / s
     if spec.bits == 1 and spec.signed:
-        xq = torch.where(xs >= 0, 1.0, -1.0).to(x.dtype) * s
+        xq = sign_ste(xs) * s
     else:
-        xs = torch.clamp(xs, -float(spec.q_n), float(spec.q_p))
-        xq = torch.round(xs) * s
+        xs = _clip(xs, -float(spec.q_n), float(spec.q_p))
+        xq = round_ste(xs) * s
     if offset is not None:
         xq = xq + b
     return xq
@@ -208,3 +241,13 @@ def init_scale(w: torch.Tensor, spec: QuantSpec,
     m = torch.sum(torch.abs(w.to(torch.float32)), dim=dims,
                   keepdim=bool(group_axes)) / n
     return torch.clamp(2.0 * m / denom, min=EPS_SCALE)
+
+
+def init_offset(w: torch.Tensor, spec: QuantSpec,
+                group_axes: tuple[int, ...] = ()) -> torch.Tensor:
+    """LSQ+ offset init: zeros, per scale group (0-d without groups)."""
+    del spec
+    if not group_axes:
+        return torch.zeros((), dtype=torch.float32, device=w.device)
+    shape = tuple(w.shape[i] if i in group_axes else 1 for i in range(w.dim()))
+    return torch.zeros(shape, dtype=torch.float32, device=w.device)

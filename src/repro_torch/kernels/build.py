@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "quant_matmul": CSRC / "quant_matmul.cu",
     "decode_attention": CSRC / "decode_attention.cu",
+    "qat_matmul": CSRC / "qat_matmul.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,10 +1,18 @@
-"""Dispatch over the serving kernels, and the device rule of the package.
+"""Dispatch over the kernels, and the device rule of the package.
 
 `int_matmul` is the one entry the model uses for an int-coded linear: it
 reshapes an arbitrary-rank x to 2D, expands the weight scale to one value
 per output column, and calls `quant_matmul.int_matmul` or `int4_matmul`,
 which launch the CUDA kernel for a CUDA tensor and take the plain version
 for a CPU tensor. Edges are masked inside the kernel, so nothing is padded.
+
+`fused_qat_matmul` is the differentiable QAT entry (the JAX package's
+`_fused_qmm2d` custom_vjp, src/repro/kernels/ops.py:143-217): a
+`torch.autograd.Function` whose forward is `quant_matmul` and whose
+backward is `quant_matmul_bwd` (combined, or split into dx / dw for
+vocab-wide N), with the LSQ/LSQ+ gradients of all five inputs. The
+module-wise gradient scale g and the group broadcast of the weight scale
+stay outside the Function (in the caller), as in the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +26,10 @@ KERNEL_WRAPPERS = {
     "int_matmul": _qmm.int_matmul,
     "int4_matmul": _qmm.int4_matmul,
     "pooled_decode_attention": _da.pooled_decode_attention,
+    "quant_matmul": _qmm.quant_matmul,
+    "quant_matmul_dx": _qmm.quant_matmul_dx,
+    "quant_matmul_dw": _qmm.quant_matmul_dw,
+    "quant_matmul_bwd": _qmm.quant_matmul_bwd,
 }
 
 
@@ -69,3 +81,60 @@ def int_matmul(x: torch.Tensor, w_codes: torch.Tensor, w_scale,
     else:
         out = _qmm.int_matmul(x2, w_codes, cols)
     return out.reshape(*lead, n).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fused QAT matmul (the training hot path)
+# ---------------------------------------------------------------------------
+
+class _FusedQmm2d(torch.autograd.Function):
+    """y = q_a(x2) @ q_w(w2) with the reference's five cotangents.
+
+    ws_vec is the weight scale expanded per column (N,) or per contracted
+    row (K,) (`k_side`); it is reshaped to the kernels' (1, N) / (K, 1).
+    dx comes back in x2's dtype, dw in w2's, the scalars in their shapes.
+    """
+
+    @staticmethod
+    def forward(ctx, x2, w2, a_scale, a_offset, ws_vec, static):
+        q_n_a, q_p_a, q_n_w, q_p_w, _round_cot, k_side = static
+        ws2 = ws_vec.reshape(-1, 1) if k_side else ws_vec.reshape(1, -1)
+        ctx.save_for_backward(x2, w2, a_scale, a_offset, ws_vec)
+        ctx.static = static
+        return _qmm.quant_matmul(x2, w2, a_scale, a_offset, ws2, q_n_a=q_n_a,
+                                 q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w2, a_scale, a_offset, ws_vec = ctx.saved_tensors
+        q_n_a, q_p_a, q_n_w, q_p_w, round_cot, k_side = ctx.static
+        ws2 = ws_vec.reshape(-1, 1) if k_side else ws_vec.reshape(1, -1)
+        dx, dsa, dba, dw, dws = _qmm.quant_matmul_bwd(
+            dy.to(torch.float32), x2, w2, a_scale, a_offset, ws2,
+            q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w,
+            round_cot=round_cot)
+        return (dx.to(x2.dtype), dw.to(w2.dtype),
+                dsa.to(a_scale.dtype).reshape(a_scale.shape),
+                dba.to(a_offset.dtype).reshape(a_offset.shape),
+                dws.reshape(-1).to(ws_vec.dtype), None)
+
+
+def fused_qat_matmul(x, w2, a_scale, a_offset, ws_vec, a_spec: QuantSpec,
+                     w_spec: QuantSpec, *, cotangent_rounding: bool = True,
+                     w_scale_axis: str = "n") -> torch.Tensor:
+    """Differentiable fused q(x) @ q(w) -> (..., N) f32.
+
+    x: (..., K); w2: (K, N); a_scale / a_offset: 0-d (grad_scale'd by the
+    caller); ws_vec: the weight scale per column (N,) for
+    w_scale_axis="n", or per contracted row (K,) for "k" (K-side per-head
+    scales), expanded from its group shape by a differentiable broadcast.
+    cotangent_rounding=False keeps dY in f32 (the lm head).
+    """
+    if w_scale_axis not in ("n", "k"):
+        raise ValueError(f"w_scale_axis must be 'n' or 'k', got {w_scale_axis!r}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    static = (a_spec.q_n, a_spec.q_p, w_spec.q_n, w_spec.q_p,
+              bool(cotangent_rounding), w_scale_axis == "k")
+    y2 = _FusedQmm2d.apply(x2, w2, a_scale, a_offset, ws_vec, static)
+    return y2.reshape(*lead, w2.shape[-1])

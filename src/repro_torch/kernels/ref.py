@@ -1,8 +1,11 @@
-"""Plain PyTorch versions of the serving kernels (the correctness contract).
+"""Plain PyTorch versions of the CUDA kernels (the correctness contract).
 
 Each function repeats its CUDA kernel's arithmetic with whole-tensor torch
 ops: the same dequantization rule, the same casts to the compute dtype and
-the same f32 accumulation, in another summation order. The wrappers in
+the same f32 accumulation, in another summation order. Every product is
+written as f32 @ f32 on operands that were rounded to bf16 first:
+`torch.matmul` on two bf16 tensors would round its result to bf16, and
+cuBLAS may reduce a bf16 product in lower precision. The wrappers in
 `quant_matmul` / `decode_attention` take these for CPU tensors; the tests
 hold them against the JAX package's Pallas kernels (interpret mode), and
 `chip_smoke.py` holds each CUDA kernel against them on the card.
@@ -14,6 +17,97 @@ import torch
 from repro_torch.core.quantizer import unpack_int4
 
 NEG_INF = -2.0e9  # finite: a fully masked row keeps m = NEG_INF, l > 0
+EPS = 1e-9        # both quantizer scales are floored here, as in the kernels
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round an f32 tensor to bf16 and back (the values a bf16 tile holds)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _act_codes(x, a_scale, a_offset, q_n: int, q_p: int):
+    """Activation quantizer of the QAT kernels: u = (x - b) / max(s, 1e-9),
+    q = clip(round(u)), and the dequantized bf16-valued xd = bf16(q*s + b)
+    (a multiply and an add, each rounded: no fused multiply-add)."""
+    s = torch.clamp(torch.as_tensor(a_scale, dtype=torch.float32,
+                                    device=x.device), min=EPS)
+    b = torch.as_tensor(a_offset, dtype=torch.float32, device=x.device)
+    u = (x.to(torch.float32) - b) / s
+    q = torch.clamp(torch.round(u), -float(q_n), float(q_p))
+    return u, q, _bf16(q * s + b)
+
+
+def _weight_codes(w, w_scale, q_n: int, q_p: int):
+    """Weight quantizer: u = w / max(ws, 1e-9) with ws (1, N) per column or
+    (K, 1) per row, q = clip(round(u)), wd = bf16(q * ws)."""
+    s = torch.clamp(w_scale.to(torch.float32), min=EPS)
+    u = w.to(torch.float32) / s
+    q = torch.clamp(torch.round(u), -float(q_n), float(q_p))
+    return u, q, _bf16(q * s)
+
+
+def _in_range(u, q_n: int, q_p: int) -> torch.Tensor:
+    """Eq. 6 mask on the UNCLIPPED u, as f32 0/1."""
+    return ((u >= -float(q_n)) & (u <= float(q_p))).to(torch.float32)
+
+
+def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
+                 q_n_w: int, q_p_w: int) -> torch.Tensor:
+    """q_a(x) @ q_w(w) -> (M, N) f32: x (M, K) bf16 or f32, w (K, N) f32,
+    a_scale / a_offset 0-d, w_scale (1, N) column or (K, 1) row scales.
+    Both operands are dequantized in f32 and rounded to bf16; the products
+    (exact in f32) are summed in f32."""
+    _, _, xd = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
+    _, _, wd = _weight_codes(w, w_scale, q_n_w, q_p_w)
+    return xd @ wd
+
+
+def _cotangent(dy, round_cot: bool) -> torch.Tensor:
+    """dY as the kernels read it: rounded to bf16 for a bf16 linear, kept in
+    f32 for the lm head (round_cot=False)."""
+    dy = dy.to(torch.float32)
+    return _bf16(dy) if round_cot else dy
+
+
+def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                    q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
+    """Backward wrt x: (dX (M, K) f32, dsa, dba) with dsa / dba 0-d f32.
+
+    dX = bf16(dY @ Wd^T) masked by Eq. 6 (the accumulator is rounded
+    through bf16 whatever round_cot says); dsa = sum dxd * (q - mf*u) and
+    dba = sum dxd * (1 - mf) are the RAW sums: the caller applies the
+    gradient scale g."""
+    _, _, wd = _weight_codes(w, w_scale, q_n_w, q_p_w)
+    dxd = _bf16(_cotangent(dy, round_cot) @ wd.T)
+    u, q, _ = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
+    mf = _in_range(u, q_n_a, q_p_a)
+    return (dxd * mf, torch.sum(dxd * (q - mf * u)),
+            torch.sum(dxd * (1.0 - mf)))
+
+
+def quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                    q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
+    """Backward wrt w: (dW (K, N) f32, dws). dW = bf16(Xd^T @ dY) masked by
+    Eq. 6 on w / ws; dws = sum dwd * (q - mf*u), per column (1, N) summed
+    over K for column scales, per row (K, 1) summed over N for row
+    scales."""
+    _, _, xd = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
+    dwd = _bf16(xd.T @ _cotangent(dy, round_cot))
+    u, q, _ = _weight_codes(w, w_scale, q_n_w, q_p_w)
+    mf = _in_range(u, q_n_w, q_p_w)
+    part = dwd * (q - mf * u)
+    k_side = w_scale.shape[0] != 1
+    return dwd * mf, torch.sum(part, dim=1 if k_side else 0, keepdim=True)
+
+
+def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                     q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
+    """All five cotangents: (dX, dsa, dba, dW, dws)."""
+    kw = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w,
+              round_cot=round_cot)
+    dx, dsa, dba = quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, **kw)
+    dw, dws = quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, **kw)
+    return dx, dsa, dba, dw, dws
 
 
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,

@@ -28,6 +28,36 @@ ARCH, QUANT, KV_BITS = "granite-8b", "w4a4", 8
 SLOTS, PROMPT_LEN, STEPS = 4, 128, 8
 
 
+def device_summary(prof, window_ms: float, steps: int, top_n: int) -> dict:
+    """What a torch.profiler window says of the device: busy ms a step and
+    its share of the window, kernels a step, and the `top_n` costliest
+    kernel names with their calls and ms a step."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_busy_share": busy_ms / window_ms if window_ms else None,
+        "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
+                         "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                        for e in top],
+    }
+
+
+def print_summary(result: dict) -> None:
+    for k in result["top_kernels"]:
+        print(f"  {k['ms_per_step']:9.3f} ms/step  {k['calls_per_step']:7.1f} calls  "
+              f"{k['name']}")
+    print(f"step: host {result['step_host_ms']:.2f} ms, device elapsed "
+          f"{result['step_device_elapsed_ms']:.2f} ms, device busy "
+          f"{result['device_busy_ms_per_step']:.2f} ms "
+          f"(share {result['device_busy_share']}) in "
+          f"{result['device_kernels_per_step']:.0f} kernels")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.profile_decode")
     ap.add_argument("--out", default="")
@@ -73,11 +103,6 @@ def main(argv=None) -> dict:
         end.record()
         end.synchronize()
     window_ms = start.elapsed_time(end)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     result = {
         "arch": cfg.name, "layers": cfg.n_layers, "quant": QUANT,
         "kv_bits": KV_BITS, "slots": SLOTS,
@@ -85,23 +110,11 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(device),
         "step_host_ms": sorted(host_ms)[len(host_ms) // 2],
         "step_device_elapsed_ms": window_ms / STEPS,
-        "device_busy_ms_per_step": busy_ms / STEPS,
-        "device_busy_share": busy_ms / window_ms if window_ms else None,
-        "device_kernels_per_step": sum(e.count for e in kernels) / STEPS,
+        **device_summary(prof, window_ms, STEPS, top_n=15),
         "launches_per_step": {k: v / STEPS for k, v in launch_counts().items()},
         "decode_tok_s": SLOTS * 1e3 / (window_ms / STEPS),
-        "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / STEPS,
-                         "ms_per_step": e.self_device_time_total / 1e3 / STEPS}
-                        for e in top],
     }
-    for k in result["top_kernels"]:
-        print(f"  {k['ms_per_step']:8.3f} ms/step  {k['calls_per_step']:6.1f} calls  "
-              f"{k['name']}")
-    print(f"step: host {result['step_host_ms']:.2f} ms, device elapsed "
-          f"{result['step_device_elapsed_ms']:.2f} ms, device busy "
-          f"{result['device_busy_ms_per_step']:.2f} ms "
-          f"(share {result['device_busy_share']}) in "
-          f"{result['device_kernels_per_step']:.0f} kernels")
+    print_summary(result)
     line = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import signal
 from typing import Optional
 
 import numpy as np
@@ -37,27 +36,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve import (FaultPolicy, ModelExecutor, SamplingParams,
                                Scheduler, ServeEngine)
-
-
-class PreemptionGuard:
-    """SIGTERM/SIGINT flip `requested`; the engine turns it into a drain.
-    (Copy of repro.train.fault_tolerance.PreemptionGuard.)"""
-
-    def __init__(self):
-        self.requested = False
-        self._orig = {}
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            try:
-                self._orig[sig] = signal.signal(sig, self._handler)
-            except ValueError:  # non-main thread (tests)
-                pass
-
-    def _handler(self, signum, frame):
-        self.requested = True
-
-    def restore_handlers(self):
-        for sig, h in self._orig.items():
-            signal.signal(sig, h)
+from repro_torch.train.fault_tolerance import PreemptionGuard
 
 
 def greedy_generate(step, params, cache, prompts: torch.Tensor, new_tokens: int):

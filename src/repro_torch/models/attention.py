@@ -1,6 +1,10 @@
-"""Attention, serving side: the pooled KV cache and chunked/cached attention.
+"""Attention: full-sequence (training / prefill) attention, the pooled KV
+cache and chunked/cached attention.
 
-PyTorch counterpart of the cache half of `repro.models.attention`:
+PyTorch counterpart of `repro.models.attention`:
+  * `attend_full` / `attend_local_chunked` are the training path, written
+    as the JAX package's einsum composition (scores summed in f32, P cast to
+    V's dtype), not as SDPA, so the tests compare like with like.
   * `KVCache` holds fp K/V, or int8 codes (nibble-packed along head_dim at
     <= 4 bits with an even head_dim) with per-(slot, token, head) scales,
     plus the absolute position stored in each row (-1 = empty).
@@ -74,6 +78,93 @@ def _grouped_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     o = _einsum_f64("bhgqt,bthd->bqhgd", p5, v,
                     torch.promote_types(p.dtype, v.dtype))
     return o.reshape(b, c, h, v.shape[3])
+
+
+def _chunk_attend(qi, kt, vt, mask, softcap: float):
+    """One query chunk: qi (B, Hkv, g, nq, D) against kt (B, Hkv, D, Sk) and
+    vt (B, Hkv, Sk, D) under mask (nq, Sk). Scores are summed in f32 from
+    queries pre-scaled by D**-0.5 in f32 and cast back; P is cast to V's
+    dtype and the PV product rounded once to it."""
+    d = qi.shape[-1]
+    qs = (qi.to(torch.float32) * d ** -0.5).to(qi.dtype)
+    s = torch.einsum("bhgqd,bhdk->bhgqk", qs.to(torch.float32),
+                     kt.to(torch.float32))
+    s = _softcap(s, softcap)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vt.dtype).to(torch.float32),
+                     vt.to(torch.float32))
+    return o.to(vt.dtype)
+
+
+def _query_chunks(sq: int, chunk_q: int) -> int:
+    nq = max(1, min(chunk_q, sq))
+    while sq % nq:
+        nq //= 2
+    return nq
+
+
+def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int, softcap: float,
+                q_positions: torch.Tensor, k_positions: torch.Tensor,
+                chunk_q: int = 512, q_per_kv: int = 1) -> torch.Tensor:
+    """Softmax attention over query chunks of at most `chunk_q` rows.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) un-repeated (GQA as a grouped
+    einsum over (Hkv, q_per_kv)); q_positions (Sq,), k_positions (Sk,)
+    absolute positions for masking; window > 0 limits attention to k_pos
+    in (q_pos - window, q_pos]. Returns (B, Sq, H, D) in v's dtype.
+    """
+    b, sq, h, d = q.shape
+    hkv = h // q_per_kv
+    if k.shape[2] != hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} vs q_per_kv {q_per_kv}")
+    nq = _query_chunks(sq, chunk_q)
+    qc = q.reshape(b, sq // nq, nq, hkv, q_per_kv, d).permute(1, 0, 3, 4, 2, 5)
+    kt = k.permute(0, 2, 3, 1)  # (B, Hkv, D, Sk)
+    vt = v.permute(0, 2, 1, 3)  # (B, Hkv, Sk, D)
+    outs = []
+    for ci in range(sq // nq):
+        qpos = q_positions[ci * nq:(ci + 1) * nq]
+        mask = torch.ones((nq, k_positions.shape[0]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_positions[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= k_positions[None, :] > (qpos[:, None] - window)
+        outs.append(_chunk_attend(qc[ci], kt, vt, mask, softcap))
+    out = torch.stack(outs)  # (C, B, Hkv, g, nq, D)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d)
+
+
+def attend_local_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         window: int, softcap: float, chunk_q: int = 512,
+                         q_per_kv: int = 1) -> torch.Tensor:
+    """Sliding-window causal attention with kv-span slicing (positions
+    0..S-1 on both sides): each query chunk attends to a span of at most
+    window + chunk keys, so compute and memory are O(S * (window + chunk))."""
+    b, s, h, d = q.shape
+    hkv = h // q_per_kv
+    if k.shape[2] != hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} vs q_per_kv {q_per_kv}")
+    nq = _query_chunks(s, chunk_q)
+    span = min(s, window + nq)
+    qc = q.reshape(b, s // nq, nq, hkv, q_per_kv, d).permute(1, 0, 3, 4, 2, 5)
+    kp = k.permute(0, 2, 1, 3)  # (B, Hkv, Sk, D)
+    vp = v.permute(0, 2, 1, 3)
+    outs = []
+    for ci in range(s // nq):
+        start = min(max(ci * nq + nq - span, 0), s - span)
+        ks = kp[:, :, start:start + span]
+        vs = vp[:, :, start:start + span]
+        qpos = ci * nq + torch.arange(nq, device=q.device)
+        kpos = start + torch.arange(span, device=q.device)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window))
+        outs.append(_chunk_attend(qc[ci], ks.transpose(2, 3), vs, mask,
+                                  softcap))
+    out = torch.stack(outs)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
 
 
 # ---------------------------------------------------------------------------

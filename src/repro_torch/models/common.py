@@ -1,9 +1,10 @@
-"""Shared model primitives, serving side: int-coded linears and embeddings,
-the lm head, norms, activations, RoPE.
+"""Shared model primitives: quantized linears and embeddings, the lm head,
+norms, activations, RoPE.
 
 PyTorch counterpart of `repro.models.common`. Every quantizable tensor lives
 in a small sub-dict keyed by a NAME whose identity maps to a policy "kind"
-(NAME2KIND). In serving form a linear holds {"codes" | "codes4", "w_scale"
+(NAME2KIND). For QAT a linear holds {"w" (latent f32), ["b"], ["w_scale"],
+["a_scale", "a_offset"]}; in serving form {"codes" | "codes4", "w_scale"
 [, "b"]}: int8 codes at 5-8 bits, nibble-packed int4 pairs at <= 4 bits.
 
 Element-wise math follows the JAX package's op order and dtypes, so bf16
@@ -19,8 +20,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.policy import QuantConfig, act_spec, weight_spec
-from repro_torch.core.quantizer import (QuantSpec, fake_quant_forward,
-                                        pack_int4, quantize_int, unpack_int4)
+from repro_torch.core.quantizer import (QuantSpec, fake_quant, grad_scale,
+                                        init_scale, pack_int4, quantize_int,
+                                        scale_grad_factor, unpack_int4)
 from repro_torch.kernels import ops
 
 _SPEC8 = QuantSpec(bits=8)  # spec placeholder for serving int matmuls
@@ -129,11 +131,71 @@ def _cols_shape_ok(scale_shape, w_shape, n_k: int) -> bool:
 
 
 def _scale_cols(scale: torch.Tensor, w_shape, n_k: int) -> torch.Tensor:
-    """(N,) per-column expansion of a broadcastable N-side scale."""
+    """Differentiable (N,) per-column expansion of a broadcastable N-side
+    scale: the scale cotangent group-sums back to the stored shape through
+    autograd, so the kernel only ever sees per-column scales."""
     tgt = (1,) * n_k + tuple(w_shape[n_k:])
     if scale.dim() == 0:
         scale = scale.reshape((1,) * len(w_shape))
     return torch.broadcast_to(scale, tgt).reshape(-1)
+
+
+def _scale_rows(scale: torch.Tensor, w_shape, n_k: int) -> torch.Tensor:
+    """Differentiable (K,) per-row expansion of a K-side scale (per-head
+    wo/xo): the kernel's per-row scale gradient group-sums back to the
+    stored per-head shape, e.g. wo's (h, 1, 1)."""
+    tgt = tuple(w_shape[:n_k]) + (1,) * (len(w_shape) - n_k)
+    return torch.broadcast_to(scale, tgt).reshape(-1)
+
+
+def _fused_eligible(qcfg: QuantConfig, aspec, wspec, eq: str, p: dict,
+                    w: torch.Tensor, x: torch.Tensor) -> bool:
+    """A latent linear takes the fused QAT route: a covered einsum, both
+    quantizers present and not 1-bit (sign_ste differs from round/clip),
+    and a weight scale whose groups lie on one side of the 2D reshape."""
+    if eq not in FUSED_EQS or aspec is None or wspec is None:
+        return False
+    if "a_scale" not in p or aspec.bits == 1 or wspec.bits == 1:
+        return False
+    if _w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape),
+                     FUSED_EQS[eq]) is None:
+        return False
+    return _use_fused(qcfg, x)
+
+
+def _fused_qat_linear(p: dict, x: torch.Tensor, aspec, wspec, n_k: int, *,
+                      cotangent_rounding: bool = True) -> torch.Tensor:
+    """One QAT linear through `ops.fused_qat_matmul` -> f32.
+
+    grad_scale (the module-wise g factor, Sec. 4.4.1) is applied here,
+    outside the autograd Function, exactly as `fake_quant` does, so the five
+    gradients match the unfused composition's autograd. N-side scales fold
+    to a (N,) column vector, K-side per-head scales (wo/xo) to a (K,) row
+    vector.
+    """
+    w = p["w"]
+    k = math.prod(w.shape[:n_k])
+    n = w.numel() // k
+    ref = w.detach()
+    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape))
+    s_w = grad_scale(p["w_scale"], g_w)
+    side = _w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape), n_k)
+    if side == "k":
+        ws_vec = _scale_rows(s_w, w.shape, n_k)
+    else:
+        ws_vec = _scale_cols(s_w, w.shape, n_k)
+    g_a = scale_grad_factor(aspec, ref, ())
+    s_a = grad_scale(p["a_scale"], g_a)
+    if "a_offset" in p:
+        b_a = grad_scale(p["a_offset"], g_a)
+    else:
+        b_a = torch.zeros((), dtype=torch.float32, device=x.device)
+    lead = tuple(x.shape[:x.dim() - n_k])
+    x2 = x.reshape(lead + (k,))
+    y = ops.fused_qat_matmul(x2, w.reshape(k, n), s_a, b_a, ws_vec, aspec,
+                             wspec, cotangent_rounding=cotangent_rounding,
+                             w_scale_axis=side)
+    return y.reshape(lead + tuple(w.shape[n_k:]))
 
 
 ROW_BLOCK = 128
@@ -152,11 +214,15 @@ def _row_matmul(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     return out[:m]
 
 
-def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, out_dtype=None):
+def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, out_dtype=None, *,
+            row_blocks: bool = True):
     """jnp.einsum over operands of one dtype: with out_dtype (JAX's
     preferred_element_type) the products are summed in that dtype; bf16
     operands are exact in f32, so upcasting them first is the same sum.
-    The 2D contractions of FUSED_EQS run through `_row_matmul`."""
+    The 2D contractions of FUSED_EQS run through `_row_matmul` for serving
+    (row_blocks); training contracts latent weights in one product, so that
+    a weight's gradient is one f32 sum rounded once (a bf16 gradient summed
+    over row blocks would round at every block)."""
     if out_dtype is not None:
         x, w = x.to(out_dtype), w.to(out_dtype)
     n_k = FUSED_EQS.get(eq)
@@ -164,7 +230,8 @@ def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, out_dtype=None):
         return torch.einsum(eq, x, w)
     k = math.prod(w.shape[:n_k])
     lead = tuple(x.shape[:x.dim() - n_k])
-    y = _row_matmul(x.reshape(-1, k), w.reshape(k, -1))
+    x2, w2 = x.reshape(-1, k), w.reshape(k, -1)
+    y = _row_matmul(x2, w2) if row_blocks else torch.matmul(x2, w2)
     return y.reshape(lead + tuple(w.shape[n_k:]))
 
 
@@ -211,37 +278,75 @@ def _serving_linear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig,
 
 
 # ---------------------------------------------------------------------------
-# Quantized linear (serving)
+# Quantized linear
 # ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, name: str, qcfg: QuantConfig,
+                shape: tuple, *, std: float, group_axes: tuple = (),
+                bias_shape: Optional[tuple] = None, device=None) -> dict:
+    """One (possibly quantized) linear's latent parameter sub-dict: a
+    normal f32 weight with standard deviation `std`, a zero bias, the LSQ
+    scale init per group, activation scale 1 and offset 0."""
+    kind = kind_of(name)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device) * std
+    p = {"w": w}
+    if bias_shape is not None:
+        p["b"] = torch.zeros(bias_shape, dtype=torch.float32, device=device)
+    wspec = weight_spec(qcfg, kind)
+    if wspec is not None:
+        ga = group_axes if wspec.granularity != "per_tensor" else ()
+        p["w_scale"] = init_scale(w, wspec, ga)
+    aspec = act_spec(qcfg, kind)
+    if aspec is not None:
+        p["a_scale"] = torch.ones((), dtype=torch.float32, device=device)
+        if aspec.offset:
+            p["a_offset"] = torch.zeros((), dtype=torch.float32, device=device)
+    return p
+
 
 def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
             cdtype=torch.bfloat16) -> torch.Tensor:
-    """Apply a serving linear: int codes through `_serving_linear`, or an
-    unquantized weight (the fp preset) through a plain einsum. Latent QAT
-    weights (fake-quant with the STE) belong to the training slice."""
+    """Apply a quantized einsum-linear.
+
+    Int codes (serving) go through `_serving_linear`. A latent QAT weight
+    takes the fused QAT kernels when `_fused_eligible` (every 2D
+    contraction of FUSED_EQS with N- or K-side scales), else the unfused
+    composition: fake-quant the activations in f32 (g from the weight) and
+    the weight, and contract in the compute dtype.
+    """
     if "codes" in p or "codes4" in p:
         return _serving_linear(p, x, name, qcfg, eq, cdtype)
     kind = kind_of(name)
-    if weight_spec(qcfg, kind) is not None or act_spec(qcfg, kind) is not None:
-        raise NotImplementedError(
-            f"{name}: latent QAT weights are not served; convert_to_serving "
-            "first (training is a later slice of the port)")
-    y = _einsum(eq, x.to(cdtype), p["w"].to(cdtype))
+    w = p["w"]
+    aspec = act_spec(qcfg, kind)
+    wspec = weight_spec(qcfg, kind)
+    if _fused_eligible(qcfg, aspec, wspec, eq, p, w, x):
+        y = _fused_qat_linear(p, x, aspec, wspec, FUSED_EQS[eq]).to(cdtype)
+    else:
+        latent = w.dtype == torch.float32  # serving keeps bf16 weights
+        if aspec is not None:
+            x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
+                           offset=p.get("a_offset"), grad_scale_ref=w)
+        if wspec is not None:
+            w = fake_quant(w, p["w_scale"], wspec)
+        y = _einsum(eq, x.to(cdtype), w.to(cdtype), row_blocks=not latent)
     if "b" in p:
         y = y + p["b"].to(cdtype)
     return y
 
 
 def quantized_weight(p: dict, name: str, qcfg: QuantConfig) -> torch.Tensor:
-    """The dequantized weight (f32 for int codes) of a serving sub-dict."""
+    """The dequantized (f32 for int codes) or fake-quantized latent weight."""
     if "codes4" in p:
         codes = unpack_int4(p["codes4"], pack_axis_of(name))
         return codes.to(torch.float32) * p["w_scale"].to(torch.float32)
     if "codes" in p:
         return p["codes"].to(torch.float32) * p["w_scale"].to(torch.float32)
-    if weight_spec(qcfg, kind_of(name)) is not None:
-        raise NotImplementedError(f"{name}: latent QAT weight; convert_to_serving first")
-    return p["w"]
+    wspec = weight_spec(qcfg, kind_of(name))
+    if wspec is None:
+        return p["w"]
+    return fake_quant(p["w"], p["w_scale"], wspec)
 
 
 def convert_to_serving(params, qcfg: QuantConfig):
@@ -293,6 +398,17 @@ def _convert_linear(name: str, child: dict, qcfg: QuantConfig) -> dict:
 # Embedding and lm head
 # ---------------------------------------------------------------------------
 
+def embed_init(gen: torch.Generator, qcfg: QuantConfig, vocab_padded: int,
+               d_model: int, device=None) -> dict:
+    w = torch.randn((vocab_padded, d_model), generator=gen,
+                    dtype=torch.float32, device=device) * 0.02
+    p = {"w": w}
+    spec = weight_spec(qcfg, "embed")
+    if spec is not None:
+        p["w_scale"] = init_scale(w, spec)
+    return p
+
+
 def embed_lookup(p: dict, tokens: torch.Tensor, qcfg: QuantConfig,
                  cdtype=torch.bfloat16) -> torch.Tensor:
     if "codes4" in p:
@@ -306,36 +422,84 @@ def embed_lookup(p: dict, tokens: torch.Tensor, qcfg: QuantConfig,
     return w.to(cdtype)[tokens]
 
 
+def lm_head_init(gen: torch.Generator, qcfg: QuantConfig, d_model: int,
+                 vocab_padded: int, device=None) -> dict:
+    return linear_init(gen, "lm_head", qcfg, (d_model, vocab_padded),
+                       std=d_model ** -0.5, device=device)
+
+
+def tied_head_act_init(qcfg: QuantConfig, device=None,
+                       dtype=torch.float32) -> dict:
+    """Activation quantizer params of a tied lm_head (it has no weight of
+    its own): f32 for training, bf16 as serving conversion leaves them."""
+    p = {}
+    aspec = act_spec(qcfg, "lm_head")
+    if aspec is not None:
+        p["a_scale"] = torch.ones((), dtype=dtype, device=device)
+        if aspec.offset:
+            p["a_offset"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
 def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
                   vocab_padded: int, final_softcap: float = 0.0,
                   tied_embed: Optional[dict] = None) -> torch.Tensor:
     """Project to (padded) vocab logits in f32; mask padding columns.
 
-    The untied serving head (int codes) goes through `_serving_linear`
-    (eq "bsd,dv->bsv", f32 out). The tied head reuses the embedding's codes
-    transposed, dequantized in f32, and — when an activation quantizer is
-    configured and its params survived conversion — applies that quantizer
-    to x with the module-wise g factor from the dequantized embedding, as
-    the JAX package's unfused tied branch does.
+    The untied latent head, and the tied latent head (the transposed
+    embedding as an N-side per-tensor weight), take the fused QAT kernels
+    with f32 cotangents (the unfused head einsum sums in f32, so its
+    autograd never rounds dY to bf16). The untied serving head (int codes)
+    goes through `_serving_linear`. Otherwise the unfused composition:
+    the activation quantizer with g from the latent weight (or, in
+    serving, from the dequantized embedding), and a bf16 einsum summed in
+    f32.
     """
     if tied_embed is not None:
         aspec = act_spec(qcfg, "lm_head")
-        w = quantized_weight(tied_embed, "embed", qcfg).T  # (d, V)
-        if aspec is not None and "a_scale" in p:
-            x = fake_quant_forward(x.to(torch.float32), p["a_scale"], aspec,
-                                   offset=p.get("a_offset"), grad_scale_ref=w)
-        logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
-                         w.to(torch.bfloat16), torch.float32)
+        wspec = weight_spec(qcfg, "embed")
+        if ("w" in tied_embed and "w_scale" in tied_embed
+                and tied_embed["w_scale"].dim() == 0
+                and "a_scale" in p and aspec is not None and wspec is not None
+                and aspec.bits != 1 and wspec.bits != 1
+                and _use_fused(qcfg, x)):
+            pseudo = {"w": tied_embed["w"].T,  # (d, V) view of the latent table
+                      "w_scale": tied_embed["w_scale"],
+                      "a_scale": p["a_scale"]}
+            if "a_offset" in p:
+                pseudo["a_offset"] = p["a_offset"]
+            logits = _fused_qat_linear(pseudo, x, aspec, wspec, 1,
+                                       cotangent_rounding=False)
+        else:
+            w_latent = tied_embed.get("w")
+            w = quantized_weight(tied_embed, "embed", qcfg).T  # (d, V)
+            if aspec is not None and "a_scale" in p:
+                ref = w_latent.T if w_latent is not None else w
+                x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
+                               offset=p.get("a_offset"), grad_scale_ref=ref)
+            logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
+                             w.to(torch.bfloat16), torch.float32,
+                             row_blocks=w_latent is None)
     elif "codes" in p or "codes4" in p:
         logits = _serving_linear(p, x, "lm_head", qcfg, "bsd,dv->bsv",
                                  torch.bfloat16, out_dtype=torch.float32)
     else:
-        if (weight_spec(qcfg, "lm_head") is not None
-                or act_spec(qcfg, "lm_head") is not None):
-            raise NotImplementedError("lm_head: latent QAT weight; "
-                                      "convert_to_serving first")
-        logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
-                         p["w"].to(torch.bfloat16), torch.float32)
+        w = p["w"]
+        aspec = act_spec(qcfg, "lm_head")
+        wspec = weight_spec(qcfg, "lm_head")
+        if _fused_eligible(qcfg, aspec, wspec, "bsd,dv->bsv", p, w, x):
+            logits = _fused_qat_linear(p, x, aspec, wspec, 1,
+                                       cotangent_rounding=False)
+        else:
+            if aspec is not None:
+                x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
+                               offset=p.get("a_offset"), grad_scale_ref=w)
+            latent = w.dtype == torch.float32  # serving keeps bf16 weights
+            if wspec is not None:
+                w = fake_quant(w, p["w_scale"], wspec)
+            logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
+                             w.to(torch.bfloat16), torch.float32,
+                             row_blocks=not latent)
     if final_softcap > 0.0:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     if vocab_padded != vocab_size:
@@ -347,6 +511,14 @@ def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
 # ---------------------------------------------------------------------------
 # Norms / activations / RoPE
 # ---------------------------------------------------------------------------
+
+def norm_init(d: int, kind: str, device=None,
+              dtype=torch.float32) -> dict:
+    p = {"g": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
 
 def _row_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis, summed in f64 and rounded once to f32: the
@@ -367,10 +539,26 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.
     return out.to(x.dtype)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """1 / (1 + exp(-x)), each op rounded in x's dtype (XLA's logistic),
+    with JAX's logistic derivative g * (s * (1 - s)): autograd through the
+    written-out form would give 0 * inf = NaN where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        one = _scalar(1.0, x)
+        s = one / (one + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (_scalar(1.0, s) - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """1 / (1 + exp(-x)), each op rounded in x's dtype (XLA's logistic)."""
-    one = _scalar(1.0, x)
-    return one / (one + torch.exp(-x))
+    return _Sigmoid.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

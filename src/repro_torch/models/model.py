@@ -1,12 +1,16 @@
-"""Decoder assembly, serving side: params, the cache pool, chunk steps.
+"""Decoder assembly: latent QAT params and the training forward, serving
+params, the cache pool, chunk steps.
 
-PyTorch counterpart of the decode half of `repro.models.model`. The JAX
-package stacks the layers of each pattern position along a leading axis for
-`lax.scan` ("groups") plus an unrolled "tail"; this port keeps a plain
-per-layer list (`params["layers"][i]`, `cache["layers"][i]`), and
-`bridge.params_from_jax` unstacks the JAX tree into it.
+PyTorch counterpart of `repro.models.model` for dense attention-only
+blocks. The JAX package stacks the layers of each pattern position along a
+leading axis for `lax.scan` ("groups") plus an unrolled "tail"; this port
+keeps a plain per-layer list (`params["layers"][i]`, `cache["layers"][i]`),
+and `bridge.params_from_jax` unstacks the JAX tree into it.
 
 Entry points:
+  init_params(cfg, qcfg, generator, device)         -> latent f32 QAT params
+  forward(params, batch, cfg, qcfg, remat=...)      -> (logits, aux)
+  quant_leaves_named / quant_leaves(params, qcfg)   -> quantized weights
   init_serving_params(cfg, qcfg, generator, device) -> int-coded params
   init_cache(cfg, qcfg, batch, cache_len, device)   -> decode cache
   prefill_step(params, cache, batch, cfg, qcfg)      -> (logits, cache)  [C>=1]
@@ -23,15 +27,18 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockDef
-from repro_torch.core.policy import QuantConfig, act_spec, weight_spec
-from repro_torch.core.quantizer import init_scale
+from repro_torch.core.policy import QuantConfig, weight_spec
+from repro_torch.core.sdam import sdam as sdam_metric
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (NAME2KIND, _convert_linear,
-                                       activation, apply_norm, embed_lookup,
-                                       lm_head_apply, qlinear)
+from repro_torch.models.common import (NAME2KIND, activation, apply_norm,
+                                       convert_to_serving, embed_init,
+                                       embed_lookup, linear_init, lm_head_apply,
+                                       lm_head_init, norm_init, qlinear,
+                                       tied_head_act_init)
 
 
 def _cdtype(cfg: ArchConfig) -> torch.dtype:
@@ -39,14 +46,15 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_served(cfg: ArchConfig) -> None:
+    """The families the port runs, for training and serving alike."""
     for bd in cfg.pattern:
         if bd.attn not in ("global", "local") or bd.ffn != "dense" or bd.cross_attn:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense attention-only blocks "
+                f"{cfg.name}: the port runs dense attention-only blocks "
                 f"(got attn={bd.attn!r}, ffn={bd.ffn!r}, cross={bd.cross_attn})")
     if cfg.frontend != "none" or cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.name}: frontend/learned positions "
-                                  "are not in the serving slice")
+                                  "are not ported yet")
 
 
 def params_device(params: dict) -> torch.device:
@@ -55,95 +63,187 @@ def params_device(params: dict) -> torch.device:
 
 
 # ===========================================================================
-# Serving params, built layer by layer on the device
+# Latent QAT params, built on the device
 # ===========================================================================
 
-def _serving_linear_init(gen, name: str, qcfg: QuantConfig, shape, *, std: float,
-                         group_axes=(), device) -> dict:
-    """One linear as the JAX package's convert_to_serving(linear_init(...))
-    would store it: the latent f32 weight lives only inside this call."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=device) * std
-    wspec = weight_spec(qcfg, NAME2KIND[name])
-    if wspec is None:
-        return {"w": w.to(torch.bfloat16)}
-    ga = group_axes if wspec.granularity != "per_tensor" else ()
-    p = {"w": w, "w_scale": init_scale(w, wspec, ga)}
-    return _convert_linear(name, p, qcfg)
-
-
-def _norm_init(d: int, kind: str, device) -> dict:
-    p = {"g": torch.ones((d,), dtype=torch.bfloat16, device=device)}
-    if kind == "layernorm":
-        p["b"] = torch.zeros((d,), dtype=torch.bfloat16, device=device)
-    return p
-
-
-def _layer_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device) -> dict:
+def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device) -> dict:
+    """One global/local attention block with a dense FFN, with the JAX
+    package's shapes, groups and standard deviations (model.py:48-105)."""
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim_, cfg.d_ff)
-    lin = lambda name, shape, std, ga=(): _serving_linear_init(
-        gen, name, qcfg, shape, std=std, group_axes=ga, device=device)
-    p = {"ln1": _norm_init(d, cfg.norm, device),
-         "wq": lin("wq", (d, h, hd), d ** -0.5, (1,)),
-         "wk": lin("wk", (d, hkv, hd), d ** -0.5, (1,)),
-         "wv": lin("wv", (d, hkv, hd), d ** -0.5, (1,)),
+    lin = lambda name, shape, std, ga=(), bias=None: linear_init(
+        gen, name, qcfg, shape, std=std, group_axes=ga, bias_shape=bias,
+        device=device)
+    bias = cfg.qkv_bias
+    p = {"ln1": norm_init(d, cfg.norm, device),
+         "wq": lin("wq", (d, h, hd), d ** -0.5, (1,), (h, hd) if bias else None),
+         "wk": lin("wk", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
+         "wv": lin("wv", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
          "wo": lin("wo", (h, hd, d), (h * hd) ** -0.5, (0,))}
-    if cfg.qkv_bias:
-        for name, heads in (("wq", h), ("wk", hkv), ("wv", hkv)):
-            p[name]["b"] = torch.zeros((heads, hd), dtype=torch.bfloat16,
-                                       device=device)
     if cfg.sandwich_norm:
-        p["ln1_post"] = _norm_init(d, cfg.norm, device)
-    p["ln2"] = _norm_init(d, cfg.norm, device)
+        p["ln1_post"] = norm_init(d, cfg.norm, device)
+    p["ln2"] = norm_init(d, cfg.norm, device)
     p["w_in"] = lin("w_in", (d, f), d ** -0.5)
     p["w_out"] = lin("w_out", (f, d), f ** -0.5)
     if cfg.ffn_gated:
         p["w_gate"] = lin("w_gate", (d, f), d ** -0.5)
     if cfg.sandwich_norm:
-        p["ln2_post"] = _norm_init(d, cfg.norm, device)
+        p["ln2_post"] = norm_init(d, cfg.norm, device)
     return p
 
 
+def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random latent QAT params (f32 weights, LSQ scale inits, activation
+    scales 1 and offsets 0, norms 1) on `device`, drawn from `generator`
+    (which must live on `device`). Same distributions as the JAX package's
+    `init_params`, different values; layer i is params["layers"][i]."""
+    cfg.validate()
+    _check_served(cfg)
+    device = resolve_device(device)
+    v, d = cfg.padded_vocab, cfg.d_model
+    params = {"embed": embed_init(generator, qcfg, v, d, device),
+              "final_norm": norm_init(d, cfg.norm, device)}
+    if cfg.tie_embeddings:
+        params["lm_head"] = tied_head_act_init(qcfg, device)
+    else:
+        params["lm_head"] = lm_head_init(generator, qcfg, d, v, device)
+    params["layers"] = [_layer_train_init(generator, cfg, qcfg, device)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+# ===========================================================================
+# Training forward
+# ===========================================================================
+
+def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
+                   positions, cdtype):
+    xn = apply_norm(p["ln1"], x, cfg.norm)
+    q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype)
+    k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype)
+    v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype)
+    if cfg.pos == "rope":
+        q = attn.rope_apply(q, positions, cfg.rope_theta)
+        k = attn.rope_apply(k, positions, cfg.rope_theta)
+    window = cfg.window if bd.attn == "local" else 0
+    if window and cfg.causal and x.shape[1] > window:
+        o = attn.attend_local_chunked(q, k, v, window=window,
+                                      softcap=cfg.attn_softcap,
+                                      q_per_kv=cfg.q_per_kv)
+    else:
+        o = attn.attend_full(q, k, v, causal=cfg.causal, window=window,
+                             softcap=cfg.attn_softcap, q_positions=positions,
+                             k_positions=positions, q_per_kv=cfg.q_per_kv)
+    out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
+    if cfg.sandwich_norm:
+        out = apply_norm(p["ln1_post"], out, cfg.norm)
+    return x + out
+
+
+def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
+                qcfg: QuantConfig, positions: torch.Tensor, cdtype):
+    """One training block: (x, aux) with aux["sdam_sum"] the block output's
+    SDAM (a metric: no gradient flows through it)."""
+    x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype)
+    x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+    with torch.no_grad():
+        sdam = sdam_metric(x)
+    return x, sdam
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
+            remat: bool = False):
+    """Full-sequence forward. batch: tokens (B, S). Returns (logits (B, S,
+    padded_vocab) f32, aux) with aux {"lb_loss", "drop_frac", "act_sdam"}.
+
+    remat=True recomputes each block in the backward pass
+    (torch.utils.checkpoint, non-reentrant), as the JAX package's
+    jax.checkpoint does: the block's kernels then run twice.
+    """
+    _check_served(cfg)
+    cdtype = _cdtype(cfg)
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdtype, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
+    sdam_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(params["layers"]):
+        bd = cfg.block_at(i)
+        if remat:
+            x, sdam = torch.utils.checkpoint.checkpoint(
+                block_apply, p, x, bd, cfg, qcfg, positions, cdtype,
+                use_reentrant=False)
+        else:
+            x, sdam = block_apply(p, x, bd, cfg, qcfg, positions, cdtype)
+        sdam_sum = sdam_sum + sdam
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = lm_head_apply(
+        params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
+        final_softcap=cfg.final_softcap,
+        tied_embed=params["embed"] if cfg.tie_embeddings else None)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "drop_frac": zero,
+           "act_sdam": sdam_sum / max(cfg.n_layers, 1)}
+    return logits, aux
+
+
+def quant_leaves_named(params: dict, qcfg: QuantConfig) -> list:
+    """(name, w, w_scale, spec) for every quantized latent weight, walking
+    dict keys in sorted order (the JAX pytree order) and layers in order."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for name in sorted(node):
+                child = node[name]
+                if (isinstance(child, dict) and "w" in child
+                        and "w_scale" in child and name in NAME2KIND):
+                    spec = weight_spec(qcfg, NAME2KIND[name])
+                    if spec is not None:
+                        out.append((name, child["w"], child["w_scale"], spec))
+                else:
+                    walk(child)
+        elif isinstance(node, (list, tuple)):
+            for child in node:
+                walk(child)
+
+    walk(params)
+    return out
+
+
+def quant_leaves(params: dict, qcfg: QuantConfig) -> list:
+    """(w, w_scale, spec) triples; see quant_leaves_named."""
+    return [(w, s, spec) for _, w, s, spec in quant_leaves_named(params, qcfg)]
+
+
+# ===========================================================================
+# Serving params, built layer by layer on the device
+# ===========================================================================
+
 def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
                         generator: torch.Generator, device=None) -> dict:
-    """Random serving params, built directly in int-coded form.
-
-    Same distributions as `convert_to_serving(init_params(key, cfg, qcfg),
-    qcfg)` in the JAX package (normal weights with the same stds, LSQ scale
-    init, the same code layout), different values: the generator is
-    torch's. Each layer's latent f32 weights exist only while that layer is
-    converted, so a full-width model never holds all of them at once.
-    `generator` must live on `device`.
+    """Random serving params: `init_params`' latent tree converted to int
+    codes part by part (`convert_to_serving`), the same draws in the same
+    order. Same distributions as the JAX package's
+    `convert_to_serving(init_params(key, cfg, qcfg), qcfg)`, different
+    values (torch's generator). Each layer's latent f32 weights exist only
+    while that layer is converted, so a full-width model never holds all of
+    them at once. `generator` must live on `device`.
     """
     cfg.validate()
     _check_served(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
-    params = {"embed": _serving_linear_init(generator, "embed", qcfg, (v, d),
-                                            std=0.02, device=device),
-              "final_norm": _norm_init(d, cfg.norm, device)}
-    if cfg.tie_embeddings:
-        params["lm_head"] = _tied_head_act_init(qcfg, device)
-    else:
-        params["lm_head"] = _serving_linear_init(generator, "lm_head", qcfg,
-                                                 (d, v), std=d ** -0.5,
-                                                 device=device)
-    params["layers"] = [_layer_init(generator, cfg, qcfg, device)
-                        for _ in range(cfg.n_layers)]
+    top = {"embed": embed_init(generator, qcfg, v, d, device),
+           "final_norm": norm_init(d, cfg.norm, device),
+           "lm_head": (tied_head_act_init(qcfg, device) if cfg.tie_embeddings
+                       else lm_head_init(generator, qcfg, d, v, device))}
+    params = convert_to_serving(top, qcfg)
+    params["layers"] = [
+        convert_to_serving(_layer_train_init(generator, cfg, qcfg, device), qcfg)
+        for _ in range(cfg.n_layers)]
     return params
-
-
-def _tied_head_act_init(qcfg: QuantConfig, device) -> dict:
-    """Activation quantizer params of a tied lm_head, as the JAX package's
-    conversion leaves them (bf16; the tied head applies them)."""
-    p = {}
-    aspec = act_spec(qcfg, "lm_head")
-    if aspec is not None:
-        p["a_scale"] = torch.ones((), dtype=torch.bfloat16, device=device)
-        if aspec.offset:
-            p["a_offset"] = torch.zeros((), dtype=torch.bfloat16, device=device)
-    return p
 
 
 # ===========================================================================

@@ -16,6 +16,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs.registry import get_config, reduced_config
@@ -92,3 +93,64 @@ def serving_params(arch: str, quant: str, a_bits: int = 32):
     jparams = jax.jit(j_convert, static_argnums=(1,))(latent, jq)
     return jparams, bridge.params_from_jax(jax.tree.map(np.asarray, jparams),
                                            tc, "cpu")
+
+
+def train_states(arch: str, quant: str = "w4a4", *, dtype: str = "float32",
+                 fused: str = "off", sentinel: bool = True,
+                 unrolled: bool = False, **tcfg_kw):
+    """The reference's train state built from `latent_params` (f32 latent
+    weights, zero AdamW moments, step 0, a fresh sentinel state) and the
+    port's bridged copy of it, for reduced `arch` under preset `quant`.
+
+    Returns (cfgs, qcfgs, tcfgs, jax_state, port_state) with each of cfgs /
+    qcfgs / tcfgs a (JAX, port) pair; `fused` is the reference's
+    fused_matmul ("off" or "on"; the port's kernel route is "auto").
+    unrolled=True repeats the (one-block) pattern three times, so the
+    reference keeps its two layers in its unrolled "tail" instead of a
+    lax.scan: the same model, computed as written (see
+    test_torch_train_step.py on what XLA's scan changes)."""
+    from repro.optim import adamw as j_adamw
+    from repro.train import sentinel as j_sent
+    from repro.train.state import TrainConfig as JTrainConfig
+    from repro_torch.core.policy import get_preset as t_get_preset
+    from repro_torch.train import sentinel as t_sent
+    from repro_torch.train.state import TrainConfig as TTrainConfig
+
+    jc, tc = configs(arch, dtype)
+    if unrolled:
+        jc, tc = (c.replace(pattern=c.pattern * 3) for c in (jc, tc))
+    jq = get_preset(quant).replace(fused_matmul=fused)
+    tq = t_get_preset(quant).replace(fused_matmul="off" if fused == "off"
+                                     else "auto")
+    jt = JTrainConfig(sentinel=j_sent.SentinelConfig() if sentinel else None,
+                      **tcfg_kw)
+    tt = TTrainConfig(sentinel=t_sent.SentinelConfig() if sentinel else None,
+                      **tcfg_kw)
+    params = jax.tree.map(jnp.asarray, latent_params(jc, jq))
+    opt = j_adamw.init(params, jt.adamw)
+    jstate = {"params": params, "mu": opt.mu, "nu": opt.nu,
+              "step": jnp.zeros((), jnp.int32), "osc": (), "err": (),
+              "sent": j_sent.init_sentinel_state() if sentinel else ()}
+    tstate = bridge.state_from_jax(jax.tree.map(np.asarray, jstate), tc, "cpu")
+    return (jc, tc), (jq, tq), (jt, tt), jstate, tstate
+
+
+def train_batch(cfg, batch: int = 2, seq: int = 16, k: int = 16, step: int = 0):
+    """A numpy batch for both sides: `sample_batch` tokens and labels, and
+    top-k MCKD labels from one numpy generator (the two packages' own
+    synthetic label makers draw from different generators)."""
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    b = sample_batch(cfg, DataConfig(), step, batch, seq)
+    rng = np.random.default_rng(100 + step)
+    alt = rng.integers(0, cfg.vocab_size, size=(batch, seq, k - 1))
+    b["kd_idx"] = np.concatenate([b["labels"][..., None], alt], -1).astype(np.int32)
+    p = rng.random((batch, seq, k)).astype(np.float32) + 0.05
+    b["kd_p"] = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    return b
+
+
+def bf16_ulp(v) -> np.ndarray:
+    """The spacing of bf16 values at |v| (0 where v is 0), f64."""
+    a = np.abs(np.asarray(v, np.float64))
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    return np.where(a > 0, 2.0 ** (e - 7), 0.0)

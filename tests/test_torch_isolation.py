@@ -24,7 +24,11 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "repro_torch.kernels.build" in mods and len(mods) > 20
+    for m in ("repro_torch.kernels.build", "repro_torch.launch.train",
+              "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+              "repro_torch.optim.adamw", "repro_torch.core.kd"):
+        assert m in mods, m
+    assert len(mods) > 30
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
@@ -49,7 +53,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_every_kernel_source_exists():
     from repro_torch.kernels import build
-    assert set(build.SOURCES) == {"quant_matmul", "decode_attention"}
+    assert set(build.SOURCES) == {"quant_matmul", "decode_attention",
+                                  "qat_matmul"}
     for path in build.SOURCES.values():
         assert path.is_file() and path.suffix == ".cu"
         assert path.parent == PKG / "kernels" / "csrc"
@@ -83,17 +88,22 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     (ctypes would pass a pointer it was not told about as a 32-bit int)."""
     import types
     from repro_torch.kernels import build, decode_attention, quant_matmul
+    qat = ("qat_fwd_launch", "qat_dx_launch", "qat_dw_launch", "qat_bwd_launch")
     fake = {name: types.SimpleNamespace(**{
         fn: types.SimpleNamespace() for fn in (
             "int_matmul_launch", "decode_attention_launch",
-            "decode_attention_smem_bytes")}) for name in build.SOURCES}
+            "decode_attention_smem_bytes") + qat}) for name in build.SOURCES}
+    fake["qat_matmul"].qat_tile = lambda: quant_matmul.QAT_TILE
     monkeypatch.setattr(build, "load", lambda name: fake[name])
     monkeypatch.setattr(quant_matmul, "_SIGNED", False)
+    monkeypatch.setattr(quant_matmul, "_QAT_SIGNED", False)
     monkeypatch.setattr(decode_attention, "_SIGNED", False)
     quant_matmul._lib()
+    quant_matmul._qat_lib()
     decode_attention._lib()
     for lib, fn in (("quant_matmul", "int_matmul_launch"),
                     ("decode_attention", "decode_attention_launch"),
-                    ("decode_attention", "decode_attention_smem_bytes")):
+                    ("decode_attention", "decode_attention_smem_bytes"),
+                    *(("qat_matmul", f) for f in qat)):
         declared = getattr(fake[lib], fn).argtypes
         assert len(declared) == _c_param_count(build.SOURCES[lib], fn), fn

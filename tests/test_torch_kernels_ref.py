@@ -146,8 +146,9 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     decode_attention.pooled_decode_attention(
         q, kv, kv, None, None, pos, pos[:, :1], q_per_kv=2, window=0,
         softcap=0.0)
-    assert ops.launch_counts() == {"int_matmul": 0, "int4_matmul": 0,
-                                   "pooled_decode_attention": 0}
+    counts = ops.launch_counts()
+    assert {"int_matmul", "int4_matmul", "pooled_decode_attention"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_fused_on_off_the_gpu_raises():
