@@ -46,6 +46,23 @@ Phases (any failure exits non-zero before the final line is printed):
                the kernel route against the unfused composition on the card
                (run with the kernels' rule at the clip edge; the gaps against
                the composition as it is are printed beside it).
+  5b. moe kernels — quant_matmul_batched and quant_matmul_bwd_batched
+               against their plain versions at granite-moe-1b-a400m's expert
+               shapes (32 experts x 1280 capacity rows, K/N 1024/512 and
+               512/1024, w3a3), and the batched backward once on its split
+               route (a wide N past the reference's scratch budget); run
+               with phase 5.
+  8. train   — `run_training` on full-width granite-moe-1b-a400m (24 layers,
+               32 experts top 8, tied head), w3a3 (OBR lambda 0.1 on a cosine
+               ramp) with oscillation tracking, MCKD top-16, sentinel on,
+               batch 8 x 512, 3 steps: finite loss and no fatal health bit
+               every step, loss_main / loss_obr / obr_lambda (0, then > 0) /
+               osc_frac / lb_loss / drop_frac per step, s/step, peak memory,
+               and every QAT kernel's launches equal to the printed formula x
+               3 (the batched kernels on the expert linears).
+  9. route   — granite-moe cut to 2 layers, batch 2 x 256, at init: phase
+               7's check, plus the share of expert choices that differ
+               between the routes.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -557,23 +574,140 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     return row
 
 
+MOE_QS = dict(q_n_a=0, q_p_a=7, q_n_w=4, q_p_w=3)     # w3a3
+
+
+def batched_operands(torch, e, m, k, n, gen, qs):
+    dev = "cuda"
+    x = (torch.randn((e, m, k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    w = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
+    a_s = torch.rand((e, 1), generator=gen, device=dev) * 0.3 + 0.2
+    a_b = torch.randn((e, 1), generator=gen, device=dev) * 0.1
+    ws = torch.rand((e, n), generator=gen, device=dev) * 0.01 + 0.005
+    return x, w, a_s, a_b, ws
+
+
+def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs) -> dict:
+    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs)
+    kern = lambda: qmm.quant_matmul_batched(x, w, a_s, a_b, ws, **qs)
+    plain = lambda: ref.quant_matmul_batched(x, w, a_s, a_b, ws, **qs)
+    y_k, y_r = kern(), plain()
+    torch.cuda.synchronize()
+    err = (y_k - y_r).abs().max().item()
+    tol = 1e-5 * y_r.abs().max().item()
+    s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
+    xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])[2].to(torch.bfloat16)
+    wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])[2].to(torch.bfloat16)
+    lib = lambda: torch.bmm(xd, wd)
+    del y_k, y_r
+    nbytes = e * (m * k * 2 + k * n * 4 + 8 + n * 4 + m * n * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * e * m * k * n)
+    row = {"shape": [e, m, k, n], "max_abs_err": err, "tol": tol,
+           "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  quant_matmul_batched E={e} M={m} K={k} N={n}: max|err| {err:.3e} "
+        f"(tol {tol:.3e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"torch.bmm(bf16 dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not err <= tol:
+        fail(f"quant_matmul_batched {e}x{m}x{k}x{n} disagrees with its plain "
+             f"version: {err} > {tol}")
+    return row
+
+
+def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs) -> dict:
+    """quant_matmul_bwd_batched against its plain version, with the bars of
+    check_qat_bwd per expert; the route (combined or split expert by expert
+    through quant_matmul_dx / _dw) is the reference's on the padded shape."""
+    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs)
+    dy = torch.randn((e, m, n), generator=gen, device="cuda")
+    combined = qmm.bwd_uses_combined(*qmm.padded_dims(m, k, n))
+    args = (dy, x, w, a_s, a_b, ws)
+    kern = lambda: qmm.quant_matmul_bwd_batched(*args, **qs)
+    plain = lambda: ref.quant_matmul_bwd_batched(*args, **qs)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
+    u, q, xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])
+    uw, qw, wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])
+    cot = ref._cotangent(dy, True)
+    ex_x, fr_x = _bf16_close(torch, got[0], want[0],
+                             cot.abs() @ wd.abs().transpose(1, 2), n)
+    ex_w, fr_w = _bf16_close(torch, got[3], want[3],
+                             xd.abs().transpose(1, 2) @ cot.abs(), m)
+    dxd = ref._bf16(cot @ wd.transpose(1, 2))
+    mf = ref._in_range(u, qs["q_n_a"], qs["q_p_a"])
+    l1a = (dxd * (q - mf * u)).abs().sum(dim=(1, 2)).reshape(e, 1)
+    l1b = (dxd * (1 - mf)).abs().sum(dim=(1, 2)).reshape(e, 1)
+    del dxd, mf
+    dwd = ref._bf16(xd.transpose(1, 2) @ cot)
+    mfw = ref._in_range(uw, qs["q_n_w"], qs["q_p_w"])
+    l1w = (dwd * (qw - mfw * uw)).abs().sum(dim=1)
+    del dwd, mfw
+    checks = [("dX", ex_x <= 0 and fr_x <= 0.01, f"excess {ex_x:.2e}, differing {fr_x:.2e}"),
+              ("dsa", bool(((got[1] - want[1]).abs() <= 1e-4 * l1a).all()),
+               f"max {(got[1] - want[1]).abs().max().item():.3e}"),
+              ("dba", bool(((got[2] - want[2]).abs() <= 1e-4 * l1b).all()),
+               f"max {(got[2] - want[2]).abs().max().item():.3e}"),
+              ("dW", ex_w <= 0 and fr_w <= 0.01, f"excess {ex_w:.2e}, differing {fr_w:.2e}"),
+              ("dws", bool(((got[4] - want[4]).abs() <= 1e-4 * l1w).all()),
+               f"max {(got[4] - want[4]).abs().max().item():.3e}")]
+    worst = max((got[0] - want[0]).abs().max().item(),
+                (got[3] - want[3]).abs().max().item())
+    del got, want
+    ct, xl, wl = cot.to(torch.bfloat16), xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+    lib = lambda: (torch.bmm(ct, wl.transpose(1, 2)), torch.bmm(xl.transpose(1, 2), ct))
+    nbytes = e * (m * n * 4 + m * k * 2 + k * n * 4 + 8 + n * 4
+                  + m * k * 4 + 8 + k * n * 4 + n * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * e * m * k * n)
+    row = {"shape": [e, m, k, n], "route": "combined" if combined else "split",
+           "max_abs_err": worst,
+           "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands| per expert",
+           "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  quant_matmul_bwd_batched E={e} M={m} K={k} N={n} ({row['route']} route): "
+        + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
+        + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"torch.bmm(bf16 dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    bad = [c for c, ok, _ in checks if not ok]
+    if bad:
+        fail(f"quant_matmul_bwd_batched {e}x{m}x{k}x{n} disagrees with its "
+             f"plain version on {bad}")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 6-7: QAT training
 # ---------------------------------------------------------------------------
 
 QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
-               "quant_matmul_dw")
+               "quant_matmul_dw", "quant_matmul_batched",
+               "quant_matmul_bwd_batched")
 
 
 def qat_launches_per_step(cfg) -> dict:
     """Launches a train step makes, from the model: every block linear runs
     its forward twice (remat recomputes the block in the backward) and its
-    combined backward once; the tied head, whose vocab-wide N takes the
-    split route, runs the forward once and dx / dw once each."""
-    per_layer = 4 + (3 if cfg.ffn_gated else 2)
-    return {"quant_matmul": 2 * per_layer * cfg.n_layers + 1,
-            "quant_matmul_bwd": per_layer * cfg.n_layers,
-            "quant_matmul_dx": 1, "quant_matmul_dw": 1}
+    combined backward once: the 4 attention linears and a dense FFN's on
+    the 2D kernels, an MoE FFN's expert linears on the batched ones (the
+    router stays on the f32 einsum); the tied head, whose vocab-wide N
+    takes the split route, runs the forward once and dx / dw once each."""
+    ffn = 3 if cfg.ffn_gated else 2
+    moe = sum(cfg.block_at(i).ffn == "moe" for i in range(cfg.n_layers))
+    dense = 4 * cfg.n_layers + ffn * (cfg.n_layers - moe)
+    return {"quant_matmul": 2 * dense + 1, "quant_matmul_bwd": dense,
+            "quant_matmul_dx": 1, "quant_matmul_dw": 1,
+            "quant_matmul_batched": 2 * ffn * moe,
+            "quant_matmul_bwd_batched": ffn * moe}
+
+
+def formula(cfg) -> str:
+    ffn = 3 if cfg.ffn_gated else 2
+    if cfg.pattern[0].ffn == "moe":
+        return (f"quant_matmul 2 x 4 x {cfg.n_layers} + 1, quant_matmul_bwd 4 x "
+                f"{cfg.n_layers}, dx / dw 1 (head), quant_matmul_batched 2 x "
+                f"{ffn} x {cfg.n_layers}, quant_matmul_bwd_batched {ffn} x {cfg.n_layers}")
+    return (f"quant_matmul 2 x (4 + {ffn}) x {cfg.n_layers} + 1, quant_matmul_bwd "
+            f"(4 + {ffn}) x {cfg.n_layers}, dx / dw 1 (head)")
 
 
 def train_phase(torch, ops, train, argv: list, expect_start: int,
@@ -604,12 +738,20 @@ def train_phase(torch, ops, train, argv: list, expect_start: int,
             "tokens_s": tokens / s_step}
 
 
-def route_check(torch, gen_seed: int = 0) -> dict:
-    """Gradients of full-width qwen1.5-0.5b cut to 2 layers (batch 2 x 256,
-    one step from init) on the kernel route against the unfused composition,
+def route_check(torch, arch: str = "qwen1.5-0.5b", quant: str = "w4a4",
+                gen_seed: int = 0) -> dict:
+    """Gradients of full-width `arch` cut to 2 layers (batch 2 x 256, one
+    step from init) on the kernel route against the unfused composition,
     both on the card: loss within 1e-3 relative, every non-scalar gradient
     leaf within 1e-2 relative L2, the scalar quantizer leaves pooled per
-    kind (a single near-zero scalar's relative error means little).
+    kind (a single near-zero scalar's relative error means little). For an
+    MoE model, also the share of (token, slot) expert choices that differ
+    between the routes (the router is an f32 einsum on both, fed by
+    activations that may differ in an ulp: a top-k flip is a discontinuity,
+    reported, not hidden). The bar is held with the kernels' rule at the
+    clip edge on both routes (see below): the router, unfused on both,
+    sees exact zeros at init too (the embedding's code-0 entries), and must
+    take one rule on both.
 
     At init the forward is exact on both routes (scales 1, offsets 0:
     integer codes times bf16 weights sum without rounding), so the routes
@@ -630,8 +772,9 @@ def route_check(torch, gen_seed: int = 0) -> dict:
     from repro_torch.train.sentinel import SentinelConfig
     from repro_torch.train.state import TrainConfig, init_state
     from repro_torch.train.train_step import make_grad_fn
-    cfg = get_config("qwen1.5-0.5b").replace(n_layers=2)
-    qcfg = get_preset("w4a4")
+    from repro_torch.models import moe
+    cfg = get_config(arch).replace(n_layers=2)
+    qcfg = get_preset(quant)
     tcfg = TrainConfig(total_steps=10, warmup_steps=0, kd="mckd",
                        sentinel=SentinelConfig())
     state = init_state(cfg, qcfg, tcfg,
@@ -640,15 +783,24 @@ def route_check(torch, gen_seed: int = 0) -> dict:
     b["kd_idx"], b["kd_p"] = synthetic_kd_labels(b["labels"], cfg.vocab_size, 16, seed=0)
     b = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
 
+    choices = {}
+
     def grads(route, clip=None):
-        orig = quantizer._clip
+        orig, orig_route = quantizer._clip, moe._route_group
+        seen = choices.setdefault((route, clip is not None), [])
+
+        def recording(xt, exp_idx, *a):
+            seen.append(exp_idx.detach().clone())
+            return orig_route(xt, exp_idx, *a)
+
         if clip is not None:
             quantizer._clip = clip
+        moe._route_group = recording
         try:
             loss, _, g = make_grad_fn(cfg, qcfg.replace(fused_matmul=route), tcfg)(
                 state["params"], b, state["step"])
         finally:
-            quantizer._clip = orig
+            quantizer._clip, moe._route_group = orig, orig_route
         return loss.item(), {T.path_str(p): v for p, v in T.flatten(g)}
 
     def gaps(a, o):
@@ -667,17 +819,85 @@ def route_check(torch, gen_seed: int = 0) -> dict:
         top = sorted(res.items(), key=lambda kv: -kv[1])[:5]
         return abs(a[0] - o[0]) / abs(o[0]), [(k, round(v, 7)) for k, v in top]
 
-    kern = grads("auto")
-    d_edge, top_edge = gaps(kern, grads("off", torch.clamp))
-    d_raw, top_raw = gaps(kern, grads("off"))
-    log(f"route check: kernel route vs unfused (kernels' edge rule): loss gap "
-        f"{d_edge:.3e} (bar 1e-3), worst leaves {top_edge} (bar 1e-2)")
+    # the edge rule on both routes: a linear that is unfused on both (the
+    # MoE router) then keeps one rule, and only the kernels' linears differ
+    d_edge, top_edge = gaps(grads("auto", torch.clamp), grads("off", torch.clamp))
+    d_raw, top_raw = gaps(grads("auto"), grads("off"))
+    flips = None
+    if choices[("auto", True)]:
+        a, o = choices[("auto", True)], choices[("off", True)]
+        if len(a) != len(o):
+            fail(f"routes routed {len(a)} and {len(o)} times")
+        flips = (sum(int((x != y).sum()) for x, y in zip(a, o))
+                 / sum(x.numel() for x in a))
+    log(f"route check ({cfg.name}, {quant}): kernel route vs unfused (kernels' "
+        f"edge rule): loss gap {d_edge:.3e} (bar 1e-3), worst leaves {top_edge} "
+        f"(bar 1e-2)" + ("" if flips is None else
+                         f"; expert choices that differ {flips:.3e}"))
     log(f"  vs unfused as it is (clip splits the gradient at the edge): loss "
         f"gap {d_raw:.3e}, worst leaves {top_raw}")
     if not (d_edge <= 1e-3 and top_edge[0][1] <= 1e-2):
         fail(f"kernel route departs from the unfused route: loss {d_edge}, {top_edge[0]}")
     return {"edge_rule": {"loss": d_edge, "worst": top_edge},
-            "as_is": {"loss": d_raw, "worst": top_raw}}
+            "as_is": {"loss": d_raw, "worst": top_raw}, "choice_flips": flips}
+
+
+def moe_train_phase(torch, ops, steps: int = 3) -> dict:
+    """The MoE training path through `run_training` (the CLI has no flag for
+    oscillation tracking, as in the reference): full-width 24-layer
+    granite-moe-1b-a400m, w3a3 (OBR lambda 0.1 on a cosine ramp over the
+    run), track_oscillation, MCKD top-16, sentinel on, batch 8 x 512, seed
+    0, the CLI's optimizer settings; no checkpoint is written (save_every
+    beyond the run: the full state with its oscillation state is ~24 GB)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.sentinel import SentinelConfig
+    from repro_torch.train.state import TrainConfig
+    import shutil
+    cfg = get_config("granite-moe-1b-a400m")
+    qcfg = get_preset("w3a3").replace(track_oscillation=True)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, kd="mckd", kd_topk=16,
+                       adamw=AdamWConfig(lr_peak=3e-3), sentinel=SentinelConfig())
+    ckpt_dir = ROOT / "build" / "chip_smoke_moe_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"train: run_training({cfg.name}, 24 layers, w3a3 + OBR, "
+        f"track_oscillation, batch 8 x 512, {steps} steps)")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train.run_training(cfg, qcfg, tcfg, DataConfig(seed=0), steps=steps,
+                             batch_size=8, seq_len=512, ckpt_dir=str(ckpt_dir),
+                             save_every=10 ** 6, log_every=1, seed=0,
+                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ops.launch_counts()[k] for k in QAT_KERNELS}
+    written = sorted(p.name for p in ckpt_dir.glob("*")) if ckpt_dir.exists() else []
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steady = rep.step_seconds[1:] or rep.step_seconds
+    s_step = statistics.median(steady)
+    log(f"  wall {wall:.1f} s (params built on the card included), s/step "
+        f"{[round(v, 3) for v in rep.step_seconds]} (median after the first "
+        f"{s_step:.3f} s, {8 * 512 / s_step:.0f} tokens/s), losses {rep.losses}, "
+        f"health {rep.healths}, peak {(rep.peak_bytes or 0) / 2**30:.2f} GiB, "
+        f"checkpoint files {written}")
+    for i, mm in enumerate(rep.metrics):
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in mm.items()))
+    if rep.steps_run != steps or len(rep.healths) != steps:
+        fail(f"MoE train run ran {rep.steps_run} steps; expected {steps}")
+    if not all(v == v and abs(v) < float("inf") for v in rep.losses):
+        fail(f"non-finite MoE training loss: {rep.losses}")
+    if any(h & SentinelConfig().fatal_bits for h in rep.healths):
+        fail(f"fatal sentinel health bits in the MoE run: {rep.healths}")
+    lams = [mm["obr_lambda"] for mm in rep.metrics]
+    if lams[0] != 0.0 or not all(v > 0 for v in lams[1:]):
+        fail(f"obr_lambda should be 0 at step 0 and > 0 after: {lams}")
+    if not all("osc_frac" in mm and mm["loss_obr"] > 0 for mm in rep.metrics):
+        fail(f"OBR / oscillation metrics missing: {rep.metrics}")
+    return {"report": rep, "counts": counts, "wall": wall, "s_step": s_step,
+            "tokens_s": 8 * 512 / s_step, "cfg": cfg}
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -753,6 +973,24 @@ def main() -> None:
             HEAD_QS))
         torch.cuda.empty_cache()
 
+    # the batched (MoE expert) kernels at granite-moe's training shapes: 32
+    # experts x 1280 capacity rows (8 x 512 tokens, top 8, factor 1.25),
+    # w3a3; and one shape past the combined route's budget (split route)
+    log("moe kernels (each against its plain version on the card):")
+    for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
+        qat_rows[name] = []
+    for k, n in ((1024, 512), (512, 1024)):
+        qat_rows["quant_matmul_batched"].append(check_batched_fwd(
+            torch, timer, qmm, ref, 32, 1280, k, n, gen, MOE_QS))
+        qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
+            torch, timer, qmm, ref, 32, 1280, k, n, gen, MOE_QS))
+        torch.cuda.empty_cache()
+    qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
+        torch, timer, qmm, ref, 4, 256, 512, 8192, gen, MOE_QS))
+    if qat_rows["quant_matmul_bwd_batched"][-1]["route"] != "split":
+        fail("the wide-N batched backward did not take the split route")
+    torch.cuda.empty_cache()
+
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
     torch.cuda.empty_cache()
     from repro_torch.launch import serve
@@ -789,14 +1027,29 @@ def main() -> None:
     per_step = qat_launches_per_step(get_config("qwen1.5-0.5b"))
     for run, n_steps in ((first, 3), (resumed, 1)):
         want = {k: v * n_steps for k, v in per_step.items()}
-        if run["counts"] != want or min(run["counts"].values()) <= 0:
+        if run["counts"] != want or any(run["counts"][k] <= 0 for k in want if want[k]):
             fail(f"QAT launches {run['counts']} != {per_step} per step x {n_steps}")
-    log(f"  launches per step {per_step}: both runs match")
+    log(f"  launches per step {per_step} ({formula(get_config('qwen1.5-0.5b'))}): "
+        "both runs match")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     # 7. the kernel route against the unfused composition, on the card
     route = route_check(torch)
+    torch.cuda.empty_cache()
+    # 8. MoE QAT training with OBR and oscillation tracking, full width
+    moe_run = moe_train_phase(torch, ops)
+    moe_step = qat_launches_per_step(moe_run["cfg"])
+    want = {k: v * 3 for k, v in moe_step.items()}
+    log(f"  launches {moe_run['counts']}; per step {moe_step} "
+        f"({formula(moe_run['cfg'])}) x 3 steps = {want}")
+    if moe_run["counts"] != want or any(moe_run["counts"][k] <= 0 for k in want):
+        fail(f"MoE QAT launches {moe_run['counts']} != {moe_step} per step x 3")
+    torch.cuda.empty_cache()
+    # 9. the MoE kernel route against the unfused composition, at init
+    moe_route = route_check(torch, "granite-moe-1b-a400m", "w3a3")
     counts.update(first["counts"])
+    for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
+        counts[name] = moe_run["counts"][name]
     rows.update(qat_rows)
 
     sources = {"int4_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -813,7 +1066,11 @@ def main() -> None:
                "quant_matmul_dw": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
                                    "src/repro/kernels/quant_matmul.py:361"),
                "quant_matmul_bwd": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
-                                    "src/repro/kernels/quant_matmul.py:574")}
+                                    "src/repro/kernels/quant_matmul.py:574"),
+               "quant_matmul_batched": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                        "src/repro/kernels/quant_matmul.py:141"),
+               "quant_matmul_bwd_batched": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
+                                            "src/repro/kernels/quant_matmul.py:743")}
     kernels = []
     for name, rs in rows.items():
         r = rs[0]  # the decode shape of the main path
@@ -832,7 +1089,13 @@ def main() -> None:
         "s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],
         "peak_gib": (first["report"].peak_bytes or 0) / 2**30,
         "losses": first["report"].losses + resumed["report"].losses,
-        "launches_per_step": per_step, "route": route}}), flush=True)
+        "launches_per_step": per_step, "route": route},
+        "moe_train": {
+        "s_per_step": moe_run["s_step"], "tokens_per_s": moe_run["tokens_s"],
+        "step_seconds": moe_run["report"].step_seconds,
+        "peak_gib": (moe_run["report"].peak_bytes or 0) / 2**30,
+        "losses": moe_run["report"].losses, "metrics": moe_run["report"].metrics,
+        "launches_per_step": moe_step, "route": moe_route}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.oscillation import OscState
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.model import jax_leaf_groups, quant_leaf_paths
 from repro_torch.train.sentinel import SentinelState
 
 
@@ -100,16 +102,72 @@ def _stack(trees: list):
     return np.stack(trees)
 
 
-def state_from_jax(np_state: dict, cfg: ArchConfig, device=None) -> dict:
+def _osc_slices(params: dict, qcfg, cfg: ArchConfig) -> list:
+    """For each of the port's quant leaves (`quant_leaf_paths` order): the
+    index of the reference's oscillation-state entry that holds it, and
+    its layer's index in that entry's stacked leading axis (None where
+    the reference does not stack the leaf)."""
+    paths = [p for p, _, _, _ in quant_leaf_paths(params, qcfg)]
+    out = [None] * len(paths)
+    for j, (key, members) in enumerate(jax_leaf_groups(paths, cfg)):
+        for g, idx in enumerate(members):
+            out[idx] = (j, g if key[0] == "groups" else None)
+    return out
+
+
+def osc_from_jax(np_osc: tuple, params: dict, qcfg, cfg: ArchConfig,
+                 device=None) -> tuple:
+    """The reference's oscillation state (a tuple of OscState, numpy, one
+    per stacked or unstacked quant leaf) -> the port's, one per layer's
+    leaf in `quant_leaf_paths` order."""
+    device = resolve_device(device)
+    out = []
+    for j, g in _osc_slices(params, qcfg, cfg):
+        st = np_osc[j]
+        out.append(OscState(*(to_torch(np.asarray(v) if g is None
+                                       else np.asarray(v)[g], device)
+                              for v in st)))
+    return tuple(out)
+
+
+def osc_to_jax(osc: tuple, params: dict, qcfg, cfg: ArchConfig) -> tuple:
+    """The port's oscillation state -> numpy in the reference's layout
+    (stacked layers of a pattern position under one entry)."""
+    slices = _osc_slices(params, qcfg, cfg)
+    n = max(j for j, _ in slices) + 1 if slices else 0
+    parts = [[] for _ in range(n)]
+    for st, (j, g) in zip(osc, slices):
+        parts[j].append((g, tuple(to_numpy(v) for v in st)))
+    res = []
+    for members in parts:
+        if members[0][0] is None:
+            res.append(OscState(*members[0][1]))
+        else:
+            members.sort(key=lambda m: m[0])
+            res.append(OscState(*(np.stack([m[1][f] for m in members])
+                                  for f in range(3))))
+    return tuple(res)
+
+
+def state_from_jax(np_state: dict, cfg: ArchConfig, device=None,
+                   qcfg=None) -> dict:
     """The JAX package's train state (numpy leaves) -> the port's: params,
-    mu and nu per layer, step as an int32 CPU tensor, and the sentinel
-    state when the JAX state carries one."""
+    mu and nu per layer, step as an int32 CPU tensor, the oscillation
+    state per layer (`qcfg` names the quantized leaves; needed only when
+    the JAX state carries one), and the sentinel state when the JAX state
+    carries one."""
     device = resolve_device(device)
     state = {k: params_from_jax(np_state[k], cfg, device)
              for k in ("params", "mu", "nu")}
     state["step"] = torch.tensor(int(np.asarray(np_state["step"])),
                                  dtype=torch.int32)
-    state["osc"], state["err"] = (), ()
+    osc = np_state.get("osc", ())
+    if len(osc) and qcfg is None:
+        raise ValueError("state_from_jax: the state tracks oscillation; "
+                         "pass qcfg to place it")
+    state["osc"] = (osc_from_jax(osc, state["params"], qcfg, cfg, device)
+                    if len(osc) else ())
+    state["err"] = ()
     sent = np_state.get("sent", ())
     state["sent"] = (SentinelState(*(to_torch(np.asarray(v), device)
                                      for v in sent)) if len(sent) else ())

@@ -1,10 +1,12 @@
 // QAT fused fake-quant matmul and its backward: out = q_a(x) @ q_w(w).
 //
-// Replaces four TPU kernels of the JAX package (src/repro/kernels/quant_matmul.py):
+// Replaces six TPU kernels of the JAX package (src/repro/kernels/quant_matmul.py):
 //   qat_fwd  <- quant_matmul      (:81,  body _qmm_kernel :46)
 //   qat_dx   <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
 //   qat_dw   <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
 //   qat_bwd  <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
+//   qat_fwd_batched <- quant_matmul_batched     (:141, body _qmm_batched_kernel :114)
+//   qat_bwd_batched <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
 //
 // What each computes (Eq. 5-7 of the paper, LSQ+ activations, grouped weights):
 //   xd = bf16(clip(round((x - b) / max(s, 1e-9))) * s + b)      x (M, K), s, b scalars
@@ -27,7 +29,7 @@
 // This first version uses no tensor cores: one simple SIMT GEMM tile (128 x 128
 // outputs a block of 256 threads, 8 x 8 a thread, the contraction walked 8 at a
 // time through shared memory, the next slice's loads in flight while the current
-// one is multiplied) serves all four kernels. Each operand is dequantized as it
+// one is multiplied) serves all six kernels. Each operand is dequantized as it
 // is staged into shared memory, so the dequantized x and w never reach HBM (the
 // point of the TPU kernels), and a bf16 value held in f32 makes a bf16 x bf16
 // product exact, so f32 FMA gives the f32 sum of exact products that the tensor
@@ -46,6 +48,16 @@
 //     split kernels, so the two routes give identical bits. The TPU's (bk, Np)
 //     VMEM panel has no counterpart.
 //   * Edges are masked in the kernel; nothing is padded.
+//   * The batched (MoE expert) kernels put the expert on blockIdx.z: a block
+//     offsets every per-expert operand (x, w, the (E,) activation scale and
+//     offset, the (E, N) column scales, dY, the outputs and the partials) by
+//     its expert and then runs the same tile as the 2D kernel, so an expert's
+//     results are bit for bit those of the 2D kernels on its slices. The finish
+//     pass runs one row of blocks per expert (blockIdx.y). Expert weight
+//     scales are N-side only (the reference's eligibility rule), so the
+//     batched kernels take no row scales. At the MoE training shapes (32
+//     experts x 1280 capacity rows, K and N of 512 / 1024) each expert is 40
+//     output tiles, 1280 blocks a launch.
 // Numerics: round half to even (rintf), IEEE division (built without fast math),
 // and the multiply and add of the dequantization rounded separately (no FMA
 // contraction), as the reference writes them.
@@ -419,13 +431,60 @@ __global__ void __launch_bounds__(NT) qat_bwd_kernel(Args a, float* dx, float* p
   else dw_tile<XT>(a, dw, part_w, blockIdx.x - n_dx, sm);
 }
 
+// Expert e's operands: every per-expert pointer advanced to its slice.
+template <class XT>
+__device__ __forceinline__ Args at_expert(Args a, int e) {
+  a.x = static_cast<const XT*>(a.x) + (size_t)e * a.M * a.K;
+  a.w += (size_t)e * a.K * a.N;
+  a.a_s += e;
+  a.a_b += e;
+  a.ws += (size_t)e * a.N;
+  if (a.dy != nullptr) a.dy += (size_t)e * a.M * a.N;
+  return a;
+}
+
+template <class XT>
+__global__ void __launch_bounds__(NT) qat_fwd_batched_kernel(Args a, float* out) {
+  __shared__ __align__(16) Smem sm;
+  const int e = blockIdx.z;
+  fwd_tile<XT>(at_expert<XT>(a, e), out + (size_t)e * a.M * a.N, blockIdx.x, sm);
+}
+
+// Per expert: blocks [0, n_dx) are dX tiles, the rest dW tiles; each expert
+// owns 2 * n_dx dX partials and n_wp * N dws partials.
+template <class XT>
+__global__ void __launch_bounds__(NT) qat_bwd_batched_kernel(Args a, float* dx, float* part_x,
+                                                             float* dw, float* part_w,
+                                                             int n_dx, int n_wpart) {
+  __shared__ __align__(16) Smem sm;
+  const int e = blockIdx.z;
+  const Args ae = at_expert<XT>(a, e);
+  if ((int)blockIdx.x < n_dx)
+    dx_tile<XT>(ae, dx + (size_t)e * a.M * a.K, part_x + (size_t)e * 2 * n_dx, blockIdx.x, sm);
+  else
+    dw_tile<XT>(ae, dw + (size_t)e * a.K * a.N, part_w + (size_t)e * n_wpart,
+                blockIdx.x - n_dx, sm);
+}
+
 // The fixed-order finish: dsa / dba from n_sp block pairs (block 0), and dws[l]
 // = sum over r of part_w[r][l] in order r = 0, 1, ... (all blocks).
+// Expert e = blockIdx.y reads its own partials and writes its own sums (the
+// 2D kernels launch one row, e = 0).
 __global__ void __launch_bounds__(NT) qat_finish_kernel(const float* part_x, int n_sp,
                                                         float* dsa, float* dba,
                                                         const float* part_w, int n_wp,
                                                         int L, float* dws) {
   __shared__ float buf[NT];
+  const int e = blockIdx.y;
+  if (part_x != nullptr) {
+    part_x += (size_t)e * 2 * n_sp;
+    dsa += e;
+    dba += e;
+  }
+  if (part_w != nullptr) {
+    part_w += (size_t)e * n_wp * L;
+    dws += (size_t)e * L;
+  }
   if (part_x != nullptr && blockIdx.x == 0) {
     float sa = 0.f, sb = 0.f;
     for (int i = threadIdx.x; i < n_sp; i += NT) {
@@ -454,12 +513,12 @@ inline int n_wp(const Args& a) { return a.k_side ? cdiv(a.N, BN) : cdiv(a.K, BM)
 inline int wp_len(const Args& a) { return a.k_side ? a.K : a.N; }
 
 cudaError_t finish(const Args& a, const float* part_x, float* dsa, float* dba,
-                   const float* part_w, float* dws, cudaStream_t st) {
+                   const float* part_w, float* dws, cudaStream_t st, int experts = 1) {
   const int L = part_w ? wp_len(a) : 0;
   int grid = cdiv(L, NT);
   grid = grid < 1 ? 1 : (grid > 1024 ? 1024 : grid);
-  qat_finish_kernel<<<grid, NT, 0, st>>>(part_x, part_x ? n_dx_blocks(a) : 0, dsa, dba,
-                                         part_w, part_w ? n_wp(a) : 0, L, dws);
+  qat_finish_kernel<<<dim3(grid, experts), NT, 0, st>>>(
+      part_x, part_x ? n_dx_blocks(a) : 0, dsa, dba, part_w, part_w ? n_wp(a) : 0, L, dws);
   return cudaGetLastError();
 }
 
@@ -562,4 +621,50 @@ extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const v
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
                                  pw, static_cast<float*>(dws), st));
+}
+
+// Batched (per-expert) entries: x (E, M, K) bf16 or f32, w (E, K, N) f32,
+// a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy (E, M, N) f32; outputs
+// f32 (E, M, N) / dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws (E, N).
+// Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K, 128) * N.
+
+extern "C" int qat_fwd_batched_launch(const void* x, int x_bf16, const void* w,
+                                      const void* a_s, const void* a_b, const void* ws,
+                                      void* out, int E, int M, int K, int N, int qn_a,
+                                      int qp_a, int qn_w, int qp_w, void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0) return 0;
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, 0, 0, qn_a, qp_a, qn_w, qp_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(cdiv(M, BM) * cdiv(N, BN), 1, E);
+  if (x_bf16)
+    qat_fwd_batched_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
+  else
+    qat_fwd_batched_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qat_bwd_batched_launch(const void* dy, const void* x, int x_bf16,
+                                      const void* w, const void* a_s, const void* a_b,
+                                      const void* ws, void* dx, void* dsa, void* dba,
+                                      void* dw, void* dws, void* part_x, void* part_w,
+                                      int E, int M, int K, int N, int qn_a, int qp_a,
+                                      int qn_w, int qp_w, int round_cot, void* stream) {
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
+  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, 0, round_cot, qn_a, qp_a, qn_w, qp_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* px = static_cast<float*>(part_x);
+  float* pw = static_cast<float*>(part_w);
+  const int n_dx = n_dx_blocks(a);
+  const int n_wpart = n_wp(a) * wp_len(a);
+  const dim3 grid(n_dx + n_dw_blocks(a), 1, E);
+  if (x_bf16)
+    qat_bwd_batched_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
+        a, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx, n_wpart);
+  else
+    qat_bwd_batched_kernel<float><<<grid, NT, 0, st>>>(
+        a, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx, n_wpart);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
+                                 pw, static_cast<float*>(dws), st, E));
 }

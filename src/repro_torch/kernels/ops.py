@@ -13,6 +13,14 @@ backward is `quant_matmul_bwd` (combined, or split into dx / dw for
 vocab-wide N), with the LSQ/LSQ+ gradients of all five inputs. The
 module-wise gradient scale g and the group broadcast of the weight scale
 stay outside the Function (in the caller), as in the reference.
+`fused_qat_matmul_batched` is its per-expert counterpart for the MoE
+expert einsums (the reference's `_fused_qmm3d`, ops.py:224-300), over
+`quant_matmul_batched` / `quant_matmul_bwd_batched`.
+
+The reference pads every operand to its tiles before the kernels; here the
+kernels mask their edges instead, which gives the same values (padded rows
+and columns contribute zeros to every output and scale sum), and the
+combined-vs-split route is decided on the padded shape.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ KERNEL_WRAPPERS = {
     "quant_matmul_dx": _qmm.quant_matmul_dx,
     "quant_matmul_dw": _qmm.quant_matmul_dw,
     "quant_matmul_bwd": _qmm.quant_matmul_bwd,
+    "quant_matmul_batched": _qmm.quant_matmul_batched,
+    "quant_matmul_bwd_batched": _qmm.quant_matmul_bwd_batched,
 }
 
 
@@ -138,3 +148,49 @@ def fused_qat_matmul(x, w2, a_scale, a_offset, ws_vec, a_spec: QuantSpec,
               bool(cotangent_rounding), w_scale_axis == "k")
     y2 = _FusedQmm2d.apply(x2, w2, a_scale, a_offset, ws_vec, static)
     return y2.reshape(*lead, w2.shape[-1])
+
+
+class _FusedQmm3d(torch.autograd.Function):
+    """y[e] = q_a(x3[e]) @ q_w(w3[e]) with the reference's five per-expert
+    cotangents. a_scale / a_offset are (E,) (broadcast from the module's
+    scalar by the caller, so autograd sums the per-expert partials back);
+    ws_en is (E, N). Each cotangent comes back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x3, w3, a_scale, a_offset, ws_en, static):
+        q_n_a, q_p_a, q_n_w, q_p_w, _round_cot = static
+        e = x3.shape[0]
+        ctx.save_for_backward(x3, w3, a_scale, a_offset, ws_en)
+        ctx.static = static
+        return _qmm.quant_matmul_batched(
+            x3, w3, a_scale.reshape(e, 1), a_offset.reshape(e, 1), ws_en,
+            q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, w3, a_scale, a_offset, ws_en = ctx.saved_tensors
+        q_n_a, q_p_a, q_n_w, q_p_w, round_cot = ctx.static
+        e = x3.shape[0]
+        dx, dsa, dba, dw, dws = _qmm.quant_matmul_bwd_batched(
+            dy.to(torch.float32), x3, w3, a_scale.reshape(e, 1),
+            a_offset.reshape(e, 1), ws_en, q_n_a=q_n_a, q_p_a=q_p_a,
+            q_n_w=q_n_w, q_p_w=q_p_w, round_cot=round_cot)
+        return (dx.to(x3.dtype), dw.to(w3.dtype),
+                dsa.to(a_scale.dtype).reshape(a_scale.shape),
+                dba.to(a_offset.dtype).reshape(a_offset.shape),
+                dws.to(ws_en.dtype), None)
+
+
+def fused_qat_matmul_batched(x3, w3, a_scale, a_offset, ws_en,
+                             a_spec: QuantSpec, w_spec: QuantSpec, *,
+                             cotangent_rounding: bool = True) -> torch.Tensor:
+    """Per-expert differentiable fused matmul -> (E, M, N) f32.
+
+    x3: (E, M, K); w3: (E, K, N); a_scale / a_offset: (E,) per-expert
+    scalars (grad_scale'd and broadcast by the caller); ws_en: (E, N)
+    per-expert column scales, expanded from the (E, 1, 1) group shape by a
+    differentiable broadcast. cotangent_rounding=False keeps dY in f32.
+    """
+    static = (a_spec.q_n, a_spec.q_p, w_spec.q_n, w_spec.q_p,
+              bool(cotangent_rounding))
+    return _FusedQmm3d.apply(x3, w3, a_scale, a_offset, ws_en, static)

@@ -10,10 +10,14 @@ Training, over latent f32 weights (the QAT hot path): `quant_matmul` (the
 fused fake-quant forward, :81), `quant_matmul_dx` (:241), `quant_matmul_dw`
 (:361) and `quant_matmul_bwd` (:574, all five cotangents at once), with the
 reference's signatures: x (M, K), w (K, N), a_scale / a_offset 0-d, w_scale
-(1, N) column or (K, 1) row groups, dy (M, N). `quant_matmul_bwd` keeps the
+(1, N) column or (K, 1) row groups, dy (M, N). Their MoE counterparts
+`quant_matmul_batched` (:141) and `quant_matmul_bwd_batched` (:743) take a
+leading expert axis: x (E, M, K), w (E, K, N), a_scale / a_offset (E, 1),
+w_scale (E, N), dy (E, M, N). `quant_matmul_bwd[_batched]` keep the
 reference's route rule: past `BWD_SCRATCH_BUDGET_BYTES` of (TPU) scratch
-it runs the split dx / dw kernels, so the port takes the same route at every
-shape; the GPU kernels themselves do not use the tiles.
+they run the split dx / dw kernels (expert by expert for the batched one),
+so the port takes the same route at every shape; the GPU kernels themselves
+do not use the tiles.
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
 version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
@@ -156,8 +160,14 @@ def _qat_lib() -> ctypes.CDLL:
                                       i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p, p,
                                        p, p, i, i, i, i, i, i, i, i, p]
+        lib.qat_fwd_batched_launch.argtypes = [p, i, p, p, p, p, p,
+                                               i, i, i, i, i, i, i, i, p]
+        lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
+                                               p, p, p, p, i, i, i, i, i, i,
+                                               i, i, i, p]
         for fn in (lib.qat_fwd_launch, lib.qat_dx_launch, lib.qat_dw_launch,
-                   lib.qat_bwd_launch):
+                   lib.qat_bwd_launch, lib.qat_fwd_batched_launch,
+                   lib.qat_bwd_batched_launch):
             fn.restype = i
         if lib.qat_tile() != QAT_TILE:
             raise RuntimeError(f"qat_matmul.cu tile {lib.qat_tile()} != "
@@ -321,7 +331,112 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     return out
 
 
+def _batched_operands(x, w, a_scale, a_offset, w_scale, dy=None):
+    """Check and normalise the operands of a batched (per-expert) launch:
+    x (E, M, K) bf16 or f32, w (E, K, N), a_scale / a_offset (E, 1) or
+    (E,), w_scale (E, N), dy (E, M, N); all on one CUDA device. Returns
+    them contiguous, the scales flat f32 (E,) / (E, N), w and dy f32."""
+    if x.device.type != "cuda":
+        raise ValueError(f"QAT kernels need CUDA tensors, got {x.device}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)}: "
+                         "want (E,M,K), (E,K,N)")
+    e, m, k = x.shape
+    if tuple(w.shape[:2]) != (e, k):
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} disagree "
+                         "on E or K")
+    n = w.shape[2]
+    if tuple(w_scale.shape) != (e, n):
+        raise ValueError(f"w_scale {tuple(w_scale.shape)} != ({e}, {n})")
+    for name, t in (("a_scale", a_scale), ("a_offset", a_offset)):
+        if t.numel() != e:
+            raise ValueError(f"{name} {tuple(t.shape)} has not one value an expert")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or f32, got {x.dtype}")
+    for t in (w, a_scale, a_offset, w_scale) + (() if dy is None else (dy,)):
+        if t.device != x.device:
+            raise ValueError(f"operand on {t.device}, x on {x.device}")
+    if dy is not None and tuple(dy.shape) != (e, m, n):
+        raise ValueError(f"dy {tuple(dy.shape)} != ({e}, {m}, {n})")
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    return (x.contiguous(), f32(w), f32(a_scale.reshape(e)),
+            f32(a_offset.reshape(e)), f32(w_scale),
+            None if dy is None else f32(dy))
+
+
+def quant_matmul_batched(x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                         q_p_a: int, q_n_w: int, q_p_w: int) -> torch.Tensor:
+    """Per expert q_a(x[e]) @ q_w(w[e]) -> (E, M, N) f32 (the reference's
+    quant_matmul_batched): x (E, M, K), w (E, K, N), a_scale / a_offset
+    (E, 1), w_scale (E, N) per-expert column scales."""
+    qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+    if x.device.type == "cpu":
+        return ref.quant_matmul_batched(x, w, a_scale, a_offset, w_scale, **qs)
+    x, w, a_s, a_b, ws, _ = _batched_operands(x, w, a_scale, a_offset, w_scale)
+    e, m, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _qat_lib().qat_fwd_batched_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        e, m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, stream)
+    _raise("qat_fwd_batched_launch", rc, m, k, n)
+    quant_matmul_batched.launches += 1
+    return out
+
+
+def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
+                             q_n_a: int, q_p_a: int, q_n_w: int, q_p_w: int,
+                             round_cot: bool = True, scratch_budget=None):
+    """(dX (E, M, K), dsa (E, 1), dba (E, 1), dW (E, K, N), dws (E, N)), the
+    scale sums raw, in one launch (+ the finish pass); or, where the
+    reference's combined kernel would not fit its scratch budget on the
+    padded per-expert shape, expert by expert through the split
+    quant_matmul_dx / quant_matmul_dw (the reference's fallback)."""
+    qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+    e, m, k = x.shape
+    n = w.shape[2]
+    if not bwd_uses_combined(*padded_dims(m, k, n),
+                             scratch_budget=scratch_budget):
+        outs = []
+        for i in range(e):
+            wi = w[i].contiguous() if x.device.type == "cuda" else w[i]
+            args = (dy[i], x[i], wi, a_scale.reshape(e)[i],
+                    a_offset.reshape(e)[i], w_scale[i:i + 1])
+            dx_e, dsa_e, dba_e = quant_matmul_dx(*args, round_cot=round_cot, **qs)
+            dw_e, dws_e = quant_matmul_dw(*args, round_cot=round_cot, **qs)
+            outs.append((dx_e, dsa_e, dba_e, dw_e, dws_e[0]))
+        dx, dsa, dba, dw, dws = (torch.stack(t) for t in zip(*outs))
+        return dx, dsa.reshape(e, 1), dba.reshape(e, 1), dw, dws
+    if x.device.type == "cpu":
+        return ref.quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset,
+                                            w_scale, round_cot=round_cot, **qs)
+    x, w, a_s, a_b, ws, dy = _batched_operands(x, w, a_scale, a_offset,
+                                               w_scale, dy)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = QAT_TILE
+    dx, dw = torch.empty((e, m, k), **f32), torch.empty((e, k, n), **f32)
+    dsa, dba = torch.empty((e, 1), **f32), torch.empty((e, 1), **f32)
+    dws = torch.empty((e, n), **f32)
+    part_x = torch.empty((e * 2 * _cdiv(m, t) * _cdiv(k, t),), **f32)
+    part_w = torch.empty((e * _cdiv(k, t) * n,), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _qat_lib().qat_bwd_batched_launch(
+        dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
+        dx.data_ptr(), dsa.data_ptr(), dba.data_ptr(), dw.data_ptr(),
+        dws.data_ptr(), part_x.data_ptr(), part_w.data_ptr(), e, m, k, n,
+        q_n_a, q_p_a, q_n_w, q_p_w, int(round_cot), stream)
+    _raise("qat_bwd_batched_launch", rc, m, k, n)
+    quant_matmul_bwd_batched.launches += 1
+    return dx, dsa, dba, dw, dws
+
+
 quant_matmul.launches = 0
 quant_matmul_dx.launches = 0
 quant_matmul_dw.launches = 0
 quant_matmul_bwd.launches = 0
+quant_matmul_batched.launches = 0
+quant_matmul_bwd_batched.launches = 0

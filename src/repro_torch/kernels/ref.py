@@ -8,7 +8,9 @@ written as f32 @ f32 on operands that were rounded to bf16 first:
 cuBLAS may reduce a bf16 product in lower precision. The wrappers in
 `quant_matmul` / `decode_attention` take these for CPU tensors; the tests
 hold them against the JAX package's Pallas kernels (interpret mode), and
-`chip_smoke.py` holds each CUDA kernel against them on the card.
+`chip_smoke.py` holds each CUDA kernel against them on the card. The
+batched (per-expert) versions are the 2D rule with the expert's scales
+broadcast over a leading expert axis.
 """
 from __future__ import annotations
 
@@ -108,6 +110,44 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     dx, dsa, dba = quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, **kw)
     dw, dws = quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, **kw)
     return dx, dsa, dba, dw, dws
+
+
+def _expert_scales(a_scale, a_offset, w_scale):
+    """(E, 1) activation scale / offset and (E, N) column scales as the
+    broadcast shapes the 2D helpers take for (E, M, K) / (E, K, N)."""
+    e = w_scale.shape[0]
+    return (a_scale.reshape(e, 1, 1), a_offset.reshape(e, 1, 1),
+            w_scale.reshape(e, 1, -1))
+
+
+def quant_matmul_batched(x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                         q_p_a: int, q_n_w: int, q_p_w: int) -> torch.Tensor:
+    """Per expert q_a(x[e]) @ q_w(w[e]) -> (E, M, N) f32: x (E, M, K) bf16
+    or f32, w (E, K, N) f32, a_scale / a_offset (E, 1), w_scale (E, N)."""
+    s_a, b_a, s_w = _expert_scales(a_scale, a_offset, w_scale)
+    _, _, xd = _act_codes(x, s_a, b_a, q_n_a, q_p_a)
+    _, _, wd = _weight_codes(w, s_w, q_n_w, q_p_w)
+    return xd @ wd
+
+
+def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
+                             q_n_a: int, q_p_a: int, q_n_w: int, q_p_w: int,
+                             round_cot: bool = True):
+    """Per-expert backward: (dX (E, M, K), dsa (E, 1), dba (E, 1),
+    dW (E, K, N), dws (E, N)), all f32, the scale sums raw; each expert's
+    five are `quant_matmul_bwd`'s on that expert's operands."""
+    s_a, b_a, s_w = _expert_scales(a_scale, a_offset, w_scale)
+    cot = _cotangent(dy, round_cot)
+    u, q, xd = _act_codes(x, s_a, b_a, q_n_a, q_p_a)
+    uw, qw, wd = _weight_codes(w, s_w, q_n_w, q_p_w)
+    dxd = _bf16(cot @ wd.transpose(1, 2))
+    mf = _in_range(u, q_n_a, q_p_a)
+    dsa = torch.sum(dxd * (q - mf * u), dim=(1, 2)).reshape(-1, 1)
+    dba = torch.sum(dxd * (1.0 - mf), dim=(1, 2)).reshape(-1, 1)
+    dwd = _bf16(xd.transpose(1, 2) @ cot)
+    mfw = _in_range(uw, q_n_w, q_p_w)
+    dws = torch.sum(dwd * (qw - mfw * uw), dim=1)
+    return dxd * mf, dsa, dba, dwd * mfw, dws
 
 
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,

@@ -54,7 +54,13 @@ class RunReport:
     losses: list = dataclasses.field(default_factory=list)   # per step run
     healths: list = dataclasses.field(default_factory=list)  # sentinel bits
     step_seconds: list = dataclasses.field(default_factory=list)
+    # per step run: the step's REPORTED metrics that it has, as floats
+    metrics: list = dataclasses.field(default_factory=list)
     peak_bytes: Optional[int] = None  # max device memory allocated (CUDA)
+
+
+REPORTED = ("loss_main", "loss_obr", "obr_lambda", "osc_frac", "lb_loss",
+            "drop_frac")
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -118,6 +124,7 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
             torch.cuda.synchronize(device)
         report.step_seconds.append(time.perf_counter() - t0)
         report.losses.append(loss)
+        report.metrics.append({k: float(m[k]) for k in REPORTED if k in m})
         report.steps_run += 1
         slow = mgr.straggler.tick()
         if runner is not None:

@@ -80,6 +80,12 @@ FUSED_EQS = {
     "bsd,dw->bsw": 1, "bsw,wv->bsv": 1, "bsw,wd->bsd": 1,
 }
 
+# MoE batched expert einsums: the LEADING w axis is the expert batch axis
+# (the batched kernel's expert grid axis), then one contracted axis. The
+# router ("td,de->te") is in neither table: it stays on the f32 einsum, which
+# keeps its top-k decisions off the kernels.
+FUSED_BATCHED_EQS = ("gecd,edf->gecf", "gecf,efd->gecd")
+
 # Int4 serving codes are nibble-packed along the matmul contraction axis,
 # counted from the END (the JAX package stacks layers on a leading axis).
 # The embedding is gathered, not contracted: it packs along d_model (-1) so
@@ -198,6 +204,53 @@ def _fused_qat_linear(p: dict, x: torch.Tensor, aspec, wspec, n_k: int, *,
     return y.reshape(lead + tuple(w.shape[n_k:]))
 
 
+def _fused_eligible_batched(qcfg: QuantConfig, aspec, wspec, eq: str,
+                            p: dict, w: torch.Tensor, x: torch.Tensor) -> bool:
+    """A latent expert weight (E, K, N) takes the batched kernels: a covered
+    einsum, both quantizers present and not 1-bit, and a per-tensor or
+    N-side per-expert scale ((E,1,1), (1,1,N), (E,1,N)); K-side expert
+    groups take the unfused composition."""
+    if eq not in FUSED_BATCHED_EQS or aspec is None or wspec is None:
+        return False
+    if "a_scale" not in p or aspec.bits == 1 or wspec.bits == 1:
+        return False
+    ss = tuple(p["w_scale"].shape)
+    if ss and not (len(ss) == 3 and ss[1] == 1
+                   and all(s in (1, t) for s, t in zip(ss, w.shape))):
+        return False
+    return _use_fused(qcfg, x)
+
+
+def _fused_qat_linear_batched(p: dict, x: torch.Tensor, aspec, wspec, *,
+                              cotangent_rounding: bool = True) -> torch.Tensor:
+    """Batched per-expert QAT matmul (MoE): x (g, E, c, K) @ w (E, K, N)
+    -> (g, E, c, N) f32 through `ops.fused_qat_matmul_batched`.
+
+    The expert axis leads the kernels' grid; the per-expert weight scales
+    expand to (E, N) columns and the scalar activation quantizer broadcasts
+    to (E,), both by plain tensor ops, so autograd sums their cotangents
+    back to the stored shapes, as in the 2D path.
+    """
+    w = p["w"]
+    e, k, n = w.shape
+    ref = w.detach()
+    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape))
+    s_w = grad_scale(p["w_scale"], g_w)
+    s_w3 = s_w.reshape(1, 1, 1) if s_w.dim() == 0 else s_w
+    ws_en = torch.broadcast_to(s_w3, (e, 1, n)).reshape(e, n)
+    g_a = scale_grad_factor(aspec, ref, ())
+    s_a = torch.broadcast_to(grad_scale(p["a_scale"], g_a), (e,))
+    if "a_offset" in p:
+        b_a = torch.broadcast_to(grad_scale(p["a_offset"], g_a), (e,))
+    else:
+        b_a = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    g, _, c, _ = x.shape
+    x3 = x.transpose(0, 1).reshape(e, g * c, k)
+    y = ops.fused_qat_matmul_batched(x3, w, s_a, b_a, ws_en, aspec, wspec,
+                                     cotangent_rounding=cotangent_rounding)
+    return y.reshape(e, g, c, n).transpose(0, 1)
+
+
 ROW_BLOCK = 128
 
 
@@ -310,10 +363,11 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
     """Apply a quantized einsum-linear.
 
     Int codes (serving) go through `_serving_linear`. A latent QAT weight
-    takes the fused QAT kernels when `_fused_eligible` (every 2D
-    contraction of FUSED_EQS with N- or K-side scales), else the unfused
-    composition: fake-quant the activations in f32 (g from the weight) and
-    the weight, and contract in the compute dtype.
+    takes the batched expert kernels when `_fused_eligible_batched` (the
+    MoE expert einsums), the fused QAT kernels when `_fused_eligible`
+    (every 2D contraction of FUSED_EQS with N- or K-side scales), else the
+    unfused composition: fake-quant the activations in f32 (g from the
+    weight) and the weight, and contract in the compute dtype.
     """
     if "codes" in p or "codes4" in p:
         return _serving_linear(p, x, name, qcfg, eq, cdtype)
@@ -321,7 +375,9 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
     w = p["w"]
     aspec = act_spec(qcfg, kind)
     wspec = weight_spec(qcfg, kind)
-    if _fused_eligible(qcfg, aspec, wspec, eq, p, w, x):
+    if _fused_eligible_batched(qcfg, aspec, wspec, eq, p, w, x):
+        y = _fused_qat_linear_batched(p, x, aspec, wspec).to(cdtype)
+    elif _fused_eligible(qcfg, aspec, wspec, eq, p, w, x):
         y = _fused_qat_linear(p, x, aspec, wspec, FUSED_EQS[eq]).to(cdtype)
     else:
         latent = w.dtype == torch.float32  # serving keeps bf16 weights

@@ -1,8 +1,9 @@
 """Decoder assembly: latent QAT params and the training forward, serving
 params, the cache pool, chunk steps.
 
-PyTorch counterpart of `repro.models.model` for dense attention-only
-blocks. The JAX package stacks the layers of each pattern position along a
+PyTorch counterpart of `repro.models.model` for attention blocks with a
+dense FFN (training and serving) or an MoE FFN (training only). The JAX
+package stacks the layers of each pattern position along a
 leading axis for `lax.scan` ("groups") plus an unrolled "tail"; this port
 keeps a plain per-layer list (`params["layers"][i]`, `cache["layers"][i]`),
 and `bridge.params_from_jax` unstacks the JAX tree into it.
@@ -10,7 +11,7 @@ and `bridge.params_from_jax` unstacks the JAX tree into it.
 Entry points:
   init_params(cfg, qcfg, generator, device)         -> latent f32 QAT params
   forward(params, batch, cfg, qcfg, remat=...)      -> (logits, aux)
-  quant_leaves_named / quant_leaves(params, qcfg)   -> quantized weights
+  quant_leaf_paths / quant_leaves(params, qcfg)     -> quantized weights
   init_serving_params(cfg, qcfg, generator, device) -> int-coded params
   init_cache(cfg, qcfg, batch, cache_len, device)   -> decode cache
   prefill_step(params, cache, batch, cfg, qcfg)      -> (logits, cache)  [C>=1]
@@ -34,6 +35,7 @@ from repro_torch.core.policy import QuantConfig, weight_spec
 from repro_torch.core.sdam import sdam as sdam_metric
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (NAME2KIND, activation, apply_norm,
                                        convert_to_serving, embed_init,
                                        embed_lookup, linear_init, lm_head_apply,
@@ -45,16 +47,29 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_served(cfg: ArchConfig) -> None:
-    """The families the port runs, for training and serving alike."""
+def _check_trained(cfg: ArchConfig) -> None:
+    """The families the port trains: attention blocks with a dense or an
+    MoE FFN."""
     for bd in cfg.pattern:
-        if bd.attn not in ("global", "local") or bd.ffn != "dense" or bd.cross_attn:
+        if (bd.attn not in ("global", "local") or bd.ffn not in ("dense", "moe")
+                or bd.cross_attn):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs dense attention-only blocks "
-                f"(got attn={bd.attn!r}, ffn={bd.ffn!r}, cross={bd.cross_attn})")
+                f"{cfg.name}: the port runs attention blocks with a dense or "
+                f"MoE FFN (got attn={bd.attn!r}, ffn={bd.ffn!r}, "
+                f"cross={bd.cross_attn})")
     if cfg.frontend != "none" or cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.name}: frontend/learned positions "
                                   "are not ported yet")
+
+
+def _check_served(cfg: ArchConfig) -> None:
+    """The families the port serves: dense attention-only blocks."""
+    _check_trained(cfg)
+    if any(bd.ffn == "moe" for bd in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: serving an MoE model is not ported yet (int-coded "
+            "(E, K, N) experts in convert_to_serving and the expert einsums "
+            "of the serving linear): ROADMAP.md Queue 1, 'MoE serving'")
 
 
 def params_device(params: dict) -> torch.device:
@@ -66,9 +81,11 @@ def params_device(params: dict) -> torch.device:
 # Latent QAT params, built on the device
 # ===========================================================================
 
-def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device) -> dict:
-    """One global/local attention block with a dense FFN, with the JAX
-    package's shapes, groups and standard deviations (model.py:48-105)."""
+def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device,
+                      bd: BlockDef) -> dict:
+    """One global/local attention block with a dense or MoE FFN, with the
+    JAX package's shapes, groups and standard deviations
+    (model.py:48-105)."""
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim_, cfg.d_ff)
     lin = lambda name, shape, std, ga=(), bias=None: linear_init(
@@ -83,6 +100,9 @@ def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device) -> dict:
     if cfg.sandwich_norm:
         p["ln1_post"] = norm_init(d, cfg.norm, device)
     p["ln2"] = norm_init(d, cfg.norm, device)
+    if bd.ffn == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, qcfg, device)
+        return p
     p["w_in"] = lin("w_in", (d, f), d ** -0.5)
     p["w_out"] = lin("w_out", (f, d), f ** -0.5)
     if cfg.ffn_gated:
@@ -99,7 +119,7 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
     (which must live on `device`). Same distributions as the JAX package's
     `init_params`, different values; layer i is params["layers"][i]."""
     cfg.validate()
-    _check_served(cfg)
+    _check_trained(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     params = {"embed": embed_init(generator, qcfg, v, d, device),
@@ -108,8 +128,9 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
         params["lm_head"] = tied_head_act_init(qcfg, device)
     else:
         params["lm_head"] = lm_head_init(generator, qcfg, d, v, device)
-    params["layers"] = [_layer_train_init(generator, cfg, qcfg, device)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_layer_train_init(generator, cfg, qcfg, device,
+                                          cfg.block_at(i))
+                        for i in range(cfg.n_layers)]
     return params
 
 
@@ -143,57 +164,72 @@ def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
 
 def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                 qcfg: QuantConfig, positions: torch.Tensor, cdtype):
-    """One training block: (x, aux) with aux["sdam_sum"] the block output's
-    SDAM (a metric: no gradient flows through it)."""
+    """One training block: (x, sdam, lb_loss, drop_frac) with sdam the
+    block output's SDAM (a metric: no gradient flows through it) and the
+    MoE FFN's load-balance loss and drop fraction (zeros for a dense FFN)."""
     x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype)
-    x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+    if bd.ffn == "moe":
+        xn = apply_norm(p["ln2"], x, cfg.norm)
+        y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype)
+        x = x + y
+        lb, drop = maux["lb_loss"], maux["drop_frac"]
+    else:
+        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+        lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     with torch.no_grad():
         sdam = sdam_metric(x)
-    return x, sdam
+    return x, sdam, lb, drop
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
             remat: bool = False):
     """Full-sequence forward. batch: tokens (B, S). Returns (logits (B, S,
-    padded_vocab) f32, aux) with aux {"lb_loss", "drop_frac", "act_sdam"}.
+    padded_vocab) f32, aux) with aux {"lb_loss", "drop_frac"} summed over
+    the layers and "act_sdam" their mean, as the reference sums them.
 
     remat=True recomputes each block in the backward pass
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
     jax.checkpoint does: the block's kernels then run twice.
     """
-    _check_served(cfg)
+    _check_trained(cfg)
     cdtype = _cdtype(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdtype, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
-    sdam_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    sdam_sum = lb_sum = drop_sum = zero
     for i, p in enumerate(params["layers"]):
         bd = cfg.block_at(i)
         if remat:
-            x, sdam = torch.utils.checkpoint.checkpoint(
+            x, sdam, lb, drop = torch.utils.checkpoint.checkpoint(
                 block_apply, p, x, bd, cfg, qcfg, positions, cdtype,
                 use_reentrant=False)
         else:
-            x, sdam = block_apply(p, x, bd, cfg, qcfg, positions, cdtype)
+            x, sdam, lb, drop = block_apply(p, x, bd, cfg, qcfg, positions,
+                                            cdtype)
         sdam_sum = sdam_sum + sdam
+        lb_sum = lb_sum + lb
+        drop_sum = drop_sum + drop
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_apply(
         params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
         final_softcap=cfg.final_softcap,
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "drop_frac": zero,
+    aux = {"lb_loss": lb_sum, "drop_frac": drop_sum,
            "act_sdam": sdam_sum / max(cfg.n_layers, 1)}
     return logits, aux
 
 
-def quant_leaves_named(params: dict, qcfg: QuantConfig) -> list:
-    """(name, w, w_scale, spec) for every quantized latent weight, walking
-    dict keys in sorted order (the JAX pytree order) and layers in order."""
+def quant_leaf_paths(params: dict, qcfg: QuantConfig) -> list:
+    """(path, w, w_scale, spec) for every quantized latent weight, with
+    path the keys and indices of its sub-dict (("layers", 3, "moe",
+    "moe_in"), ("embed",)), walking dict keys in sorted order (the JAX
+    pytree order) and layers in order: the order the oscillation state
+    zips against."""
     out = []
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, dict):
             for name in sorted(node):
                 child = node[name]
@@ -201,20 +237,43 @@ def quant_leaves_named(params: dict, qcfg: QuantConfig) -> list:
                         and "w_scale" in child and name in NAME2KIND):
                     spec = weight_spec(qcfg, NAME2KIND[name])
                     if spec is not None:
-                        out.append((name, child["w"], child["w_scale"], spec))
+                        out.append((path + (name,), child["w"],
+                                    child["w_scale"], spec))
                 else:
-                    walk(child)
+                    walk(child, path + (name,))
         elif isinstance(node, (list, tuple)):
-            for child in node:
-                walk(child)
+            for i, child in enumerate(node):
+                walk(child, path + (i,))
 
-    walk(params)
+    walk(params, ())
     return out
 
 
+def jax_leaf_groups(paths: list, cfg: ArchConfig) -> list:
+    """The port's quant leaves (their `quant_leaf_paths` paths) grouped as
+    the reference's: it stacks layer i of pattern position p along a
+    leading axis under ("groups", p) for the n_groups full pattern periods
+    and keeps the rest under ("tail", j), so one of its leaves covers
+    n_groups of the port's. Returns [(key, [port leaf index, ...])] in the
+    reference's walk order (sorted keys); a "groups" key's members are in
+    stack order."""
+    n_scan = cfg.n_groups * cfg.period
+    groups: dict = {}
+    for idx, path in enumerate(paths):
+        if path[0] == "layers":
+            i = path[1]
+            head = (("groups", i % cfg.period) if i < n_scan
+                    else ("tail", i - n_scan))
+            key = head + tuple(path[2:])
+        else:
+            key = (path[0], -1) + tuple(path[1:])
+        groups.setdefault(key, []).append(idx)
+    return [(k, groups[k]) for k in sorted(groups)]
+
+
 def quant_leaves(params: dict, qcfg: QuantConfig) -> list:
-    """(w, w_scale, spec) triples; see quant_leaves_named."""
-    return [(w, s, spec) for _, w, s, spec in quant_leaves_named(params, qcfg)]
+    """(w, w_scale, spec) triples; see quant_leaf_paths."""
+    return [(w, s, spec) for _, w, s, spec in quant_leaf_paths(params, qcfg)]
 
 
 # ===========================================================================
@@ -241,8 +300,9 @@ def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
                        else lm_head_init(generator, qcfg, d, v, device))}
     params = convert_to_serving(top, qcfg)
     params["layers"] = [
-        convert_to_serving(_layer_train_init(generator, cfg, qcfg, device), qcfg)
-        for _ in range(cfg.n_layers)]
+        convert_to_serving(_layer_train_init(generator, cfg, qcfg, device,
+                                             cfg.block_at(i)), qcfg)
+        for i in range(cfg.n_layers)]
     return params
 
 

@@ -3,9 +3,10 @@
 PyTorch counterpart of `repro.train.state`. A plain dict:
   {"params": ..., "mu": ..., "nu": ..., "step": int32 0-d CPU tensor,
    "osc": (), "err": (), "sent": SentinelState | ()}
-"osc" (oscillation telemetry) and "err" (gradient-compression error
-feedback) stay empty: both features raise NotImplementedError in this port
-(ROADMAP.md, Queue 1).
+"osc" holds one `OscState` per quantized weight (in `quant_leaf_paths`
+order) when `qcfg.track_oscillation` is set, else (). "err" (gradient-
+compression error feedback) stays empty: compression raises
+NotImplementedError in this port (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.oscillation import init_osc_state
 from repro_torch.core.policy import QuantConfig
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, quant_leaves
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.sentinel import SentinelConfig, init_sentinel_state
@@ -41,16 +43,9 @@ class TrainConfig:
         return dataclasses.replace(self, **kw)
 
 
-def check_supported(qcfg: QuantConfig, tcfg: TrainConfig) -> None:
-    """Raise for the training settings this port does not run yet."""
-    if qcfg.obr_lambda > 0.0:
-        raise NotImplementedError(
-            "OBR (obr_lambda > 0, core/obr.py) is not ported yet: ROADMAP.md "
-            "Queue 1, 'OBR and oscillation'")
-    if qcfg.track_oscillation:
-        raise NotImplementedError(
-            "oscillation tracking (core/oscillation.py) is not ported yet: "
-            "ROADMAP.md Queue 1, 'OBR and oscillation'")
+def check_supported(tcfg: TrainConfig) -> None:
+    """Raise for the training settings this port does not run yet (every
+    quantizer setting trains, OBR and oscillation tracking included)."""
     if tcfg.compress_grads:
         raise NotImplementedError(
             "gradient compression (optim/grad_compress.py) is not ported "
@@ -59,12 +54,16 @@ def check_supported(qcfg: QuantConfig, tcfg: TrainConfig) -> None:
 
 def init_state(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig,
                generator: torch.Generator, device=None) -> dict:
-    check_supported(qcfg, tcfg)
+    check_supported(tcfg)
     params = init_params(cfg, qcfg, generator, device)
     opt = adamw.init(params, tcfg.adamw)
     dev = next(iter(params["embed"].values())).device
+    osc = ()
+    if qcfg.track_oscillation:
+        osc = tuple(init_osc_state(w, s, spec)
+                    for w, s, spec in quant_leaves(params, qcfg))
     return {"params": params, "mu": opt.mu, "nu": opt.nu,
             "step": torch.zeros((), dtype=torch.int32),
-            "osc": (), "err": (),
+            "osc": osc, "err": (),
             "sent": (init_sentinel_state(dev) if tcfg.sentinel is not None
                      else ())}

@@ -1,13 +1,21 @@
-"""The training step: KD loss, gradient accumulation, AdamW, run sentinel.
+"""The training step: KD + OBR + load-balance loss, gradient
+accumulation, AdamW, oscillation telemetry, run sentinel.
 
 PyTorch counterpart of `repro.train.train_step`:
 
-  loss = L_KD (Eq. 8/9, or hard CE when kd="none") + lb_coef * L_lb
+  loss = L_KD (Eq. 8/9, or hard CE when kd="none")
+       + lambda(t) * L_OBR (Eq. 10, cosine-ramped)
+       + lb_coef * L_lb (MoE)
 
 Gradient accumulation is a Python loop over microbatches whose f32
 gradients are summed from zeros and divided by the count. The forward
-checkpoints every block (remat), as the JAX step does. OBR, oscillation
-tracking and gradient compression are not ported yet and raise
+checkpoints every block (remat), as the JAX step does. OBR is batch-
+independent and taken once a step, outside the microbatch loop, leaf by
+leaf: each quantized weight's Eq. 10 value and gradient come from their own
+small autograd graph (the sum over leaves is separable), and its gradient
+is added as g + lambda * g_obr, as the reference does. With
+`qcfg.track_oscillation`, the Eq. 12 update runs on the post-update
+weights. Gradient compression is not ported yet and raises
 NotImplementedError when the step is built (`state.check_supported`).
 """
 from __future__ import annotations
@@ -19,8 +27,11 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.kd import hard_ce, kd_from_teacher_logits, sparse_soft_ce
+from repro_torch.core.obr import obr_lambda_schedule, obr_loss
+from repro_torch.core.oscillation import oscillation_fraction, update_osc_state
 from repro_torch.core.policy import QuantConfig
-from repro_torch.models.model import forward, quant_leaves
+from repro_torch.models.model import (forward, jax_leaf_groups,
+                                     quant_leaf_paths, quant_leaves)
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import sentinel as sent
 from repro_torch.train.state import TrainConfig, check_supported
@@ -99,32 +110,86 @@ def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
                  total_steps=tcfg.total_steps)
 
 
+def _sub(tree, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def obr_(params: dict, grads: dict, qcfg: QuantConfig, lam: torch.Tensor
+         ) -> torch.Tensor:
+    """Eq. 10 summed over every quantized weight (the reference's
+    total_obr_loss at lambda 1), returned as a 0-d f32; each weight's
+    gradient in `grads` becomes g + lam * dL_OBR/dw, IN PLACE of its leaf.
+    One leaf at a time, so only one leaf's graph is alive."""
+    total = None
+    for path, w, s, spec in quant_leaf_paths(params, qcfg):
+        wl = w.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = obr_loss(wl, s, spec)
+            (og,) = torch.autograd.grad(v, wl)
+        v = v.detach()
+        total = v if total is None else total + v
+        sub = _sub(grads, path)
+        sub["w"] = sub["w"] + lam.to(og.device) * og
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return total
+
+
+def osc_fraction_mean(osc: tuple, groups: list, threshold: float) -> torch.Tensor:
+    """The reference's osc_frac: the mean over its quant leaves
+    (`jax_leaf_groups`) of each leaf's oscillating fraction, a stacked
+    leaf's fraction being the mean over its layers (all of one size)."""
+    fr = [oscillation_fraction(st, threshold) for st in osc]
+    return torch.mean(torch.stack([torch.mean(torch.stack([fr[i] for i in g]))
+                                   for _, g in groups]))
+
+
 def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                     teacher_forward: Optional[Callable] = None,
                     extra_loss: Optional[Callable] = None):
     """train_step(state, batch) -> (state, metrics).
 
     The params and moments are updated IN PLACE (the returned state holds
-    the same tensors). With the sentinel on, the health verdict is read on
-    the host before the optimizer runs; a fatal step skips the update, so
-    params, moments and `err` stay as they were.
+    the same tensors); the oscillation state is replaced leaf by leaf. With
+    the sentinel on, the health verdict is read on the host before the
+    optimizer runs; a fatal step skips the update, so params, moments,
+    `osc` and `err` stay as they were.
     """
-    check_supported(qcfg, tcfg)
+    check_supported(tcfg)
     grad_fn = make_grad_fn(cfg, qcfg, tcfg, teacher_forward=teacher_forward,
                            extra_loss=extra_loss)
+    osc_groups = None
 
     def train_step(state: dict, batch: dict):
+        nonlocal osc_groups
         params, step = state["params"], state["step"]
         loss, metrics, grads = grad_fn(params, batch, step)
-        metrics["loss_obr"] = torch.zeros_like(loss)
-        metrics["obr_lambda"] = torch.zeros_like(loss)
+        if qcfg.obr_lambda > 0.0:
+            lam = obr_lambda_schedule(step, tcfg.total_steps,
+                                      qcfg.obr_lambda).to(loss.device)
+            obr_val = obr_(params, grads, qcfg, lam).to(loss.device)
+            loss = loss + lam * obr_val
+            metrics["loss_obr"] = obr_val
+            metrics["obr_lambda"] = lam
+        else:
+            metrics["loss_obr"] = torch.zeros_like(loss)
+            metrics["obr_lambda"] = torch.zeros_like(loss)
+        if qcfg.track_oscillation and osc_groups is None:
+            osc_groups = jax_leaf_groups(
+                [p for p, _, _, _ in quant_leaf_paths(params, qcfg)], cfg)
         lr = _lr(tcfg, step)
         fatal = False
         new_sent = state["sent"]
         if tcfg.sentinel is not None:
+            osc_prev = None
+            if qcfg.track_oscillation and state["osc"]:
+                osc_prev = osc_fraction_mean(state["osc"], osc_groups,
+                                             qcfg.osc_threshold)
             health, fatal_t, new_sent = sent.health_check(
-                loss, grads, quant_leaves(params, qcfg), None, state["sent"],
-                tcfg.sentinel)
+                loss, grads, quant_leaves(params, qcfg), osc_prev,
+                state["sent"], tcfg.sentinel)
             lr = lr.to(loss.device) * state["sent"].lr_scale
             fatal = bool(fatal_t)  # the one host sync of the step
             metrics["health"] = health
@@ -135,8 +200,17 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
             opt_metrics = {"grad_norm": adamw.global_norm(grads)}
         else:
             opt_metrics = adamw.update_(grads, opt, params, step, lr, tcfg.adamw)
+        new_osc = state["osc"]
+        if qcfg.track_oscillation:
+            if not fatal:  # Eq. 12 on the post-update weights
+                new_osc = tuple(
+                    update_osc_state(st, w, s, spec, momentum=qcfg.osc_momentum)
+                    for st, (w, s, spec) in zip(state["osc"],
+                                                quant_leaves(params, qcfg)))
+            metrics["osc_frac"] = osc_fraction_mean(new_osc, osc_groups,
+                                                    qcfg.osc_threshold)
         metrics.update({"loss": loss, "lr": lr, **opt_metrics})
-        new_state = dict(state, step=step + 1, sent=new_sent)
+        new_state = dict(state, step=step + 1, sent=new_sent, osc=new_osc)
         return new_state, metrics
 
     return train_step

@@ -97,10 +97,14 @@ def serving_params(arch: str, quant: str, a_bits: int = 32):
 
 def train_states(arch: str, quant: str = "w4a4", *, dtype: str = "float32",
                  fused: str = "off", sentinel: bool = True,
-                 unrolled: bool = False, **tcfg_kw):
+                 unrolled: bool = False, step: int = 0, params_fn=None,
+                 qcfg_kw: dict = None, layers: int = 0, **tcfg_kw):
     """The reference's train state built from `latent_params` (f32 latent
-    weights, zero AdamW moments, step 0, a fresh sentinel state) and the
-    port's bridged copy of it, for reduced `arch` under preset `quant`.
+    weights, zero AdamW moments, step `step`, a fresh sentinel state, and
+    the oscillation state of the params when the preset, updated with
+    `qcfg_kw`, tracks it) and the port's bridged copy of it, for reduced
+    `arch` under preset `quant`; `params_fn` maps the numpy latent params
+    before both sides take them; `layers` cuts the depth (0: as reduced).
 
     Returns (cfgs, qcfgs, tcfgs, jax_state, port_state) with each of cfgs /
     qcfgs / tcfgs a (JAX, port) pair; `fused` is the reference's
@@ -109,6 +113,8 @@ def train_states(arch: str, quant: str = "w4a4", *, dtype: str = "float32",
     reference keeps its two layers in its unrolled "tail" instead of a
     lax.scan: the same model, computed as written (see
     test_torch_train_step.py on what XLA's scan changes)."""
+    from repro.core.oscillation import init_osc_state
+    from repro.models.model import quant_leaves
     from repro.optim import adamw as j_adamw
     from repro.train import sentinel as j_sent
     from repro.train.state import TrainConfig as JTrainConfig
@@ -117,21 +123,29 @@ def train_states(arch: str, quant: str = "w4a4", *, dtype: str = "float32",
     from repro_torch.train.state import TrainConfig as TTrainConfig
 
     jc, tc = configs(arch, dtype)
+    if layers:
+        jc, tc = (c.replace(n_layers=layers) for c in (jc, tc))
     if unrolled:
         jc, tc = (c.replace(pattern=c.pattern * 3) for c in (jc, tc))
-    jq = get_preset(quant).replace(fused_matmul=fused)
+    jq = get_preset(quant).replace(fused_matmul=fused, **(qcfg_kw or {}))
     tq = t_get_preset(quant).replace(fused_matmul="off" if fused == "off"
-                                     else "auto")
+                                     else "auto", **(qcfg_kw or {}))
     jt = JTrainConfig(sentinel=j_sent.SentinelConfig() if sentinel else None,
                       **tcfg_kw)
     tt = TTrainConfig(sentinel=t_sent.SentinelConfig() if sentinel else None,
                       **tcfg_kw)
-    params = jax.tree.map(jnp.asarray, latent_params(jc, jq))
+    latent = latent_params(jc, jq)
+    if params_fn is not None:
+        latent = params_fn(latent)
+    params = jax.tree.map(jnp.asarray, latent)
     opt = j_adamw.init(params, jt.adamw)
+    osc = (tuple(init_osc_state(w, s, spec) for w, s, spec in
+                 quant_leaves(params, jq)) if jq.track_oscillation else ())
     jstate = {"params": params, "mu": opt.mu, "nu": opt.nu,
-              "step": jnp.zeros((), jnp.int32), "osc": (), "err": (),
+              "step": jnp.asarray(step, jnp.int32), "osc": osc, "err": (),
               "sent": j_sent.init_sentinel_state() if sentinel else ()}
-    tstate = bridge.state_from_jax(jax.tree.map(np.asarray, jstate), tc, "cpu")
+    tstate = bridge.state_from_jax(jax.tree.map(np.asarray, jstate), tc, "cpu",
+                                   qcfg=tq)
     return (jc, tc), (jq, tq), (jt, tt), jstate, tstate
 
 

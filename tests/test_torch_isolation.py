@@ -88,7 +88,8 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     (ctypes would pass a pointer it was not told about as a 32-bit int)."""
     import types
     from repro_torch.kernels import build, decode_attention, quant_matmul
-    qat = ("qat_fwd_launch", "qat_dx_launch", "qat_dw_launch", "qat_bwd_launch")
+    qat = ("qat_fwd_launch", "qat_dx_launch", "qat_dw_launch", "qat_bwd_launch",
+           "qat_fwd_batched_launch", "qat_bwd_batched_launch")
     fake = {name: types.SimpleNamespace(**{
         fn: types.SimpleNamespace() for fn in (
             "int_matmul_launch", "decode_attention_launch",

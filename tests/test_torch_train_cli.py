@@ -2,7 +2,8 @@
 ends with a finite loss, CUDA is the default and its absence raises, a
 second run on the same checkpoint directory resumes from the saved step,
 and a corrupted newest checkpoint falls back to the previous one (mirrors
-of tests/test_checkpoint_ft.py)."""
+of tests/test_checkpoint_ft.py); reduced granite-moe trains under w3a3,
+and its oscillation state rides through a checkpoint."""
 import os
 
 import numpy as np
@@ -111,14 +112,62 @@ def test_async_checkpointer_lands_and_drains(tmp_path):
 
 
 def test_unported_settings_raise():
+    """Gradient compression is not ported and raises; OBR (w2a2's lambda)
+    and oscillation tracking now build a state, the latter with one
+    oscillation state per quantized weight."""
     cfg = reduced_config(get_config("qwen1.5-0.5b"))
     gen = torch.Generator().manual_seed(0)
-    for qcfg, tcfg in ((get_preset("w2a2"), TrainConfig()),
-                       (get_preset("w4a4").replace(track_oscillation=True),
-                        TrainConfig()),
-                       (get_preset("w4a4"), TrainConfig(compress_grads=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_state(cfg, qcfg, tcfg, gen, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_state(cfg, get_preset("w4a4"), TrainConfig(compress_grads=True),
+                   gen, "cpu")
+    assert init_state(cfg, get_preset("w2a2"), TrainConfig(), gen, "cpu")["osc"] == ()
+    qcfg = get_preset("w4a4").replace(track_oscillation=True)
+    st = init_state(cfg, qcfg, TrainConfig(), gen, "cpu")
+    from repro_torch.models.model import quant_leaves
+    leaves = quant_leaves(st["params"], qcfg)
+    assert len(st["osc"]) == len(leaves) > 0
+    for o, (w, _, _) in zip(st["osc"], leaves):
+        assert o.prev_int.shape == w.shape and o.prev_int.dtype == torch.int8
+        assert o.prev_dir.dtype == torch.int8 and o.freq.dtype == torch.float32
+
+
+MOE_SMOKE = ["--arch", "granite-moe-1b-a400m", "--smoke", "--quant", "w3a3",
+             "--batch", "2", "--seq", "8", "--device", "cpu"]
+
+
+def test_moe_w3a3_smoke_run(tmp_path):
+    """The CLI QAT-trains reduced granite-moe under w3a3 (OBR on) for two
+    steps: finite losses, no health bit."""
+    rep = L.main(MOE_SMOKE + ["--steps", "2", "--ckpt", str(tmp_path)])
+    assert rep.steps_run == 2 and rep.healths == [0, 0]
+    assert all(np.isfinite(rep.losses))
+
+
+def test_moe_oscillation_state_round_trips(tmp_path):
+    """run_training with track_oscillation (no CLI flag, as in the
+    reference) saves at step 1 and a second call resumes from it; the
+    checkpoint holds the oscillation state (int8 codes and directions, f32
+    EMA) and restores it bit for bit."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.train.sentinel import SentinelConfig
+    cfg = reduced_config(get_config("granite-moe-1b-a400m"))
+    qcfg = get_preset("w3a3").replace(track_oscillation=True)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, kd="mckd",
+                       sentinel=SentinelConfig())
+    kw = dict(batch_size=2, seq_len=8, ckpt_dir=str(tmp_path), save_every=1,
+              seed=0, device="cpu")
+    first = L.run_training(cfg, qcfg, tcfg, DataConfig(), steps=2, **kw)
+    assert first.healths == [0, 0]
+    like = init_state(cfg, qcfg, tcfg, torch.Generator().manual_seed(1), "cpu")
+    saved = ckpt.restore(str(tmp_path), like)
+    assert len(saved["osc"]) == len(like["osc"]) > 0
+    arrays = ckpt.to_arrays(saved)
+    assert arrays["osc/0/prev_int"].dtype == np.int8
+    assert arrays["osc/0/freq"].dtype == np.float32
+    assert any(int((o.prev_dir != 0).sum()) for o in saved["osc"])  # codes moved
+    second = L.run_training(cfg, qcfg, tcfg, DataConfig(), steps=3, **kw)
+    assert second.start_step == 2 and second.steps_run == 1
+    assert np.isfinite(second.final_loss)
 
 
 class _FakeMgr:
