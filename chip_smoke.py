@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line is printed):
-  1. build   — nvcc builds every CUDA kernel of the serving path from
+  1. build   — nvcc builds every CUDA kernel of the port from
                src/repro_torch/kernels/csrc, one process per source, in
                parallel; prints the build seconds and ptxas' register use.
   2. kernels — each kernel against its plain PyTorch version on the card, at
@@ -63,6 +63,20 @@ Phases (any failure exits non-zero before the final line is printed):
   9. route   — granite-moe cut to 2 layers, batch 2 x 256, at init: phase
                7's check, plus the share of expert choices that differ
                between the routes.
+  10. quantizer kernels — fake_quant_2d, fake_quant_rows and bin_stats_2d
+               against their plain versions (fake-quant bit for bit; bin
+               counts equal, sums within 1e-5 of each bin's sum of
+               |summands|) at the kernel benchmark's (4096, 1024) f32,
+               granite-8b's w_in (4096, 14336) f32 at 4 and 8 bits,
+               qwen1.5-0.5b's FFN activation (4096, 2816) bf16 unsigned
+               4 bits with offset, granite-moe's expert stack (32, 1024 x
+               512) with a scale an expert at 3 bits, and odd, misaligned
+               edges; run with phase 5.
+  11. kernel bench — `repro_torch.launch.kernel_bench` --smoke, then the
+               full run (JSON in build/, its numbers also on stdout and
+               in the summary line): every gate passes, and
+               fake_quant_2d / bin_stats_2d are launched (fake_quant_rows
+               has no entry point: its launches are phase 10's).
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -99,34 +113,23 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 class Timer:
-    """Median of single-launch CUDA-event times. Before each launch a 2 GB
-    buffer is read (not written: dirty lines would be written back during
-    the timed launch): it evicts the 50 MB L2, so every launch finds its
-    inputs in HBM as the serving path does (each weight is read once a
-    step), and it keeps the device busy for ~0.7 ms while the host enqueues
-    the timed call, so the events time the device's work and not the
-    Python in front of the launch."""
+    """Median of single-launch CUDA-event times (`kernel_bench.device_ms`).
+    Before each launch a 2 GB buffer is read (not written: dirty lines
+    would be written back during the timed launch): it evicts the 50 MB
+    L2, so every launch finds its inputs in HBM as the serving path does
+    (each weight is read once a step), and it keeps the device busy for
+    ~0.7 ms while the host enqueues the timed call, so the events time the
+    device's work and not the Python in front of the launch."""
 
     def __init__(self, torch, iters: int = 15):
-        self.torch = torch
+        from repro_torch.launch.kernel_bench import Flush, device_ms
+        self.device = torch.device("cuda")
+        self.flush = Flush(self.device)
         self.iters = iters
-        self.flush = torch.ones(512 * 2**20, dtype=torch.float32, device="cuda")
+        self._device_ms = device_ms
 
     def ms(self, fn) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(self.iters):
-            self.flush.sum()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        return self._device_ms(fn, self.device, self.flush, self.iters)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
@@ -899,6 +902,223 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
     return {"report": rep, "counts": counts, "wall": wall, "s_step": s_step,
             "tokens_s": 8 * 512 / s_step, "cfg": cfg}
 
+# ---------------------------------------------------------------------------
+# phase 10: the quantizer kernels (fake_quant_2d, fake_quant_rows,
+# bin_stats_2d) and the kernel benchmark, their entry point
+# ---------------------------------------------------------------------------
+
+def _operand(torch, shape, dtype, std, gen, misaligned: bool):
+    """randn * std on the card in `dtype`; misaligned: a contiguous view
+    that starts one element past an aligned allocation (the kernels' scalar,
+    unvectorised path)."""
+    n = 1
+    for d in shape:
+        n *= d
+    base = (torch.randn((n + 1,), generator=gen, device="cuda") * std).to(dtype)
+    return base[1:].reshape(shape) if misaligned else base[:n].reshape(shape)
+
+
+def _same_bits(torch, a, b) -> bool:
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def check_fake_quant(torch, timer, fq, ref, label, shape, dtype, q_n, q_p,
+                     gen, *, std=1.0, scale=None, offset=None,
+                     misaligned=False) -> dict:
+    """fake_quant_2d against its plain version: bit for bit. scale None =
+    the LSQ init 2 mean|x| / sqrt(Q_P), computed on the card."""
+    x = _operand(torch, shape, dtype, std, gen, misaligned)
+    s = (2 * x.float().abs().mean() / q_p ** 0.5 if scale is None
+         else torch.tensor(scale, device="cuda"))
+    b = None if offset is None else torch.tensor(offset, device="cuda")
+    kern = lambda: fq.fake_quant_2d(x, s, b, q_n=q_n, q_p=q_p)
+    plain = lambda: ref.fake_quant_2d(x, s, b, q_n=q_n, q_p=q_p)
+    y_k, y_r = kern(), plain()
+    torch.cuda.synchronize()
+    same = _same_bits(torch, y_k, y_r)
+    err = (y_k.float() - y_r.float()).abs().max().item()
+    nbytes = 2 * x.numel() * x.element_size() + 4 + (0 if b is None else 4)
+    b_ms, b_by = bound(nbytes, 5.0 * x.numel(), F32_OPS_PER_S)
+    lib_ms = None
+    if dtype == torch.float32:  # offset 0; multiplies by 1/s: not bit-equal
+        zp = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        sv = s.reshape(1)
+        lib_ms = timer.ms(lambda: torch.fake_quantize_per_tensor_affine(
+            x, sv, zp, -q_n, q_p))
+    row = {"shape": list(shape), "case": label, "max_abs_err": err,
+           "tol": "bit-equal", "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    lib = "n/a (bf16)" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"  fake_quant_2d {label} {tuple(shape)} {str(dtype)[6:]} Q_N={q_n} "
+        f"Q_P={q_p}{' offset' if b is not None else ''}"
+        f"{' misaligned' if misaligned else ''}: bit-equal {same} (max|err| "
+        f"{err:.3e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+        f"ms, fake_quantize_per_tensor_affine {lib}, bound {b_ms:.4f} ms ({b_by})")
+    if not same:
+        fail(f"fake_quant_2d {label} {shape} differs from its plain version")
+    return row
+
+
+def check_fake_quant_rows(torch, timer, fq, ref, label, shape, dtype, q_n,
+                          q_p, gen, *, std=1.0, misaligned=False) -> dict:
+    """fake_quant_rows (one scale a row, the LSQ init of each row) against
+    its plain version: bit for bit."""
+    x = _operand(torch, shape, dtype, std, gen, misaligned)
+    rs = 2 * x.float().abs().mean(dim=1, keepdim=True) / q_p ** 0.5
+    kern = lambda: fq.fake_quant_rows(x, rs, q_n=q_n, q_p=q_p)
+    plain = lambda: ref.fake_quant_rows(x, rs, q_n=q_n, q_p=q_p)
+    y_k, y_r = kern(), plain()
+    torch.cuda.synchronize()
+    same = _same_bits(torch, y_k, y_r)
+    err = (y_k.float() - y_r.float()).abs().max().item()
+    nbytes = 2 * x.numel() * x.element_size() + 4 * shape[0]
+    b_ms, b_by = bound(nbytes, 5.0 * x.numel(), F32_OPS_PER_S)
+    lib_ms = None
+    if dtype == torch.float32:
+        zp = torch.zeros((shape[0],), dtype=torch.int32, device="cuda")
+        sv = rs.reshape(-1)
+        lib_ms = timer.ms(lambda: torch.fake_quantize_per_channel_affine(
+            x, sv, zp, 0, -q_n, q_p))
+    row = {"shape": list(shape), "case": label, "max_abs_err": err,
+           "tol": "bit-equal", "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    lib = "n/a (bf16)" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"  fake_quant_rows {label} {tuple(shape)} {str(dtype)[6:]} Q_N={q_n} "
+        f"Q_P={q_p}{' misaligned' if misaligned else ''}: bit-equal {same} "
+        f"(max|err| {err:.3e}); kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, fake_quantize_per_channel_affine {lib}, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if not same:
+        fail(f"fake_quant_rows {label} {shape} differs from its plain version")
+    return row
+
+
+def check_bin_stats(torch, timer, bs, ref, label, shape, q_n, q_p, gen, *,
+                    misaligned=False) -> dict:
+    """bin_stats_2d against its plain version: counts equal (both round an
+    exact count once, exact below 2^24), summing to the element count in
+    f64 (within the f32 rounding of counts past 2^24); sum and sum of
+    squares within 1e-5 of each bin's sum of |summands|."""
+    w = _operand(torch, shape, torch.float32, shape[-1] ** -0.5, gen, misaligned)
+    s = 2 * w.abs().mean() / q_p ** 0.5
+    kern = lambda: bs.bin_stats_2d(w, s, q_n=q_n, q_p=q_p)
+    plain = lambda: ref.bin_stats_2d(w, s, q_n=q_n, q_p=q_p)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    n_bins = q_n + q_p + 1
+    codes = (torch.clamp(torch.round(w.reshape(-1) / torch.clamp(s, min=1e-9)),
+                         -q_n, q_p).to(torch.int64) + q_n)
+    wd = w.reshape(-1).double()
+    mag = torch.zeros((2, n_bins), dtype=torch.float64, device="cuda")
+    mag[0].index_add_(0, codes, wd.abs())
+    mag[1].index_add_(0, codes, wd * wd)
+    del codes, wd
+    counts_equal = torch.equal(got[0], want[0])
+    slack = torch.where(got[0] >= 2 ** 24, got[0].abs() * 2.0 ** -24,
+                        torch.zeros_like(got[0])).double().sum().item()
+    count_gap = abs(got[0].double().sum().item() - w.numel())
+    d = (got[1:].double() - want[1:].double()).abs()
+    sums_ok = bool((d <= 1e-5 * mag).all())
+    err = d.max().item()
+    nbytes = w.numel() * 4 + 4 + 3 * n_bins * 4
+    b_ms, b_by = bound(nbytes, 8.0 * w.numel(), F32_OPS_PER_S)
+    row = {"shape": list(shape), "case": label, "bins": n_bins,
+           "max_abs_err": err,
+           "tol": "counts equal; sums 1e-5 x per-bin sum|summands|",
+           "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": None,
+           "library": "none: no one PyTorch call gives per-bin count, sum "
+                      "and sum of squares (histc counts only; bincount "
+                      "needs the codes)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  bin_stats_2d {label} {tuple(shape)} bins={n_bins}"
+        f"{' misaligned' if misaligned else ''}: counts equal {counts_equal}, "
+        f"count sum - n {count_gap:.0f} (slack {slack:.0f}), sums within bar "
+        f"{sums_ok} (max|err| {err:.3e}); kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library n/a, bound {b_ms:.4f} ms ({b_by})")
+    if not (counts_equal and count_gap <= slack and sums_ok):
+        fail(f"bin_stats_2d {label} {shape} disagrees with its plain version")
+    return row
+
+
+def quantizer_kernel_checks(torch, timer, ops, ref, gen) -> tuple[dict, int]:
+    """Kernels 10-12 at the kernel benchmark's own shape, at full-width
+    tensors of the models the repo trains, and at odd edges. Returns the
+    rows and fake_quant_rows' launches here (no entry point reaches it)."""
+    from repro_torch.kernels import bin_stats as bs, fake_quant as fq
+    log("quantizer kernels (each against its plain version on the card):")
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {"fake_quant_2d": [], "fake_quant_rows": [], "bin_stats_2d": []}
+    for args, kw in (
+            (("kernel_bench wq", (4096, 1024), f32, 8, 7),
+             dict(std=0.1, scale=0.05)),
+            (("granite-8b w_in w4", (4096, 14336), f32, 8, 7),
+             dict(std=4096 ** -0.5)),
+            (("granite-8b w_in w8", (4096, 14336), f32, 128, 127),
+             dict(std=4096 ** -0.5)),
+            (("qwen1.5-0.5b ffn act a4", (4096, 2816), bf16, 0, 15),
+             dict(std=2.0, scale=0.3, offset=-0.2)),
+            (("odd", (300, 700), f32, 0, 3), dict(scale=0.1, offset=0.05)),
+            (("odd", (257, 129), bf16, 128, 127), dict(scale=0.07)),
+            (("odd", (1, 640), f32, 2, 1), dict(scale=0.07)),
+            (("odd", (1, 1001), bf16, 0, 15),
+             dict(scale=0.1, offset=0.03, misaligned=True)),
+            (("odd", (37, 53), f32, 4, 3), dict(scale=0.2, misaligned=True))):
+        rows["fake_quant_2d"].append(check_fake_quant(
+            torch, timer, fq, ref, *args, gen, **kw))
+    ops.reset_launch_counts()
+    for args, kw in (
+            (("granite-moe experts w3", (32, 1024 * 512), f32, 4, 3),
+             dict(std=1024 ** -0.5)),
+            (("odd", (6, 960), bf16, 8, 7), {}),
+            (("odd", (5, 35), f32, 2, 1), {}),
+            (("odd", (70000, 3), f32, 8, 7), {}),
+            (("odd", (3, 129), f32, 8, 7), dict(misaligned=True))):
+        rows["fake_quant_rows"].append(check_fake_quant_rows(
+            torch, timer, fq, ref, *args, gen, **kw))
+    rows_launches = ops.launch_counts()["fake_quant_rows"]
+    for args, kw in (
+            (("kernel_bench wq", (4096, 1024), 8, 7), {}),
+            (("granite-8b w_in w4", (4096, 14336), 8, 7), {}),
+            (("granite-8b w_in w8", (4096, 14336), 128, 127), {}),
+            (("odd", (513, 7), 4, 3), {}),
+            (("odd", (1000, 33), 2, 1), {}),
+            (("odd", (100, 33), 128, 127), dict(misaligned=True)),
+            (("odd", (64, 64), 1, 1), {})):
+        rows["bin_stats_2d"].append(check_bin_stats(
+            torch, timer, bs, ref, *args, gen, **kw))
+        torch.cuda.empty_cache()
+    return rows, rows_launches
+
+
+def kernel_bench_phase(torch, ops) -> tuple[dict, dict]:
+    """`repro_torch.launch.kernel_bench` on the card: --smoke, then the
+    full run, whose launches of kernels 10 and 12 must be > 0."""
+    from repro_torch.launch import kernel_bench
+    out = ROOT / "build"
+    argv = ["--smoke", "--out", str(out / "kernel_bench_smoke.json")]
+    log(f"kernel bench: python -m repro_torch.launch.kernel_bench {' '.join(argv)}")
+    if kernel_bench.main(argv) != 0:
+        fail("kernel_bench --smoke failed a gate")
+    argv = ["--out", str(out / "kernel_bench.json")]
+    log(f"kernel bench: python -m repro_torch.launch.kernel_bench {' '.join(argv)}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = kernel_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"  wall {wall:.1f} s; launches {counts}")
+    if rc != 0:
+        fail("kernel_bench (full run) failed a gate")
+    for name in ("fake_quant_2d", "bin_stats_2d"):
+        if counts[name] <= 0:
+            fail(f"{name} was never launched by the kernel benchmark: {counts}")
+    res = json.loads((out / "kernel_bench.json").read_text())
+    return counts, res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -991,6 +1211,10 @@ def main() -> None:
         fail("the wide-N batched backward did not take the split route")
     torch.cuda.empty_cache()
 
+    # 10. the quantizer kernels (10-12) against their plain versions
+    q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, gen)
+    torch.cuda.empty_cache()
+
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
     torch.cuda.empty_cache()
     from repro_torch.launch import serve
@@ -1047,10 +1271,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     # 9. the MoE kernel route against the unfused composition, at init
     moe_route = route_check(torch, "granite-moe-1b-a400m", "w3a3")
+    torch.cuda.empty_cache()
+    # 11. the kernel benchmark, the entry point of kernels 10 and 12
+    bench_counts, bench = kernel_bench_phase(torch, ops)
     counts.update(first["counts"])
     for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
         counts[name] = moe_run["counts"][name]
+    for name in ("fake_quant_2d", "bin_stats_2d"):
+        counts[name] = bench_counts[name]
+    counts["fake_quant_rows"] = rows_launches
     rows.update(qat_rows)
+    rows.update(q_rows)
 
     sources = {"int4_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                "src/repro/kernels/quant_matmul.py:863"),
@@ -1070,7 +1301,13 @@ def main() -> None:
                "quant_matmul_batched": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
                                         "src/repro/kernels/quant_matmul.py:141"),
                "quant_matmul_bwd_batched": ("src/repro_torch/kernels/csrc/qat_matmul.cu",
-                                            "src/repro/kernels/quant_matmul.py:743")}
+                                            "src/repro/kernels/quant_matmul.py:743"),
+               "fake_quant_2d": ("src/repro_torch/kernels/csrc/fake_quant.cu",
+                                 "src/repro/kernels/fake_quant.py:48"),
+               "fake_quant_rows": ("src/repro_torch/kernels/csrc/fake_quant.cu",
+                                   "src/repro/kernels/fake_quant.py:73"),
+               "bin_stats_2d": ("src/repro_torch/kernels/csrc/bin_stats.cu",
+                                "src/repro/kernels/bin_stats.py:48")}
     kernels = []
     for name, rs in rows.items():
         r = rs[0]  # the decode shape of the main path
@@ -1081,6 +1318,11 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "tol": r["tol"],
                         "checks": len(rs)})
+        if name == "fake_quant_rows":
+            kernels[-1]["launches_from"] = ("the kernel checks: no entry point "
+                                            "of the repo reaches fake_quant_rows")
+        if name == "bin_stats_2d":
+            kernels[-1]["library"] = r["library"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1095,7 +1337,11 @@ def main() -> None:
         "step_seconds": moe_run["report"].step_seconds,
         "peak_gib": (moe_run["report"].peak_bytes or 0) / 2**30,
         "losses": moe_run["report"].losses, "metrics": moe_run["report"].metrics,
-        "launches_per_step": moe_step, "route": moe_route}}), flush=True)
+        "launches_per_step": moe_step, "route": moe_route},
+        "kernel_bench": {
+        "launches": bench_counts, "equivalence": bench["equivalence"],
+        "decode_parity": bench["decode_parity"],
+        "standalone": bench["standalone"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

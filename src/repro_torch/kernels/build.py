@@ -27,6 +27,8 @@ SOURCES = {
     "quant_matmul": CSRC / "quant_matmul.cu",
     "decode_attention": CSRC / "decode_attention.cu",
     "qat_matmul": CSRC / "qat_matmul.cu",
+    "fake_quant": CSRC / "fake_quant.cu",
+    "bin_stats": CSRC / "bin_stats.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -17,6 +17,11 @@ stay outside the Function (in the caller), as in the reference.
 expert einsums (the reference's `_fused_qmm3d`, ops.py:224-300), over
 `quant_matmul_batched` / `quant_matmul_bwd_batched`.
 
+`fake_quant`, `fake_quant_grouped` and `bin_stats` take tensors of any rank
+to the 2D kernels `fake_quant_2d`, `fake_quant_rows` and `bin_stats_2d`
+(the reference's ops.py:47-71, 303-322); no training or serving path calls
+them, only the kernel benchmark (`launch/kernel_bench.py`).
+
 The reference pads every operand to its tiles before the kernels; here the
 kernels mask their edges instead, which gives the same values (padded rows
 and columns contribute zeros to every output and scale sum), and the
@@ -27,7 +32,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantizer import QuantSpec
+from repro_torch.kernels import bin_stats as _bs
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import quant_matmul as _qmm
 
 KERNEL_WRAPPERS = {
@@ -40,6 +47,9 @@ KERNEL_WRAPPERS = {
     "quant_matmul_bwd": _qmm.quant_matmul_bwd,
     "quant_matmul_batched": _qmm.quant_matmul_batched,
     "quant_matmul_bwd_batched": _qmm.quant_matmul_bwd_batched,
+    "fake_quant_2d": _fq.fake_quant_2d,
+    "fake_quant_rows": _fq.fake_quant_rows,
+    "bin_stats_2d": _bs.bin_stats_2d,
 }
 
 
@@ -194,3 +204,37 @@ def fused_qat_matmul_batched(x3, w3, a_scale, a_offset, ws_en,
     static = (a_spec.q_n, a_spec.q_p, w_spec.q_n, w_spec.q_p,
               bool(cotangent_rounding))
     return _FusedQmm3d.apply(x3, w3, a_scale, a_offset, ws_en, static)
+
+
+# ---------------------------------------------------------------------------
+# Standalone quantizer kernels (the kernel benchmark's)
+# ---------------------------------------------------------------------------
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]) if x.dim() > 1 else x.reshape(1, -1)
+
+
+def fake_quant(x: torch.Tensor, scale, spec: QuantSpec,
+               offset=None) -> torch.Tensor:
+    """Per-tensor fake-quant of an arbitrary-rank tensor (scalar scale and
+    optional scalar offset), in x's dtype."""
+    out = _fq.fake_quant_2d(_rows2d(x), scale, offset, q_n=spec.q_n,
+                            q_p=spec.q_p)
+    return out.reshape(x.shape)
+
+
+def fake_quant_grouped(x: torch.Tensor, group_scale: torch.Tensor,
+                       spec: QuantSpec) -> torch.Tensor:
+    """Row-grouped fake-quant: x (G, ...) with scale (G,) — per head or
+    expert."""
+    g = x.shape[0]
+    out = _fq.fake_quant_rows(x.reshape(g, -1), group_scale.reshape(-1, 1),
+                              q_n=spec.q_n, q_p=spec.q_p)
+    return out.reshape(x.shape)
+
+
+def bin_stats(w: torch.Tensor, scale, spec: QuantSpec) -> torch.Tensor:
+    """(count, sum, sumsq) per bin, (3, n_bins) f32, for a per-tensor-scaled
+    weight tensor of any rank. The reference pads rows with zeros and takes
+    their count back out of bin Q_N; the kernel masks its edge instead."""
+    return _bs.bin_stats_2d(_rows2d(w), scale, q_n=spec.q_n, q_p=spec.q_p)

@@ -10,7 +10,9 @@ cuBLAS may reduce a bf16 product in lower precision. The wrappers in
 hold them against the JAX package's Pallas kernels (interpret mode), and
 `chip_smoke.py` holds each CUDA kernel against them on the card. The
 batched (per-expert) versions are the 2D rule with the expert's scales
-broadcast over a leading expert axis.
+broadcast over a leading expert axis. The fake-quant versions are bit-equal
+to their kernels (every rounding is written out); `bin_stats_2d` sums in
+f64 and rounds once.
 """
 from __future__ import annotations
 
@@ -217,3 +219,65 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
     m = m.permute(0, 3, 1, 2).reshape(b, c, h)
     l = l.permute(0, 3, 1, 2).reshape(b, c, h)
     return acc.reshape(b, c, h, d), m, l
+
+
+def _fma_f32(q: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32(q * s + b) rounded once, as a fused multiply-add: the reference's
+    TPU kernel rounds `xq * s + b` once (XLA fuses the two). q holds integers
+    with |q| <= 255 and s an f32, so q * s is exact in f64; the f64 sum is
+    made round-to-odd (its error, by TwoSum, pushes an even result to the odd
+    neighbour), which makes its rounding to f32 the correctly rounded one."""
+    p = q.to(torch.float64) * s.to(torch.float64)
+    bb = b.to(torch.float64).expand_as(p)
+    t = p + bb
+    bv = t - p
+    err = (p - (t - bv)) + (bb - bv)
+    even = (t.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    t = torch.where((err != 0) & even, torch.nextafter(t, toward), t)
+    return t.to(torch.float32)
+
+
+def fake_quant_2d(x: torch.Tensor, scale, offset=None, *, q_n: int,
+                  q_p: int) -> torch.Tensor:
+    """Per-tensor Eq. 5 forward of x (M, N) f32 or bf16 -> x's dtype:
+    u = (x - b) / max(s, 1e-9) (IEEE division), q = clip(round(u)) with
+    round half to even, y = q * s + b rounded once; without an offset
+    y = q * s (the reference kernel's "+ 0" is dropped by XLA, so -0 stays)."""
+    x32 = x.to(torch.float32)
+    s = torch.clamp(torch.as_tensor(scale, dtype=torch.float32,
+                                    device=x.device), min=EPS)
+    if offset is None:
+        q = torch.clamp(torch.round(x32 / s), -float(q_n), float(q_p))
+        return (q * s).to(x.dtype)
+    b = torch.as_tensor(offset, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round((x32 - b) / s), -float(q_n), float(q_p))
+    return _fma_f32(q, s, b).to(x.dtype)
+
+
+def fake_quant_rows(x: torch.Tensor, row_scale: torch.Tensor, *, q_n: int,
+                    q_p: int) -> torch.Tensor:
+    """Eq. 5 forward of x (M, N) with one scale a row, row_scale (M, 1),
+    no offset: y = clip(round(x / s)) * s, in x's dtype."""
+    s = torch.clamp(row_scale.to(torch.float32), min=EPS)
+    q = torch.clamp(torch.round(x.to(torch.float32) / s), -float(q_n),
+                    float(q_p))
+    return (q * s).to(x.dtype)
+
+
+def bin_stats_2d(w: torch.Tensor, scale, *, q_n: int, q_p: int) -> torch.Tensor:
+    """(3, n_bins) f32 [count, sum, sum of squares] of w over the bins of
+    code = clip(round(w / max(s, 1e-9)), -Q_N, Q_P) + Q_N (per-tensor s).
+    Accumulated by index_add_ in f64 (w * w exact there) and rounded once,
+    without the reference oracle's (elements x bins) one-hot."""
+    w32 = w.reshape(-1).to(torch.float32)
+    s = torch.clamp(torch.as_tensor(scale, dtype=torch.float32,
+                                    device=w.device), min=EPS)
+    codes = (torch.clamp(torch.round(w32 / s), -float(q_n), float(q_p))
+             .to(torch.int64) + q_n)
+    wd = w32.to(torch.float64)
+    out = torch.zeros((3, q_n + q_p + 1), dtype=torch.float64, device=w.device)
+    out[0].index_add_(0, codes, torch.ones_like(wd))
+    out[1].index_add_(0, codes, wd)
+    out[2].index_add_(0, codes, wd * wd)
+    return out.to(torch.float32)

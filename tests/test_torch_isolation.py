@@ -54,7 +54,7 @@ def test_no_source_imports_jax_or_the_jax_package():
 def test_every_kernel_source_exists():
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {"quant_matmul", "decode_attention",
-                                  "qat_matmul"}
+                                  "qat_matmul", "fake_quant", "bin_stats"}
     for path in build.SOURCES.values():
         assert path.is_file() and path.suffix == ".cu"
         assert path.parent == PKG / "kernels" / "csrc"
@@ -87,24 +87,34 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     """Each wrapper declares as many ctypes arguments as its C entry takes
     (ctypes would pass a pointer it was not told about as a 32-bit int)."""
     import types
-    from repro_torch.kernels import build, decode_attention, quant_matmul
+    from repro_torch.kernels import (bin_stats, build, decode_attention,
+                                     fake_quant, quant_matmul)
     qat = ("qat_fwd_launch", "qat_dx_launch", "qat_dw_launch", "qat_bwd_launch",
            "qat_fwd_batched_launch", "qat_bwd_batched_launch")
+    fq = ("fake_quant_tensor_launch", "fake_quant_rows_launch")
     fake = {name: types.SimpleNamespace(**{
         fn: types.SimpleNamespace() for fn in (
             "int_matmul_launch", "decode_attention_launch",
-            "decode_attention_smem_bytes") + qat}) for name in build.SOURCES}
+            "decode_attention_smem_bytes", "bin_stats_launch") + qat + fq})
+        for name in build.SOURCES}
     fake["qat_matmul"].qat_tile = lambda: quant_matmul.QAT_TILE
+    fake["bin_stats"].bin_stats_tile = lambda: bin_stats.TILE
     monkeypatch.setattr(build, "load", lambda name: fake[name])
     monkeypatch.setattr(quant_matmul, "_SIGNED", False)
     monkeypatch.setattr(quant_matmul, "_QAT_SIGNED", False)
     monkeypatch.setattr(decode_attention, "_SIGNED", False)
+    monkeypatch.setattr(fake_quant, "_SIGNED", False)
+    monkeypatch.setattr(bin_stats, "_SIGNED", False)
     quant_matmul._lib()
     quant_matmul._qat_lib()
     decode_attention._lib()
+    fake_quant._lib()
+    bin_stats._lib()
     for lib, fn in (("quant_matmul", "int_matmul_launch"),
                     ("decode_attention", "decode_attention_launch"),
                     ("decode_attention", "decode_attention_smem_bytes"),
+                    ("bin_stats", "bin_stats_launch"),
+                    *(("fake_quant", f) for f in fq),
                     *(("qat_matmul", f) for f in qat)):
         declared = getattr(fake[lib], fn).argtypes
         assert len(declared) == _c_param_count(build.SOURCES[lib], fn), fn
