@@ -33,7 +33,12 @@ Phases (any failure exits non-zero before the final line is printed):
   5. qat kernels — each QAT kernel against its plain version at the shapes
                of the training path (M = 8 x 512 tokens of qwen1.5-0.5b):
                quant_matmul at an FFN, a K-side-scaled wo and the tied head;
-               quant_matmul_bwd at the FFN's two shapes (bf16 cotangents);
+               quant_matmul_bwd at the FFN's two shapes and wo (bf16
+               cotangents, the tensor-core path), at granite-moe's attention
+               shapes (w3a3), at odd, misaligned shapes (one with f32 x), and
+               once with f32 cotangents (the SIMT path), each row naming its
+               path, run twice for identical bits, and on the tensor-core
+               path its prologue bit-equal to the plain dequantization;
                quant_matmul_dx / _dw at the head (f32 cotangents); with the
                same four numbers a kernel, and the bars of the CPU tests.
   6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
@@ -86,6 +91,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -459,15 +465,16 @@ def _bf16_close(torch, got, want, abs_products, length) -> tuple[float, float]:
     return (d - tol).max().item(), (d > 0).double().mean().item()
 
 
-def qat_operands(torch, m, k, n, k_side, gen, qs):
+def qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype=None):
     dev = "cuda"
-    x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+        x_dtype or torch.bfloat16)
     w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
     ws = torch.rand((k, 1) if k_side else (1, n), generator=gen, device=dev)
     ws = ws * 0.05 + 0.02
     if qs["q_p_w"] > 7:  # 8-bit edge: scales that use the 8-bit range
         ws = ws * 0.1
-    a_s = torch.tensor(0.3 if qs["q_p_a"] == 15 else 0.02, device=dev)
+    a_s = torch.tensor({15: 0.3, 7: 0.6}.get(qs["q_p_a"], 0.02), device=dev)
     a_b = torch.tensor(-0.2, device=dev)
     return x, w, a_s, a_b, ws
 
@@ -500,12 +507,28 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs) -> dict:
     return row
 
 
+def check_bwd_prologue(torch, timer, qmm, ref, args, qs) -> tuple[bool, float]:
+    """The tensor-core backward's prologue against the plain dequantization
+    (xd, wd, bf16(dY), zero-padded): bit for bit. Returns (equal, its ms)."""
+    kern = lambda: qmm.bwd_prologue(*args, **qs)
+    m, k = args[1].shape
+    lds, _ = qmm._bwd_tc_scratch(m, k, args[2].shape[1])
+    got = kern()
+    want = ref.bwd_prologue(*args, lds=lds, **qs)
+    torch.cuda.synchronize()
+    same = all(_same_bits(torch, a, b) for a, b in zip(got, want))
+    del got, want
+    return same, timer.ms(kern)
+
+
 def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
-                  gen, qs) -> dict:
+                  gen, qs, x_dtype=None) -> dict:
     """quant_matmul_bwd (combined) or quant_matmul_dx / _dw (split) against
     the plain versions; the scalar and per-column sums within 1e-4 of their
-    sum of |summands|."""
-    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs)
+    sum of |summands|; a second launch on the same inputs gives the same
+    bits; on the tensor-core path, the prologue bit-equal to the plain
+    dequantization."""
+    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype)
     dy = torch.randn((m, n), generator=gen, device="cuda")
     kw = dict(round_cot=round_cot, **qs)
     args = (dy, x, w, a_s, a_b, ws)
@@ -513,12 +536,21 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     plain_fn = getattr(ref, name)
     kern = lambda: fn(*args, **kw)
     plain = lambda: plain_fn(*args, **kw)
+    path = (qmm.bwd_route(m, k, n, round_cot) if name == "quant_matmul_bwd"
+            else "simt")
     got, want = kern(), plain()
+    again = kern()
     torch.cuda.synchronize()
+    repeat = all(_same_bits(torch, a, b) for a, b in zip(got, again))
+    del again
     u_x, q_x, xd = ref._act_codes(x, a_s, a_b, qs["q_n_a"], qs["q_p_a"])
     u_w, q_w, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
     cot = ref._cotangent(dy, round_cot)
-    checks, worst = [], 0.0
+    checks, worst = [("repeat", repeat, "same bits on a second launch")], 0.0
+    prologue_ms = None
+    if path == "tc":
+        same, prologue_ms = check_bwd_prologue(torch, timer, qmm, ref, args, qs)
+        checks.append(("prologue", same, "bit-equal to the plain dequantization"))
     if name in ("quant_matmul_bwd", "quant_matmul_dx"):
         dx_abs = cot.abs() @ wd.abs().T
         ex, frac = _bf16_close(torch, got[0], want[0], dx_abs, n)
@@ -558,18 +590,22 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     products = 2 if name == "quant_matmul_bwd" else 1
     outs = {"quant_matmul_dx": m * k * 4 + 8, "quant_matmul_dw": k * n * 4 + ws.numel() * 4,
             "quant_matmul_bwd": m * k * 4 + 8 + k * n * 4 + ws.numel() * 4}[name]
-    nbytes = m * n * 4 + m * k * 2 + k * n * 4 + ws.numel() * 4 + 8 + outs
+    nbytes = (m * n * 4 + m * k * x.element_size() + k * n * 4 + ws.numel() * 4
+              + 8 + outs)
     b_ms, b_by = bound(nbytes, 2.0 * m * k * n * products,
                        BF16_OPS_PER_S if round_cot else F32_OPS_PER_S)
     row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
-           "round_cot": round_cot, "max_abs_err": worst,
+           "round_cot": round_cot, "path": path, "x": str(x.dtype)[6:],
+           "max_abs_err": worst,
            "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands|",
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
-           "library_ms": timer.ms(libs[name]), "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  {name} M={m} K={k} N={n} ({row['w_scale']} scales, "
-        f"{'bf16' if round_cot else 'f32'} cotangents): "
+           "library_ms": timer.ms(libs[name]), "bound_ms": b_ms, "bound_by": b_by,
+           "prologue_ms": prologue_ms}
+    pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
+    log(f"  {name} [{path}] M={m} K={k} N={n} ({row['w_scale']} scales, "
+        f"{row['x']} x, {'bf16' if round_cot else 'f32'} cotangents): "
         + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
-        + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
         f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
@@ -1144,9 +1180,14 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s wall, all sources in parallel")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.1f} s")
+        entry = ""
         for line in r["log"].splitlines():
-            if "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
-                log(f"    {line.strip()}")
+            if "Compiling entry function" in line:
+                found = re.search(r"\d+([a-z]\w*?_kernel)", line)
+                entry = ((found.group(1) if found else line.split("'")[1])
+                         + ("<bf16>" if "bfloat16" in line else "") + ": ")
+            elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
+                log(f"    {entry}{line.strip()}")
 
     # 2. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1187,6 +1228,22 @@ def main() -> None:
     qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
         torch, timer, qmm, ref, "quant_matmul_bwd", m, 1024, 1024, True, True,
         gen, QAT_QS))
+    # granite-moe's attention linears (w3a3: wk / wv, and wq / wo K-side),
+    # odd and misaligned shapes on the combined route (one with f32 x), and
+    # the f32-cotangent form on the SIMT path
+    for mm, k, n, k_side, qs, xdt in (
+            (m, 1024, 512, False, MOE_QS, None), (m, 1024, 1024, True, MOE_QS, None),
+            (1000, 700, 300, False, QAT_QS, torch.float32),
+            (257, 129, 65, True, QAT_QS, None), (m, 1000, 2817, False, QAT_QS, None)):
+        qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", mm, k, n, k_side, True,
+            gen, qs, xdt))
+    qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+        torch, timer, qmm, ref, "quant_matmul_bwd", m, 1024, 2816, False, False,
+        gen, QAT_QS))
+    paths = [r["path"] for r in qat_rows["quant_matmul_bwd"]]
+    if paths != ["tc"] * 8 + ["simt"]:
+        fail(f"quant_matmul_bwd took paths {paths}")
     for name in ("quant_matmul_dx", "quant_matmul_dw"):
         qat_rows[name].append(check_qat_bwd(
             torch, timer, qmm, ref, name, m, 1024, 152064, False, False, gen,
@@ -1323,6 +1380,9 @@ def main() -> None:
                                             "of the repo reaches fake_quant_rows")
         if name == "bin_stats_2d":
             kernels[-1]["library"] = r["library"]
+        if name == "quant_matmul_bwd":
+            kernels[-1]["path"] = r["path"]
+            kernels[-1]["prologue_ms"] = r["prologue_ms"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]

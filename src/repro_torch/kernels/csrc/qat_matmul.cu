@@ -4,7 +4,8 @@
 //   qat_fwd  <- quant_matmul      (:81,  body _qmm_kernel :46)
 //   qat_dx   <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
 //   qat_dw   <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
-//   qat_bwd  <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
+//   qat_bwd  <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453); for bf16
+//               cotangents qat_bwd_prologue + qat_bwd_tc (tensor cores, below)
 //   qat_fwd_batched <- quant_matmul_batched     (:141, body _qmm_batched_kernel :114)
 //   qat_bwd_batched <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
 //
@@ -26,14 +27,37 @@
 // of 1024..152064) every product is far above the tensor-core line (hundreds of
 // operations a byte), so the kernels are bound by operations: 2*M*K*N at 989
 // TFLOP/s in bf16, or at 67 TFLOP/s in f32 for the lm head's f32 cotangents.
-// This first version uses no tensor cores: one simple SIMT GEMM tile (128 x 128
-// outputs a block of 256 threads, 8 x 8 a thread, the contraction walked 8 at a
-// time through shared memory, the next slice's loads in flight while the current
-// one is multiplied) serves all six kernels. Each operand is dequantized as it
-// is staged into shared memory, so the dequantized x and w never reach HBM (the
-// point of the TPU kernels), and a bf16 value held in f32 makes a bf16 x bf16
-// product exact, so f32 FMA gives the f32 sum of exact products that the tensor
-// cores' bf16 path would. wgmma / TMA come in a later change.
+// One simple SIMT GEMM tile (128 x 128 outputs a block of 256 threads, 8 x 8 a
+// thread, the contraction walked 8 at a time through shared memory, the next
+// slice's loads in flight while the current one is multiplied) serves all six
+// kernels, the combined backward with bf16 cotangents excepted (below). Each
+// operand is dequantized as it is staged into shared memory, so the dequantized
+// x and w never reach HBM (the point of the TPU kernels), and a bf16 value held
+// in f32 makes a bf16 x bf16 product exact, so f32 FMA gives the f32 sum of
+// exact products that the tensor cores' bf16 path would.
+//
+// The combined backward with bf16 cotangents (qat_bwd_tc_launch, the form a
+// training step launches once for every bf16 linear) runs on the tensor cores
+// instead. It replaces the same TPU kernel (quant_matmul_bwd, :574) and is
+// bound by operations: 2 x 2*M*K*N at 989 TFLOP/s (0.048 ms at M 4096, K
+// 1024, N 2816). The SIMT tile dequantizes its whole operand panel in every
+// block: each of the 256 dX blocks divides 2816 x 128 weights, each of the
+// 176 dW blocks 4096 x 128 activations, ~185 M IEEE divisions with their
+// rounding and clamping a launch, ~0.16 ms of all SMs' f32 instruction rate
+// before any product. So the dequantization moves into a prologue that
+// writes xd, wd and bf16(dY) to HBM once (~103 MB, ~0.03 ms at 3.35 TB/s),
+// with the same device functions and so the same bits; the tile is then a
+// plain bf16 GEMM: 128 x 128 outputs a block of 8 warps (64 x 32 a warp,
+// m16n8k16 fragments, 64 f32 accumulators a thread), the contraction staged
+// 32 deep by 16-byte cp.async in 2 stages (rows padded by 8 bf16, so ldmatrix
+// is free of bank conflicts; ldmatrix.trans for the dW operands, which are
+// contiguous along the output axis). The epilogue recomputes u from x / w
+// (M*K + K*N divisions, once each) and reduces the scale sums in a fixed
+// order (in the thread, a fixed shuffle tree, then shared memory in warp
+// order): two launches give the same bits, and no float atomics. f32
+// cotangents (the lm head) stay on the SIMT tile: their products are not
+// exact in bf16, and TF32 is not allowed. Left for later: wgmma and TMA, a
+// persistent grid (432 blocks are 1.6 waves at 2 blocks an SM), more stages.
 //
 // What differs from the TPU design, and why:
 //   * No carried accumulators: the TPU grid runs in order and carries dX / dW
@@ -505,6 +529,374 @@ __global__ void __launch_bounds__(NT) qat_finish_kernel(const float* part_x, int
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core backward for bf16 cotangents (qat_bwd_tc_launch).
+// A prologue writes xd (M, ld_x), wd (K, ld_w) and bf16(dY) (M, ld_y) once,
+// each leading dimension a multiple of 8 with its pad zeroed; the tile then
+// runs a plain bf16 GEMM: 16-byte cp.async into 2 stages of 32-deep slices,
+// ldmatrix, and mma.sync m16n8k16 with f32 accumulators.
+// ---------------------------------------------------------------------------
+
+struct TcOp {  // a bf16 scratch array (rows, ld), ld % 8 == 0, 16-byte aligned
+  const __nv_bfloat16* p;
+  int rows, ld;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// row[c0 .. c0 + 8) as f32 (0 past `cols`), 16-byte loads where aligned.
+__device__ __forceinline__ void load8(const float* row, int c0, int cols, float (&v)[8]) {
+  if (c0 + 8 <= cols && aligned16(row + c0)) {
+    const float4 p = *reinterpret_cast<const float4*>(row + c0);
+    const float4 q = *reinterpret_cast<const float4*>(row + c0 + 4);
+    v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+    v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = c0 + e < cols ? row[c0 + e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c0, int cols,
+                                      float (&v)[8]) {
+  if (c0 + 8 <= cols && aligned16(row + c0)) {
+    const uint4 p = *reinterpret_cast<const uint4*>(row + c0);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&p);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = c0 + e < cols ? __bfloat162float(row[c0 + e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) {
+  uint4 o;
+  uint32_t* u = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    u[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = o;
+}
+
+// One grid-stride pass over the three arrays in chunks of 8 elements of a
+// row: the same act_deq / w_deq / bf16 rounding as the SIMT tile's staging,
+// so the values are those the SIMT kernels multiply, bit for bit.
+template <class XT>
+__global__ void __launch_bounds__(NT) qat_bwd_prologue_kernel(Args a, __nv_bfloat16* xd,
+                                                              int ld_x, __nv_bfloat16* wd,
+                                                              int ld_w, __nv_bfloat16* dyb,
+                                                              int ld_y) {
+  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
+  const WQ wq = a.wq();
+  const XT* x = static_cast<const XT*>(a.x);
+  const size_t px = ld_x / 8, pw = ld_w / 8, py = ld_y / 8;
+  const size_t cx = (size_t)a.M * px, cw = (size_t)a.K * pw, cy = (size_t)a.M * py;
+  for (size_t c = (size_t)blockIdx.x * NT + threadIdx.x; c < cx + cw + cy;
+       c += (size_t)gridDim.x * NT) {
+    float v[8];
+    if (c < cx) {
+      const int r = (int)(c / px), c0 = (int)(c % px) * 8;
+      load8(x + (size_t)r * a.K, c0, a.K, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = c0 + e < a.K ? act_deq(v[e], s, b, a.qa) : 0.f;
+      store8(xd + (size_t)r * ld_x + c0, v);
+    } else if (c < cx + cw) {
+      const size_t cc = c - cx;
+      const int r = (int)(cc / pw), c0 = (int)(cc % pw) * 8;
+      load8(a.w + (size_t)r * a.N, c0, a.N, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = c0 + e < a.N ? w_deq(v[e], wq.scale(r, c0 + e), a.qw) : 0.f;
+      store8(wd + (size_t)r * ld_w + c0, v);
+    } else {
+      const size_t cc = c - cx - cw;
+      const int r = (int)(cc / py), c0 = (int)(cc % py) * 8;
+      load8(a.dy + (size_t)r * a.N, c0, a.N, v);  // rounded to bf16 by store8
+      store8(dyb + (size_t)r * ld_y + c0, v);
+    }
+  }
+}
+
+constexpr int TC_BK = 32;                  // contraction slice a stage
+constexpr int TC_STAGES = 2;
+constexpr int TC_LS = TC_BK + 8;           // row stride of an L-contiguous slice [128][40]
+constexpr int TC_TS = BM + 8;              // row stride of a transposed slice [32][136]
+constexpr int TC_OPND = BM * TC_LS;        // bf16 elements an operand a stage (>= 32 * 136)
+static_assert(TC_BK * TC_TS <= TC_OPND, "operand slot too small");
+static_assert(4 * BM * 4 <= TC_STAGES * 2 * TC_OPND * 2, "epilogue buffer does not fit");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage the contraction slice [l0, l0 + 32) of an operand whose output index
+// o runs over [o0, o0 + 128). TRANS = false: the scratch rows are o and the
+// slice is contiguous along l, staged [o][l]; TRANS = true: the scratch rows
+// are l, staged [l][o]. Rows past `rows` and 8-element chunks past `ld` are
+// zero-filled (ld % 8 == 0, so a chunk is all in or all out).
+template <bool TRANS>
+__device__ __forceinline__ void tc_stage(const TcOp& op, int o0, int l0, __nv_bfloat16* dst) {
+#pragma unroll
+  for (int p = 0; p < BM * TC_BK / 8 / NT; ++p) {
+    const int c = threadIdx.x + p * NT;
+    int r, col, off;
+    if (TRANS) {  // 32 rows of 16 chunks
+      r = l0 + c / 16;
+      col = o0 + (c % 16) * 8;
+      off = (c / 16) * TC_TS + (c % 16) * 8;
+    } else {      // 128 rows of 4 chunks
+      r = o0 + c / 4;
+      col = l0 + (c % 4) * 8;
+      off = (c / 4) * TC_LS + (c % 4) * 8;
+    }
+    const bool valid = r < op.rows && col < op.ld;
+    cp_async16(dst + off, valid ? op.p + (size_t)r * op.ld + col : op.p, valid);
+  }
+}
+
+// acc[mf][nf][e] = sum_l A(i, l) B(l, j) over l < L for the block's 128 x 128
+// tile at (i0, j0); warp w owns rows (w / 4) * 64 + mf * 16 + [0, 16) and
+// columns (w % 4) * 32 + nf * 8 + [0, 8), in the m16n8 accumulator layout.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, int j0, int L,
+                                        float (&acc)[4][4][4], __nv_bfloat16* sm) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int wi = (w / 4) * 64, wj = (w % 4) * 32;
+  const int q = lane / 8, r = lane % 8;
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+  const int nk = (L + TC_BK - 1) / TC_BK;
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < nk) {
+      tc_stage<A_T>(A, i0, s * TC_BK, sm + s * 2 * TC_OPND);
+      tc_stage<B_T>(B, j0, s * TC_BK, sm + s * 2 * TC_OPND + TC_OPND);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // slice kt has landed; the stage refilled below is free
+    const int nxt = kt + TC_STAGES - 1;
+    if (nxt < nk) {
+      __nv_bfloat16* st = sm + (nxt % TC_STAGES) * 2 * TC_OPND;
+      tc_stage<A_T>(A, i0, nxt * TC_BK, st);
+      tc_stage<B_T>(B, j0, nxt * TC_BK, st + TC_OPND);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* As = sm + (kt % TC_STAGES) * 2 * TC_OPND;
+    const __nv_bfloat16* Bs = As + TC_OPND;
+#pragma unroll
+    for (int ks = 0; ks < TC_BK; ks += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 4; ++mf) {
+        const int i = wi + mf * 16;
+        if (A_T) ldsm_x4<true>(af[mf], As + (ks + (q >> 1) * 8 + r) * TC_TS + i + (q & 1) * 8);
+        else ldsm_x4<false>(af[mf], As + (i + (q & 1) * 8 + r) * TC_LS + ks + (q >> 1) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int j = wj + np * 16;
+        uint32_t t4[4];
+        if (B_T) ldsm_x4<true>(t4, Bs + (ks + (q & 1) * 8 + r) * TC_TS + j + (q >> 1) * 8);
+        else ldsm_x4<false>(t4, Bs + (j + (q >> 1) * 8 + r) * TC_LS + ks + (q & 1) * 8);
+        bf[2 * np][0] = t4[0];
+        bf[2 * np][1] = t4[1];
+        bf[2 * np + 1][0] = t4[2];
+        bf[2 * np + 1][1] = t4[3];
+      }
+#pragma unroll
+      for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) mma_bf16(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages: sm is free
+}
+
+// Sum of v over the lanes whose index differs only in the bits lo..hi (powers
+// of two), by a fixed butterfly: every such lane ends with the same bits.
+__device__ __forceinline__ float lane_sum(float v, int lo, int hi) {
+  for (int o = lo; o <= hi; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Accumulator element (mf, nf, e) of this thread: tile row / column.
+__device__ __forceinline__ int tc_row(int mf, int e) {
+  return ((threadIdx.x / 32) / 4) * 64 + mf * 16 + (threadIdx.x % 32) / 4 + (e >> 1) * 8;
+}
+__device__ __forceinline__ int tc_col(int nf, int e) {
+  return ((threadIdx.x / 32) % 4) * 32 + nf * 8 + 2 * (threadIdx.x % 4) + (e & 1);
+}
+
+// dX tile (rows m, columns k; contraction over n): A = dyb, B(n, k) = wd(k, n).
+template <class XT>
+__device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const TcOp& dyb,
+                                           float* dx, float* part, int blk,
+                                           __nv_bfloat16* sm) {
+  const int n_i = (a.M + BM - 1) / BM;
+  const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
+  float acc[4][4][4];
+  tc_gemm<false, false>(dyb, wd, i0, j0, a.N, acc, sm);
+  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
+  const XT* x = static_cast<const XT*>(a.x);
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = i0 + tc_row(mf, e), k = j0 + tc_col(nf, e);
+        if (m < a.M && k < a.K) {
+          const size_t at = (size_t)m * a.K + k;
+          const float dxd = bf16r(acc[mf][nf][e]);
+          const float u = __fdiv_rn(__fsub_rn(ld(x, at), b), s);
+          const float mfl = a.qa.in_range(u);
+          const float qc = a.qa.code(u);
+          dx[at] = __fmul_rn(dxd, mfl);
+          sa = __fadd_rn(sa, __fmul_rn(dxd, __fsub_rn(qc, __fmul_rn(mfl, u))));
+          sb = __fadd_rn(sb, __fmul_rn(dxd, __fsub_rn(1.f, mfl)));
+        }
+      }
+  sa = lane_sum(sa, 1, 16);
+  sb = lane_sum(sb, 1, 16);
+  float* red = reinterpret_cast<float*>(sm);
+  const int w = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    red[2 * w] = sa;
+    red[2 * w + 1] = sb;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ta = 0.f, tb = 0.f;
+    for (int i = 0; i < NT / 32; ++i) {
+      ta += red[2 * i];
+      tb += red[2 * i + 1];
+    }
+    part[2 * blk] = ta;
+    part[2 * blk + 1] = tb;
+  }
+}
+
+// dW tile (rows k, columns n; contraction over m): A(k, m) = xd(m, k) and
+// B(m, n) = dyb(m, n), both staged transposed. dws partials as dw_tile's.
+__device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const TcOp& dyb,
+                                           float* dw, float* part, int blk,
+                                           __nv_bfloat16* sm) {
+  const int n_i = (a.K + BM - 1) / BM;
+  const int bi = blk % n_i, bj = blk / n_i;
+  const int i0 = bi * BM, j0 = bj * BN;
+  float acc[4][4][4];
+  tc_gemm<true, true>(xd, dyb, i0, j0, a.M, acc, sm);
+  const WQ wq = a.wq();
+  float rsum[4][2], csum[4][2];  // [mf][row half], [nf][column parity]
+#pragma unroll
+  for (int f = 0; f < 4; ++f) rsum[f][0] = rsum[f][1] = csum[f][0] = csum[f][1] = 0.f;
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = i0 + tc_row(mf, e), n = j0 + tc_col(nf, e);
+        if (k < a.K && n < a.N) {
+          const size_t at = (size_t)k * a.N + n;
+          const float dwd = bf16r(acc[mf][nf][e]);
+          const float u = __fdiv_rn(a.w[at], wq.scale(k, n));
+          const float mfl = a.qw.in_range(u);
+          const float qc = a.qw.code(u);
+          dw[at] = __fmul_rn(dwd, mfl);
+          const float p = __fmul_rn(dwd, __fsub_rn(qc, __fmul_rn(mfl, u)));
+          rsum[mf][e >> 1] = __fadd_rn(rsum[mf][e >> 1], p);
+          csum[nf][e & 1] = __fadd_rn(csum[nf][e & 1], p);
+        }
+      }
+  float* red = reinterpret_cast<float*>(sm);  // [4][BM]: one row a warp column / row
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (a.k_side) {  // per row: over the 4 lanes of a row, then the 4 warps of a row band
+#pragma unroll
+    for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = lane_sum(rsum[mf][h], 1, 2);
+        if (lane % 4 == 0) red[(w % 4) * BM + tc_row(mf, 2 * h)] = v;
+      }
+  } else {         // per column: over the 8 lanes of a column, then the 2 warps
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = lane_sum(csum[nf][e], 4, 16);
+        if (lane < 4) red[(w / 4) * BM + tc_col(nf, e)] = v;
+      }
+  }
+  __syncthreads();
+  if (threadIdx.x < BM) {
+    const int t = threadIdx.x;
+    if (a.k_side) {
+      const float v = ((red[t] + red[BM + t]) + red[2 * BM + t]) + red[3 * BM + t];
+      if (i0 + t < a.K) part[(size_t)bj * a.K + i0 + t] = v;
+    } else {
+      const float v = red[t] + red[BM + t];
+      if (j0 + t < a.N) part[(size_t)bi * a.N + j0 + t] = v;
+    }
+  }
+}
+
+// Blocks [0, n_dx) are dX tiles, the rest dW tiles (as qat_bwd_kernel).
+template <class XT>
+__global__ void __launch_bounds__(NT, 2) qat_bwd_tc_kernel(Args a, TcOp xd, TcOp wd, TcOp dyb,
+                                                           float* dx, float* part_x, float* dw,
+                                                           float* part_w, int n_dx) {
+  __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
+  if ((int)blockIdx.x < n_dx) dx_tc_tile<XT>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
+  else dw_tc_tile(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline int n_dx_blocks(const Args& a) { return cdiv(a.M, BM) * cdiv(a.K, BN); }
 inline int n_dw_blocks(const Args& a) { return cdiv(a.K, BM) * cdiv(a.N, BN); }
@@ -618,6 +1010,83 @@ extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const v
     qat_bwd_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(dx), px,
                                                static_cast<float*>(dw), pw, n_dx);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
+                                 pw, static_cast<float*>(dws), st));
+}
+
+// The tensor-core backward's scratch: xd (M, ld_x), wd (K, ld_w), dyb (M,
+// ld_y) bf16, each leading dimension a multiple of 8 and at least K, N, N,
+// 16-byte aligned; the prologue writes them whole (pad included).
+namespace {
+bool tc_scratch_ok(int K, int N, const void* xd, int ld_x, const void* wd, int ld_w,
+                   const void* dyb, int ld_y) {
+  return ld_x >= K && ld_w >= N && ld_y >= N && ld_x % 8 == 0 && ld_w % 8 == 0 &&
+         ld_y % 8 == 0 && (reinterpret_cast<uintptr_t>(xd) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(wd) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(dyb) & 15) == 0;
+}
+
+cudaError_t prologue(const Args& a, int x_bf16, void* xd, int ld_x, void* wd, int ld_w,
+                     void* dyb, int ld_y, cudaStream_t st) {
+  const size_t chunks = ((size_t)a.M * ld_x + (size_t)a.K * ld_w + (size_t)a.M * ld_y) / 8;
+  const int grid = (int)(chunks / NT + 1 < 4096 ? chunks / NT + 1 : 4096);
+  auto* bx = static_cast<__nv_bfloat16*>(xd);
+  auto* bw = static_cast<__nv_bfloat16*>(wd);
+  auto* by = static_cast<__nv_bfloat16*>(dyb);
+  if (x_bf16)
+    qat_bwd_prologue_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+  else
+    qat_bwd_prologue_kernel<float><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+  return cudaGetLastError();
+}
+}  // namespace
+
+// The prologue alone (for checks): the three scratch arrays of qat_bwd_tc_launch.
+extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16,
+                                       const void* w, const void* a_s, const void* a_b,
+                                       const void* ws, int k_side, void* xd, int ld_x,
+                                       void* wd, int ld_w, void* dyb, int ld_y, int M, int K,
+                                       int N, int qn_a, int qp_a, int qn_w, int qp_w,
+                                       void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return 0;
+  if (!tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// qat_bwd_launch's parameters plus the three scratch arrays; bf16 cotangents
+// only (round_cot = 1): prologue, tensor-core tile, finish.
+extern "C" int qat_bwd_tc_launch(const void* dy, const void* x, int x_bf16, const void* w,
+                                 const void* a_s, const void* a_b, const void* ws, int k_side,
+                                 void* dx, void* dsa, void* dba, void* dw, void* dws,
+                                 void* part_x, void* part_w, void* xd, int ld_x, void* wd,
+                                 int ld_w, void* dyb, int ld_y,
+                                 int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
+                                 int round_cot, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return 0;
+  if (!round_cot || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
+  const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
+  const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
+  float* px = static_cast<float*>(part_x);
+  float* pw = static_cast<float*>(part_w);
+  const int n_dx = n_dx_blocks(a);
+  const int grid = n_dx + n_dw_blocks(a);
+  if (x_bf16)
+    qat_bwd_tc_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
+        a, oxd, owd, ody, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx);
+  else
+    qat_bwd_tc_kernel<float><<<grid, NT, 0, st>>>(
+        a, oxd, owd, ody, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
                                  pw, static_cast<float*>(dws), st));

@@ -17,7 +17,10 @@ w_scale (E, N), dy (E, M, N). `quant_matmul_bwd[_batched]` keep the
 reference's route rule: past `BWD_SCRATCH_BUDGET_BYTES` of (TPU) scratch
 they run the split dx / dw kernels (expert by expert for the batched one),
 so the port takes the same route at every shape; the GPU kernels themselves
-do not use the tiles.
+do not use the tiles. On its combined route `quant_matmul_bwd` runs on the
+tensor cores for bf16 cotangents (a prologue that dequantizes each operand
+once into bf16 scratch, then an mma.sync tile) and on the SIMT tile for
+f32 ones (`bwd_route`).
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
 version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
@@ -160,13 +163,20 @@ def _qat_lib() -> ctypes.CDLL:
                                       i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p, p,
                                        p, p, i, i, i, i, i, i, i, i, p]
+        lib.qat_bwd_tc_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
+                                          p, p, p, p, i, p, i, p, i, i, i, i,
+                                          i, i, i, i, i, p]
+        lib.qat_bwd_prologue_launch.argtypes = [p, p, i, p, p, p, p, i, p, i,
+                                                p, i, p, i, i, i, i, i, i, i,
+                                                i, p]
         lib.qat_fwd_batched_launch.argtypes = [p, i, p, p, p, p, p,
                                                i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
                                                p, p, p, p, i, i, i, i, i, i,
                                                i, i, i, p]
         for fn in (lib.qat_fwd_launch, lib.qat_dx_launch, lib.qat_dw_launch,
-                   lib.qat_bwd_launch, lib.qat_fwd_batched_launch,
+                   lib.qat_bwd_launch, lib.qat_bwd_tc_launch,
+                   lib.qat_bwd_prologue_launch, lib.qat_fwd_batched_launch,
                    lib.qat_bwd_batched_launch):
             fn.restype = i
         if lib.qat_tile() != QAT_TILE:
@@ -242,6 +252,36 @@ def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
     return out
 
 
+def bwd_route(m: int, k: int, n: int, round_cot: bool,
+              scratch_budget=None) -> str:
+    """The kernels quant_matmul_bwd takes for a CUDA tensor: "split" (the
+    split dx / dw kernels, where the reference splits), else the combined
+    backward on the tensor cores ("tc", bf16 cotangents) or on the SIMT tile
+    ("simt", f32 cotangents: their products are not exact in bf16)."""
+    if not bwd_uses_combined(*padded_dims(m, k, n),
+                             scratch_budget=scratch_budget):
+        return "split"
+    return "tc" if round_cot else "simt"
+
+
+_BWD_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_launch"}
+
+
+def _bwd_tc_scratch(m: int, k: int, n: int):
+    """The tensor-core backward's bf16 scratch, xd (M, ld_x), wd (K, ld_w)
+    and bf16(dY) (M, ld_y): ((ld_x, ld_w, ld_y), their bytes), each leading
+    dimension K, N, N rounded up to a multiple of 8 elements (16 bytes), so
+    every row starts 16-byte aligned; the prologue zeroes the pad."""
+    lds = tuple(_cdiv(d, 8) * 8 for d in (k, n, n))
+    return lds, (2 * m * lds[0], 2 * k * lds[1], 2 * m * lds[2])
+
+
+def _bwd_tc_scratch_tensors(m: int, k: int, n: int, device):
+    lds, _ = _bwd_tc_scratch(m, k, n)
+    return tuple(torch.empty((rows, ld), dtype=torch.bfloat16, device=device)
+                 for rows, ld in zip((m, k, m), lds))
+
+
 def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
                 round_cot: bool, want_dx: bool, want_dw: bool):
     x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
@@ -269,6 +309,9 @@ def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
         rows = _cdiv(n, t) * k if k_side else _cdiv(k, t) * n
         part_w = torch.empty((rows,), **f32)
         ptrs.append(part_w.data_ptr())
+    if entry == "qat_bwd_tc_launch":  # scratch: the prologue's bf16 operands
+        for t in _bwd_tc_scratch_tensors(m, k, n, dev):
+            ptrs += [t.data_ptr(), t.shape[1]]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_qat_lib(), entry)(
         dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
@@ -308,13 +351,14 @@ def quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
 def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                      q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True,
                      scratch_budget=None):
-    """(dX, dsa, dba, dW, dws) in one launch, or through the split dx / dw
-    kernels where the reference would split (vocab-wide N): the route is
+    """(dX, dsa, dba, dW, dws) in one launch (+ the prologue and the finish
+    pass), or through the split dx / dw kernels where the reference would
+    split (vocab-wide N): the route is `bwd_route`, whose combined route is
     `bwd_uses_combined` on the reference's padded shape."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     m, k = x.shape
-    if not bwd_uses_combined(*padded_dims(m, k, w.shape[1]),
-                             scratch_budget=scratch_budget):
+    route = bwd_route(m, k, w.shape[1], round_cot, scratch_budget)
+    if route == "split":
         if x.device.type == "cuda":
             w = w.contiguous()  # one copy for both kernels (a transposed view)
         dx, dsa, dba = quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale,
@@ -325,10 +369,37 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     if x.device.type == "cpu":
         return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
                                     round_cot=round_cot, **qs)
-    out = _bwd_launch("qat_bwd_launch", dy, x, w, a_scale, a_offset, w_scale,
-                      qs, round_cot, True, True)
+    out = _bwd_launch(_BWD_ENTRY[route], dy, x, w, a_scale, a_offset,
+                      w_scale, qs, round_cot, True, True)
     quant_matmul_bwd.launches += 1
     return out
+
+
+def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                 q_p_a: int, q_n_w: int, q_p_w: int):
+    """The tensor-core backward's prologue alone: (xd, wd, bf16(dY)) as the
+    zero-padded bf16 scratch that quant_matmul_bwd's tile multiplies
+    (`_bwd_tc_scratch`). A check: the training path reaches the prologue
+    only inside quant_matmul_bwd, whose count it adds to."""
+    qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+    m, k = x.shape
+    n = w.shape[1]
+    lds, _ = _bwd_tc_scratch(m, k, n)
+    if x.device.type == "cpu":
+        return ref.bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, lds=lds,
+                                **qs)
+    x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
+                                                   w_scale, dy)
+    xd, wd, dyb = _bwd_tc_scratch_tensors(m, k, n, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _qat_lib().qat_bwd_prologue_launch(
+        dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
+        int(k_side), xd.data_ptr(), lds[0], wd.data_ptr(), lds[1],
+        dyb.data_ptr(), lds[2], m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, stream)
+    _raise("qat_bwd_prologue_launch", rc, m, k, n)
+    bwd_prologue.launches += 1
+    return xd, wd, dyb
 
 
 def _batched_operands(x, w, a_scale, a_offset, w_scale, dy=None):
@@ -438,5 +509,6 @@ quant_matmul.launches = 0
 quant_matmul_dx.launches = 0
 quant_matmul_dw.launches = 0
 quant_matmul_bwd.launches = 0
+bwd_prologue.launches = 0
 quant_matmul_batched.launches = 0
 quant_matmul_bwd_batched.launches = 0

@@ -114,6 +114,21 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     return dx, dsa, dba, dw, dws
 
 
+def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
+                 q_p_a: int, q_n_w: int, q_p_w: int, lds):
+    """The tensor-core backward's prologue: xd, wd and bf16(dY) as bf16
+    arrays of leading dimensions lds = (ld_x, ld_w, ld_y), zero past K, N
+    and N: the values the SIMT kernels stage, bit for bit."""
+    _, _, xd = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
+    _, _, wd = _weight_codes(w, w_scale, q_n_w, q_p_w)
+    outs = []
+    for t, ld in zip((xd, wd, _cotangent(dy, True)), lds):
+        out = torch.zeros((t.shape[0], ld), dtype=torch.bfloat16, device=t.device)
+        out[:, :t.shape[1]] = t.to(torch.bfloat16)
+        outs.append(out)
+    return tuple(outs)
+
+
 def _expert_scales(a_scale, a_offset, w_scale):
     """(E, 1) activation scale / offset and (E, N) column scales as the
     broadcast shapes the 2D helpers take for (E, M, K) / (E, K, N)."""

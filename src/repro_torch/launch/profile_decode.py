@@ -28,27 +28,32 @@ ARCH, QUANT, KV_BITS = "granite-8b", "w4a4", 8
 SLOTS, PROMPT_LEN, STEPS = 4, 128, 8
 
 
-def device_summary(prof, window_ms: float, steps: int, top_n: int) -> dict:
+def device_summary(prof, window_ms: float, steps: int, top_n: int,
+                   named: str = "") -> dict:
     """What a torch.profiler window says of the device: busy ms a step and
-    its share of the window, kernels a step, and the `top_n` costliest
-    kernel names with their calls and ms a step."""
+    its share of the window, kernels a step, the `top_n` costliest kernel
+    names with their calls and ms a step, and (`named`) every kernel whose
+    name holds that string, however cheap."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
-    return {
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    row = lambda e: {"name": e.key[:90], "calls_per_step": e.count / steps,
+                     "ms_per_step": e.self_device_time_total / 1e3 / steps}
+    out = {
         "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / window_ms if window_ms else None,
         "device_kernels_per_step": sum(e.count for e in kernels) / steps,
-        "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
-                         "ms_per_step": e.self_device_time_total / 1e3 / steps}
-                        for e in top],
+        "top_kernels": [row(e) for e in top[:top_n]],
     }
+    if named:
+        out["named_kernels"] = [row(e) for e in top if named in e.key]
+    return out
 
 
 def print_summary(result: dict) -> None:
-    for k in result["top_kernels"]:
+    for k in result["top_kernels"] + result.get("named_kernels", []):
         print(f"  {k['ms_per_step']:9.3f} ms/step  {k['calls_per_step']:7.1f} calls  "
               f"{k['name']}")
     print(f"step: host {result['step_host_ms']:.2f} ms, device elapsed "

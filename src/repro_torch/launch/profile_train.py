@@ -7,7 +7,8 @@ labels, sentinel on, batch 8 x 512: qwen1.5-0.5b under w4a4 (the default),
 or granite-moe-1b-a400m under w3a3 (OBR on) with oscillation tracking.
 Builds the train state from a seed, runs one warm-up step, then profiles
 `--steps` steps with torch.profiler: host wall ms per step, the device's
-elapsed ms (CUDA events), the device time per kernel, the device's busy
+elapsed ms (CUDA events), the device time per kernel (the 20 costliest,
+and every QAT kernel of the port: `named_kernels`), the device's busy
 share of the window and the launches of each CUDA kernel of the port.
 Then, profiler off, the device ms of the step's OBR term (value and
 gradient over every quantized weight) and of the Eq. 12 oscillation
@@ -115,7 +116,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(device),
         "step_host_ms": sorted(host_ms)[len(host_ms) // 2],
         "step_device_elapsed_ms": window_ms / n,
-        **device_summary(prof, window_ms, n, top_n=20),
+        **device_summary(prof, window_ms, n, top_n=20, named="qat_"),
         "launches_per_step": {k: v / n for k, v in launch_counts().items()},
         "tokens_per_s": BATCH * SEQ * 1e3 / (window_ms / n),
         "losses": losses,
