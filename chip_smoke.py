@@ -32,7 +32,12 @@ Phases (any failure exits non-zero before the final line is printed):
                (the JAX package's own int4 engine test shows the same).
   5. qat kernels — each QAT kernel against its plain version at the shapes
                of the training path (M = 8 x 512 tokens of qwen1.5-0.5b):
-               quant_matmul at an FFN, a K-side-scaled wo and the tied head;
+               quant_matmul (the tensor-core path) at both FFN shapes, a
+               K-side-scaled wo and the tied head, granite-moe's attention
+               shapes (w3a3) and head (8 bits), and odd, misaligned shapes
+               (one with f32 x), each row within 1e-5 x max|y| and every
+               element within the f32 order bound, run twice for identical
+               bits, its prologue bit-equal to the plain dequantization;
                quant_matmul_bwd at the FFN's two shapes and wo (bf16
                cotangents, the tensor-core path), at granite-moe's attention
                shapes (w3a3), at odd, misaligned shapes (one with f32 x), and
@@ -54,9 +59,11 @@ Phases (any failure exits non-zero before the final line is printed):
   5b. moe kernels — quant_matmul_batched and quant_matmul_bwd_batched
                against their plain versions at granite-moe-1b-a400m's expert
                shapes (32 experts x 1280 capacity rows, K/N 1024/512 and
-               512/1024, w3a3), and the batched backward once on its split
-               route (a wide N past the reference's scratch budget); run
-               with phase 5.
+               512/1024, w3a3), the forward also at an odd (3, 257, 129, 65)
+               with f32 x, with phase 5's forward bars and experts 0 and E-1
+               bit-equal to quant_matmul on their slices; and the batched
+               backward once on its split route (a wide N past the
+               reference's scratch budget); run with phase 5.
   8. train   — `run_training` on full-width granite-moe-1b-a400m (24 layers,
                32 experts top 8, tied head), w3a3 (OBR lambda 0.1 on a cosine
                ramp) with oscillation tracking, MCKD top-16, sentinel on,
@@ -479,42 +486,75 @@ def qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype=None):
     return x, w, a_s, a_b, ws
 
 
-def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs) -> dict:
-    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs)
-    kern = lambda: qmm.quant_matmul(x, w, a_s, a_b, ws, **qs)
-    plain = lambda: ref.quant_matmul(x, w, a_s, a_b, ws, **qs)
+def _order_excess(torch, got, want, xd, wd, length) -> float:
+    """Worst excess of |got - want| over the order-independent bound on two
+    f32 sums of the same `length` exact products, 2 * length * 2**-24 *
+    (|xd| @ |wd|) (<= 0: every element within it)."""
+    abs_products = torch.matmul(xd.abs(), wd.abs())
+    excess = ((got - want).abs() - 2 * length * 2.0 ** -24 * abs_products).max().item()
+    del abs_products
+    return excess
+
+
+def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
+                  x_dtype=None) -> dict:
+    """quant_matmul (the tensor-core path) against its plain version: within
+    1e-5 x max|y| and, element by element, within the f32 order bound; a
+    second launch on the same inputs gives the same bits; the prologue alone
+    bit-equal to the plain dequantization."""
+    x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype)
+    args = (x, w, a_s, a_b, ws)
+    kern = lambda: qmm.quant_matmul(*args, **qs)
+    plain = lambda: ref.quant_matmul(*args, **qs)
     y_k, y_r = kern(), plain()
+    again = kern()
     torch.cuda.synchronize()
+    repeat = _same_bits(torch, y_k, again)
+    del again
     err = (y_k - y_r).abs().max().item()
     tol = 1e-5 * y_r.abs().max().item()
     _, _, xd = ref._act_codes(x, a_s, a_b, qs["q_n_a"], qs["q_p_a"])
     _, _, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
+    excess = _order_excess(torch, y_k, y_r, xd, wd, k)
+    del y_k, y_r
+    same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
     xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
     lib = lambda: torch.matmul(xd, wd)
-    del y_k, y_r
-    nbytes = m * k * 2 + k * n * 4 + ws.numel() * 4 + 8 + m * n * 4
+    checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
+              ("order", excess <= 0, f"excess {excess:.2e}"),
+              ("repeat", repeat, "same bits on a second launch"),
+              ("prologue", same, "bit-equal to the plain dequantization")]
+    nbytes = m * k * x.element_size() + k * n * 4 + ws.numel() * 4 + 8 + m * n * 4
     b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
     row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
-           "max_abs_err": err, "tol": tol, "ms": timer.ms(kern),
+           "x": str(x.dtype)[6:], "path": "tc", "max_abs_err": err, "tol": tol,
+           "order_excess": excess, "ms": timer.ms(kern),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
-           "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  quant_matmul M={m} K={k} N={n} ({row['w_scale']} scales): max|err| "
-        f"{err:.3e} (tol {tol:.3e}); kernel {row['ms']:.4f} ms, plain "
+           "bound_ms": b_ms, "bound_by": b_by, "prologue_ms": prologue_ms}
+    log(f"  quant_matmul [tc] M={m} K={k} N={n} ({row['w_scale']} scales, "
+        f"{row['x']} x): "
+        + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
+        + f"; kernel {row['ms']:.4f} ms, prologue {prologue_ms:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, torch.matmul(bf16 dequant) "
         f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if not err <= tol:
-        fail(f"quant_matmul {m}x{k}x{n} disagrees with its plain version: {err} > {tol}")
+    bad = [c for c, ok, _ in checks if not ok]
+    if bad:
+        fail(f"quant_matmul {m}x{k}x{n} disagrees with its plain version on {bad}")
     return row
 
 
-def check_bwd_prologue(torch, timer, qmm, ref, args, qs) -> tuple[bool, float]:
-    """The tensor-core backward's prologue against the plain dequantization
-    (xd, wd, bf16(dY), zero-padded): bit for bit. Returns (equal, its ms)."""
-    kern = lambda: qmm.bwd_prologue(*args, **qs)
-    m, k = args[1].shape
-    lds, _ = qmm._bwd_tc_scratch(m, k, args[2].shape[1])
+def check_prologue(torch, timer, qmm, ref, args, qs) -> tuple[bool, float]:
+    """A tensor-core prologue alone against the plain dequantization: the
+    forward's (args x, w, a_s, a_b, ws; x (M, K) or (E, M, K)) xd and wd, or
+    the backward's (dY first) xd, wd and bf16(dY), zero-padded; bit for bit.
+    Returns (equal, its ms)."""
+    name, scratch = (("fwd_prologue", qmm._fwd_tc_scratch) if len(args) == 5
+                     else ("bwd_prologue", qmm._bwd_tc_scratch))
+    kern = lambda: getattr(qmm, name)(*args, **qs)
+    m, k = args[-5].shape[-2:]
+    lds, _ = scratch(m, k, args[-4].shape[-1])
     got = kern()
-    want = ref.bwd_prologue(*args, lds=lds, **qs)
+    want = getattr(ref, name)(*args, lds=lds, **qs)
     torch.cuda.synchronize()
     same = all(_same_bits(torch, a, b) for a, b in zip(got, want))
     del got, want
@@ -549,7 +589,7 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     checks, worst = [("repeat", repeat, "same bits on a second launch")], 0.0
     prologue_ms = None
     if path == "tc":
-        same, prologue_ms = check_bwd_prologue(torch, timer, qmm, ref, args, qs)
+        same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
         checks.append(("prologue", same, "bit-equal to the plain dequantization"))
     if name in ("quant_matmul_bwd", "quant_matmul_dx"):
         dx_abs = cot.abs() @ wd.abs().T
@@ -616,9 +656,10 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
 MOE_QS = dict(q_n_a=0, q_p_a=7, q_n_w=4, q_p_w=3)     # w3a3
 
 
-def batched_operands(torch, e, m, k, n, gen, qs):
+def batched_operands(torch, e, m, k, n, gen, qs, x_dtype=None):
     dev = "cuda"
-    x = (torch.randn((e, m, k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    x = (torch.randn((e, m, k), generator=gen, device=dev) * 2).to(
+        x_dtype or torch.bfloat16)
     w = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
     a_s = torch.rand((e, 1), generator=gen, device=dev) * 0.3 + 0.2
     a_b = torch.randn((e, 1), generator=gen, device=dev) * 0.1
@@ -626,30 +667,55 @@ def batched_operands(torch, e, m, k, n, gen, qs):
     return x, w, a_s, a_b, ws
 
 
-def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs) -> dict:
-    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs)
-    kern = lambda: qmm.quant_matmul_batched(x, w, a_s, a_b, ws, **qs)
-    plain = lambda: ref.quant_matmul_batched(x, w, a_s, a_b, ws, **qs)
+def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
+                      x_dtype=None) -> dict:
+    """quant_matmul_batched (the tensor-core path) against its plain
+    version, with check_qat_fwd's bars; and experts 0 and E-1 bit-equal to
+    quant_matmul on their slices."""
+    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs, x_dtype)
+    args = (x, w, a_s, a_b, ws)
+    kern = lambda: qmm.quant_matmul_batched(*args, **qs)
+    plain = lambda: ref.quant_matmul_batched(*args, **qs)
     y_k, y_r = kern(), plain()
+    again = kern()
+    ends = sorted({0, e - 1})
+    per_expert = [qmm.quant_matmul(x[i], w[i], a_s[i, 0], a_b[i, 0], ws[i:i + 1], **qs)
+                  for i in ends]
     torch.cuda.synchronize()
+    repeat = _same_bits(torch, y_k, again)
+    as_2d = all(_same_bits(torch, y_k[i], y2) for i, y2 in zip(ends, per_expert))
+    del again, per_expert
     err = (y_k - y_r).abs().max().item()
     tol = 1e-5 * y_r.abs().max().item()
     s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
-    xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])[2].to(torch.bfloat16)
-    wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])[2].to(torch.bfloat16)
-    lib = lambda: torch.bmm(xd, wd)
+    xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])[2]
+    wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])[2]
+    excess = _order_excess(torch, y_k, y_r, xd, wd, k)
     del y_k, y_r
-    nbytes = e * (m * k * 2 + k * n * 4 + 8 + n * 4 + m * n * 4)
+    same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
+    xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+    lib = lambda: torch.bmm(xd, wd)
+    checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
+              ("order", excess <= 0, f"excess {excess:.2e}"),
+              ("repeat", repeat, "same bits on a second launch"),
+              ("prologue", same, "bit-equal to the plain dequantization"),
+              ("per-expert", as_2d, f"experts {ends} bit-equal to quant_matmul")]
+    nbytes = e * (m * k * x.element_size() + k * n * 4 + 8 + n * 4 + m * n * 4)
     b_ms, b_by = bound(nbytes, 2.0 * e * m * k * n)
-    row = {"shape": [e, m, k, n], "max_abs_err": err, "tol": tol,
+    row = {"shape": [e, m, k, n], "x": str(x.dtype)[6:], "path": "tc",
+           "max_abs_err": err, "tol": tol, "order_excess": excess,
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
-           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  quant_matmul_batched E={e} M={m} K={k} N={n}: max|err| {err:.3e} "
-        f"(tol {tol:.3e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"torch.bmm(bf16 dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if not err <= tol:
+           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+           "prologue_ms": prologue_ms}
+    log(f"  quant_matmul_batched [tc] E={e} M={m} K={k} N={n} ({row['x']} x): "
+        + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
+        + f"; kernel {row['ms']:.4f} ms, prologue {prologue_ms:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.bmm(bf16 dequant) "
+        f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    bad = [c for c, ok, _ in checks if not ok]
+    if bad:
         fail(f"quant_matmul_batched {e}x{m}x{k}x{n} disagrees with its plain "
-             f"version: {err} > {tol}")
+             f"version on {bad}")
     return row
 
 
@@ -1216,10 +1282,19 @@ def main() -> None:
     log("qat kernels (each against its plain version on the card):")
     m = 8 * 512
     qat_rows = {name: [] for name in QAT_KERNELS}
-    for k, n, k_side, qs in ((1024, 2816, False, QAT_QS), (1024, 1024, True, QAT_QS),
-                             (1024, 152064, False, HEAD_QS)):
+    # quant_matmul at qwen's FFN (w_in, then the down projection), a K-side
+    # wo and the tied head; granite-moe's attention linears (w3a3: wk / wv,
+    # and wq / wo K-side) and its head (8 bits); odd and misaligned shapes
+    # (one with f32 x)
+    for mm, k, n, k_side, qs, xdt in (
+            (m, 1024, 2816, False, QAT_QS, None), (m, 1024, 1024, True, QAT_QS, None),
+            (m, 1024, 152064, False, HEAD_QS, None), (m, 2816, 1024, False, QAT_QS, None),
+            (m, 1024, 512, False, MOE_QS, None), (m, 1024, 1024, True, MOE_QS, None),
+            (m, 1024, 49408, False, HEAD_QS, None),
+            (1000, 700, 300, False, QAT_QS, torch.float32),
+            (257, 129, 65, True, QAT_QS, None), (m, 1000, 2817, False, QAT_QS, None)):
         qat_rows["quant_matmul"].append(check_qat_fwd(
-            torch, timer, qmm, ref, m, k, n, k_side, gen, qs))
+            torch, timer, qmm, ref, mm, k, n, k_side, gen, qs, xdt))
         torch.cuda.empty_cache()
     for k, n in ((1024, 2816), (2816, 1024)):
         qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
@@ -1262,6 +1337,8 @@ def main() -> None:
         qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
             torch, timer, qmm, ref, 32, 1280, k, n, gen, MOE_QS))
         torch.cuda.empty_cache()
+    qat_rows["quant_matmul_batched"].append(check_batched_fwd(
+        torch, timer, qmm, ref, 3, 257, 129, 65, gen, MOE_QS, torch.float32))
     qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
         torch, timer, qmm, ref, 4, 256, 512, 8192, gen, MOE_QS))
     if qat_rows["quant_matmul_bwd_batched"][-1]["route"] != "split":
@@ -1380,7 +1457,7 @@ def main() -> None:
                                             "of the repo reaches fake_quant_rows")
         if name == "bin_stats_2d":
             kernels[-1]["library"] = r["library"]
-        if name == "quant_matmul_bwd":
+        if name in ("quant_matmul", "quant_matmul_batched", "quant_matmul_bwd"):
             kernels[-1]["path"] = r["path"]
             kernels[-1]["prologue_ms"] = r["prologue_ms"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,12 +1,12 @@
 // QAT fused fake-quant matmul and its backward: out = q_a(x) @ q_w(w).
 //
 // Replaces six TPU kernels of the JAX package (src/repro/kernels/quant_matmul.py):
-//   qat_fwd  <- quant_matmul      (:81,  body _qmm_kernel :46)
-//   qat_dx   <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
-//   qat_dw   <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
-//   qat_bwd  <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453); for bf16
-//               cotangents qat_bwd_prologue + qat_bwd_tc (tensor cores, below)
-//   qat_fwd_batched <- quant_matmul_batched     (:141, body _qmm_batched_kernel :114)
+//   qat_fwd_tc <- quant_matmul      (:81,  body _qmm_kernel :46) and
+//                 quant_matmul_batched (:141, body _qmm_batched_kernel :114)
+//   qat_dx     <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
+//   qat_dw     <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
+//   qat_bwd_tc (bf16 dY) / qat_bwd (f32 dY)
+//              <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
 //   qat_bwd_batched <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
 //
 // What each computes (Eq. 5-7 of the paper, LSQ+ activations, grouped weights):
@@ -23,46 +23,54 @@
 // it in f32 (round_cot = 0), and then the products are f32 x bf16-valued f32.
 // The dX / dW accumulators are rounded through bf16 in every case.
 //
-// What bounds it on an H100: at the training shapes (M = 4096 tokens, K and N
-// of 1024..152064) every product is far above the tensor-core line (hundreds of
-// operations a byte), so the kernels are bound by operations: 2*M*K*N at 989
-// TFLOP/s in bf16, or at 67 TFLOP/s in f32 for the lm head's f32 cotangents.
-// One simple SIMT GEMM tile (128 x 128 outputs a block of 256 threads, 8 x 8 a
-// thread, the contraction walked 8 at a time through shared memory, the next
-// slice's loads in flight while the current one is multiplied) serves all six
-// kernels, the combined backward with bf16 cotangents excepted (below). Each
-// operand is dequantized as it is staged into shared memory, so the dequantized
-// x and w never reach HBM (the point of the TPU kernels), and a bf16 value held
-// in f32 makes a bf16 x bf16 product exact, so f32 FMA gives the f32 sum of
-// exact products that the tensor cores' bf16 path would.
+// What bounds them on an H100: at the training shapes (M = 4096 tokens, K and
+// N of 512..152064) every product is far above the tensor-core line (hundreds
+// of operations a byte), so the kernels are bound by operations: 2*M*K*N at
+// 989 TFLOP/s in bf16, or at 67 TFLOP/s in f32 for the lm head's f32
+// cotangents. Two designs serve them.
 //
-// The combined backward with bf16 cotangents (qat_bwd_tc_launch, the form a
-// training step launches once for every bf16 linear) runs on the tensor cores
-// instead. It replaces the same TPU kernel (quant_matmul_bwd, :574) and is
-// bound by operations: 2 x 2*M*K*N at 989 TFLOP/s (0.048 ms at M 4096, K
-// 1024, N 2816). The SIMT tile dequantizes its whole operand panel in every
-// block: each of the 256 dX blocks divides 2816 x 128 weights, each of the
-// 176 dW blocks 4096 x 128 activations, ~185 M IEEE divisions with their
-// rounding and clamping a launch, ~0.16 ms of all SMs' f32 instruction rate
-// before any product. So the dequantization moves into a prologue that
-// writes xd, wd and bf16(dY) to HBM once (~103 MB, ~0.03 ms at 3.35 TB/s),
-// with the same device functions and so the same bits; the tile is then a
-// plain bf16 GEMM: 128 x 128 outputs a block of 8 warps (64 x 32 a warp,
-// m16n8k16 fragments, 64 f32 accumulators a thread), the contraction staged
-// 32 deep by 16-byte cp.async in 2 stages (rows padded by 8 bf16, so ldmatrix
-// is free of bank conflicts; ldmatrix.trans for the dW operands, which are
-// contiguous along the output axis). The epilogue recomputes u from x / w
-// (M*K + K*N divisions, once each) and reduces the scale sums in a fixed
-// order (in the thread, a fixed shuffle tree, then shared memory in warp
-// order): two launches give the same bits, and no float atomics. f32
-// cotangents (the lm head) stay on the SIMT tile: their products are not
-// exact in bf16, and TF32 is not allowed. Left for later: wgmma and TMA, a
-// persistent grid (432 blocks are 1.6 waves at 2 blocks an SM), more stages.
+// Tensor cores (bf16 x bf16 products, f32 sums): the forward, 2D and per
+// expert (qat_fwd_tc_launch), and the combined backward for bf16 cotangents
+// (qat_bwd_tc_launch, the form a training step launches for every bf16
+// linear). Dequantizing while staging would repeat __fdiv_rn + rintf + clamp
+// + two rounded ops for every operand element in every block that reads it
+// (at the qwen head each of 1,188 column blocks would divide all of x, each
+// of 32 row blocks the whole 1024 x 152064 weight), more f32 instructions
+// than the products' bound. So one prologue (qat_prologue_kernel) writes xd,
+// wd (and bf16(dY) for the backward) to zero-padded bf16 scratch once, with
+// the device functions the SIMT tile stages with, so the same bits; the
+// scratch costs its bytes twice (written, read), ~0.3 ms for the 0.3 GB of
+// the qwen head's wd. The tile is then a plain bf16 GEMM: 128 x 128 outputs a
+// block of 8 warps (64 x 32 a warp, m16n8k16 fragments, 64 f32 accumulators
+// a thread), the contraction staged 32 deep by 16-byte cp.async in 2 stages
+// (rows padded by 8 bf16, so ldmatrix is free of bank conflicts;
+// ldmatrix.trans for operands contiguous along the output axis: wd in the
+// forward, xd and dY in dW). The forward's epilogue stores the f32
+// accumulators (8-byte pairs where N is even); the backward's recomputes u
+// from x / w and reduces the scale sums in a fixed order (in the thread, a
+// fixed shuffle tree, then shared memory in warp order). Two launches give
+// the same bits, and there are no float atomics. Products of exact bf16
+// values summed in f32 differ from any other order only inside the f32
+// order bound.
+//
+// SIMT tile (f32 FMA on bf16 values held in f32, exact products): the split
+// dx / dw (the vocab-wide head, f32 cotangents: their products are not exact
+// in bf16, and TF32 is not allowed), the combined backward for f32
+// cotangents, and the batched backward. 128 x 128 outputs a block of 256
+// threads, 8 x 8 a thread, the contraction walked 8 at a time through shared
+// memory, the next slice's loads in flight while the current one is
+// multiplied; each operand is dequantized as it is staged.
+//
+// Left for later: the batched backward onto the prologue and the tensor-core
+// tile; then wgmma and TMA, a persistent grid and more stages for the tile
+// (the 128 x 128 mma.sync tile runs at a fraction of the 989 TFLOP/s peak).
 //
 // What differs from the TPU design, and why:
 //   * No carried accumulators: the TPU grid runs in order and carries dX / dW
 //     and the scale sums across grid steps; here a block loops over the whole
 //     contraction for its output tile.
+//   * The dequantized operands reach HBM on the tensor-core path (the TPU
+//     kernels keep them in VMEM): on this card the bytes are the cheap side.
 //   * Scale cotangents without atomics: each block writes its partial sums
 //     (dsa/dba per block; dws per column over the block's rows, or per row over
 //     its columns) to a scratch the wrapper allocates, and one finish kernel adds
@@ -71,17 +79,19 @@
 //     whose other blocks compute dW tiles, through the same device code as the
 //     split kernels, so the two routes give identical bits. The TPU's (bk, Np)
 //     VMEM panel has no counterpart.
-//   * Edges are masked in the kernel; nothing is padded.
-//   * The batched (MoE expert) kernels put the expert on blockIdx.z: a block
-//     offsets every per-expert operand (x, w, the (E,) activation scale and
-//     offset, the (E, N) column scales, dY, the outputs and the partials) by
-//     its expert and then runs the same tile as the 2D kernel, so an expert's
-//     results are bit for bit those of the 2D kernels on its slices. The finish
-//     pass runs one row of blocks per expert (blockIdx.y). Expert weight
-//     scales are N-side only (the reference's eligibility rule), so the
-//     batched kernels take no row scales. At the MoE training shapes (32
-//     experts x 1280 capacity rows, K and N of 512 / 1024) each expert is 40
-//     output tiles, 1280 blocks a launch.
+//   * Edges are masked in the kernel (and the scratch's pad is zero); the
+//     operands are not padded.
+//   * The batched (MoE expert) kernels put the expert on blockIdx.z (the
+//     prologue on blockIdx.y): a block offsets every per-expert operand (x, w,
+//     the (E,) activation scale and offset, the (E, N) column scales, dY, the
+//     scratch, the outputs and the partials) by its expert and then runs the
+//     same tile as the 2D kernel, so an expert's results are bit for bit those
+//     of the 2D kernels on its slices. The finish pass runs one row of blocks
+//     per expert (blockIdx.y). Expert weight scales are N-side only (the
+//     reference's eligibility rule), so the batched kernels take no row
+//     scales. At the MoE training shapes (32 experts x 1280 capacity rows, K
+//     and N of 512 / 1024) each expert is 40 output tiles, 1280 blocks a
+//     launch.
 // Numerics: round half to even (rintf), IEEE division (built without fast math),
 // and the multiply and add of the dequantization rounded separately (no FMA
 // contraction), as the reference writes them.
@@ -134,18 +144,6 @@ __device__ __forceinline__ float w_deq(float w, float s, Quant q) {
 // ---------------------------------------------------------------------------
 
 template <class XT>
-struct XDeq {  // A(m, k) = xd(m, k): forward
-  static constexpr bool L_FAST = true;
-  const XT* x; int M, K; float s, b; Quant q;
-  __device__ float load(int m, int k) const {
-    return (m < M && k < K) ? ld(x, (size_t)m * K + k) : 0.f;
-  }
-  __device__ float conv(float v, int m, int k) const {
-    return (m < M && k < K) ? act_deq(v, s, b, q) : 0.f;
-  }
-};
-
-template <class XT>
 struct XDeqT {  // A(k, m) = xd(m, k): dW = xd^T @ dY
   static constexpr bool L_FAST = false;
   const XT* x; int M, K; float s, b; Quant q;
@@ -176,17 +174,6 @@ struct Args {
   int round_cot;           // dY rounded to bf16
   Quant qa, qw;
   __device__ __forceinline__ WQ wq() const { return WQ{w, ws, K, N, k_side, qw}; }
-};
-
-struct WDeq {  // B(k, n) = wd(k, n): forward
-  static constexpr bool L_FAST = false;
-  WQ a;
-  __device__ float load(int k, int n) const {
-    return (k < a.K && n < a.N) ? a.w[(size_t)k * a.N + n] : 0.f;
-  }
-  __device__ float conv(float v, int k, int n) const {
-    return (k < a.K && n < a.N) ? w_deq(v, a.scale(k, n), a.q) : 0.f;
-  }
 };
 
 struct WDeqT {  // B(n, k) = wd(k, n): dX = dY @ wd^T
@@ -303,29 +290,8 @@ __device__ __forceinline__ float block_sum(float v, float* buf) {
 }
 
 // ---------------------------------------------------------------------------
-// The three tiles
+// The SIMT backward tiles
 // ---------------------------------------------------------------------------
-
-template <class XT>
-__device__ __forceinline__ void fwd_tile(const Args& a, float* out, int blk, Smem& sm) {
-  const int n_i = (a.M + BM - 1) / BM;
-  const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
-  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
-  XDeq<XT> la{static_cast<const XT*>(a.x), a.M, a.K, s, b, a.qa};
-  WDeq lb{a.wq()};
-  float acc[8][8];
-  gemm_tile(la, lb, i0, j0, a.K, acc, sm);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int m = i0 + tile_row(ty, r);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = j0 + tile_row(tx, c);
-      if (m < a.M && n < a.N) out[(size_t)m * a.N + n] = acc[r][c];
-    }
-  }
-}
 
 // dX tile (rows m, columns k; contraction over n) + this block's dsa/dba.
 template <class XT>
@@ -429,12 +395,6 @@ __device__ __forceinline__ void dw_tile(const Args& a, float* dw, float* part, i
 // ---------------------------------------------------------------------------
 
 template <class XT>
-__global__ void __launch_bounds__(NT) qat_fwd_kernel(Args a, float* out) {
-  __shared__ __align__(16) Smem sm;
-  fwd_tile<XT>(a, out, blockIdx.x, sm);
-}
-
-template <class XT>
 __global__ void __launch_bounds__(NT) qat_dx_kernel(Args a, float* dx, float* part) {
   __shared__ __align__(16) Smem sm;
   dx_tile<XT>(a, dx, part, blockIdx.x, sm);
@@ -465,13 +425,6 @@ __device__ __forceinline__ Args at_expert(Args a, int e) {
   a.ws += (size_t)e * a.N;
   if (a.dy != nullptr) a.dy += (size_t)e * a.M * a.N;
   return a;
-}
-
-template <class XT>
-__global__ void __launch_bounds__(NT) qat_fwd_batched_kernel(Args a, float* out) {
-  __shared__ __align__(16) Smem sm;
-  const int e = blockIdx.z;
-  fwd_tile<XT>(at_expert<XT>(a, e), out + (size_t)e * a.M * a.N, blockIdx.x, sm);
 }
 
 // Per expert: blocks [0, n_dx) are dX tiles, the rest dW tiles; each expert
@@ -530,11 +483,12 @@ __global__ void __launch_bounds__(NT) qat_finish_kernel(const float* part_x, int
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core backward for bf16 cotangents (qat_bwd_tc_launch).
-// A prologue writes xd (M, ld_x), wd (K, ld_w) and bf16(dY) (M, ld_y) once,
-// each leading dimension a multiple of 8 with its pad zeroed; the tile then
-// runs a plain bf16 GEMM: 16-byte cp.async into 2 stages of 32-deep slices,
-// ldmatrix, and mma.sync m16n8k16 with f32 accumulators.
+// The tensor-core path: the forward (qat_fwd_tc_launch, 2D and per expert)
+// and the backward for bf16 cotangents (qat_bwd_tc_launch). A prologue
+// writes xd (M, ld_x), wd (K, ld_w) and, for the backward, bf16(dY) (M, ld_y)
+// once, each leading dimension a multiple of 8 with its pad zeroed; the tile
+// then runs a plain bf16 GEMM: 16-byte cp.async into 2 stages of 32-deep
+// slices, ldmatrix, and mma.sync m16n8k16 with f32 accumulators.
 // ---------------------------------------------------------------------------
 
 struct TcOp {  // a bf16 scratch array (rows, ld), ld % 8 == 0, 16-byte aligned
@@ -583,19 +537,26 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) 
   *reinterpret_cast<uint4*>(dst) = o;
 }
 
-// One grid-stride pass over the three arrays in chunks of 8 elements of a
-// row: the same act_deq / w_deq / bf16 rounding as the SIMT tile's staging,
-// so the values are those the SIMT kernels multiply, bit for bit.
+// One grid-stride pass over the arrays in chunks of 8 elements of a row: the
+// same act_deq / w_deq / bf16 rounding as the SIMT tile's staging, so the
+// values are those the SIMT kernels multiply, bit for bit. Without dY (the
+// forward, dyb == nullptr) only xd and wd. Expert e = blockIdx.y (0 for the
+// 2D kernels) reads its own operands and scales and writes its own slices.
 template <class XT>
-__global__ void __launch_bounds__(NT) qat_bwd_prologue_kernel(Args a, __nv_bfloat16* xd,
-                                                              int ld_x, __nv_bfloat16* wd,
-                                                              int ld_w, __nv_bfloat16* dyb,
-                                                              int ld_y) {
+__global__ void __launch_bounds__(NT) qat_prologue_kernel(Args a, __nv_bfloat16* xd, int ld_x,
+                                                          __nv_bfloat16* wd, int ld_w,
+                                                          __nv_bfloat16* dyb, int ld_y) {
+  const size_t e = blockIdx.y;
+  a = at_expert<XT>(a, (int)e);
+  xd += e * a.M * ld_x;
+  wd += e * a.K * ld_w;
+  if (dyb != nullptr) dyb += e * a.M * ld_y;
   const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
   const WQ wq = a.wq();
   const XT* x = static_cast<const XT*>(a.x);
   const size_t px = ld_x / 8, pw = ld_w / 8, py = ld_y / 8;
-  const size_t cx = (size_t)a.M * px, cw = (size_t)a.K * pw, cy = (size_t)a.M * py;
+  const size_t cx = (size_t)a.M * px, cw = (size_t)a.K * pw;
+  const size_t cy = dyb != nullptr ? (size_t)a.M * py : 0;
   for (size_t c = (size_t)blockIdx.x * NT + threadIdx.x; c < cx + cw + cy;
        c += (size_t)gridDim.x * NT) {
     float v[8];
@@ -897,6 +858,48 @@ __global__ void __launch_bounds__(NT, 2) qat_bwd_tc_kernel(Args a, TcOp xd, TcOp
   else dw_tc_tile(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
 }
 
+// Forward tile (rows m, columns n; contraction over k): A = xd (M, ld_x),
+// B(k, n) = wd (K, ld_w) staged transposed; the accumulators go to out (M,
+// N) f32, a thread's two neighbouring columns as one 8-byte store where N
+// is even (then every pair starts on an even column, 8-byte aligned).
+__device__ __forceinline__ void fwd_tc_tile(const TcOp& xd, const TcOp& wd, int N, float* out,
+                                            int blk, __nv_bfloat16* sm) {
+  const int M = xd.rows;
+  const int n_i = (M + BM - 1) / BM;
+  const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
+  float acc[4][4][4];
+  tc_gemm<false, true>(xd, wd, i0, j0, wd.rows, acc, sm);
+  const bool pairs = N % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = i0 + tc_row(mf, 2 * h), n = j0 + tc_col(nf, 0);
+        if (m >= M || n >= N) continue;
+        float* p = out + (size_t)m * N + n;
+        const float v0 = acc[mf][nf][2 * h], v1 = acc[mf][nf][2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          p[0] = v0;
+          if (n + 1 < N) p[1] = v1;
+        }
+      }
+}
+
+// The forward: expert e = blockIdx.z (0 for the 2D kernel) multiplies its
+// slices of the scratch into its slice of out, so its bits are the 2D
+// kernel's on those slices.
+__global__ void __launch_bounds__(NT, 2) qat_fwd_tc_kernel(TcOp xd, TcOp wd, float* out, int N) {
+  __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
+  const size_t e = blockIdx.z;
+  xd.p += e * xd.rows * xd.ld;
+  wd.p += e * wd.rows * wd.ld;
+  fwd_tc_tile(xd, wd, N, out + e * xd.rows * N, blockIdx.x, sm);
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline int n_dx_blocks(const Args& a) { return cdiv(a.M, BM) * cdiv(a.K, BN); }
 inline int n_dw_blocks(const Args& a) { return cdiv(a.K, BM) * cdiv(a.N, BN); }
@@ -941,19 +944,6 @@ Args make_args(const void* x, const void* w, const void* a_s, const void* a_b,
 // `stream` and returns cudaGetLastError().
 
 extern "C" int qat_tile(void) { return BM; }
-
-extern "C" int qat_fwd_launch(const void* x, int x_bf16, const void* w, const void* a_s,
-                              const void* a_b, const void* ws, int k_side, void* out,
-                              int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                              void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 0, qn_a, qp_a, qn_w, qp_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = cdiv(M, BM) * cdiv(N, BN);
-  if (x_bf16) qat_fwd_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
-  else qat_fwd_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int qat_dx_launch(const void* dy, const void* x, int x_bf16, const void* w,
                              const void* a_s, const void* a_b, const void* ws, int k_side,
@@ -1015,29 +1005,32 @@ extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const v
                                  pw, static_cast<float*>(dws), st));
 }
 
-// The tensor-core backward's scratch: xd (M, ld_x), wd (K, ld_w), dyb (M,
-// ld_y) bf16, each leading dimension a multiple of 8 and at least K, N, N,
-// 16-byte aligned; the prologue writes them whole (pad included).
+// The tensor-core path's scratch: xd (M, ld_x), wd (K, ld_w) and, for the
+// backward, dyb (M, ld_y) bf16 (E of each for the batched forward), each
+// leading dimension a multiple of 8 and at least K, N, N, 16-byte aligned;
+// the prologue writes them whole (pad included).
 namespace {
+bool scratch_ok(const void* p, int ld, int cols) {
+  return ld >= cols && ld % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 bool tc_scratch_ok(int K, int N, const void* xd, int ld_x, const void* wd, int ld_w,
                    const void* dyb, int ld_y) {
-  return ld_x >= K && ld_w >= N && ld_y >= N && ld_x % 8 == 0 && ld_w % 8 == 0 &&
-         ld_y % 8 == 0 && (reinterpret_cast<uintptr_t>(xd) & 15) == 0 &&
-         (reinterpret_cast<uintptr_t>(wd) & 15) == 0 &&
-         (reinterpret_cast<uintptr_t>(dyb) & 15) == 0;
+  return scratch_ok(xd, ld_x, K) && scratch_ok(wd, ld_w, N) && scratch_ok(dyb, ld_y, N);
 }
 
 cudaError_t prologue(const Args& a, int x_bf16, void* xd, int ld_x, void* wd, int ld_w,
-                     void* dyb, int ld_y, cudaStream_t st) {
-  const size_t chunks = ((size_t)a.M * ld_x + (size_t)a.K * ld_w + (size_t)a.M * ld_y) / 8;
-  const int grid = (int)(chunks / NT + 1 < 4096 ? chunks / NT + 1 : 4096);
+                     void* dyb, int ld_y, cudaStream_t st, int experts = 1) {
+  const size_t chunks = ((size_t)a.M * ld_x + (size_t)a.K * ld_w +
+                         (dyb != nullptr ? (size_t)a.M * ld_y : 0)) / 8;
+  const dim3 grid((unsigned)(chunks / NT + 1 < 4096 ? chunks / NT + 1 : 4096), experts);
   auto* bx = static_cast<__nv_bfloat16*>(xd);
   auto* bw = static_cast<__nv_bfloat16*>(wd);
   auto* by = static_cast<__nv_bfloat16*>(dyb);
   if (x_bf16)
-    qat_bwd_prologue_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+    qat_prologue_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
   else
-    qat_bwd_prologue_kernel<float><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+    qat_prologue_kernel<float><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
   return cudaGetLastError();
 }
 }  // namespace
@@ -1050,7 +1043,7 @@ extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16
                                        int N, int qn_a, int qp_a, int qn_w, int qp_w,
                                        void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return 0;
-  if (!tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+  if (dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
   return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y,
@@ -1067,7 +1060,7 @@ extern "C" int qat_bwd_tc_launch(const void* dy, const void* x, int x_bf16, cons
                                  int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
                                  int round_cot, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return 0;
-  if (!round_cot || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+  if (!round_cot || dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1092,25 +1085,46 @@ extern "C" int qat_bwd_tc_launch(const void* dy, const void* x, int x_bf16, cons
                                  pw, static_cast<float*>(dws), st));
 }
 
-// Batched (per-expert) entries: x (E, M, K) bf16 or f32, w (E, K, N) f32,
-// a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy (E, M, N) f32; outputs
-// f32 (E, M, N) / dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws (E, N).
-// Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K, 128) * N.
-
-extern "C" int qat_fwd_batched_launch(const void* x, int x_bf16, const void* w,
-                                      const void* a_s, const void* a_b, const void* ws,
-                                      void* out, int E, int M, int K, int N, int qn_a,
-                                      int qp_a, int qn_w, int qp_w, void* stream) {
+// The forward on the tensor cores, 2D (E = 1, the operands above, out (M,
+// N)) or per expert (E > 1: x (E, M, K), w (E, K, N), a_s / a_b (E,), ws
+// (E, N) column scales, out (E, M, N)), with the two scratch arrays xd (E,
+// M, ld_x) and wd (E, K, ld_w): prologue, then tile.
+extern "C" int qat_fwd_tc_launch(const void* x, int x_bf16, const void* w, const void* a_s,
+                                 const void* a_b, const void* ws, int k_side, void* out,
+                                 void* xd, int ld_x, void* wd, int ld_w, int E, int M, int K,
+                                 int N, int qn_a, int qp_a, int qn_w, int qp_w, void* stream) {
   if (E <= 0 || M <= 0 || N <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, 0, 0, qn_a, qp_a, qn_w, qp_w);
+  if ((E > 1 && k_side) || !scratch_ok(xd, ld_x, K) || !scratch_ok(wd, ld_w, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 0, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, nullptr, 0, st, E);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
+  const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
   const dim3 grid(cdiv(M, BM) * cdiv(N, BN), 1, E);
-  if (x_bf16)
-    qat_fwd_batched_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
-  else
-    qat_fwd_batched_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(out));
+  qat_fwd_tc_kernel<<<grid, NT, 0, st>>>(oxd, owd, static_cast<float*>(out), N);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The forward's prologue alone (for checks): qat_fwd_tc_launch's scratch.
+extern "C" int qat_fwd_prologue_launch(const void* x, int x_bf16, const void* w,
+                                       const void* a_s, const void* a_b, const void* ws,
+                                       int k_side, void* xd, int ld_x, void* wd, int ld_w,
+                                       int E, int M, int K, int N, int qn_a, int qp_a,
+                                       int qn_w, int qp_w, void* stream) {
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
+  if ((E > 1 && k_side) || !scratch_ok(xd, ld_x, K) || !scratch_ok(wd, ld_w, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 0, qn_a, qp_a, qn_w, qp_w);
+  return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, nullptr, 0,
+                                   static_cast<cudaStream_t>(stream), E));
+}
+
+// The batched (per-expert) backward: x (E, M, K) bf16 or f32, w (E, K, N)
+// f32, a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy (E, M, N) f32;
+// outputs f32 dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws (E, N).
+// Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K, 128) * N.
 
 extern "C" int qat_bwd_batched_launch(const void* dy, const void* x, int x_bf16,
                                       const void* w, const void* a_s, const void* a_b,

@@ -17,10 +17,15 @@ w_scale (E, N), dy (E, M, N). `quant_matmul_bwd[_batched]` keep the
 reference's route rule: past `BWD_SCRATCH_BUDGET_BYTES` of (TPU) scratch
 they run the split dx / dw kernels (expert by expert for the batched one),
 so the port takes the same route at every shape; the GPU kernels themselves
-do not use the tiles. On its combined route `quant_matmul_bwd` runs on the
-tensor cores for bf16 cotangents (a prologue that dequantizes each operand
-once into bf16 scratch, then an mma.sync tile) and on the SIMT tile for
-f32 ones (`bwd_route`).
+do not use the tiles.
+
+What runs on the card: both forwards, and `quant_matmul_bwd` on its
+combined route with bf16 cotangents, run on the tensor cores (a prologue
+that dequantizes each operand once into zero-padded bf16 scratch, then an
+mma.sync tile; the scratch lives for the call). The combined backward with
+f32 cotangents (`bwd_route`), the split dx / dw pair (the vocab-wide head)
+and the batched backward run on the SIMT tile, which dequantizes as it
+stages. `fwd_prologue` / `bwd_prologue` run the prologues alone, for checks.
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
 version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
@@ -155,8 +160,10 @@ def _qat_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qat_tile.argtypes = []
         lib.qat_tile.restype = i
-        lib.qat_fwd_launch.argtypes = [p, i, p, p, p, p, i, p,
-                                       i, i, i, i, i, i, i, p]
+        lib.qat_fwd_tc_launch.argtypes = [p, i, p, p, p, p, i, p, p, i, p, i,
+                                          i, i, i, i, i, i, i, i, p]
+        lib.qat_fwd_prologue_launch.argtypes = [p, i, p, p, p, p, i, p, i, p,
+                                                i, i, i, i, i, i, i, i, i, p]
         lib.qat_dx_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
                                       i, i, i, i, i, i, i, i, p]
         lib.qat_dw_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p,
@@ -169,14 +176,12 @@ def _qat_lib() -> ctypes.CDLL:
         lib.qat_bwd_prologue_launch.argtypes = [p, p, i, p, p, p, p, i, p, i,
                                                 p, i, p, i, i, i, i, i, i, i,
                                                 i, p]
-        lib.qat_fwd_batched_launch.argtypes = [p, i, p, p, p, p, p,
-                                               i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
                                                p, p, p, p, i, i, i, i, i, i,
                                                i, i, i, p]
-        for fn in (lib.qat_fwd_launch, lib.qat_dx_launch, lib.qat_dw_launch,
-                   lib.qat_bwd_launch, lib.qat_bwd_tc_launch,
-                   lib.qat_bwd_prologue_launch, lib.qat_fwd_batched_launch,
+        for fn in (lib.qat_fwd_tc_launch, lib.qat_fwd_prologue_launch,
+                   lib.qat_dx_launch, lib.qat_dw_launch, lib.qat_bwd_launch,
+                   lib.qat_bwd_tc_launch, lib.qat_bwd_prologue_launch,
                    lib.qat_bwd_batched_launch):
             fn.restype = i
         if lib.qat_tile() != QAT_TILE:
@@ -231,6 +236,41 @@ def _raise(name: str, rc: int, m: int, k: int, n: int) -> None:
         raise RuntimeError(f"{name} failed: cudaError {rc} (M={m}, K={k}, N={n})")
 
 
+def _fwd_tc_scratch(m: int, k: int, n: int, e: int = 1):
+    """The tensor-core forward's bf16 scratch, xd (E, M, ld_x) and wd (E, K,
+    ld_w) (E = 1: the 2D forward): ((ld_x, ld_w), their bytes), K and N
+    rounded up to a multiple of 8 elements (16 bytes), so every row starts
+    16-byte aligned; the prologue zeroes the pad."""
+    lds = (_cdiv(k, 8) * 8, _cdiv(n, 8) * 8)
+    return lds, (2 * e * m * lds[0], 2 * e * k * lds[1])
+
+
+def _fwd_tc_scratch_tensors(lead: tuple, m: int, k: int, n: int, device):
+    """xd (*lead, M, ld_x) and wd (*lead, K, ld_w); lead () or (E,)."""
+    lds, _ = _fwd_tc_scratch(m, k, n)
+    return tuple(torch.empty((*lead, rows, ld), dtype=torch.bfloat16, device=device)
+                 for rows, ld in zip((m, k), lds))
+
+
+def _fwd_tc(x, w, a_s, a_b, ws, k_side: bool, qs: dict, out=None):
+    """The tensor-core forward on checked operands, x (M, K) or per expert
+    (E, M, K): its prologue and tile into `out`, or (out None) the prologue
+    alone. Returns the scratch (xd, wd)."""
+    lead, (m, k), n = tuple(x.shape[:-2]), x.shape[-2:], w.shape[-1]
+    xd, wd = _fwd_tc_scratch_tensors(lead, m, k, n, x.device)
+    entry = "qat_fwd_prologue_launch" if out is None else "qat_fwd_tc_launch"
+    outs = [] if out is None else [out.data_ptr()]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_qat_lib(), entry)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), int(k_side), *outs,
+        xd.data_ptr(), xd.shape[-1], wd.data_ptr(), wd.shape[-1],
+        lead[0] if lead else 1, m, k, n, qs["q_n_a"], qs["q_p_a"],
+        qs["q_n_w"], qs["q_p_w"], stream)
+    _raise(entry, rc, m, k, n)
+    return xd, wd
+
+
 def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
                  q_n_w: int, q_p_w: int) -> torch.Tensor:
     """q_a(x) @ q_w(w) -> (M, N) f32 (the reference's quant_matmul)."""
@@ -239,16 +279,32 @@ def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
         return ref.quant_matmul(x, w, a_scale, a_offset, w_scale, **qs)
     x, w, a_s, a_b, ws, k_side, _ = _qat_operands(x, w, a_scale, a_offset,
                                                   w_scale)
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _qat_lib().qat_fwd_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-        a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), int(k_side),
-        out.data_ptr(), m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, stream)
-    _raise("qat_fwd_launch", rc, m, k, n)
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    _fwd_tc(x, w, a_s, a_b, ws, k_side, qs, out)
     quant_matmul.launches += 1
+    return out
+
+
+def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
+                 q_n_w: int, q_p_w: int):
+    """The tensor-core forward's prologue alone: (xd, wd) as the zero-padded
+    bf16 scratch that quant_matmul (x (M, K)) or quant_matmul_batched (x
+    (E, M, K)) multiplies (`_fwd_tc_scratch`). A check: the training path
+    reaches the prologue only inside the forwards, whose counts it adds to."""
+    qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
+    lds, _ = _fwd_tc_scratch(*x.shape[-2:], w.shape[-1])
+    if x.device.type == "cpu":
+        return ref.fwd_prologue(x, w, a_scale, a_offset, w_scale, lds=lds, **qs)
+    if x.dim() == 3:
+        x, w, a_s, a_b, ws, _ = _batched_operands(x, w, a_scale, a_offset,
+                                                  w_scale)
+        k_side = False
+    else:
+        x, w, a_s, a_b, ws, k_side, _ = _qat_operands(x, w, a_scale, a_offset,
+                                                      w_scale)
+    out = _fwd_tc(x, w, a_s, a_b, ws, k_side, qs)
+    fwd_prologue.launches += 1
     return out
 
 
@@ -444,15 +500,9 @@ def quant_matmul_batched(x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     if x.device.type == "cpu":
         return ref.quant_matmul_batched(x, w, a_scale, a_offset, w_scale, **qs)
     x, w, a_s, a_b, ws, _ = _batched_operands(x, w, a_scale, a_offset, w_scale)
-    e, m, k = x.shape
-    n = w.shape[2]
-    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _qat_lib().qat_fwd_batched_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-        a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        e, m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, stream)
-    _raise("qat_fwd_batched_launch", rc, m, k, n)
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    _fwd_tc(x, w, a_s, a_b, ws, False, qs, out)
     quant_matmul_batched.launches += 1
     return out
 
@@ -510,5 +560,6 @@ quant_matmul_dx.launches = 0
 quant_matmul_dw.launches = 0
 quant_matmul_bwd.launches = 0
 bwd_prologue.launches = 0
+fwd_prologue.launches = 0
 quant_matmul_batched.launches = 0
 quant_matmul_bwd_batched.launches = 0

@@ -114,19 +114,33 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     return dx, dsa, dba, dw, dws
 
 
+def _padded_bf16(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """t (..., cols) as bf16 (..., ld), zero past cols."""
+    out = torch.zeros((*t.shape[:-1], ld), dtype=torch.bfloat16, device=t.device)
+    out[..., :t.shape[-1]] = t.to(torch.bfloat16)
+    return out
+
+
+def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
+                 q_n_w: int, q_p_w: int, lds):
+    """The tensor-core forward's prologue: xd and wd as bf16 arrays of
+    leading dimensions lds = (ld_x, ld_w), zero past K and N; x (M, K) with
+    quant_matmul's scales, or (E, M, K) with quant_matmul_batched's."""
+    if x.dim() == 3:
+        a_scale, a_offset, w_scale = _expert_scales(a_scale, a_offset, w_scale)
+    _, _, xd = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
+    _, _, wd = _weight_codes(w, w_scale, q_n_w, q_p_w)
+    return _padded_bf16(xd, lds[0]), _padded_bf16(wd, lds[1])
+
+
 def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                  q_p_a: int, q_n_w: int, q_p_w: int, lds):
     """The tensor-core backward's prologue: xd, wd and bf16(dY) as bf16
     arrays of leading dimensions lds = (ld_x, ld_w, ld_y), zero past K, N
     and N: the values the SIMT kernels stage, bit for bit."""
-    _, _, xd = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
-    _, _, wd = _weight_codes(w, w_scale, q_n_w, q_p_w)
-    outs = []
-    for t, ld in zip((xd, wd, _cotangent(dy, True)), lds):
-        out = torch.zeros((t.shape[0], ld), dtype=torch.bfloat16, device=t.device)
-        out[:, :t.shape[1]] = t.to(torch.bfloat16)
-        outs.append(out)
-    return tuple(outs)
+    xd, wd = fwd_prologue(x, w, a_scale, a_offset, w_scale, q_n_a=q_n_a,
+                          q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w, lds=lds[:2])
+    return xd, wd, _padded_bf16(_cotangent(dy, True), lds[2])
 
 
 def _expert_scales(a_scale, a_offset, w_scale):

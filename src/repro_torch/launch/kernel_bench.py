@@ -306,6 +306,19 @@ def qat_bwd_traffic(device) -> dict:
             "split_vs_combined": split / combined}
 
 
+def tc_scratch_bytes(m: int, k: int, n: int, *, backward: bool) -> int:
+    """Bytes of the tensor-core path's bf16 scratch on the CUDA kernels,
+    written once by the prologue and read once by the tile: xd and wd for
+    the forward, and bf16(dY) as well for the backward (0 where the
+    backward's route is not the tensor cores'). Not in `kernel_bytes`,
+    which counts the boundary alone."""
+    if not backward:
+        return 2 * sum(qmm._fwd_tc_scratch(m, k, n)[1])
+    if qmm.bwd_route(m, k, n, round_cot=True) != "tc":
+        return 0
+    return 2 * sum(qmm._bwd_tc_scratch(m, k, n)[1])
+
+
 def _embed_lookup_cases(rng, device, vocab=4096, d_model=1024, n_tokens=128):
     """Matched int8-codes / packed-int4 serving embeddings + a token batch."""
     codes = _t(rng.integers(-8, 8, (vocab, d_model)), device, torch.int8)
@@ -355,6 +368,7 @@ def run(device) -> dict:
     qat_fwd = {"unfused_bytes": counted_bytes(unfused_fwd),
                "kernel_bytes": boundary_bytes(
                    fwd_args, qmm.quant_matmul(*fwd_args, **kw)),
+               "scratch_bytes": tc_scratch_bytes(M, K, N, backward=False),
                "unfused_ms": ms(unfused_fwd),
                "kernel_ms": ms(fused_fwd)}
     qat_fwd["reduction"] = qat_fwd["unfused_bytes"] / qat_fwd["kernel_bytes"]
@@ -379,7 +393,8 @@ def run(device) -> dict:
         return torch.autograd.grad(torch.sum(y), leaves)
 
     qat_bwd = qat_bwd_traffic(device)
-    qat_bwd.update({"unfused_bytes": counted_bytes(unfused_grad),
+    qat_bwd.update({"scratch_bytes": tc_scratch_bytes(M, K, N, backward=True),
+                    "unfused_bytes": counted_bytes(unfused_grad),
                     "unfused_ms": ms(unfused_grad),
                     "kernel_ms": ms(fused_grad)})
     qat_bwd["reduction"] = qat_bwd["unfused_bytes"] / qat_bwd["combined_bytes"]
