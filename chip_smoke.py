@@ -59,10 +59,18 @@ Phases (any failure exits non-zero before the final line is printed):
   5b. moe kernels — quant_matmul_batched and quant_matmul_bwd_batched
                against their plain versions at granite-moe-1b-a400m's expert
                shapes (32 experts x 1280 capacity rows, K/N 1024/512 and
-               512/1024, w3a3), the forward also at an odd (3, 257, 129, 65)
-               with f32 x, with phase 5's forward bars and experts 0 and E-1
-               bit-equal to quant_matmul on their slices; and the batched
-               backward once on its split route (a wide N past the
+               512/1024, w3a3) and at an odd (3, 257, 129, 65) with f32 x,
+               both on the tensor cores; the forward with phase 5's forward
+               bars and experts 0 and E-1 bit-equal to quant_matmul on their
+               slices; the backward with phase 5's backward bars per expert,
+               each row naming its path, run twice for identical bits, its
+               prologue bit-equal to the plain dequantization, and experts 0
+               and E-1 bit-equal in all five outputs to quant_matmul_bwd on
+               their slices; on the tensor cores dws may also differ from
+               the plain dws by its differing bf16(xd^T dY) summands x
+               |q - mf u| (read from a launch with w = 0, each summand held
+               to the dW bar); the backward also with f32 cotangents (the
+               SIMT path) and once on its split route (a wide N past the
                reference's scratch budget); run with phase 5.
   8. train   — `run_training` on full-width granite-moe-1b-a400m (24 layers,
                32 experts top 8, tied head), w3a3 (OBR lambda 0.1 on a cosine
@@ -719,60 +727,129 @@ def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     return row
 
 
-def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs) -> dict:
+def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
+                      x_dtype=None, round_cot=True) -> dict:
     """quant_matmul_bwd_batched against its plain version, with the bars of
-    check_qat_bwd per expert; the route (combined or split expert by expert
-    through quant_matmul_dx / _dw) is the reference's on the padded shape."""
-    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs)
+    check_qat_bwd per expert; the path is `bwd_route` on the per-expert
+    shape (the tensor cores for bf16 cotangents, the SIMT tile for f32
+    ones, or split expert by expert through quant_matmul_dx / _dw past the
+    reference's scratch budget). A second launch gives the same bits; on the
+    combined routes experts 0 and E-1 are bit-equal, in all five outputs, to
+    quant_matmul_bwd on their slices; on the tensor-core path the prologue
+    alone is bit-equal to the plain dequantization, and dws may differ from
+    the plain dws by 1e-4 x sum|summands| plus what its differing summands
+    account for (below)."""
+    x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs, x_dtype)
     dy = torch.randn((e, m, n), generator=gen, device="cuda")
-    combined = qmm.bwd_uses_combined(*qmm.padded_dims(m, k, n))
+    path = qmm.bwd_route(m, k, n, round_cot)
+    kw = dict(round_cot=round_cot, **qs)
     args = (dy, x, w, a_s, a_b, ws)
-    kern = lambda: qmm.quant_matmul_bwd_batched(*args, **qs)
-    plain = lambda: ref.quant_matmul_bwd_batched(*args, **qs)
+    kern = lambda: qmm.quant_matmul_bwd_batched(*args, **kw)
+    plain = lambda: ref.quant_matmul_bwd_batched(*args, **kw)
     got, want = kern(), plain()
+    again = kern()
     torch.cuda.synchronize()
+    checks = [("repeat", all(_same_bits(torch, a, b) for a, b in zip(got, again)),
+               "same bits on a second launch")]
+    del again
+    if path != "split":
+        ends = sorted({0, e - 1})
+        as_2d = True
+        for i in ends:
+            two_d = qmm.quant_matmul_bwd(dy[i], x[i], w[i], a_s[i, 0], a_b[i, 0],
+                                         ws[i:i + 1], **kw)
+            mine = (got[0][i], got[1][i, 0], got[2][i, 0], got[3][i], got[4][i:i + 1])
+            as_2d = as_2d and all(_same_bits(torch, a, b) for a, b in zip(mine, two_d))
+            del two_d
+        checks.append(("per-expert", as_2d,
+                       f"experts {ends} bit-equal to quant_matmul_bwd in all five"))
+    prologue_ms = None
+    if path == "tc":
+        same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
+        checks.append(("prologue", same, "bit-equal to the plain dequantization"))
     s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
     u, q, xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])
     uw, qw, wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])
-    cot = ref._cotangent(dy, True)
+    cot = ref._cotangent(dy, round_cot)
     ex_x, fr_x = _bf16_close(torch, got[0], want[0],
                              cot.abs() @ wd.abs().transpose(1, 2), n)
-    ex_w, fr_w = _bf16_close(torch, got[3], want[3],
-                             xd.abs().transpose(1, 2) @ cot.abs(), m)
+    dw_abs = xd.abs().transpose(1, 2) @ cot.abs()
+    ex_w, fr_w = _bf16_close(torch, got[3], want[3], dw_abs, m)
     dxd = ref._bf16(cot @ wd.transpose(1, 2))
     mf = ref._in_range(u, qs["q_n_a"], qs["q_p_a"])
     l1a = (dxd * (q - mf * u)).abs().sum(dim=(1, 2)).reshape(e, 1)
     l1b = (dxd * (1 - mf)).abs().sum(dim=(1, 2)).reshape(e, 1)
     del dxd, mf
     dwd = ref._bf16(xd.transpose(1, 2) @ cot)
-    mfw = ref._in_range(uw, qs["q_n_w"], qs["q_p_w"])
-    l1w = (dwd * (qw - mfw * uw)).abs().sum(dim=1)
-    del dwd, mfw
-    checks = [("dX", ex_x <= 0 and fr_x <= 0.01, f"excess {ex_x:.2e}, differing {fr_x:.2e}"),
-              ("dsa", bool(((got[1] - want[1]).abs() <= 1e-4 * l1a).all()),
-               f"max {(got[1] - want[1]).abs().max().item():.3e}"),
-              ("dba", bool(((got[2] - want[2]).abs() <= 1e-4 * l1b).all()),
-               f"max {(got[2] - want[2]).abs().max().item():.3e}"),
-              ("dW", ex_w <= 0 and fr_w <= 0.01, f"excess {ex_w:.2e}, differing {fr_w:.2e}"),
-              ("dws", bool(((got[4] - want[4]).abs() <= 1e-4 * l1w).all()),
-               f"max {(got[4] - want[4]).abs().max().item():.3e}")]
+    fac = (qw - ref._in_range(uw, qs["q_n_w"], qs["q_p_w"]) * uw).abs()
+    l1w = (dwd.abs() * fac).sum(dim=1)
+    flips = torch.zeros_like(l1w)
+    summand_checks = []
+    if path == "tc":
+        # dws sums the summands bf16(xd^T dY) x (q - mf u) over K. The tile's
+        # f32 order rounds some of bf16(xd^T dY) to the other bf16 neighbour
+        # of the plain version's (the dW bar allows that), and at clipped
+        # weights (|q - mf u| up to 4) one such flip can move a K = 512
+        # column's dws past 1e-4 x sum|summands|. So each column's allowance
+        # adds, to that, |its kernel summand - the plain one| x |q - mf u|
+        # summed over the summands that differ. The kernel's summands come
+        # from a launch with w = 0 (every code in range, so dW is
+        # bf16(xd^T dY) on every element): they must be the real launch's dW
+        # wherever w is in range, and meet the dW bar against the plain ones
+        # on every element, clipped ones included.
+        dwd_k = qmm.quant_matmul_bwd_batched(dy, x, torch.zeros_like(w), a_s, a_b,
+                                             ws, **kw)[3]
+        mfw = ref._in_range(uw, qs["q_n_w"], qs["q_p_w"])
+        real = bool(torch.equal(got[3], dwd_k * mfw))
+        ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
+        flips = ((dwd_k - dwd).abs() * fac).sum(dim=1)
+        summand_checks = [
+            ("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW where in range"),
+            ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
+             f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
+        del dwd_k, mfw
+    del dw_abs, dwd, fac
+    gap = (got[4] - want[4]).abs()
+    allowed = 1e-4 * l1w + flips
+    dws_ok = bool((gap <= allowed).all())
+    vs_plain = (gap / l1w.clamp_min(1e-30)).max().item()
+    flip_cols = int((gap > 1e-4 * l1w).sum().item())
+    use = (gap / allowed.clamp_min(1e-30)).max().item()
+    del l1w, flips, allowed
+    checks += [("dX", ex_x <= 0 and fr_x <= 0.01, f"excess {ex_x:.2e}, differing {fr_x:.2e}"),
+               ("dsa", bool(((got[1] - want[1]).abs() <= 1e-4 * l1a).all()),
+                f"max {(got[1] - want[1]).abs().max().item():.3e}"),
+               ("dba", bool(((got[2] - want[2]).abs() <= 1e-4 * l1b).all()),
+                f"max {(got[2] - want[2]).abs().max().item():.3e}"),
+               ("dW", ex_w <= 0 and fr_w <= 0.01, f"excess {ex_w:.2e}, differing {fr_w:.2e}"),
+               *summand_checks,
+               ("dws", dws_ok, f"max {vs_plain:.3e} x sum|summands| from the plain dws, "
+                f"{use:.3f} of the allowance; {flip_cols} columns past 1e-4 x sum|summands|")]
     worst = max((got[0] - want[0]).abs().max().item(),
                 (got[3] - want[3]).abs().max().item())
     del got, want
-    ct, xl, wl = cot.to(torch.bfloat16), xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+    # yardstick: the two products on operands dequantized beforehand
+    lt = torch.bfloat16 if round_cot else torch.float32
+    ct, xl, wl = cot.to(lt), xd.to(lt), wd.to(lt)
     lib = lambda: (torch.bmm(ct, wl.transpose(1, 2)), torch.bmm(xl.transpose(1, 2), ct))
-    nbytes = e * (m * n * 4 + m * k * 2 + k * n * 4 + 8 + n * 4
+    nbytes = e * (m * n * 4 + m * k * x.element_size() + k * n * 4 + 8 + n * 4
                   + m * k * 4 + 8 + k * n * 4 + n * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * e * m * k * n)
-    row = {"shape": [e, m, k, n], "route": "combined" if combined else "split",
-           "max_abs_err": worst,
-           "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands| per expert",
+    b_ms, b_by = bound(nbytes, 4.0 * e * m * k * n,
+                       BF16_OPS_PER_S if round_cot else F32_OPS_PER_S)
+    row = {"shape": [e, m, k, n], "path": path, "x": str(x.dtype)[6:],
+           "round_cot": round_cot, "max_abs_err": worst,
+           "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands| per expert "
+                  "(tc dws: + the differing summands x |q - mf u|)",
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
-           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  quant_matmul_bwd_batched E={e} M={m} K={k} N={n} ({row['route']} route): "
+           "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+           "prologue_ms": prologue_ms, "dws_vs_plain": vs_plain,
+           "dws_allowance_used": use, "dws_flip_cols": flip_cols}
+    pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
+    log(f"  quant_matmul_bwd_batched [{path}] E={e} M={m} K={k} N={n} ({row['x']} x, "
+        f"{'bf16' if round_cot else 'f32'} cotangents): "
         + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
-        + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"torch.bmm(bf16 dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
+        f"torch.bmm(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
         fail(f"quant_matmul_bwd_batched {e}x{m}x{k}x{n} disagrees with its "
@@ -1250,8 +1327,10 @@ def main() -> None:
         for line in r["log"].splitlines():
             if "Compiling entry function" in line:
                 found = re.search(r"\d+([a-z]\w*?_kernel)", line)
+                args = (["bf16"] if "bfloat16" in line else []) + [
+                    ("false", "true")[int(v)] for v in re.findall(r"Lb([01])E", line)]
                 entry = ((found.group(1) if found else line.split("'")[1])
-                         + ("<bf16>" if "bfloat16" in line else "") + ": ")
+                         + (f"<{', '.join(args)}>" if args else "") + ": ")
             elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 log(f"    {entry}{line.strip()}")
 
@@ -1339,10 +1418,18 @@ def main() -> None:
         torch.cuda.empty_cache()
     qat_rows["quant_matmul_batched"].append(check_batched_fwd(
         torch, timer, qmm, ref, 3, 257, 129, 65, gen, MOE_QS, torch.float32))
+    # the batched backward at an odd shape with f32 x, with f32 cotangents
+    # (the SIMT path), and past the reference's scratch budget (split)
+    qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
+        torch, timer, qmm, ref, 3, 257, 129, 65, gen, MOE_QS, torch.float32))
+    qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
+        torch, timer, qmm, ref, 32, 1280, 1024, 512, gen, MOE_QS, round_cot=False))
+    torch.cuda.empty_cache()
     qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
         torch, timer, qmm, ref, 4, 256, 512, 8192, gen, MOE_QS))
-    if qat_rows["quant_matmul_bwd_batched"][-1]["route"] != "split":
-        fail("the wide-N batched backward did not take the split route")
+    paths = [r["path"] for r in qat_rows["quant_matmul_bwd_batched"]]
+    if paths != ["tc", "tc", "tc", "simt", "split"]:
+        fail(f"quant_matmul_bwd_batched took paths {paths}")
     torch.cuda.empty_cache()
 
     # 10. the quantizer kernels (10-12) against their plain versions
@@ -1457,7 +1544,8 @@ def main() -> None:
                                             "of the repo reaches fake_quant_rows")
         if name == "bin_stats_2d":
             kernels[-1]["library"] = r["library"]
-        if name in ("quant_matmul", "quant_matmul_batched", "quant_matmul_bwd"):
+        if name in ("quant_matmul", "quant_matmul_batched", "quant_matmul_bwd",
+                    "quant_matmul_bwd_batched"):
             kernels[-1]["path"] = r["path"]
             kernels[-1]["prologue_ms"] = r["prologue_ms"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

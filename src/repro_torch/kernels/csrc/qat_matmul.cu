@@ -7,7 +7,8 @@
 //   qat_dw     <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
 //   qat_bwd_tc (bf16 dY) / qat_bwd (f32 dY)
 //              <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
-//   qat_bwd_batched <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
+//   qat_bwd_tc (bf16 dY, E > 1) / qat_bwd_batched (f32 dY)
+//              <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
 //
 // What each computes (Eq. 5-7 of the paper, LSQ+ activations, grouped weights):
 //   xd = bf16(clip(round((x - b) / max(s, 1e-9))) * s + b)      x (M, K), s, b scalars
@@ -30,10 +31,11 @@
 // cotangents. Two designs serve them.
 //
 // Tensor cores (bf16 x bf16 products, f32 sums): the forward, 2D and per
-// expert (qat_fwd_tc_launch), and the combined backward for bf16 cotangents
-// (qat_bwd_tc_launch, the form a training step launches for every bf16
-// linear). Dequantizing while staging would repeat __fdiv_rn + rintf + clamp
-// + two rounded ops for every operand element in every block that reads it
+// expert (qat_fwd_tc_launch), and the combined backward for bf16 cotangents,
+// 2D and per expert (qat_bwd_tc_launch, the form a training step launches
+// for every bf16 linear, the MoE experts' included). Dequantizing while
+// staging would repeat __fdiv_rn + rintf + clamp + two rounded ops for
+// every operand element in every block that reads it
 // (at the qwen head each of 1,188 column blocks would divide all of x, each
 // of 32 row blocks the whole 1024 x 152064 weight), more f32 instructions
 // than the products' bound. So one prologue (qat_prologue_kernel) writes xd,
@@ -55,15 +57,17 @@
 //
 // SIMT tile (f32 FMA on bf16 values held in f32, exact products): the split
 // dx / dw (the vocab-wide head, f32 cotangents: their products are not exact
-// in bf16, and TF32 is not allowed), the combined backward for f32
-// cotangents, and the batched backward. 128 x 128 outputs a block of 256
+// in bf16, and TF32 is not allowed; also each expert of a batched backward
+// past the reference's scratch budget), and the combined backward, 2D and
+// per expert, for f32 cotangents. 128 x 128 outputs a block of 256
 // threads, 8 x 8 a thread, the contraction walked 8 at a time through shared
 // memory, the next slice's loads in flight while the current one is
 // multiplied; each operand is dequantized as it is staged.
 //
-// Left for later: the batched backward onto the prologue and the tensor-core
-// tile; then wgmma and TMA, a persistent grid and more stages for the tile
-// (the 128 x 128 mma.sync tile runs at a fraction of the 989 TFLOP/s peak).
+// Left for later: the split dx / dw (f32 cotangents at the head, and bf16
+// ones on the batched backward's split route) off the SIMT tile; then wgmma
+// and TMA, a persistent grid and more stages for the tensor-core tile (the
+// 128 x 128 mma.sync tile runs at a fraction of the 989 TFLOP/s peak).
 //
 // What differs from the TPU design, and why:
 //   * No carried accumulators: the TPU grid runs in order and carries dX / dW
@@ -90,8 +94,9 @@
 //     per expert (blockIdx.y). Expert weight scales are N-side only (the
 //     reference's eligibility rule), so the batched kernels take no row
 //     scales. At the MoE training shapes (32 experts x 1280 capacity rows, K
-//     and N of 512 / 1024) each expert is 40 output tiles, 1280 blocks a
-//     launch.
+//     and N of 512 / 1024) each expert is 40 forward output tiles, 1280
+//     blocks a launch, and 112 backward tiles (80 dX + 32 dW at K 1024, N
+//     512), 3584 blocks a launch.
 // Numerics: round half to even (rintf), IEEE division (built without fast math),
 // and the multiply and add of the dequantization rounded separately (no FMA
 // contraction), as the reference writes them.
@@ -849,11 +854,28 @@ __device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const 
 }
 
 // Blocks [0, n_dx) are dX tiles, the rest dW tiles (as qat_bwd_kernel).
-template <class XT>
+// EXPERTS (the batched backward): expert e = blockIdx.z advances every
+// per-expert operand (Args by at_expert, the three scratch arrays, dX, dW
+// and its 2 * n_dx dX and n_wpart dws partials, the layout qat_finish_kernel
+// reads per blockIdx.y) to its slice, then runs the 2D tile code, so its
+// bits are the 2D kernel's on those slices. A separate instance, so the 2D
+// kernel's code is unchanged and a profile names the two apart.
+template <class XT, bool EXPERTS>
 __global__ void __launch_bounds__(NT, 2) qat_bwd_tc_kernel(Args a, TcOp xd, TcOp wd, TcOp dyb,
                                                            float* dx, float* part_x, float* dw,
-                                                           float* part_w, int n_dx) {
+                                                           float* part_w, int n_dx, int n_wpart) {
   __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
+  if (EXPERTS) {
+    const size_t e = blockIdx.z;
+    a = at_expert<XT>(a, (int)e);
+    xd.p += e * xd.rows * xd.ld;
+    wd.p += e * wd.rows * wd.ld;
+    dyb.p += e * dyb.rows * dyb.ld;
+    dx += e * a.M * a.K;
+    dw += e * a.K * a.N;
+    part_x += e * 2 * n_dx;
+    part_w += e * n_wpart;
+  }
   if ((int)blockIdx.x < n_dx) dx_tc_tile<XT>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
   else dw_tc_tile(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
 }
@@ -1035,54 +1057,69 @@ cudaError_t prologue(const Args& a, int x_bf16, void* xd, int ld_x, void* wd, in
 }
 }  // namespace
 
-// The prologue alone (for checks): the three scratch arrays of qat_bwd_tc_launch.
+// The prologue alone (for checks): the three scratch arrays of qat_bwd_tc_launch
+// (E of each for the batched backward).
 extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16,
                                        const void* w, const void* a_s, const void* a_b,
                                        const void* ws, int k_side, void* xd, int ld_x,
-                                       void* wd, int ld_w, void* dyb, int ld_y, int M, int K,
-                                       int N, int qn_a, int qp_a, int qn_w, int qp_w,
+                                       void* wd, int ld_w, void* dyb, int ld_y, int E, int M,
+                                       int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
                                        void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return 0;
-  if (dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
+  if ((E > 1 && k_side) || dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
   return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y,
-                                   static_cast<cudaStream_t>(stream)));
+                                   static_cast<cudaStream_t>(stream), E));
 }
 
-// qat_bwd_launch's parameters plus the three scratch arrays; bf16 cotangents
-// only (round_cot = 1): prologue, tensor-core tile, finish.
+// The combined backward on the tensor cores for bf16 cotangents only
+// (round_cot = 1): qat_bwd_launch's parameters plus the three scratch arrays
+// xd (E, M, ld_x), wd (E, K, ld_w), dyb (E, M, ld_y) and the expert count:
+// 2D (E = 1) or per expert (E > 1: the operands, outputs and partials of
+// qat_bwd_batched_launch, column scales only). Prologue (the expert on
+// blockIdx.y), tile (on blockIdx.z), finish (on blockIdx.y).
 extern "C" int qat_bwd_tc_launch(const void* dy, const void* x, int x_bf16, const void* w,
                                  const void* a_s, const void* a_b, const void* ws, int k_side,
                                  void* dx, void* dsa, void* dba, void* dw, void* dws,
                                  void* part_x, void* part_w, void* xd, int ld_x, void* wd,
-                                 int ld_w, void* dyb, int ld_y,
+                                 int ld_w, void* dyb, int ld_y, int E,
                                  int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
                                  int round_cot, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return 0;
-  if (!round_cot || dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
+  if (!round_cot || (E > 1 && k_side) || dyb == nullptr ||
+      !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y, st);
+  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y, st, E);
   if (err != cudaSuccess) return static_cast<int>(err);
   const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
   const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
   const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
   float* px = static_cast<float*>(part_x);
   float* pw = static_cast<float*>(part_w);
+  float* fdx = static_cast<float*>(dx);
+  float* fdw = static_cast<float*>(dw);
   const int n_dx = n_dx_blocks(a);
-  const int grid = n_dx + n_dw_blocks(a);
-  if (x_bf16)
-    qat_bwd_tc_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        a, oxd, owd, ody, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx);
+  const int n_wpart = n_wp(a) * wp_len(a);
+  const dim3 grid(n_dx + n_dw_blocks(a), 1, E);
+  if (x_bf16 && E > 1)
+    qat_bwd_tc_kernel<__nv_bfloat16, true><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw,
+                                                                pw, n_dx, n_wpart);
+  else if (x_bf16)
+    qat_bwd_tc_kernel<__nv_bfloat16, false><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw,
+                                                                 pw, n_dx, n_wpart);
+  else if (E > 1)
+    qat_bwd_tc_kernel<float, true><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw, pw,
+                                                        n_dx, n_wpart);
   else
-    qat_bwd_tc_kernel<float><<<grid, NT, 0, st>>>(
-        a, oxd, owd, ody, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx);
+    qat_bwd_tc_kernel<float, false><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw, pw,
+                                                         n_dx, n_wpart);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
-                                 pw, static_cast<float*>(dws), st));
+                                 pw, static_cast<float*>(dws), st, E));
 }
 
 // The forward on the tensor cores, 2D (E = 1, the operands above, out (M,
@@ -1121,10 +1158,12 @@ extern "C" int qat_fwd_prologue_launch(const void* x, int x_bf16, const void* w,
                                    static_cast<cudaStream_t>(stream), E));
 }
 
-// The batched (per-expert) backward: x (E, M, K) bf16 or f32, w (E, K, N)
-// f32, a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy (E, M, N) f32;
-// outputs f32 dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws (E, N).
-// Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K, 128) * N.
+// The batched (per-expert) backward on the SIMT tile, for f32 cotangents
+// (bf16 cotangents take qat_bwd_tc_launch with E > 1): x (E, M, K) bf16 or
+// f32, w (E, K, N) f32, a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy
+// (E, M, N) f32; outputs f32 dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws
+// (E, N). Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K,
+// 128) * N.
 
 extern "C" int qat_bwd_batched_launch(const void* dy, const void* x, int x_bf16,
                                       const void* w, const void* a_s, const void* a_b,

@@ -19,13 +19,15 @@ they run the split dx / dw kernels (expert by expert for the batched one),
 so the port takes the same route at every shape; the GPU kernels themselves
 do not use the tiles.
 
-What runs on the card: both forwards, and `quant_matmul_bwd` on its
-combined route with bf16 cotangents, run on the tensor cores (a prologue
-that dequantizes each operand once into zero-padded bf16 scratch, then an
-mma.sync tile; the scratch lives for the call). The combined backward with
-f32 cotangents (`bwd_route`), the split dx / dw pair (the vocab-wide head)
-and the batched backward run on the SIMT tile, which dequantizes as it
-stages. `fwd_prologue` / `bwd_prologue` run the prologues alone, for checks.
+What runs on the card: both forwards, and both combined backwards
+(`quant_matmul_bwd` and, per expert, `quant_matmul_bwd_batched`) with bf16
+cotangents, run on the tensor cores (a prologue that dequantizes each
+operand once into zero-padded bf16 scratch, then an mma.sync tile, the
+expert on the grid; the scratch lives for the call). The combined backwards
+with f32 cotangents (`bwd_route`) and the split dx / dw pair (the
+vocab-wide head, and each expert on the batched backward's split route) run
+on the SIMT tile, which dequantizes as it stages. `fwd_prologue` /
+`bwd_prologue` run the prologues alone, 2D or per expert, for checks.
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
 version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
@@ -172,10 +174,10 @@ def _qat_lib() -> ctypes.CDLL:
                                        p, p, i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_tc_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
                                           p, p, p, p, i, p, i, p, i, i, i, i,
-                                          i, i, i, i, i, p]
+                                          i, i, i, i, i, i, p]
         lib.qat_bwd_prologue_launch.argtypes = [p, p, i, p, p, p, p, i, p, i,
                                                 p, i, p, i, i, i, i, i, i, i,
-                                                i, p]
+                                                i, i, p]
         lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
                                                p, p, p, p, i, i, i, i, i, i,
                                                i, i, i, p]
@@ -310,10 +312,11 @@ def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
 
 def bwd_route(m: int, k: int, n: int, round_cot: bool,
               scratch_budget=None) -> str:
-    """The kernels quant_matmul_bwd takes for a CUDA tensor: "split" (the
-    split dx / dw kernels, where the reference splits), else the combined
-    backward on the tensor cores ("tc", bf16 cotangents) or on the SIMT tile
-    ("simt", f32 cotangents: their products are not exact in bf16)."""
+    """The kernels quant_matmul_bwd (and quant_matmul_bwd_batched, on the
+    per-expert shape) takes for a CUDA tensor: "split" (the split dx / dw
+    kernels, where the reference splits), else the combined backward on the
+    tensor cores ("tc", bf16 cotangents) or on the SIMT tile ("simt", f32
+    cotangents: their products are not exact in bf16)."""
     if not bwd_uses_combined(*padded_dims(m, k, n),
                              scratch_budget=scratch_budget):
         return "split"
@@ -321,20 +324,24 @@ def bwd_route(m: int, k: int, n: int, round_cot: bool,
 
 
 _BWD_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_launch"}
+_BWD_BATCHED_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_batched_launch"}
 
 
-def _bwd_tc_scratch(m: int, k: int, n: int):
-    """The tensor-core backward's bf16 scratch, xd (M, ld_x), wd (K, ld_w)
-    and bf16(dY) (M, ld_y): ((ld_x, ld_w, ld_y), their bytes), each leading
-    dimension K, N, N rounded up to a multiple of 8 elements (16 bytes), so
-    every row starts 16-byte aligned; the prologue zeroes the pad."""
+def _bwd_tc_scratch(m: int, k: int, n: int, e: int = 1):
+    """The tensor-core backward's bf16 scratch, xd (E, M, ld_x), wd (E, K,
+    ld_w) and bf16(dY) (E, M, ld_y) (E = 1: the 2D backward): ((ld_x, ld_w,
+    ld_y), their bytes), each leading dimension K, N, N rounded up to a
+    multiple of 8 elements (16 bytes), so every row (and every expert's
+    slice) starts 16-byte aligned; the prologue zeroes the pad."""
     lds = tuple(_cdiv(d, 8) * 8 for d in (k, n, n))
-    return lds, (2 * m * lds[0], 2 * k * lds[1], 2 * m * lds[2])
+    return lds, (2 * e * m * lds[0], 2 * e * k * lds[1], 2 * e * m * lds[2])
 
 
-def _bwd_tc_scratch_tensors(m: int, k: int, n: int, device):
+def _bwd_tc_scratch_tensors(lead: tuple, m: int, k: int, n: int, device):
+    """xd (*lead, M, ld_x), wd (*lead, K, ld_w) and bf16(dY) (*lead, M,
+    ld_y); lead () or (E,). Allocated for one call."""
     lds, _ = _bwd_tc_scratch(m, k, n)
-    return tuple(torch.empty((rows, ld), dtype=torch.bfloat16, device=device)
+    return tuple(torch.empty((*lead, rows, ld), dtype=torch.bfloat16, device=device)
                  for rows, ld in zip((m, k, m), lds))
 
 
@@ -366,8 +373,9 @@ def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
         part_w = torch.empty((rows,), **f32)
         ptrs.append(part_w.data_ptr())
     if entry == "qat_bwd_tc_launch":  # scratch: the prologue's bf16 operands
-        for t in _bwd_tc_scratch_tensors(m, k, n, dev):
+        for t in _bwd_tc_scratch_tensors((), m, k, n, dev):
             ptrs += [t.data_ptr(), t.shape[1]]
+        ptrs.append(1)  # E: one expert
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_qat_lib(), entry)(
         dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
@@ -434,25 +442,33 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
 def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                  q_p_a: int, q_n_w: int, q_p_w: int):
     """The tensor-core backward's prologue alone: (xd, wd, bf16(dY)) as the
-    zero-padded bf16 scratch that quant_matmul_bwd's tile multiplies
-    (`_bwd_tc_scratch`). A check: the training path reaches the prologue
-    only inside quant_matmul_bwd, whose count it adds to."""
+    zero-padded bf16 scratch that quant_matmul_bwd (x (M, K)) or
+    quant_matmul_bwd_batched (x (E, M, K)) multiplies (`_bwd_tc_scratch`).
+    A check: the training path reaches the prologue only inside those two,
+    whose counts it adds to."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
-    m, k = x.shape
-    n = w.shape[1]
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
     lds, _ = _bwd_tc_scratch(m, k, n)
     if x.device.type == "cpu":
         return ref.bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, lds=lds,
                                 **qs)
-    x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
+    if x.dim() == 3:
+        x, w, a_s, a_b, ws, dy = _batched_operands(x, w, a_scale, a_offset,
                                                    w_scale, dy)
-    xd, wd, dyb = _bwd_tc_scratch_tensors(m, k, n, x.device)
+        k_side = False
+    else:
+        x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
+                                                       w_scale, dy)
+    lead = tuple(x.shape[:-2])
+    xd, wd, dyb = _bwd_tc_scratch_tensors(lead, m, k, n, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _qat_lib().qat_bwd_prologue_launch(
         dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
         w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
         int(k_side), xd.data_ptr(), lds[0], wd.data_ptr(), lds[1],
-        dyb.data_ptr(), lds[2], m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, stream)
+        dyb.data_ptr(), lds[2], lead[0] if lead else 1, m, k, n, q_n_a,
+        q_p_a, q_n_w, q_p_w, stream)
     _raise("qat_bwd_prologue_launch", rc, m, k, n)
     bwd_prologue.launches += 1
     return xd, wd, dyb
@@ -511,15 +527,17 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
                              q_n_a: int, q_p_a: int, q_n_w: int, q_p_w: int,
                              round_cot: bool = True, scratch_budget=None):
     """(dX (E, M, K), dsa (E, 1), dba (E, 1), dW (E, K, N), dws (E, N)), the
-    scale sums raw, in one launch (+ the finish pass); or, where the
-    reference's combined kernel would not fit its scratch budget on the
-    padded per-expert shape, expert by expert through the split
+    scale sums raw, in one launch (+ the prologue and the finish pass), on
+    the route `bwd_route` gives the per-expert shape: the tensor cores
+    ("tc", bf16 cotangents), the SIMT tile ("simt", f32 cotangents), or,
+    where the reference's combined kernel would not fit its scratch budget
+    on the padded per-expert shape, expert by expert through the split
     quant_matmul_dx / quant_matmul_dw (the reference's fallback)."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     e, m, k = x.shape
     n = w.shape[2]
-    if not bwd_uses_combined(*padded_dims(m, k, n),
-                             scratch_budget=scratch_budget):
+    route = bwd_route(m, k, n, round_cot, scratch_budget)
+    if route == "split":
         outs = []
         for i in range(e):
             wi = w[i].contiguous() if x.device.type == "cuda" else w[i]
@@ -543,14 +561,17 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
     dws = torch.empty((e, n), **f32)
     part_x = torch.empty((e * 2 * _cdiv(m, t) * _cdiv(k, t),), **f32)
     part_w = torch.empty((e * _cdiv(k, t) * n,), **f32)
+    ptrs = [o.data_ptr() for o in (dx, dsa, dba, dw, dws, part_x, part_w)]
+    entry = _BWD_BATCHED_ENTRY[route]
+    if route == "tc":  # k_side 0 (column scales), then the prologue's scratch
+        scratch = _bwd_tc_scratch_tensors((e,), m, k, n, dev)
+        ptrs = [0, *ptrs] + [v for s in scratch for v in (s.data_ptr(), s.shape[-1])]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _qat_lib().qat_bwd_batched_launch(
+    rc = getattr(_qat_lib(), entry)(
         dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
-        dx.data_ptr(), dsa.data_ptr(), dba.data_ptr(), dw.data_ptr(),
-        dws.data_ptr(), part_x.data_ptr(), part_w.data_ptr(), e, m, k, n,
-        q_n_a, q_p_a, q_n_w, q_p_w, int(round_cot), stream)
-    _raise("qat_bwd_batched_launch", rc, m, k, n)
+        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), *ptrs,
+        e, m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, int(round_cot), stream)
+    _raise(entry, rc, m, k, n)
     quant_matmul_bwd_batched.launches += 1
     return dx, dsa, dba, dw, dws
 

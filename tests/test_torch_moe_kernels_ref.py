@@ -129,7 +129,7 @@ def _check_bwd(t_out, j_out, x, w, a_s, a_b, ws, dy, qs, round_cot):
 
 @pytest.mark.parametrize("round_cot", [True, False], ids=["bf16cot", "f32cot"])
 @pytest.mark.parametrize("bits", BITS, ids=["w2a2", "w3a3", "w4a4"])
-@pytest.mark.parametrize("emkn", SHAPES, ids=["in", "out"])
+@pytest.mark.parametrize("emkn", SHAPES + [(3, 17, 9, 13)], ids=["in", "out", "odd"])
 def test_batched_backward_plain_matches_pallas(emkn, bits, round_cot):
     qs = _qs(*bits)
     x, w, a_s, a_b, ws, dy = _inputs(*emkn, seed=sum(emkn) + 7 * bits[0])
@@ -151,6 +151,12 @@ def test_batched_route_rule_on_the_expert_shape():
     assert qmm.bwd_scratch_bytes(1280, 1024, 512) == 4 * (128 * 512 + 512 * 512 + 512)
     assert not qmm.bwd_uses_combined(*qmm.padded_dims(1280, 512, 8192))
     assert not qmm.bwd_uses_combined(1280, 1024, 512, scratch_budget=0)
+    # the CUDA path on that per-expert shape: bf16 cotangents on the
+    # combined route -> tensor cores, f32 -> SIMT, a wide N -> split
+    for mkn in ((1280, 1024, 512), (1280, 512, 1024), (257, 129, 65)):
+        assert qmm.bwd_route(*mkn, True) == "tc" and qmm.bwd_route(*mkn, False) == "simt"
+        assert qmm.bwd_route(*mkn, True, scratch_budget=0) == "split"
+    assert {qmm.bwd_route(256, 512, 8192, r) for r in (True, False)} == {"split"}
 
 
 @pytest.mark.parametrize("round_cot", [True, False], ids=["bf16cot", "f32cot"])

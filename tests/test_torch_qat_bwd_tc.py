@@ -141,7 +141,7 @@ def test_prologue_wrapper_passes_the_scratch(fake_qat_lib):
     assert all(t.dtype == torch.bfloat16 for t in (xd, wd, dyb))
     name, args = calls[0]
     assert name == "qat_bwd_prologue_launch" and len(args) == _c_param_count(name)
-    assert (args[9], args[11], args[13]) == lds and args[14:17] == (m, k, n)
+    assert (args[9], args[11], args[13]) == lds and args[14:18] == (1, m, k, n)
 
 
 @pytest.mark.parametrize("mkn", [(37, 130, 90), (20, 129, 65), (16, 64, 128)],
