@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the port on one GPU: parent, change, change, parent.
+
+    python3 chip_compare.py PARENT_ROOT TASK [TASK ...]
+
+Runs each TASK four times, each time in a new process that imports only one
+checkout: PARENT_ROOT (another checkout, for example `git archive` of the
+parent commit unpacked into a directory that .gitignore lists), then this
+one twice, then PARENT_ROOT again, so that both sides see the same card
+and the drift of its clocks. Each process builds its checkout's kernels
+(into that checkout's build/kernels) and prints its own result; this
+process prints the card's name and power limit and one JSON line a task
+with the four results, in run order. Tasks, on the training shapes of
+`chip_smoke.py` (M = 8 x 512 tokens), through each checkout's own
+`chip_smoke.py` functions, so each side is held to its own bars:
+
+  head       quant_matmul_dx / _dw at the qwen1.5-0.5b head (4096, 1024,
+             152064) and the granite-moe head (4096, 1024, 49408) with f32
+             cotangents, quant_matmul_bwd's split route there (as a
+             training step runs it), and the batched backward's split route
+             at (4, 256, 512, 8192): kernel, plain, library and prologue ms.
+  tiles      the one-plane tensor-core tiles: quant_matmul at (4096, 1024,
+             2816) and the qwen head, quant_matmul_bwd at (4096, 1024,
+             2816), quant_matmul_bwd_batched at (32, 1280, 1024, 512).
+  steps_qwen `repro_torch.launch.train`, qwen1.5-0.5b w4a4, 4 steps, the
+             profiler off: s/step, losses, peak memory.
+  steps_moe  granite-moe-1b-a400m w3a3 + OBR, 5 steps through
+             `run_training` (`chip_smoke.moe_train_phase`).
+  prof_qwen, prof_moe
+             `repro_torch.launch.profile_train` on the two archs: device
+             busy ms a step and each QAT kernel's device ms, losses; and the
+             process's peak device memory.
+
+Needs one CUDA card and nvcc. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TASKS = ("head", "tiles", "steps_qwen", "steps_moe", "prof_qwen", "prof_moe")
+
+
+def _row(r: dict, name: str) -> dict:
+    keep = ("shape", "path", "planes", "ms", "plain_ms", "library_ms", "bound_ms",
+            "prologue_ms")
+    return {"name": name, **{k: r[k] for k in keep if k in r}}
+
+
+def run_one(root: Path, task: str) -> dict:
+    """One task on one checkout, in this process."""
+    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import quant_matmul as qmm
+    build.build_all()
+    out = {"root": str(root), "task": task}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if task in ("head", "tiles"):
+        timer = cs.Timer(torch)
+        rows = []
+    if task == "head":
+        m = 8 * 512
+        for n in (152064, 49408):
+            for name in ("quant_matmul_dx", "quant_matmul_dw"):
+                rows.append(_row(cs.check_qat_bwd(torch, timer, qmm, ref, name, m, 1024, n,
+                                                  False, False, gen, cs.HEAD_QS), name))
+                torch.cuda.empty_cache()
+            x, w, a_s, a_b, ws = cs.qat_operands(torch, m, 1024, n, False, gen, cs.HEAD_QS)
+            dy = torch.randn((m, n), generator=gen, device="cuda")
+            split = lambda: qmm.quant_matmul_bwd(dy, x, w, a_s, a_b, ws, round_cot=False,
+                                                 **cs.HEAD_QS)
+            rows.append({"name": "quant_matmul_bwd (split)", "shape": [m, 1024, n],
+                         "ms": timer.ms(split)})
+            del x, w, dy
+            torch.cuda.empty_cache()
+        rows.append(_row(cs.check_batched_bwd(torch, timer, qmm, ref, 4, 256, 512, 8192, gen,
+                                              cs.MOE_QS), "quant_matmul_bwd_batched"))
+    elif task == "tiles":
+        m = 8 * 512
+        for n, qs in ((2816, cs.QAT_QS), (152064, cs.HEAD_QS)):
+            rows.append(_row(cs.check_qat_fwd(torch, timer, qmm, ref, m, 1024, n, False, gen,
+                                              qs), "quant_matmul"))
+            torch.cuda.empty_cache()
+        rows.append(_row(cs.check_qat_bwd(torch, timer, qmm, ref, "quant_matmul_bwd", m, 1024,
+                                          2816, False, True, gen, cs.QAT_QS),
+                         "quant_matmul_bwd"))
+        rows.append(_row(cs.check_batched_bwd(torch, timer, qmm, ref, 32, 1280, 1024, 512, gen,
+                                              cs.MOE_QS), "quant_matmul_bwd_batched"))
+    elif task == "steps_qwen":
+        from repro_torch.launch import train
+        ckpt = root / "build" / "chip_compare_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        run = cs.train_phase(torch, ops, train, [
+            "--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
+            "--seq", "512", "--save-every", "100", "--ckpt", str(ckpt), "--steps", "4"], 0, 4)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        rep = run["report"]
+        out.update(step_seconds=rep.step_seconds, losses=rep.losses,
+                   peak_gib=(rep.peak_bytes or 0) / 2**30)
+    elif task == "steps_moe":
+        run = cs.moe_train_phase(torch, ops, steps=5)
+        rep = run["report"]
+        out.update(step_seconds=rep.step_seconds, losses=rep.losses,
+                   peak_gib=(rep.peak_bytes or 0) / 2**30)
+    elif task in ("prof_qwen", "prof_moe"):
+        from repro_torch.launch import profile_train
+        arch = "qwen1.5-0.5b" if task == "prof_qwen" else "granite-moe-1b-a400m"
+        torch.cuda.reset_peak_memory_stats()
+        r = profile_train.main(["--arch", arch])
+        out.update({k: r[k] for k in ("step_host_ms", "device_busy_ms_per_step",
+                                      "device_busy_share", "device_kernels_per_step",
+                                      "named_kernels", "losses") if k in r},
+                   **{k: r[k] for k in ("obr_ms", "osc_update_ms") if k in r},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if task in ("head", "tiles"):
+        out["rows"] = rows
+    return out
+
+
+def main() -> None:
+    if sys.argv[1:2] == ["--one"]:
+        print("RESULT " + json.dumps(run_one(Path(sys.argv[2]).resolve(), sys.argv[3])),
+              flush=True)
+        return
+    if len(sys.argv) < 3 or any(t not in TASKS for t in sys.argv[2:]):
+        raise SystemExit(f"usage: chip_compare.py PARENT_ROOT TASK [TASK ...]; tasks {TASKS}")
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: torch.cuda.is_available() is False: this "
+                         "comparison needs a GPU")
+    parent = Path(sys.argv[1]).resolve()
+    if not (parent / "chip_smoke.py").is_file():
+        raise SystemExit(f"chip_compare: no chip_smoke.py in {parent}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    for task in sys.argv[2:]:
+        results = []
+        for side, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                           ("parent", parent)):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one",
+                                   str(root), task], capture_output=True, text=True)
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+            if proc.returncode != 0 or not lines:
+                sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+                raise SystemExit(f"chip_compare: {task} on {side} ({root}) failed")
+            results.append({"side": side, "wall_s": time.perf_counter() - t0,
+                            **json.loads(lines[-1][len("RESULT "):])})
+            print(f"{task} {side}: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"task": task, "device": smi, "runs": results}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

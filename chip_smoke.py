@@ -44,8 +44,17 @@ Phases (any failure exits non-zero before the final line is printed):
                once with f32 cotangents (the SIMT path), each row naming its
                path, run twice for identical bits, and on the tensor-core
                path its prologue bit-equal to the plain dequantization;
-               quant_matmul_dx / _dw at the head (f32 cotangents); with the
-               same four numbers a kernel, and the bars of the CPU tests.
+               quant_matmul_dx / _dw (the split grids, on the tensor cores)
+               at the head with f32 cotangents as three exact bf16 planes
+               (the planes bit-equal to the plain split, hi + mid + lo == dY
+               in f64 over the whole cotangent), at the FFN's shape with bf16
+               cotangents (one plane, bit-equal to quant_matmul_bwd's
+               outputs) and at an odd K-side shape with f32 cotangents; the
+               split's edges: a softmax head cotangent with entries below
+               2^-110, and whether mma.sync keeps a bf16 subnormal lo
+               (reported); with the same four numbers a kernel (the f32 SIMT
+               line beside the three planes' bound), and the bars of the CPU
+               tests.
   6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
                layers, tied head, QKV bias), w4a4, MCKD top-16, sentinel on,
                batch 8 x 512, 3 steps saving at step 2, then a second call to
@@ -71,7 +80,9 @@ Phases (any failure exits non-zero before the final line is printed):
                |q - mf u| (read from a launch with w = 0, each summand held
                to the dW bar); the backward also with f32 cotangents (the
                SIMT path) and once on its split route (a wide N past the
-               reference's scratch budget); run with phase 5.
+               reference's scratch budget: the split grids on the tensor
+               cores, expert by expert, with the tensor-core rows' bars);
+               run with phase 5.
   8. train   — `run_training` on full-width granite-moe-1b-a400m (24 layers,
                32 experts top 8, tied head), w3a3 (OBR lambda 0.1 on a cosine
                ramp) with oscillation tracking, MCKD top-16, sentinel on,
@@ -525,7 +536,7 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
     _, _, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
     excess = _order_excess(torch, y_k, y_r, xd, wd, k)
     del y_k, y_r
-    same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
+    same, prologue_ms, _ = check_prologue(torch, timer, qmm, ref, args, qs)
     xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
     lib = lambda: torch.matmul(xd, wd)
     checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
@@ -551,22 +562,41 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
     return row
 
 
-def check_prologue(torch, timer, qmm, ref, args, qs) -> tuple[bool, float]:
+def check_prologue(torch, timer, qmm, ref, args, qs, planes=None):
     """A tensor-core prologue alone against the plain dequantization: the
     forward's (args x, w, a_s, a_b, ws; x (M, K) or (E, M, K)) xd and wd, or
-    the backward's (dY first) xd, wd and bf16(dY), zero-padded; bit for bit.
-    Returns (equal, its ms)."""
+    the backward's (dY first) xd, wd and the cotangent's `planes` bf16
+    planes (1: bf16(dY); 3: its exact split), zero-padded; bit for bit.
+    Returns (equal, its ms, the kernel's planes or None)."""
     name, scratch = (("fwd_prologue", qmm._fwd_tc_scratch) if len(args) == 5
                      else ("bwd_prologue", qmm._bwd_tc_scratch))
-    kern = lambda: getattr(qmm, name)(*args, **qs)
+    kw = dict(qs) if planes is None else dict(qs, planes=planes)
+    kern = lambda: getattr(qmm, name)(*args, **kw)
     m, k = args[-5].shape[-2:]
     lds, _ = scratch(m, k, args[-4].shape[-1])
     got = kern()
-    want = getattr(ref, name)(*args, lds=lds, **qs)
+    want = getattr(ref, name)(*args, lds=lds, **kw)
     torch.cuda.synchronize()
     same = all(_same_bits(torch, a, b) for a, b in zip(got, want))
-    del got, want
-    return same, timer.ms(kern)
+    del want
+    return same, timer.ms(kern), (got[2] if planes else None)
+
+
+def check_split(torch, planes, dy, n) -> tuple[bool, int, float]:
+    """The kernel's three planes (3, M, ld_y) against the exact split's
+    contract: hi + mid + lo == dY in f64 for every |dY| >= 2**-110, and
+    within 2**-134 below that. Returns (holds, the count of nonzero |dY|
+    below 2**-110, the worst error below it)."""
+    holds, below, worst = True, 0, 0.0
+    for r0 in range(0, dy.shape[0], 512):  # row blocks: f64 copies of the head are 5 GB
+        y = dy[r0:r0 + 512].double()
+        s = sum(planes[p, r0:r0 + 512, :n].double() for p in range(3))
+        tiny = (y.abs() < 2.0 ** -110) & (y != 0)
+        err = (s - y).abs()
+        holds = holds and bool((err[~tiny] == 0).all()) and bool((err[tiny] <= 2.0 ** -134).all())
+        below += int(tiny.sum().item())
+        worst = max(worst, err[tiny].max().item() if bool(tiny.any()) else 0.0)
+    return holds, below, worst
 
 
 def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
@@ -575,7 +605,10 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     the plain versions; the scalar and per-column sums within 1e-4 of their
     sum of |summands|; a second launch on the same inputs gives the same
     bits; on the tensor-core path, the prologue bit-equal to the plain
-    dequantization."""
+    dequantization and the cotangent's planes. The split dx / dw run on the
+    tensor cores, f32 cotangents as three planes whose sum must be dY
+    exactly; with bf16 cotangents, where quant_matmul_bwd's route is the
+    tensor cores' too, their outputs must equal its bits."""
     x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype)
     dy = torch.randn((m, n), generator=gen, device="cuda")
     kw = dict(round_cot=round_cot, **qs)
@@ -585,7 +618,8 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     kern = lambda: fn(*args, **kw)
     plain = lambda: plain_fn(*args, **kw)
     path = (qmm.bwd_route(m, k, n, round_cot) if name == "quant_matmul_bwd"
-            else "simt")
+            else "tc")
+    planes = qmm.plane_count(round_cot) if path == "tc" else None
     got, want = kern(), plain()
     again = kern()
     torch.cuda.synchronize()
@@ -595,10 +629,23 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     u_w, q_w, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
     cot = ref._cotangent(dy, round_cot)
     checks, worst = [("repeat", repeat, "same bits on a second launch")], 0.0
-    prologue_ms = None
+    prologue_ms, split = None, None
     if path == "tc":
-        same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
-        checks.append(("prologue", same, "bit-equal to the plain dequantization"))
+        same, prologue_ms, dyb = check_prologue(torch, timer, qmm, ref, args, qs, planes)
+        checks.append(("prologue", same, f"bit-equal to the plain dequantization, "
+                       f"{planes} plane{'s' * (planes > 1)}"))
+        if planes == 3:
+            holds, below, err = check_split(torch, dyb, dy, n)
+            split = {"exact": holds, "below_2^-110": below, "worst_below": err}
+            checks.append(("split", holds, f"hi + mid + lo == dY in f64 over all {m * n} "
+                           f"cotangents; {below} below 2^-110"))
+        del dyb
+    if name != "quant_matmul_bwd" and round_cot and qmm.bwd_route(m, k, n, True) == "tc":
+        both = qmm.quant_matmul_bwd(*args, **kw)
+        mine = both[:3] if name == "quant_matmul_dx" else both[3:]
+        checks.append(("as combined", all(_same_bits(torch, a, b) for a, b in zip(got, mine)),
+                       "bit-equal to quant_matmul_bwd's tensor-core outputs"))
+        del both, mine
     if name in ("quant_matmul_bwd", "quant_matmul_dx"):
         dx_abs = cot.abs() @ wd.abs().T
         ex, frac = _bf16_close(torch, got[0], want[0], dx_abs, n)
@@ -640,25 +687,88 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
             "quant_matmul_bwd": m * k * 4 + 8 + k * n * 4 + ws.numel() * 4}[name]
     nbytes = (m * n * 4 + m * k * x.element_size() + k * n * 4 + ws.numel() * 4
               + 8 + outs)
-    b_ms, b_by = bound(nbytes, 2.0 * m * k * n * products,
-                       BF16_OPS_PER_S if round_cot else F32_OPS_PER_S)
+    ops = 2.0 * m * k * n * products
+    # f32 cotangents: the f32 SIMT line, and the line of the three planes'
+    # bf16 products on the tensor cores (the least time for this kernel's work)
+    b32 = None if round_cot else bound(nbytes, ops, F32_OPS_PER_S)[0]
+    b_ms, b_by = (bound(nbytes, ops * planes) if planes else
+                  bound(nbytes, ops, BF16_OPS_PER_S if round_cot else F32_OPS_PER_S))
     row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
-           "round_cot": round_cot, "path": path, "x": str(x.dtype)[6:],
+           "round_cot": round_cot, "path": path, "planes": planes, "x": str(x.dtype)[6:],
            "max_abs_err": worst,
            "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands|",
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(libs[name]), "bound_ms": b_ms, "bound_by": b_by,
-           "prologue_ms": prologue_ms}
+           "bound_f32_ms": b32, "prologue_ms": prologue_ms, "split": split}
+    if name != "quant_matmul_bwd":  # the grid and its finish: the call less its prologue
+        row["grid_tflops"] = ops * planes / (row["ms"] - prologue_ms) / 1e9
     pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
-    log(f"  {name} [{path}] M={m} K={k} N={n} ({row['w_scale']} scales, "
+    tag = f"{path}, {planes} plane{'s' * (planes > 1)}" if planes else path
+    b32_txt = "" if b32 is None else f", f32 SIMT line {b32:.4f} ms"
+    log(f"  {name} [{tag}] M={m} K={k} N={n} ({row['w_scale']} scales, "
         f"{row['x']} x, {'bf16' if round_cot else 'f32'} cotangents): "
         + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
         + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
-        f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+        + b32_txt + (f", grid {row['grid_tflops']:.1f} TFLOP/s" if "grid_tflops" in row
+                     else ""))
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
         fail(f"{name} {m}x{k}x{n} disagrees with its plain version on {bad}")
     return row
+
+
+def split_edges(torch, timer, qmm, ref, gen) -> dict:
+    """Two edges of the three-plane split on the card. (1) A head cotangent
+    as training makes it, (softmax(z) - onehot) / M over the qwen head's
+    152,064 columns with confident logits z = 8 x randn, whose smallest
+    entries fall below 2**-110: the prologue's planes bit-equal to the plain
+    split and within its contract (`check_split`). (2) Whether mma.sync keeps
+    a bf16 subnormal lo: a dX whose hi and mid products cancel exactly,
+    leaving lo = 2**-132 (a bf16 subnormal) times wd = 1 (a subnormal
+    product) and times wd = 1024 (a normal one, 2**-122). Reported, not
+    held: the plain version keeps both."""
+    m, n = 8 * 512, 152064
+    x, w, a_s, a_b, ws = qat_operands(torch, m, 1024, n, False, gen, HEAD_QS)
+    z = torch.randn((m, n), generator=gen, device="cuda") * 8
+    dy = torch.softmax(z, dim=1)
+    del z
+    tgt = torch.randint(0, n, (m,), generator=gen, device="cuda")
+    dy[torch.arange(m, device="cuda"), tgt] -= 1.0
+    dy /= m
+    args = (dy, x, w, a_s, a_b, ws)
+    same, _, dyb = check_prologue(torch, timer, qmm, ref, args, HEAD_QS, 3)
+    holds, below, err = check_split(torch, dyb, dy, n)
+    del dyb, dy, args
+    torch.cuda.empty_cache()
+    # (2) rows of dY: [y, -(hi + mid)] with y = 2^-115 (1 + 2^-9 + 2^-17):
+    # hi = 2^-115, mid = 2^-124, lo = 2^-132; wd rows 1 and 1024 (K-side
+    # scales 2^-6 and 16, codes 64); x in range, so dX = bf16(lo x wd)
+    y = 2.0 ** -115 * (1 + 2.0 ** -9 + 2.0 ** -17)
+    dy = torch.tensor([[y, -(2.0 ** -115 + 2.0 ** -124)]] * 16, device="cuda")
+    xs = torch.full((16, 2), 0.5, device="cuda").to(torch.bfloat16)
+    wk = torch.tensor([[1.0, 1.0], [1024.0, 1024.0]], device="cuda")
+    sk = torch.tensor([[2.0 ** -6], [16.0]], device="cuda")
+    probe = (dy, xs, wk, torch.tensor(0.1, device="cuda"), torch.tensor(0.0, device="cuda"),
+             sk)
+    lo_plane = qmm.bwd_prologue(*probe, planes=3, **HEAD_QS)[2][2, 0, 0].item()
+    dx = qmm.quant_matmul_dx(*probe, round_cot=False, **HEAD_QS)[0]
+    plain = ref.quant_matmul_dx(*probe, round_cot=False, **HEAD_QS)[0]
+    out = {"head_cotangent": {"planes_bit_equal": same, "exact": holds,
+                              "below_2^-110": below, "worst_below": err},
+           "lo_plane": lo_plane, "kernel_dx": [dx[0, 0].item(), dx[0, 1].item()],
+           "plain_dx": [plain[0, 0].item(), plain[0, 1].item()]}
+    out["subnormal_lo_kept"] = {"subnormal product": out["kernel_dx"][0] == 2.0 ** -132,
+                                "normal product": out["kernel_dx"][1] == 2.0 ** -122}
+    log(f"  split edges: softmax head cotangent (z = 8 x randn) planes "
+        f"{'ok' if same else 'FAIL'} (bit-equal to the plain split), split "
+        f"{'ok' if holds else 'FAIL'} ({below} nonzero below 2^-110, worst error there "
+        f"{err:.3e}); subnormal lo: prologue lo {lo_plane:.6e} (2^-132 = "
+        f"{2.0 ** -132:.6e}), kernel dX {out['kernel_dx']}, plain {out['plain_dx']}: "
+        f"mma.sync kept it {out['subnormal_lo_kept']}")
+    if not (same and holds and lo_plane == 2.0 ** -132):
+        fail("the three-plane split broke its contract on the card")
+    return out
 
 
 MOE_QS = dict(q_n_a=0, q_p_a=7, q_n_w=4, q_p_w=3)     # w3a3
@@ -700,7 +810,7 @@ def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])[2]
     excess = _order_excess(torch, y_k, y_r, xd, wd, k)
     del y_k, y_r
-    same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
+    same, prologue_ms, _ = check_prologue(torch, timer, qmm, ref, args, qs)
     xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
     lib = lambda: torch.bmm(xd, wd)
     checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
@@ -732,13 +842,13 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     """quant_matmul_bwd_batched against its plain version, with the bars of
     check_qat_bwd per expert; the path is `bwd_route` on the per-expert
     shape (the tensor cores for bf16 cotangents, the SIMT tile for f32
-    ones, or split expert by expert through quant_matmul_dx / _dw past the
-    reference's scratch budget). A second launch gives the same bits; on the
-    combined routes experts 0 and E-1 are bit-equal, in all five outputs, to
-    quant_matmul_bwd on their slices; on the tensor-core path the prologue
-    alone is bit-equal to the plain dequantization, and dws may differ from
-    the plain dws by 1e-4 x sum|summands| plus what its differing summands
-    account for (below)."""
+    ones, or split expert by expert through the split dx / dw grids on the
+    tensor cores past the reference's scratch budget). A second launch
+    gives the same bits; experts 0 and E-1 are bit-equal, in all five
+    outputs, to quant_matmul_bwd on their slices; on the tensor cores (tc
+    and split) the prologue alone is bit-equal to the plain dequantization,
+    and dws may differ from the plain dws by 1e-4 x sum|summands| plus what
+    its differing summands account for (below)."""
     x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs, x_dtype)
     dy = torch.randn((e, m, n), generator=gen, device="cuda")
     path = qmm.bwd_route(m, k, n, round_cot)
@@ -752,20 +862,21 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     checks = [("repeat", all(_same_bits(torch, a, b) for a, b in zip(got, again)),
                "same bits on a second launch")]
     del again
-    if path != "split":
-        ends = sorted({0, e - 1})
-        as_2d = True
-        for i in ends:
-            two_d = qmm.quant_matmul_bwd(dy[i], x[i], w[i], a_s[i, 0], a_b[i, 0],
-                                         ws[i:i + 1], **kw)
-            mine = (got[0][i], got[1][i, 0], got[2][i, 0], got[3][i], got[4][i:i + 1])
-            as_2d = as_2d and all(_same_bits(torch, a, b) for a, b in zip(mine, two_d))
-            del two_d
-        checks.append(("per-expert", as_2d,
-                       f"experts {ends} bit-equal to quant_matmul_bwd in all five"))
+    ends = sorted({0, e - 1})
+    as_2d = True
+    for i in ends:
+        two_d = qmm.quant_matmul_bwd(dy[i], x[i], w[i], a_s[i, 0], a_b[i, 0],
+                                     ws[i:i + 1], **kw)
+        mine = (got[0][i], got[1][i, 0], got[2][i, 0], got[3][i], got[4][i:i + 1])
+        as_2d = as_2d and all(_same_bits(torch, a, b) for a, b in zip(mine, two_d))
+        del two_d
+    checks.append(("per-expert", as_2d,
+                   f"experts {ends} bit-equal to quant_matmul_bwd in all five"))
+    tensor_cores = path in ("tc", "split")  # the split route: the 2D split grids
     prologue_ms = None
-    if path == "tc":
-        same, prologue_ms = check_prologue(torch, timer, qmm, ref, args, qs)
+    if tensor_cores:
+        same, prologue_ms, _ = check_prologue(torch, timer, qmm, ref, args, qs,
+                                              qmm.plane_count(round_cot))
         checks.append(("prologue", same, "bit-equal to the plain dequantization"))
     s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
     u, q, xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])
@@ -785,7 +896,7 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     l1w = (dwd.abs() * fac).sum(dim=1)
     flips = torch.zeros_like(l1w)
     summand_checks = []
-    if path == "tc":
+    if tensor_cores:
         # dws sums the summands bf16(xd^T dY) x (q - mf u) over K. The tile's
         # f32 order rounds some of bf16(xd^T dY) to the other bf16 neighbour
         # of the plain version's (the dW bar allows that), and at clipped
@@ -1298,6 +1409,16 @@ def kernel_bench_phase(torch, ops) -> tuple[dict, dict]:
     return counts, res
 
 
+def _kernel_name(sym: str) -> str:
+    """The innermost name of a mangled kernel symbol: its length-prefixed
+    components read in turn (the anonymous namespace's, then the kernel's)."""
+    name, i = sym, 3 if sym.startswith("_ZN") else 2
+    while (found := re.match(r"\d+", sym[i:])):
+        n, i = int(found.group()), i + found.end()
+        name, i = sym[i:i + n], i + n
+    return name
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1326,11 +1447,12 @@ def main() -> None:
         entry = ""
         for line in r["log"].splitlines():
             if "Compiling entry function" in line:
-                found = re.search(r"\d+([a-z]\w*?_kernel)", line)
-                args = (["bf16"] if "bfloat16" in line else []) + [
-                    ("false", "true")[int(v)] for v in re.findall(r"Lb([01])E", line)]
-                entry = ((found.group(1) if found else line.split("'")[1])
-                         + (f"<{', '.join(args)}>" if args else "") + ": ")
+                sym = line.split("'")[1]
+                args = (["bf16"] if "bfloat16" in sym else []) + [
+                    ("false", "true")[int(v)] for v in re.findall(r"Lb([01])E", sym)] + \
+                    re.findall(r"Li(\d+)E", sym)
+                entry = (_kernel_name(sym) + (f"<{', '.join(args)}>" if args else "")
+                         + ": ")
             elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 log(f"    {entry}{line.strip()}")
 
@@ -1398,11 +1520,20 @@ def main() -> None:
     paths = [r["path"] for r in qat_rows["quant_matmul_bwd"]]
     if paths != ["tc"] * 8 + ["simt"]:
         fail(f"quant_matmul_bwd took paths {paths}")
+    # the split dx / dw on the tensor cores: the tied head (f32 cotangents,
+    # three planes), the FFN's shape with bf16 cotangents (one plane, held
+    # to quant_matmul_bwd's bits) and an odd K-side shape with f32 ones
     for name in ("quant_matmul_dx", "quant_matmul_dw"):
-        qat_rows[name].append(check_qat_bwd(
-            torch, timer, qmm, ref, name, m, 1024, 152064, False, False, gen,
-            HEAD_QS))
-        torch.cuda.empty_cache()
+        for mm, k, n, k_side, round_cot, qs in (
+                (m, 1024, 152064, False, False, HEAD_QS), (m, 1024, 2816, False, True, QAT_QS),
+                (257, 129, 65, True, False, QAT_QS)):
+            qat_rows[name].append(check_qat_bwd(
+                torch, timer, qmm, ref, name, mm, k, n, k_side, round_cot, gen, qs))
+            torch.cuda.empty_cache()
+        if [r["path"] for r in qat_rows[name]] != ["tc"] * 3:
+            fail(f"{name} took paths {[r['path'] for r in qat_rows[name]]}")
+    edges = split_edges(torch, timer, qmm, ref, gen)
+    torch.cuda.empty_cache()
 
     # the batched (MoE expert) kernels at granite-moe's training shapes: 32
     # experts x 1280 capacity rows (8 x 512 tokens, top 8, factor 1.25),
@@ -1545,9 +1676,18 @@ def main() -> None:
         if name == "bin_stats_2d":
             kernels[-1]["library"] = r["library"]
         if name in ("quant_matmul", "quant_matmul_batched", "quant_matmul_bwd",
-                    "quant_matmul_bwd_batched"):
+                    "quant_matmul_bwd_batched", "quant_matmul_dx", "quant_matmul_dw"):
             kernels[-1]["path"] = r["path"]
             kernels[-1]["prologue_ms"] = r["prologue_ms"]
+        if name in ("quant_matmul_dx", "quant_matmul_dw"):
+            kernels[-1].update(
+                kernel=f"qat_{name[-2:]}_tc_kernel", planes=r["planes"],
+                bound_f32_ms=r["bound_f32_ms"], grid_tflops=r["grid_tflops"],
+                split=r["split"], rows=[{k: v for k, v in row.items() if k in (
+                    "shape", "planes", "ms", "prologue_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_f32_ms", "grid_tflops")} for row in rs])
+        if name == "quant_matmul_dx":
+            kernels[-1]["split_edges"] = edges
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]

@@ -3,8 +3,8 @@
 // Replaces six TPU kernels of the JAX package (src/repro/kernels/quant_matmul.py):
 //   qat_fwd_tc <- quant_matmul      (:81,  body _qmm_kernel :46) and
 //                 quant_matmul_batched (:141, body _qmm_batched_kernel :114)
-//   qat_dx     <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
-//   qat_dw     <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
+//   qat_dx_tc  <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
+//   qat_dw_tc  <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
 //   qat_bwd_tc (bf16 dY) / qat_bwd (f32 dY)
 //              <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
 //   qat_bwd_tc (bf16 dY, E > 1) / qat_bwd_batched (f32 dY)
@@ -27,19 +27,20 @@
 // What bounds them on an H100: at the training shapes (M = 4096 tokens, K and
 // N of 512..152064) every product is far above the tensor-core line (hundreds
 // of operations a byte), so the kernels are bound by operations: 2*M*K*N at
-// 989 TFLOP/s in bf16, or at 67 TFLOP/s in f32 for the lm head's f32
-// cotangents. Two designs serve them.
+// 989 TFLOP/s in bf16 (three times that for the head's f32 cotangents, below).
 //
 // Tensor cores (bf16 x bf16 products, f32 sums): the forward, 2D and per
-// expert (qat_fwd_tc_launch), and the combined backward for bf16 cotangents,
-// 2D and per expert (qat_bwd_tc_launch, the form a training step launches
-// for every bf16 linear, the MoE experts' included). Dequantizing while
-// staging would repeat __fdiv_rn + rintf + clamp + two rounded ops for
+// expert (qat_fwd_tc_launch); the combined backward for bf16 cotangents, 2D
+// and per expert (qat_bwd_tc_launch, the form a training step launches for
+// every bf16 linear, the MoE experts' included); and the split dx / dw
+// (qat_dx_tc_launch, qat_dw_tc_launch: the vocab-wide head, and each expert
+// of a batched backward past the reference's scratch budget). Dequantizing
+// while staging would repeat __fdiv_rn + rintf + clamp + two rounded ops for
 // every operand element in every block that reads it
 // (at the qwen head each of 1,188 column blocks would divide all of x, each
 // of 32 row blocks the whole 1024 x 152064 weight), more f32 instructions
 // than the products' bound. So one prologue (qat_prologue_kernel) writes xd,
-// wd (and bf16(dY) for the backward) to zero-padded bf16 scratch once, with
+// wd and the cotangent's bf16 planes to zero-padded bf16 scratch once, with
 // the device functions the SIMT tile stages with, so the same bits; the
 // scratch costs its bytes twice (written, read), ~0.3 ms for the 0.3 GB of
 // the qwen head's wd. The tile is then a plain bf16 GEMM: 128 x 128 outputs a
@@ -55,19 +56,34 @@
 // values summed in f32 differ from any other order only inside the f32
 // order bound.
 //
-// SIMT tile (f32 FMA on bf16 values held in f32, exact products): the split
-// dx / dw (the vocab-wide head, f32 cotangents: their products are not exact
-// in bf16, and TF32 is not allowed; also each expert of a batched backward
-// past the reference's scratch budget), and the combined backward, 2D and
-// per expert, for f32 cotangents. 128 x 128 outputs a block of 256
-// threads, 8 x 8 a thread, the contraction walked 8 at a time through shared
-// memory, the next slice's loads in flight while the current one is
-// multiplied; each operand is dequantized as it is staged.
+// f32 cotangents on the tensor cores: an f32 x bf16 product is not exact in
+// bf16, and TF32 (10 mantissa bits) is not allowed. So the prologue splits
+// each f32 cotangent exactly into three bf16 planes (split3): hi = bf16(y),
+// mid = bf16(y - hi), lo = bf16(y - hi - mid), both subtractions exact in
+// f32, so hi + mid + lo == y for every finite |y| >= 2^-110. Each plane's
+// products with wd (or xd) are exact bf16 x bf16 products, and the tile walks
+// the contraction once per plane (hi, mid, lo, in that order) into the same
+// f32 accumulators: the same products the f32 tile added, in another order,
+// at three times the bf16 work (still ~5x under the f32 SIMT line). Each
+// 16-deep mma partial is added with a round-to-nearest f32 add
+// (mma_bf16_rn): the tensor core's accumulation truncates, and over the
+// head's 3 x 152,064 products its drift alone moved 7 % of the bf16-rounded
+// dX off the plain version's (the bar allows 1 %). Where hi
+// is not finite, mid = lo = 0, so an Inf or NaN multiplies as in the plain
+// version. Below 2^-110, lo is a bf16 subnormal or lost (an error of at most
+// 2^-134); an f32 above bf16's largest finite value splits to Inf.
 //
-// Left for later: the split dx / dw (f32 cotangents at the head, and bf16
-// ones on the batched backward's split route) off the SIMT tile; then wgmma
-// and TMA, a persistent grid and more stages for the tensor-core tile (the
-// 128 x 128 mma.sync tile runs at a fraction of the 989 TFLOP/s peak).
+// SIMT tile (f32 FMA on bf16 values held in f32, exact products): the
+// combined backward, 2D and per expert, for f32 cotangents (no model the port
+// trains launches it). 128 x 128 outputs a block of 256 threads, 8 x 8 a
+// thread, the contraction walked 8 at a time through shared memory, the next
+// slice's loads in flight while the current one is multiplied; each operand
+// is dequantized as it is staged.
+//
+// Left for later: the f32 combined backward onto the three planes (then the
+// SIMT tile can go); wgmma and TMA, a persistent grid and more stages for the
+// tensor-core tile (the 128 x 128 mma.sync tile runs at a fraction of the 989
+// TFLOP/s peak); a split contraction for the one-wave dX grid of the head.
 //
 // What differs from the TPU design, and why:
 //   * No carried accumulators: the TPU grid runs in order and carries dX / dW
@@ -81,8 +97,8 @@
 //     them in a fixed order, so every result is the same from run to run.
 //   * The combined backward is one grid whose first blocks compute dX tiles and
 //     whose other blocks compute dW tiles, through the same device code as the
-//     split kernels, so the two routes give identical bits. The TPU's (bk, Np)
-//     VMEM panel has no counterpart.
+//     split kernels, so the two routes give identical bits for bf16
+//     cotangents. The TPU's (bk, Np) VMEM panel has no counterpart.
 //   * Edges are masked in the kernel (and the scratch's pad is zero); the
 //     operands are not padded.
 //   * The batched (MoE expert) kernels put the expert on blockIdx.z (the
@@ -399,18 +415,6 @@ __device__ __forceinline__ void dw_tile(const Args& a, float* dw, float* part, i
 // Kernels
 // ---------------------------------------------------------------------------
 
-template <class XT>
-__global__ void __launch_bounds__(NT) qat_dx_kernel(Args a, float* dx, float* part) {
-  __shared__ __align__(16) Smem sm;
-  dx_tile<XT>(a, dx, part, blockIdx.x, sm);
-}
-
-template <class XT>
-__global__ void __launch_bounds__(NT) qat_dw_kernel(Args a, float* dw, float* part) {
-  __shared__ __align__(16) Smem sm;
-  dw_tile<XT>(a, dw, part, blockIdx.x, sm);
-}
-
 // Blocks [0, n_dx) are dX tiles, the rest dW tiles.
 template <class XT>
 __global__ void __launch_bounds__(NT) qat_bwd_kernel(Args a, float* dx, float* part_x,
@@ -542,25 +546,46 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) 
   *reinterpret_cast<uint4*>(dst) = o;
 }
 
+// The exact three-plane split of an f32 cotangent (the contract of
+// ref.cotangent_planes): hi = bf16(y); where hi is not finite mid = lo = 0,
+// else mid = bf16(y - hi) and lo = bf16(y - hi - mid), both subtractions
+// exact in f32. Each value is bf16-exact, so store8 keeps it as it is.
+__device__ __forceinline__ void split3(float y, float& hi, float& mid, float& lo) {
+  hi = bf16r(y);
+  if (!isfinite(hi)) {
+    mid = lo = 0.f;
+    return;
+  }
+  const float r = __fsub_rn(y, hi);
+  mid = bf16r(r);
+  lo = bf16r(__fsub_rn(r, mid));
+}
+
 // One grid-stride pass over the arrays in chunks of 8 elements of a row: the
 // same act_deq / w_deq / bf16 rounding as the SIMT tile's staging, so the
-// values are those the SIMT kernels multiply, bit for bit. Without dY (the
-// forward, dyb == nullptr) only xd and wd. Expert e = blockIdx.y (0 for the
-// 2D kernels) reads its own operands and scales and writes its own slices.
+// values are those the SIMT kernels multiply, bit for bit. An operand whose
+// pointer is null is skipped: dY for the forward, xd for dX alone, wd for dW
+// alone. dY is written as `planes` consecutive (M, ld_y) planes: bf16(dY)
+// for one, split3's hi, mid and lo for three. Expert e = blockIdx.y (0 for
+// the 2D kernels) reads its own operands and scales and writes its own
+// slices.
 template <class XT>
 __global__ void __launch_bounds__(NT) qat_prologue_kernel(Args a, __nv_bfloat16* xd, int ld_x,
                                                           __nv_bfloat16* wd, int ld_w,
-                                                          __nv_bfloat16* dyb, int ld_y) {
+                                                          __nv_bfloat16* dyb, int ld_y,
+                                                          int planes) {
   const size_t e = blockIdx.y;
   a = at_expert<XT>(a, (int)e);
-  xd += e * a.M * ld_x;
-  wd += e * a.K * ld_w;
-  if (dyb != nullptr) dyb += e * a.M * ld_y;
+  if (xd != nullptr) xd += e * a.M * ld_x;
+  if (wd != nullptr) wd += e * a.K * ld_w;
+  if (dyb != nullptr) dyb += e * planes * a.M * ld_y;
   const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
   const WQ wq = a.wq();
   const XT* x = static_cast<const XT*>(a.x);
   const size_t px = ld_x / 8, pw = ld_w / 8, py = ld_y / 8;
-  const size_t cx = (size_t)a.M * px, cw = (size_t)a.K * pw;
+  const size_t plane = (size_t)a.M * ld_y;
+  const size_t cx = xd != nullptr ? (size_t)a.M * px : 0;
+  const size_t cw = wd != nullptr ? (size_t)a.K * pw : 0;
   const size_t cy = dyb != nullptr ? (size_t)a.M * py : 0;
   for (size_t c = (size_t)blockIdx.x * NT + threadIdx.x; c < cx + cw + cy;
        c += (size_t)gridDim.x * NT) {
@@ -582,8 +607,16 @@ __global__ void __launch_bounds__(NT) qat_prologue_kernel(Args a, __nv_bfloat16*
     } else {
       const size_t cc = c - cx - cw;
       const int r = (int)(cc / py), c0 = (int)(cc % py) * 8;
-      load8(a.dy + (size_t)r * a.N, c0, a.N, v);  // rounded to bf16 by store8
-      store8(dyb + (size_t)r * ld_y + c0, v);
+      __nv_bfloat16* dst = dyb + (size_t)r * ld_y + c0;
+      load8(a.dy + (size_t)r * a.N, c0, a.N, v);  // 0 past N: every plane's pad is 0
+      if (planes == 3) {
+        float mid[8], lo[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) split3(v[e], v[e], mid[e], lo[e]);
+        store8(dst + plane, mid);
+        store8(dst + 2 * plane, lo);
+      }
+      store8(dst, v);  // hi, or (one plane) dY rounded to bf16 by store8
     }
   }
 }
@@ -632,6 +665,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b, the 16-deep product summed by the tensor core from zero and then
+// added to d by four round-to-nearest f32 adds. The tensor core's own
+// accumulation truncates: over a contraction of hundreds of thousands of
+// products (the head's three planes) its error drifts one way, far enough
+// to move ~7 % of the bf16-rounded sums to the other neighbour; added this
+// way, only the short partials truncate.
+__device__ __forceinline__ void mma_bf16_rn(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  float p[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], p[e]);
+}
+
 // Stage the contraction slice [l0, l0 + 32) of an operand whose output index
 // o runs over [o0, o0 + 128). TRANS = false: the scratch rows are o and the
 // slice is contiguous along l, staged [o][l]; TRANS = true: the scratch rows
@@ -657,12 +709,24 @@ __device__ __forceinline__ void tc_stage(const TcOp& op, int o0, int l0, __nv_bf
   }
 }
 
+// Plane p of a scratch array of consecutive (rows, ld) planes.
+__device__ __forceinline__ TcOp tc_plane(const TcOp& op, int p) {
+  return TcOp{op.p + (size_t)p * op.rows * op.ld, op.rows, op.ld};
+}
+
 // acc[mf][nf][e] = sum_l A(i, l) B(l, j) over l < L for the block's 128 x 128
 // tile at (i0, j0); warp w owns rows (w / 4) * 64 + mf * 16 + [0, 16) and
 // columns (w % 4) * 32 + nf * 8 + [0, 8), in the m16n8 accumulator layout.
-template <bool A_T, bool B_T>
+// PA / PB > 1: that operand is PA (PB) consecutive planes (the cotangent's
+// split), and the contraction is walked once per plane, in plane order,
+// into the same accumulators, the other operand read again for each; the
+// pipeline runs on across the planes' seams. The planes' sums (f32
+// cotangents, the head's long contraction) add each 16-deep product to the
+// accumulators with round-to-nearest adds (mma_bf16_rn).
+template <bool A_T, bool B_T, int PA = 1, int PB = 1>
 __device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, int j0, int L,
                                         float (&acc)[4][4][4], __nv_bfloat16* sm) {
+  static_assert(PA == 1 || PB == 1, "planes in one operand only");
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int wi = (w / 4) * 64, wj = (w % 4) * 32;
   const int q = lane / 8, r = lane % 8;
@@ -672,24 +736,27 @@ __device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, in
     for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
-  const int nk = (L + TC_BK - 1) / TC_BK;
+  const int nl = (L + TC_BK - 1) / TC_BK;  // slices a plane
+  const int nk = nl * PA * PB;              // slices of the whole walk
+  auto stage = [&](int kt, __nv_bfloat16* st) {
+    int p = 0, l = kt;  // one plane: no division in the loop
+    if (PA * PB > 1) {
+      p = kt / nl;
+      l = kt - p * nl;
+    }
+    tc_stage<A_T>(PA > 1 ? tc_plane(A, p) : A, i0, l * TC_BK, st);
+    tc_stage<B_T>(PB > 1 ? tc_plane(B, p) : B, j0, l * TC_BK, st + TC_OPND);
+  };
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
-    if (s < nk) {
-      tc_stage<A_T>(A, i0, s * TC_BK, sm + s * 2 * TC_OPND);
-      tc_stage<B_T>(B, j0, s * TC_BK, sm + s * 2 * TC_OPND + TC_OPND);
-    }
+    if (s < nk) stage(s, sm + s * 2 * TC_OPND);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<TC_STAGES - 2>();
     __syncthreads();  // slice kt has landed; the stage refilled below is free
     const int nxt = kt + TC_STAGES - 1;
-    if (nxt < nk) {
-      __nv_bfloat16* st = sm + (nxt % TC_STAGES) * 2 * TC_OPND;
-      tc_stage<A_T>(A, i0, nxt * TC_BK, st);
-      tc_stage<B_T>(B, j0, nxt * TC_BK, st + TC_OPND);
-    }
+    if (nxt < nk) stage(nxt, sm + (nxt % TC_STAGES) * 2 * TC_OPND);
     cp_async_commit();
     const __nv_bfloat16* As = sm + (kt % TC_STAGES) * 2 * TC_OPND;
     const __nv_bfloat16* Bs = As + TC_OPND;
@@ -716,7 +783,10 @@ __device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, in
 #pragma unroll
       for (int mf = 0; mf < 4; ++mf)
 #pragma unroll
-        for (int nf = 0; nf < 4; ++nf) mma_bf16(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
+        for (int nf = 0; nf < 4; ++nf) {
+          if (PA * PB > 1) mma_bf16_rn(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
+          else mma_bf16(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
+        }
     }
   }
   cp_async_wait<0>();
@@ -738,15 +808,16 @@ __device__ __forceinline__ int tc_col(int nf, int e) {
   return ((threadIdx.x / 32) % 4) * 32 + nf * 8 + 2 * (threadIdx.x % 4) + (e & 1);
 }
 
-// dX tile (rows m, columns k; contraction over n): A = dyb, B(n, k) = wd(k, n).
-template <class XT>
+// dX tile (rows m, columns k; contraction over n): A = dyb (P planes),
+// B(n, k) = wd(k, n).
+template <class XT, int P>
 __device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const TcOp& dyb,
                                            float* dx, float* part, int blk,
                                            __nv_bfloat16* sm) {
   const int n_i = (a.M + BM - 1) / BM;
   const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
   float acc[4][4][4];
-  tc_gemm<false, false>(dyb, wd, i0, j0, a.N, acc, sm);
+  tc_gemm<false, false, P, 1>(dyb, wd, i0, j0, a.N, acc, sm);
   const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
   const XT* x = static_cast<const XT*>(a.x);
   float sa = 0.f, sb = 0.f;
@@ -789,7 +860,9 @@ __device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const 
 }
 
 // dW tile (rows k, columns n; contraction over m): A(k, m) = xd(m, k) and
-// B(m, n) = dyb(m, n), both staged transposed. dws partials as dw_tile's.
+// B(m, n) = dyb(m, n) (P planes), both staged transposed. dws partials as
+// dw_tile's.
+template <int P>
 __device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const TcOp& dyb,
                                            float* dw, float* part, int blk,
                                            __nv_bfloat16* sm) {
@@ -797,7 +870,7 @@ __device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const 
   const int bi = blk % n_i, bj = blk / n_i;
   const int i0 = bi * BM, j0 = bj * BN;
   float acc[4][4][4];
-  tc_gemm<true, true>(xd, dyb, i0, j0, a.M, acc, sm);
+  tc_gemm<true, true, 1, P>(xd, dyb, i0, j0, a.M, acc, sm);
   const WQ wq = a.wq();
   float rsum[4][2], csum[4][2];  // [mf][row half], [nf][column parity]
 #pragma unroll
@@ -876,8 +949,25 @@ __global__ void __launch_bounds__(NT, 2) qat_bwd_tc_kernel(Args a, TcOp xd, TcOp
     part_x += e * 2 * n_dx;
     part_w += e * n_wpart;
   }
-  if ((int)blockIdx.x < n_dx) dx_tc_tile<XT>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
-  else dw_tc_tile(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
+  if ((int)blockIdx.x < n_dx) dx_tc_tile<XT, 1>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
+  else dw_tc_tile<1>(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
+}
+
+// The split backward: the dX grid alone, or the dW grid alone (which reads no
+// x, so one instance serves both x types), on P cotangent planes: 1 for
+// bf16 cotangents (the combined kernel's tiles, so its bits), 3 for f32.
+template <class XT, int P>
+__global__ void __launch_bounds__(NT, 2) qat_dx_tc_kernel(Args a, TcOp wd, TcOp dyb, float* dx,
+                                                          float* part_x) {
+  __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
+  dx_tc_tile<XT, P>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
+}
+
+template <int P>
+__global__ void __launch_bounds__(NT, 2) qat_dw_tc_kernel(Args a, TcOp xd, TcOp dyb, float* dw,
+                                                          float* part_w) {
+  __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
+  dw_tc_tile<P>(a, xd, dyb, dw, part_w, blockIdx.x, sm);
 }
 
 // Forward tile (rows m, columns n; contraction over k): A = xd (M, ld_x),
@@ -967,41 +1057,6 @@ Args make_args(const void* x, const void* w, const void* a_s, const void* a_b,
 
 extern "C" int qat_tile(void) { return BM; }
 
-extern "C" int qat_dx_launch(const void* dy, const void* x, int x_bf16, const void* w,
-                             const void* a_s, const void* a_b, const void* ws, int k_side,
-                             void* dx, void* dsa, void* dba, void* part_x,
-                             int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                             int round_cot, void* stream) {
-  if (M <= 0 || K <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, round_cot, qn_a, qp_a, qn_w, qp_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* px = static_cast<float*>(part_x);
-  const int grid = n_dx_blocks(a);
-  if (x_bf16) qat_dx_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(dx), px);
-  else qat_dx_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(dx), px);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
-                                 nullptr, nullptr, st));
-}
-
-extern "C" int qat_dw_launch(const void* dy, const void* x, int x_bf16, const void* w,
-                             const void* a_s, const void* a_b, const void* ws, int k_side,
-                             void* dw, void* dws, void* part_w,
-                             int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                             int round_cot, void* stream) {
-  if (K <= 0 || N <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, round_cot, qn_a, qp_a, qn_w, qp_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pw = static_cast<float*>(part_w);
-  const int grid = n_dw_blocks(a);
-  if (x_bf16) qat_dw_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(dw), pw);
-  else qat_dw_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(dw), pw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(a, nullptr, nullptr, nullptr, pw, static_cast<float*>(dws), st));
-}
-
 extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const void* w,
                               const void* a_s, const void* a_b, const void* ws, int k_side,
                               void* dx, void* dsa, void* dba, void* dw, void* dws,
@@ -1028,9 +1083,9 @@ extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const v
 }
 
 // The tensor-core path's scratch: xd (M, ld_x), wd (K, ld_w) and, for the
-// backward, dyb (M, ld_y) bf16 (E of each for the batched forward), each
-// leading dimension a multiple of 8 and at least K, N, N, 16-byte aligned;
-// the prologue writes them whole (pad included).
+// backward, dyb (planes, M, ld_y) bf16 (E of each for the batched kernels),
+// each leading dimension a multiple of 8 and at least K, N, N, 16-byte
+// aligned; the prologue writes them whole (pad included).
 namespace {
 bool scratch_ok(const void* p, int ld, int cols) {
   return ld >= cols && ld % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -1041,36 +1096,102 @@ bool tc_scratch_ok(int K, int N, const void* xd, int ld_x, const void* wd, int l
   return scratch_ok(xd, ld_x, K) && scratch_ok(wd, ld_w, N) && scratch_ok(dyb, ld_y, N);
 }
 
+// Null xd, wd or dyb: that array is not written (as in the kernel).
 cudaError_t prologue(const Args& a, int x_bf16, void* xd, int ld_x, void* wd, int ld_w,
-                     void* dyb, int ld_y, cudaStream_t st, int experts = 1) {
-  const size_t chunks = ((size_t)a.M * ld_x + (size_t)a.K * ld_w +
+                     void* dyb, int ld_y, cudaStream_t st, int experts = 1, int planes = 1) {
+  const size_t chunks = ((xd != nullptr ? (size_t)a.M * ld_x : 0) +
+                         (wd != nullptr ? (size_t)a.K * ld_w : 0) +
                          (dyb != nullptr ? (size_t)a.M * ld_y : 0)) / 8;
   const dim3 grid((unsigned)(chunks / NT + 1 < 4096 ? chunks / NT + 1 : 4096), experts);
   auto* bx = static_cast<__nv_bfloat16*>(xd);
   auto* bw = static_cast<__nv_bfloat16*>(wd);
   auto* by = static_cast<__nv_bfloat16*>(dyb);
   if (x_bf16)
-    qat_prologue_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+    qat_prologue_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y,
+                                                            planes);
   else
-    qat_prologue_kernel<float><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y);
+    qat_prologue_kernel<float><<<grid, NT, 0, st>>>(a, bx, ld_x, bw, ld_w, by, ld_y, planes);
   return cudaGetLastError();
 }
 }  // namespace
 
-// The prologue alone (for checks): the three scratch arrays of qat_bwd_tc_launch
-// (E of each for the batched backward).
+// The backward's prologue: xd (E, M, ld_x), wd (E, K, ld_w) and the
+// cotangent's planes (E, planes, M, ld_y): 1 plane, bf16(dY), for bf16
+// cotangents; 3, split3's hi / mid / lo, for f32 ones. xd or wd may be null
+// (not written: dX alone needs no xd, dW alone no wd). The split backward
+// runs it before qat_dx_tc_launch / qat_dw_tc_launch; alone it is a check.
 extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16,
                                        const void* w, const void* a_s, const void* a_b,
                                        const void* ws, int k_side, void* xd, int ld_x,
                                        void* wd, int ld_w, void* dyb, int ld_y, int E, int M,
                                        int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                                       void* stream) {
+                                       int planes, void* stream) {
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
-  if ((E > 1 && k_side) || dyb == nullptr || !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
+  if ((E > 1 && k_side) || (planes != 1 && planes != 3) || dyb == nullptr ||
+      !scratch_ok(dyb, ld_y, N) || (xd != nullptr && !scratch_ok(xd, ld_x, K)) ||
+      (wd != nullptr && !scratch_ok(wd, ld_w, N)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
   return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y,
-                                   static_cast<cudaStream_t>(stream), E));
+                                   static_cast<cudaStream_t>(stream), E, planes));
+}
+
+// The split backward on the tensor cores, 2D: the dX grid (qat_dx_tc_launch:
+// dx, dsa, dba from wd and the planes) or the dW grid (qat_dw_tc_launch: dw,
+// dws from xd and the planes), each then its finish, on the scratch that
+// qat_bwd_prologue_launch wrote with the same plane count (1 or 3). The
+// operands are qat_bwd_launch's (the tile's epilogue reads x or w and the
+// scales); part_x / part_w as there.
+extern "C" int qat_dx_tc_launch(const void* x, int x_bf16, const void* w, const void* a_s,
+                                const void* a_b, const void* ws, int k_side, void* dx, void* dsa,
+                                void* dba, void* part_x, const void* wd, int ld_w,
+                                const void* dyb, int ld_y, int M, int K, int N, int qn_a,
+                                int qp_a, int qn_w, int qp_w, int planes, void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  if ((planes != 1 && planes != 3) || !scratch_ok(wd, ld_w, N) || !scratch_ok(dyb, ld_y, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
+  const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
+  float* px = static_cast<float*>(part_x);
+  float* fdx = static_cast<float*>(dx);
+  const int grid = n_dx_blocks(a);
+  if (x_bf16 && planes == 3)
+    qat_dx_tc_kernel<__nv_bfloat16, 3><<<grid, NT, 0, st>>>(a, owd, ody, fdx, px);
+  else if (x_bf16)
+    qat_dx_tc_kernel<__nv_bfloat16, 1><<<grid, NT, 0, st>>>(a, owd, ody, fdx, px);
+  else if (planes == 3)
+    qat_dx_tc_kernel<float, 3><<<grid, NT, 0, st>>>(a, owd, ody, fdx, px);
+  else
+    qat_dx_tc_kernel<float, 1><<<grid, NT, 0, st>>>(a, owd, ody, fdx, px);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
+                                 nullptr, nullptr, st));
+}
+
+extern "C" int qat_dw_tc_launch(const void* x, int x_bf16, const void* w, const void* a_s,
+                                const void* a_b, const void* ws, int k_side, void* dw, void* dws,
+                                void* part_w, const void* xd, int ld_x, const void* dyb,
+                                int ld_y, int M, int K, int N, int qn_a, int qp_a, int qn_w,
+                                int qp_w, int planes, void* stream) {
+  if (K <= 0 || N <= 0) return 0;
+  if ((planes != 1 && planes != 3) || !scratch_ok(xd, ld_x, K) || !scratch_ok(dyb, ld_y, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
+  const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
+  float* pw = static_cast<float*>(part_w);
+  float* fdw = static_cast<float*>(dw);
+  const int grid = n_dw_blocks(a);
+  if (planes == 3) qat_dw_tc_kernel<3><<<grid, NT, 0, st>>>(a, oxd, ody, fdw, pw);
+  else qat_dw_tc_kernel<1><<<grid, NT, 0, st>>>(a, oxd, ody, fdw, pw);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(a, nullptr, nullptr, nullptr, pw, static_cast<float*>(dws),
+                                 st));
 }
 
 // The combined backward on the tensor cores for bf16 cotangents only

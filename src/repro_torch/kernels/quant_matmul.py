@@ -19,15 +19,18 @@ they run the split dx / dw kernels (expert by expert for the batched one),
 so the port takes the same route at every shape; the GPU kernels themselves
 do not use the tiles.
 
-What runs on the card: both forwards, and both combined backwards
+What runs on the card: both forwards, both combined backwards
 (`quant_matmul_bwd` and, per expert, `quant_matmul_bwd_batched`) with bf16
-cotangents, run on the tensor cores (a prologue that dequantizes each
-operand once into zero-padded bf16 scratch, then an mma.sync tile, the
-expert on the grid; the scratch lives for the call). The combined backwards
-with f32 cotangents (`bwd_route`) and the split dx / dw pair (the
-vocab-wide head, and each expert on the batched backward's split route) run
-on the SIMT tile, which dequantizes as it stages. `fwd_prologue` /
-`bwd_prologue` run the prologues alone, 2D or per expert, for checks.
+cotangents, and the split dx / dw (the vocab-wide head, and each expert on
+the batched backward's split route) run on the tensor cores: a prologue
+that dequantizes each operand once into zero-padded bf16 scratch, then an
+mma.sync tile, the expert on the grid; the scratch lives for the call. The
+split dx / dw take f32 cotangents (the head's) as three exact bf16 planes
+(`ref.cotangent_planes`), whose bf16 x bf16 products sum to the f32
+products. Only the combined backwards with f32 cotangents (`bwd_route`, on
+no training path) run on the SIMT tile, which dequantizes as it stages.
+`fwd_prologue` / `bwd_prologue` run the prologues alone, 2D or per expert,
+for checks.
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
 version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
@@ -166,10 +169,10 @@ def _qat_lib() -> ctypes.CDLL:
                                           i, i, i, i, i, i, i, i, p]
         lib.qat_fwd_prologue_launch.argtypes = [p, i, p, p, p, p, i, p, i, p,
                                                 i, i, i, i, i, i, i, i, i, p]
-        lib.qat_dx_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
-                                      i, i, i, i, i, i, i, i, p]
-        lib.qat_dw_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p,
-                                      i, i, i, i, i, i, i, i, p]
+        lib.qat_dx_tc_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p,
+                                         i, p, i, i, i, i, i, i, i, i, i, p]
+        lib.qat_dw_tc_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, i,
+                                         p, i, i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p, p,
                                        p, p, i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_tc_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
@@ -177,12 +180,12 @@ def _qat_lib() -> ctypes.CDLL:
                                           i, i, i, i, i, i, p]
         lib.qat_bwd_prologue_launch.argtypes = [p, p, i, p, p, p, p, i, p, i,
                                                 p, i, p, i, i, i, i, i, i, i,
-                                                i, i, p]
+                                                i, i, i, p]
         lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
                                                p, p, p, p, i, i, i, i, i, i,
                                                i, i, i, p]
         for fn in (lib.qat_fwd_tc_launch, lib.qat_fwd_prologue_launch,
-                   lib.qat_dx_launch, lib.qat_dw_launch, lib.qat_bwd_launch,
+                   lib.qat_dx_tc_launch, lib.qat_dw_tc_launch, lib.qat_bwd_launch,
                    lib.qat_bwd_tc_launch, lib.qat_bwd_prologue_launch,
                    lib.qat_bwd_batched_launch):
             fn.restype = i
@@ -314,9 +317,10 @@ def bwd_route(m: int, k: int, n: int, round_cot: bool,
               scratch_budget=None) -> str:
     """The kernels quant_matmul_bwd (and quant_matmul_bwd_batched, on the
     per-expert shape) takes for a CUDA tensor: "split" (the split dx / dw
-    kernels, where the reference splits), else the combined backward on the
-    tensor cores ("tc", bf16 cotangents) or on the SIMT tile ("simt", f32
-    cotangents: their products are not exact in bf16)."""
+    grids on the tensor cores, where the reference splits; f32 cotangents
+    as three exact bf16 planes), else the combined backward on the tensor
+    cores ("tc", bf16 cotangents) or on the SIMT tile ("simt", f32
+    cotangents)."""
     if not bwd_uses_combined(*padded_dims(m, k, n),
                              scratch_budget=scratch_budget):
         return "split"
@@ -327,54 +331,70 @@ _BWD_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_launch"}
 _BWD_BATCHED_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_batched_launch"}
 
 
-def _bwd_tc_scratch(m: int, k: int, n: int, e: int = 1):
+def plane_count(round_cot: bool) -> int:
+    """bf16 planes the tensor-core backward multiplies a cotangent as: 1
+    (bf16(dY)) for bf16 cotangents, 3 (dY's exact split hi + mid + lo,
+    `ref.cotangent_planes`) for f32 ones."""
+    return 1 if round_cot else 3
+
+
+def _bwd_tc_scratch(m: int, k: int, n: int, e: int = 1, planes: int = 1):
     """The tensor-core backward's bf16 scratch, xd (E, M, ld_x), wd (E, K,
-    ld_w) and bf16(dY) (E, M, ld_y) (E = 1: the 2D backward): ((ld_x, ld_w,
-    ld_y), their bytes), each leading dimension K, N, N rounded up to a
-    multiple of 8 elements (16 bytes), so every row (and every expert's
-    slice) starts 16-byte aligned; the prologue zeroes the pad."""
+    ld_w) and the cotangent's planes (E, planes, M, ld_y) (E = 1: the 2D
+    backward): ((ld_x, ld_w, ld_y), their bytes), each leading dimension K,
+    N, N rounded up to a multiple of 8 elements (16 bytes), so every row
+    (and every plane and expert slice) starts 16-byte aligned; the prologue
+    zeroes the pad."""
     lds = tuple(_cdiv(d, 8) * 8 for d in (k, n, n))
-    return lds, (2 * e * m * lds[0], 2 * e * k * lds[1], 2 * e * m * lds[2])
+    return lds, (2 * e * m * lds[0], 2 * e * k * lds[1], 2 * e * planes * m * lds[2])
 
 
-def _bwd_tc_scratch_tensors(lead: tuple, m: int, k: int, n: int, device):
-    """xd (*lead, M, ld_x), wd (*lead, K, ld_w) and bf16(dY) (*lead, M,
-    ld_y); lead () or (E,). Allocated for one call."""
+def _bwd_tc_scratch_tensors(lead: tuple, m: int, k: int, n: int, device,
+                            planes: int = 1, xd: bool = True, wd: bool = True):
+    """xd (*lead, M, ld_x), wd (*lead, K, ld_w) and the planes (*lead, M,
+    ld_y) for one plane, (*lead, planes, M, ld_y) for more; lead () or (E,).
+    xd / wd False: None in its place. Allocated for one call."""
     lds, _ = _bwd_tc_scratch(m, k, n)
-    return tuple(torch.empty((*lead, rows, ld), dtype=torch.bfloat16, device=device)
-                 for rows, ld in zip((m, k, m), lds))
+    shapes = ((m, lds[0]) if xd else None, (k, lds[1]) if wd else None,
+              (m, lds[2]) if planes == 1 else (planes, m, lds[2]))
+    return tuple(None if s is None else
+                 torch.empty((*lead, *s), dtype=torch.bfloat16, device=device)
+                 for s in shapes)
+
+
+def _dx_outputs(m: int, k: int, device):
+    """(dX, dsa, dba) f32 and the scratch of each dX block's (dsa, dba)
+    partials."""
+    f32 = dict(dtype=torch.float32, device=device)
+    t = QAT_TILE
+    return ((torch.empty((m, k), **f32), torch.empty((), **f32), torch.empty((), **f32)),
+            torch.empty((2 * _cdiv(m, t) * _cdiv(k, t),), **f32))
+
+
+def _dw_outputs(k: int, n: int, k_side: bool, device):
+    """(dW, dws) f32 and the scratch of the dws partials per row block (or,
+    for row scales, per column block)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    t = QAT_TILE
+    return ((torch.empty((k, n), **f32), torch.empty((k, 1) if k_side else (1, n), **f32)),
+            torch.empty((_cdiv(n, t) * k if k_side else _cdiv(k, t) * n,), **f32))
 
 
 def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
-                round_cot: bool, want_dx: bool, want_dw: bool):
+                round_cot: bool):
+    """The combined backward (`entry`: the tensor cores' or the SIMT tile's)
+    on one launch (+ the prologue and the finish pass): (dX, dsa, dba, dW,
+    dws)."""
     x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
                                                    w_scale, dy)
     m, k = x.shape
     n = w.shape[1]
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    t = QAT_TILE
-    outs, ptrs = [], []
-    if want_dx:
-        dx, dsa, dba = (torch.empty((m, k), **f32), torch.empty((), **f32),
-                        torch.empty((), **f32))
-        outs += [dx, dsa, dba]
-        ptrs += [dx.data_ptr(), dsa.data_ptr(), dba.data_ptr()]
-    if want_dw:
-        dw = torch.empty((k, n), **f32)
-        dws = torch.empty((k, 1) if k_side else (1, n), **f32)
-        outs += [dw, dws]
-        ptrs += [dw.data_ptr(), dws.data_ptr()]
-    if want_dx:  # scratch: each dX block's (dsa, dba) partials
-        part_x = torch.empty((2 * _cdiv(m, t) * _cdiv(k, t),), **f32)
-        ptrs.append(part_x.data_ptr())
-    if want_dw:  # scratch: dws partials per row block (or column block)
-        rows = _cdiv(n, t) * k if k_side else _cdiv(k, t) * n
-        part_w = torch.empty((rows,), **f32)
-        ptrs.append(part_w.data_ptr())
+    (dxs, part_x), (dws, part_w) = _dx_outputs(m, k, dev), _dw_outputs(k, n, k_side, dev)
+    ptrs = [o.data_ptr() for o in dxs + dws + (part_x, part_w)]
     if entry == "qat_bwd_tc_launch":  # scratch: the prologue's bf16 operands
-        for t in _bwd_tc_scratch_tensors((), m, k, n, dev):
-            ptrs += [t.data_ptr(), t.shape[1]]
+        for s in _bwd_tc_scratch_tensors((), m, k, n, dev):
+            ptrs += [s.data_ptr(), s.shape[1]]
         ptrs.append(1)  # E: one expert
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_qat_lib(), entry)(
@@ -383,7 +403,46 @@ def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
         int(k_side), *ptrs, m, k, n, qs["q_n_a"], qs["q_p_a"], qs["q_n_w"],
         qs["q_p_w"], int(round_cot), stream)
     _raise(entry, rc, m, k, n)
-    return tuple(outs)
+    return dxs + dws
+
+
+def _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool,
+              want_dx: bool, want_dw: bool):
+    """The split backward on the tensor cores, 2D: one prologue (wd for dX,
+    xd for dW, and the cotangent's planes), then the dX grid (-> dX, dsa,
+    dba) and / or the dW grid (-> dW, dws), each with its finish pass."""
+    x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
+                                                   w_scale, dy)
+    m, k = x.shape
+    n = w.shape[1]
+    dev = x.device
+    planes = plane_count(round_cot)
+    lds, _ = _bwd_tc_scratch(m, k, n)
+    xd, wd, dyb = _bwd_tc_scratch_tensors((), m, k, n, dev, planes, xd=want_dw,
+                                          wd=want_dx)
+    ptr = lambda s: 0 if s is None else s.data_ptr()
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+            a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), int(k_side))
+    tail = (m, k, n, qs["q_n_a"], qs["q_p_a"], qs["q_n_w"], qs["q_p_w"], planes,
+            torch.cuda.current_stream(dev).cuda_stream)
+    lib = _qat_lib()
+    rc = lib.qat_bwd_prologue_launch(dy.data_ptr(), *head, ptr(xd), lds[0], ptr(wd),
+                                     lds[1], dyb.data_ptr(), lds[2], 1, *tail)
+    _raise("qat_bwd_prologue_launch", rc, m, k, n)
+    outs = ()
+    if want_dx:
+        dxs, part_x = _dx_outputs(m, k, dev)
+        rc = lib.qat_dx_tc_launch(*head, *(o.data_ptr() for o in dxs + (part_x,)),
+                                  wd.data_ptr(), lds[1], dyb.data_ptr(), lds[2], *tail)
+        _raise("qat_dx_tc_launch", rc, m, k, n)
+        outs += dxs
+    if want_dw:
+        dws, part_w = _dw_outputs(k, n, k_side, dev)
+        rc = lib.qat_dw_tc_launch(*head, *(o.data_ptr() for o in dws + (part_w,)),
+                                  xd.data_ptr(), lds[0], dyb.data_ptr(), lds[2], *tail)
+        _raise("qat_dw_tc_launch", rc, m, k, n)
+        outs += dws
+    return outs
 
 
 def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
@@ -393,8 +452,8 @@ def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     if x.device.type == "cpu":
         return ref.quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale,
                                    round_cot=round_cot, **qs)
-    out = _bwd_launch("qat_dx_launch", dy, x, w, a_scale, a_offset, w_scale,
-                      qs, round_cot, True, False)
+    out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
+                    True, False)
     quant_matmul_dx.launches += 1
     return out
 
@@ -406,8 +465,22 @@ def quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     if x.device.type == "cpu":
         return ref.quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale,
                                    round_cot=round_cot, **qs)
-    out = _bwd_launch("qat_dw_launch", dy, x, w, a_scale, a_offset, w_scale,
-                      qs, round_cot, False, True)
+    out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
+                    False, True)
+    quant_matmul_dw.launches += 1
+    return out
+
+
+def _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool):
+    """(dX, dsa, dba, dW, dws) on the split route: the plain dx / dw for a
+    CPU tensor; on the card one prologue and both grids, counted as one
+    quant_matmul_dx and one quant_matmul_dw launch."""
+    if x.device.type == "cpu":
+        return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
+                                    round_cot=round_cot, **qs)
+    out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
+                    True, True)
+    quant_matmul_dx.launches += 1
     quant_matmul_dw.launches += 1
     return out
 
@@ -416,43 +489,40 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                      q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True,
                      scratch_budget=None):
     """(dX, dsa, dba, dW, dws) in one launch (+ the prologue and the finish
-    pass), or through the split dx / dw kernels where the reference would
+    pass), or through the split dx / dw grids where the reference would
     split (vocab-wide N): the route is `bwd_route`, whose combined route is
     `bwd_uses_combined` on the reference's padded shape."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     m, k = x.shape
     route = bwd_route(m, k, w.shape[1], round_cot, scratch_budget)
     if route == "split":
-        if x.device.type == "cuda":
-            w = w.contiguous()  # one copy for both kernels (a transposed view)
-        dx, dsa, dba = quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale,
-                                       round_cot=round_cot, **qs)
-        dw, dws = quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale,
-                                  round_cot=round_cot, **qs)
-        return dx, dsa, dba, dw, dws
+        return _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot)
     if x.device.type == "cpu":
         return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
                                     round_cot=round_cot, **qs)
     out = _bwd_launch(_BWD_ENTRY[route], dy, x, w, a_scale, a_offset,
-                      w_scale, qs, round_cot, True, True)
+                      w_scale, qs, round_cot)
     quant_matmul_bwd.launches += 1
     return out
 
 
 def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
-                 q_p_a: int, q_n_w: int, q_p_w: int):
-    """The tensor-core backward's prologue alone: (xd, wd, bf16(dY)) as the
-    zero-padded bf16 scratch that quant_matmul_bwd (x (M, K)) or
-    quant_matmul_bwd_batched (x (E, M, K)) multiplies (`_bwd_tc_scratch`).
-    A check: the training path reaches the prologue only inside those two,
-    whose counts it adds to."""
+                 q_p_a: int, q_n_w: int, q_p_w: int, planes: int = 1):
+    """The tensor-core backward's prologue alone: (xd, wd, the cotangent's
+    planes) as the zero-padded bf16 scratch that quant_matmul_bwd (x (M, K))
+    or quant_matmul_bwd_batched (x (E, M, K)) multiplies (`_bwd_tc_scratch`;
+    planes 1, bf16(dY)), or that the split dx / dw multiply (planes 3 for
+    f32 cotangents). A check: the training path reaches the prologue only
+    inside those, whose counts it adds to."""
+    if planes not in (1, 3):
+        raise ValueError(f"planes must be 1 or 3, got {planes}")
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     m, k = x.shape[-2:]
     n = w.shape[-1]
     lds, _ = _bwd_tc_scratch(m, k, n)
     if x.device.type == "cpu":
         return ref.bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, lds=lds,
-                                **qs)
+                                planes=planes, **qs)
     if x.dim() == 3:
         x, w, a_s, a_b, ws, dy = _batched_operands(x, w, a_scale, a_offset,
                                                    w_scale, dy)
@@ -461,14 +531,14 @@ def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
         x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
                                                        w_scale, dy)
     lead = tuple(x.shape[:-2])
-    xd, wd, dyb = _bwd_tc_scratch_tensors(lead, m, k, n, x.device)
+    xd, wd, dyb = _bwd_tc_scratch_tensors(lead, m, k, n, x.device, planes)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _qat_lib().qat_bwd_prologue_launch(
         dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
         w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
         int(k_side), xd.data_ptr(), lds[0], wd.data_ptr(), lds[1],
         dyb.data_ptr(), lds[2], lead[0] if lead else 1, m, k, n, q_n_a,
-        q_p_a, q_n_w, q_p_w, stream)
+        q_p_a, q_n_w, q_p_w, planes, stream)
     _raise("qat_bwd_prologue_launch", rc, m, k, n)
     bwd_prologue.launches += 1
     return xd, wd, dyb
@@ -532,7 +602,7 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
     ("tc", bf16 cotangents), the SIMT tile ("simt", f32 cotangents), or,
     where the reference's combined kernel would not fit its scratch budget
     on the padded per-expert shape, expert by expert through the split
-    quant_matmul_dx / quant_matmul_dw (the reference's fallback)."""
+    dx / dw (the reference's fallback; `quant_matmul_bwd`'s split route)."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     e, m, k = x.shape
     n = w.shape[2]
@@ -540,11 +610,9 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
     if route == "split":
         outs = []
         for i in range(e):
-            wi = w[i].contiguous() if x.device.type == "cuda" else w[i]
-            args = (dy[i], x[i], wi, a_scale.reshape(e)[i],
-                    a_offset.reshape(e)[i], w_scale[i:i + 1])
-            dx_e, dsa_e, dba_e = quant_matmul_dx(*args, round_cot=round_cot, **qs)
-            dw_e, dws_e = quant_matmul_dw(*args, round_cot=round_cot, **qs)
+            dx_e, dsa_e, dba_e, dw_e, dws_e = _split_bwd(
+                dy[i], x[i], w[i], a_scale.reshape(e)[i], a_offset.reshape(e)[i],
+                w_scale[i:i + 1], qs, round_cot)
             outs.append((dx_e, dsa_e, dba_e, dw_e, dws_e[0]))
         dx, dsa, dba, dw, dws = (torch.stack(t) for t in zip(*outs))
         return dx, dsa.reshape(e, 1), dba.reshape(e, 1), dw, dws

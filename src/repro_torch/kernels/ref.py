@@ -73,6 +73,28 @@ def _cotangent(dy, round_cot: bool) -> torch.Tensor:
     return _bf16(dy) if round_cot else dy
 
 
+def cotangent_planes(dy, planes: int) -> tuple:
+    """dY as the tensor-core backward's bf16 planes, each an f32 tensor of
+    bf16 values: (bf16(dY),) for one plane (bf16 cotangents); for three
+    (f32 cotangents) its exact split hi = bf16(dY), mid = bf16(dY - hi), lo
+    = bf16(dY - hi - mid), with mid = lo = 0 where hi is not finite (an Inf
+    or NaN then multiplies as dY does). Both subtractions are exact in f32,
+    so hi + mid + lo == dY for every finite |dY| >= 2**-110; below that lo
+    is a bf16 subnormal or lost, an error of at most 2**-134. An f32 past
+    bf16's largest finite value splits to Inf. Every product of a plane
+    with a bf16 operand is exact in f32, so the three planes' products sum
+    to dY's."""
+    if planes not in (1, 3):
+        raise ValueError(f"planes must be 1 or 3, got {planes}")
+    y = dy.to(torch.float32)
+    hi = _bf16(y)
+    if planes == 1:
+        return (hi,)
+    r = torch.where(torch.isfinite(hi), y - hi, 0.0)
+    mid = _bf16(r)
+    return hi, mid, _bf16(r - mid)
+
+
 def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                     q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
     """Backward wrt x: (dX (M, K) f32, dsa, dba) with dsa / dba 0-d f32.
@@ -134,13 +156,16 @@ def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
 
 
 def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
-                 q_p_a: int, q_n_w: int, q_p_w: int, lds):
-    """The tensor-core backward's prologue: xd, wd and bf16(dY) as bf16
-    arrays of leading dimensions lds = (ld_x, ld_w, ld_y), zero past K, N
-    and N: the values the SIMT kernels stage, bit for bit."""
+                 q_p_a: int, q_n_w: int, q_p_w: int, lds, planes: int = 1):
+    """The tensor-core backward's prologue: xd, wd and the cotangent's
+    planes (`cotangent_planes`) as bf16 arrays of leading dimensions lds =
+    (ld_x, ld_w, ld_y), zero past K, N and N; the planes (..., M, ld_y) for
+    one, (..., planes, M, ld_y) for three. xd and wd are the values the
+    SIMT kernels stage, bit for bit."""
     xd, wd = fwd_prologue(x, w, a_scale, a_offset, w_scale, q_n_a=q_n_a,
                           q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w, lds=lds[:2])
-    return xd, wd, _padded_bf16(_cotangent(dy, True), lds[2])
+    ys = [_padded_bf16(t, lds[2]) for t in cotangent_planes(dy, planes)]
+    return xd, wd, ys[0] if planes == 1 else torch.stack(ys, dim=-3)
 
 
 def _expert_scales(a_scale, a_offset, w_scale):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 kernel sources are in the repository, and chip_smoke.py refuses to report a
-result without a GPU or outside a checkout."""
+result without a GPU or outside a checkout (chip_compare.py without a
+GPU)."""
 import os
 import re
 import shutil
@@ -46,7 +47,7 @@ IMPORT_RE = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))"
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
     offenders = [str(f) for f in files if IMPORT_RE.search(f.read_text())]
     assert offenders == []
 
@@ -77,6 +78,19 @@ def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
     assert out.returncode != 0 and '"ok"' not in out.stdout
 
 
+def test_chip_compare_refuses_without_gpu():
+    """chip_compare.py times two checkouts on a card: without one it exits
+    non-zero and reports nothing, before it starts a run."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_compare.py would run")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(ROOT / "chip_compare.py"), str(ROOT), "head"],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode != 0 and "needs a GPU" in out.stderr
+    assert '"runs"' not in out.stdout
+
+
 def _c_param_count(source: Path, fn: str) -> int:
     m = re.search(r'extern "C" [\w ]+\b' + fn + r"\(([^)]*)\)", source.read_text())
     assert m, fn
@@ -89,8 +103,8 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     import types
     from repro_torch.kernels import (bin_stats, build, decode_attention,
                                      fake_quant, quant_matmul)
-    qat = ("qat_fwd_tc_launch", "qat_fwd_prologue_launch", "qat_dx_launch",
-           "qat_dw_launch", "qat_bwd_launch", "qat_bwd_tc_launch",
+    qat = ("qat_fwd_tc_launch", "qat_fwd_prologue_launch", "qat_dx_tc_launch",
+           "qat_dw_tc_launch", "qat_bwd_launch", "qat_bwd_tc_launch",
            "qat_bwd_prologue_launch", "qat_bwd_batched_launch")
     fq = ("fake_quant_tensor_launch", "fake_quant_rows_launch")
     fake = {name: types.SimpleNamespace(**{

@@ -3,7 +3,7 @@ bf16 cotangents (the prologue writes xd, wd and bf16(dY) to zero-padded
 bf16 scratch, the expert on blockIdx.y; then the 2D backward's mma.sync
 tile, the expert on blockIdx.z: `qat_bwd_tc_launch` with E > 1), the
 SIMT backward for f32 cotangents (`qat_bwd_batched_launch`), and past the
-reference's scratch budget the split dx / dw kernels expert by expert.
+reference's scratch budget the split dx / dw grids expert by expert.
 
 On the CPU no kernel runs, so this pins what surrounds them: the
 per-expert scratch shapes and bytes, the entry each route launches and the
@@ -52,8 +52,8 @@ def test_scratch_per_expert_shapes_and_bytes(emkn):
     assert all(t.dtype == torch.bfloat16 for t in (xd, wd, dyb))
 
 
-ENTRIES = ("qat_bwd_tc_launch", "qat_bwd_batched_launch", "qat_dx_launch",
-           "qat_dw_launch", "qat_bwd_prologue_launch", "qat_bwd_launch")
+ENTRIES = ("qat_bwd_tc_launch", "qat_bwd_batched_launch", "qat_dx_tc_launch",
+           "qat_dw_tc_launch", "qat_bwd_prologue_launch", "qat_bwd_launch")
 
 
 @pytest.fixture
@@ -80,14 +80,14 @@ def fake_lib(monkeypatch):
         e = x.shape[0]
         return (x, w, a_scale.reshape(e), a_offset.reshape(e), w_scale, dy)
 
-    def tensors(lead, m, k, n, device):
-        lds, _ = qmm._bwd_tc_scratch(m, k, n)
-        out = []
-        for i, (rows, ld) in enumerate(zip((m, k, m), lds)):
-            t = torch.empty((*lead, rows, ld), dtype=torch.bfloat16, device="meta")
-            out.append(types.SimpleNamespace(shape=t.shape, dtype=t.dtype,
-                                             data_ptr=lambda i=i: 0x1000 * (i + 1)))
-        return tuple(out)
+    allocate = qmm._bwd_tc_scratch_tensors
+
+    def tensors(lead, m, k, n, device, planes=1, xd=True, wd=True):
+        real = allocate(lead, m, k, n, "meta", planes, xd, wd)
+        return tuple(None if t is None else
+                     types.SimpleNamespace(shape=t.shape, dtype=t.dtype,
+                                           data_ptr=lambda i=i: 0x1000 * (i + 1))
+                     for i, t in enumerate(real))
 
     monkeypatch.setattr(qmm, "_qat_lib", lambda: lib)
     monkeypatch.setattr(qmm, "_qat_operands", operands)
@@ -151,18 +151,21 @@ def test_f32_cotangents_launch_the_simt_entry(fake_lib):
 
 @pytest.mark.parametrize("round_cot", [True, False], ids=["bf16cot", "f32cot"])
 def test_wide_n_splits_expert_by_expert(fake_lib, round_cot):
-    """Past the reference's scratch budget: qat_dx_launch then qat_dw_launch
-    for each expert, on its (M, K, N), and no batched launch."""
+    """Past the reference's scratch budget: for each expert, on its (M, K,
+    N), the split route's prologue, then qat_dx_tc_launch and
+    qat_dw_tc_launch on its planes (1 for bf16 cotangents, 3 for f32), and
+    no batched launch."""
     calls, _ = fake_lib
     e, m, k, n = 4, 256, 512, 8192
     before = qmm.quant_matmul_bwd_batched.launches
     out = qmm.quant_matmul_bwd_batched(*_meta_operands(e, m, k, n), round_cot=round_cot,
                                        **QS)
     _check_shapes(out, e, m, k, n)
-    assert [name for name, _ in calls] == ["qat_dx_launch", "qat_dw_launch"] * e
+    assert [name for name, _ in calls] == ["qat_bwd_prologue_launch", "qat_dx_tc_launch",
+                                           "qat_dw_tc_launch"] * e
     for name, args in calls:
         assert len(args) == _c_param_count(name), name
-        assert args[-9:-6] == (m, k, n) and args[-2] == int(round_cot)
+        assert args[-9:-6] == (m, k, n) and args[-2] == (1 if round_cot else 3)
     assert qmm.quant_matmul_bwd_batched.launches == before
 
 
@@ -197,7 +200,7 @@ def test_batched_prologue_wrapper_passes_the_scratch(fake_lib):
     assert [tuple(t.shape) for t in (xd, wd, dyb)] == [(e, m, lds[0]), (e, k, lds[1]),
                                                        (e, m, lds[2])]
     name, args = calls[0]
-    assert name == "qat_bwd_prologue_launch" and len(args) == _c_param_count(name) == 23
+    assert name == "qat_bwd_prologue_launch" and len(args) == _c_param_count(name) == 24
     assert args[7] == 0
     assert args[8:14] == (0x1000, lds[0], 0x2000, lds[1], 0x3000, lds[2])
     assert args[14:18] == (e, m, k, n)

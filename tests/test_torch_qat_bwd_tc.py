@@ -1,6 +1,8 @@
 """quant_matmul_bwd's two combined paths: the tensor-core backward for bf16
 cotangents (a prologue that writes xd, wd and bf16(dY) to zero-padded bf16
-scratch, then an mma.sync tile) and the SIMT backward for f32 cotangents.
+scratch, then an mma.sync tile) and the SIMT backward for f32 cotangents;
+and which entries its split route launches (tests/test_torch_qat_dxdw_tc.py
+has the rest of the split route).
 
 On the CPU no kernel runs, so this pins what surrounds them: the scratch
 shapes, the route rule and the entry each route launches (through a fake
@@ -76,7 +78,7 @@ def fake_qat_lib(monkeypatch):
         return launch
 
     lib = types.SimpleNamespace(**{n: entry(n) for n in (
-        "qat_bwd_launch", "qat_bwd_tc_launch", "qat_dx_launch", "qat_dw_launch",
+        "qat_bwd_launch", "qat_bwd_tc_launch", "qat_dx_tc_launch", "qat_dw_tc_launch",
         "qat_bwd_prologue_launch")})
 
     def operands(x, w, a_scale, a_offset, w_scale, dy=None):
@@ -100,7 +102,8 @@ def _meta_operands(m, k, n, k_side=False):
 PATH_CASES = [((256, 1024, 2816), False, True, ["qat_bwd_tc_launch"]),
               ((257, 129, 65), True, True, ["qat_bwd_tc_launch"]),
               ((256, 1024, 2816), False, False, ["qat_bwd_launch"]),
-              ((64, 1024, 152064), False, True, ["qat_dx_launch", "qat_dw_launch"])]
+              ((64, 1024, 152064), False, True, ["qat_bwd_prologue_launch", "qat_dx_tc_launch",
+                                                 "qat_dw_tc_launch"])]
 
 
 @pytest.mark.parametrize("mkn,k_side,round_cot,entries", PATH_CASES,
@@ -113,15 +116,17 @@ def test_wrapper_launches_the_route_entry(fake_qat_lib, mkn, k_side, round_cot, 
     assert [name for name, _ in calls] == entries
     assert [tuple(t.shape) for t in out] == [(m, k), (), (), (k, n),
                                              (k, 1) if k_side else (1, n)]
+    split = "qat_dx_tc_launch" in entries
     for name, args in calls:
         assert len(args) == _c_param_count(name), name
-        assert args[-2] == int(round_cot) and args[-9:-6] == (m, k, n)
+        # the combined entries take round_cot there, the split route's the planes
+        assert args[-2] == (qmm.plane_count(round_cot) if split else int(round_cot))
+        assert args[-9:-6] == (m, k, n)
     if entries == ["qat_bwd_tc_launch"]:
         lds, _ = qmm._bwd_tc_scratch(m, k, n)
         args = calls[0][1]
         assert (args[16], args[18], args[20]) == lds
-    assert qmm.quant_matmul_bwd.launches == before + (entries != ["qat_dx_launch",
-                                                                  "qat_dw_launch"])
+    assert qmm.quant_matmul_bwd.launches == before + (not split)
 
 
 def test_failed_tc_launch_raises_without_fallback(fake_qat_lib):
