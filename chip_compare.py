@@ -10,8 +10,8 @@ one twice, then PARENT_ROOT again, so that both sides see the same card
 and the drift of its clocks. Each process builds its checkout's kernels
 (into that checkout's build/kernels) and prints its own result; this
 process prints the card's name and power limit and one JSON line a task
-with the four results, in run order. Tasks, on the training shapes of
-`chip_smoke.py` (M = 8 x 512 tokens), through each checkout's own
+with the four results, in run order. Tasks, on the shapes of
+`chip_smoke.py` (training: M = 8 x 512 tokens), through each checkout's own
 `chip_smoke.py` functions, so each side is held to its own bars:
 
   head       quant_matmul_dx / _dw at the qwen1.5-0.5b head (4096, 1024,
@@ -30,6 +30,15 @@ with the four results, in run order. Tasks, on the training shapes of
              `repro_torch.launch.profile_train` on the two archs: device
              busy ms a step and each QAT kernel's device ms, losses; and the
              process's peak device memory.
+  serving    the serving kernels at `chip_smoke.py` phase 2's shapes
+             (granite-8b): int4_matmul at its six shapes, int_matmul at its
+             three, pooled_decode_attention at its nine: kernel, plain,
+             library and bound ms.
+  prof_decode
+             `repro_torch.launch.profile_decode` (cell A: granite-8b, 36
+             layers, w4a4, int8 KV, 4 slots): host ms and device busy ms a
+             decode step, and the device ms a step of int4_matmul's and the
+             decode attention's kernels (each checkout's own kernel names).
 
 Needs one CUDA card and nvcc. Imports nothing of JAX.
 """
@@ -43,11 +52,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TASKS = ("head", "tiles", "steps_qwen", "steps_moe", "prof_qwen", "prof_moe")
+TASKS = ("head", "tiles", "steps_qwen", "steps_moe", "prof_qwen", "prof_moe", "serving",
+         "prof_decode")
+# the serving kernels' device kernels, by name, in either checkout
+DECODE_KERNELS = {"int4_matmul": ("int4_tc_kernel", "int_matmul_kernel<true"),
+                  "pooled_decode_attention": ("decode_tc_kernel", "decode_f32_kernel",
+                                              "flash_decode_kernel")}
 
 
 def _row(r: dict, name: str) -> dict:
-    keep = ("shape", "path", "planes", "ms", "plain_ms", "library_ms", "bound_ms",
+    keep = ("shape", "path", "planes", "plan", "ms", "plain_ms", "library_ms", "bound_ms",
             "prologue_ms")
     return {"name": name, **{k: r[k] for k in keep if k in r}}
 
@@ -68,7 +82,7 @@ def run_one(root: Path, task: str) -> dict:
     build.build_all()
     out = {"root": str(root), "task": task}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if task in ("head", "tiles"):
+    if task in ("head", "tiles", "serving"):
         timer = cs.Timer(torch)
         rows = []
     if task == "head":
@@ -99,6 +113,35 @@ def run_one(root: Path, task: str) -> dict:
                          "quant_matmul_bwd"))
         rows.append(_row(cs.check_batched_bwd(torch, timer, qmm, ref, 32, 1280, 1024, 512, gen,
                                               cs.MOE_QS), "quant_matmul_bwd_batched"))
+    elif task == "serving":
+        from repro_torch.kernels import decode_attention as da
+        for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
+                        (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
+            rows.append(_row(cs.check_matmul(torch, timer, qmm, ref, True, m, k, n, gen),
+                             "int4_matmul"))
+        for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
+            rows.append(_row(cs.check_matmul(torch, timer, qmm, ref, False, m, k, n, gen),
+                             "int_matmul"))
+        for storage, c, window, softcap, qd in (
+                ("int8", 1, 0, 0.0, None), ("fp", 1, 0, 0.0, None),
+                ("int4", 1, 0, 0.0, None), ("int8", 32, 0, 0.0, None),
+                ("int8", 1, 64, 50.0, None), ("int4", 32, 64, 50.0, None),
+                ("fp", 32, 0, 50.0, None), ("int8", 1, 0, 0.0, torch.float32),
+                ("int4", 32, 64, 50.0, torch.float32)):
+            rows.append(_row(cs.check_attention(
+                torch, timer, da, ref, storage=storage, c=c, window=window,
+                softcap=softcap, gen=gen, qdtype=qd), "pooled_decode_attention"))
+    elif task == "prof_decode":
+        from repro_torch.launch import profile_decode
+        r = profile_decode.main([])
+        per_kernel = {name: sum(k["ms_per_step"] for k in r["top_kernels"]
+                                if any(p in k["name"] for p in pats))
+                      for name, pats in DECODE_KERNELS.items()}
+        out.update({k: r[k] for k in ("step_host_ms", "step_device_elapsed_ms",
+                                      "device_busy_ms_per_step", "device_busy_share",
+                                      "device_kernels_per_step", "top_kernels",
+                                      "launches_per_step", "decode_tok_s")},
+                   kernel_ms_per_step=per_kernel)
     elif task == "steps_qwen":
         from repro_torch.launch import train
         ckpt = root / "build" / "chip_compare_ckpt"
@@ -125,7 +168,7 @@ def run_one(root: Path, task: str) -> dict:
                                       "named_kernels", "losses") if k in r},
                    **{k: r[k] for k in ("obr_ms", "osc_update_ms") if k in r},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if task in ("head", "tiles"):
+    if task in ("head", "tiles", "serving"):
         out["rows"] = rows
     return out
 

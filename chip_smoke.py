@@ -9,11 +9,16 @@ Phases (any failure exits non-zero before the final line is printed):
                parallel; prints the build seconds and ptxas' register use.
   2. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes granite-8b's serving path gives it, with the stated
-               tolerance; prints the kernel's median ms, the plain version's
-               ms, one PyTorch library call computing the same function
-               (timed here only, never used by the port) and the least time
-               the card could take (bytes over 3.35 TB/s or operations over
-               989 TFLOP/s, whichever is larger).
+               tolerance, run twice for identical bits; prints its plan
+               (int4_matmul's contraction splits, the attention's key
+               splits and row tiles), the kernel's median ms, the plain
+               version's ms, one PyTorch library call computing the same
+               function (timed here only, never used by the port) and the
+               least time the card could take (bytes over 3.35 TB/s or
+               operations over 989 TFLOP/s, whichever is larger). Then
+               int4_matmul's rows at M 1, 4 and 32 must be bit-equal where
+               they overlap, and an attention slot's triple the same bits in
+               a pool of 4, alone, and with T 160 grown to 256 by idle rows.
   3. serve   — `repro_torch.launch.serve` on full-width granite-8b, all 36
                layers, w4a4 weights, int8 KV, 4 slots, 8 requests of 128
                prompt tokens and 32 new tokens, chunk 32: prints prefill and
@@ -175,8 +180,12 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
-                 gen) -> dict:
+def _same_bits(torch, a, b) -> bool:
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _int_operands(torch, packed: bool, m: int, k: int, n: int, gen):
     dev = "cuda"
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     lim = 8 if packed else 128
@@ -185,34 +194,65 @@ def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
     scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
     if packed:
         from repro_torch.core.quantizer import pack_int4
-        w = pack_int4(codes, 0)
+        return x, codes, pack_int4(codes, 0), scale
+    return x, codes, codes, scale
+
+
+def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
+                 gen) -> dict:
+    x, codes, w, scale = _int_operands(torch, packed, m, k, n, gen)
+    if packed:
         kern = lambda: qmm.int4_matmul(x, w, scale)
         plain = lambda: ref.int4_matmul(x, w, scale)
     else:
-        w = codes
         kern = lambda: qmm.int_matmul(x, w, scale)
         plain = lambda: ref.int_matmul(x, w, scale)
     y_k = kern()
+    y_k2 = kern()
     y_r = plain()
     torch.cuda.synchronize()
     err = (y_k - y_r).abs().max().item()
+    repeat = _same_bits(torch, y_k, y_k2)
     # only the f32 summation order differs (up to 14336 terms)
     tol = 1e-5 * y_r.abs().max().item()
     wd = (codes.float() * scale).to(torch.bfloat16)
     lib = lambda: torch.matmul(x, wd)
     nbytes = m * k * 2 + w.numel() + n * 4 + m * n * 4
     b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
-    row = {"shape": [m, k, n], "max_abs_err": err, "tol": tol,
+    row = {"shape": [m, k, n], "max_abs_err": err, "tol": tol, "repeat": repeat,
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
     name = "int4_matmul" if packed else "int_matmul"
-    log(f"  {name} M={m} K={k} N={n}: max|err| {err:.3e} (tol {tol:.3e}) "
+    plan = ""
+    if packed:
+        row["plan"] = dict(qmm.int4_plan(k, n), token_tiles=qmm.int4_token_tiles(m))
+        row["plan"]["blocks"] = (row["plan"]["col_tiles"] * row["plan"]["splits"]
+                                 * row["plan"]["token_tiles"][1])
+        plan = (f" [plan: {row['plan']['splits']} splits x "
+                f"{row['plan']['ksteps_per_split']} steps, {row['plan']['blocks']} blocks]")
+    log(f"  {name} M={m} K={k} N={n}{plan}: max|err| {err:.3e} (tol {tol:.3e}), "
+        f"repeat {'ok' if repeat else 'DIFFERS'}; "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"torch.matmul(bf16 dequant) {row['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     if not err <= tol:
         fail(f"{name} {m}x{k}x{n} disagrees with its plain version: {err} > {tol}")
+    if not repeat:
+        fail(f"{name} {m}x{k}x{n}: a second launch gave other bits")
     return row
+
+
+def check_m_independence(torch, qmm, k: int, n: int, gen) -> dict:
+    """int4_matmul's rows at M 1, 4 and 32 bit-equal where they overlap: the
+    plan, hence each element's sum order, depends on (K, N) alone."""
+    x, _, w, scale = _int_operands(torch, True, 32, k, n, gen)
+    ys = {m: qmm.int4_matmul(x[:m], w, scale) for m in (1, 4, 32)}
+    torch.cuda.synchronize()
+    ok = all(_same_bits(torch, ys[m], ys[32][:m]) for m in (1, 4))
+    log(f"  int4_matmul K={k} N={n}: rows at M 1, 4, 32 bit-equal: {ok}")
+    if not ok:
+        fail(f"int4_matmul {k}x{n}: a row's bits depend on M")
+    return {"shape": [k, n], "m": [1, 4, 32], "equal": ok}
 
 
 def check_attention(torch, timer, da, ref, *, storage: str, c: int, window: int,
@@ -247,8 +287,10 @@ def check_attention(torch, timer, da, ref, *, storage: str, c: int, window: int,
     kern = lambda: da.pooled_decode_attention(*args, **kw)
     plain = lambda: ref.pooled_decode_attention(*args, **kw)
     acc_k, m_k, l_k = kern()
+    again = kern()
     acc_r, m_r, l_r = plain()
     torch.cuda.synchronize()
+    repeat = all(_same_bits(torch, u, w) for u, w in zip((acc_k, m_k, l_k), again))
     live = m_r > NEG_INF / 2
     o_k = (acc_k / l_k[..., None])[live]
     o_r = (acc_r / l_r[..., None])[live]
@@ -283,12 +325,16 @@ def check_attention(torch, timer, da, ref, *, storage: str, c: int, window: int,
     row = {"shape": {"B": b, "C": c, "H": h, "Hkv": hkv, "T": t, "D": d,
                      "storage": storage, "window": window, "softcap": softcap,
                      "q": str(qdtype).replace("torch.", "")},
-           "max_abs_err": err, "tol": tol, "ms": timer.ms(kern),
+           "plan": da.decode_plan(t, c * q_per_kv, qdtype == torch.bfloat16),
+           "repeat": repeat, "max_abs_err": err, "tol": tol, "ms": timer.ms(kern),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
            "bound_ms": b_ms, "bound_by": b_by}
     log(f"  pooled_decode_attention {storage} q={row['shape']['q']} C={c} "
         f"T={t} window={window} softcap={softcap}: max|err| {err:.3e} "
-        f"(tol {tol:.3e}), max|dm| {m_err:.2e}, masked rows ok {dead_ok}; "
+        f"(tol {tol:.3e}), max|dm| {m_err:.2e}, masked rows ok {dead_ok}, "
+        f"repeat {'ok' if repeat else 'DIFFERS'} [plan: {row['plan']['splits']} "
+        f"splits x {da.KV_SPLIT} keys, {row['plan']['row_tiles']} x "
+        f"{row['plan']['rows']} rows]; "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"sdpa(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     if not err <= tol:
@@ -298,7 +344,84 @@ def check_attention(torch, timer, da, ref, *, storage: str, c: int, window: int,
     if not dead_ok:
         fail(f"decode attention {storage} C={c}: fully masked rows not finite "
              "with m = NEG_INF, l > 0")
+    if not repeat:
+        fail(f"decode attention {storage} C={c}: a second launch gave other bits")
     return row
+
+
+def check_slot_independence(torch, da, *, storage: str, c: int, gen, qdtype=None,
+                            hkv=8, q_per_kv=4, d=128) -> dict:
+    """A slot's triple is the same bits in a pool of 4 slots, alone (B 1),
+    and with the pool's T of 160 grown to 256 by idle rows (pos -1, random
+    codes): the key splits sit at fixed keys and a wholly masked split adds
+    nothing."""
+    dev = "cuda"
+    qdtype = qdtype or torch.bfloat16
+    b, t, t_big = 4, 160, 256
+    q = torch.randn((b, c, hkv * q_per_kv, d), generator=gen, device=dev).to(qdtype)
+    kv = torch.randn((2, b, t_big, hkv, d), generator=gen, device=dev)
+    if storage == "fp":
+        stores, scales = [kv[0].to(qdtype), kv[1].to(qdtype)], [None, None]
+    else:
+        from repro_torch.core.quantizer import QuantSpec, pack_int4
+        from repro_torch.models.attention import _quantize_kv
+        spec = QuantSpec(bits=8 if storage == "int8" else 4)
+        stores, scales = zip(*(_quantize_kv(kv[i], spec) for i in range(2)))
+        if storage == "int4":
+            stores = [pack_int4(st, -1) for st in stores]
+    pos = torch.full((b, t_big), -1, dtype=torch.int32, device=dev)
+    pos[:, :t] = torch.arange(t, device=dev)
+    pos[0, 100:t] = -1
+    q_pos = (t - c + torch.arange(c, device=dev, dtype=torch.int32))[None].repeat(b, 1)
+    kw = dict(q_per_kv=q_per_kv, window=0, softcap=0.0)
+
+    def run(rows, tt):
+        sl = lambda x: None if x is None else x[rows, :tt].contiguous()
+        return da.pooled_decode_attention(q[rows], sl(stores[0]), sl(stores[1]),
+                                          sl(scales[0]), sl(scales[1]),
+                                          pos[rows, :tt].contiguous(), q_pos[rows], **kw)
+
+    pool, alone, grown = run(slice(0, 4), t), run(slice(1, 2), t), run(slice(1, 2), t_big)
+    torch.cuda.synchronize()
+    b_ok = all(_same_bits(torch, u[1:2], w) for u, w in zip(pool, alone))
+    t_ok = all(_same_bits(torch, u, w) for u, w in zip(alone, grown))
+    name = f"{storage} q={str(qdtype).replace('torch.', '')} C={c}"
+    log(f"  pooled_decode_attention {name}: slot 1 in a pool of 4 == alone: {b_ok}; "
+        f"alone at T {t} == at T {t_big} (idle rows): {t_ok}")
+    if not (b_ok and t_ok):
+        fail(f"decode attention {name}: a slot's bits depend on the pool")
+    return {"storage": storage, "C": c, "q": str(qdtype).replace("torch.", ""),
+            "pool_eq_alone": b_ok, "t_eq_grown": t_ok}
+
+
+def serving_kernel_rows(torch, timer, qmm, da, ref, gen) -> dict:
+    """Phase 2: the serving kernels against their plain versions at
+    granite-8b's shapes, each run twice for identical bits; int4_matmul's
+    M-independence and the attention's B- and T-independence."""
+    rows = {"int4_matmul": [], "int_matmul": [], "pooled_decode_attention": []}
+    for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
+                    (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
+        rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
+                                                m, k, n, gen))
+    for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
+        rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
+                                               m, k, n, gen))
+    for storage, c, window, softcap, qd in (
+            ("int8", 1, 0, 0.0, None), ("fp", 1, 0, 0.0, None),
+            ("int4", 1, 0, 0.0, None), ("int8", 32, 0, 0.0, None),
+            ("int8", 1, 64, 50.0, None), ("int4", 32, 64, 50.0, None),
+            ("fp", 32, 0, 50.0, None), ("int8", 1, 0, 0.0, torch.float32),
+            ("int4", 32, 64, 50.0, torch.float32)):
+        rows["pooled_decode_attention"].append(check_attention(
+            torch, timer, da, ref, storage=storage, c=c, window=window,
+            softcap=softcap, gen=gen, qdtype=qd))
+    indep = {"int4_matmul": [check_m_independence(torch, qmm, k, n, gen) for k, n in
+                             ((4096, 14336), (14336, 4096), (4096, 1024))],
+             "pooled_decode_attention": [
+                 check_slot_independence(torch, da, storage=st, c=c, gen=gen, qdtype=qd)
+                 for st, c, qd in (("int8", 1, None), ("int8", 32, None), ("int4", 1, None),
+                                   ("fp", 32, None), ("int8", 1, torch.float32))]}
+    return {"rows": rows, "independence": indep}
 
 
 # ---------------------------------------------------------------------------
@@ -1208,11 +1331,6 @@ def _operand(torch, shape, dtype, std, gen, misaligned: bool):
     return base[1:].reshape(shape) if misaligned else base[:n].reshape(shape)
 
 
-def _same_bits(torch, a, b) -> bool:
-    view = torch.int32 if a.dtype == torch.float32 else torch.int16
-    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
-
-
 def check_fake_quant(torch, timer, fq, ref, label, shape, dtype, q_n, q_p,
                      gen, *, std=1.0, scale=None, offset=None,
                      misaligned=False) -> dict:
@@ -1460,23 +1578,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
     log("kernels (each against its plain version on the card):")
-    rows = {"int4_matmul": [], "int_matmul": [], "pooled_decode_attention": []}
-    for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
-                    (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
-        rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
-                                                m, k, n, gen))
-    for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
-        rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
-                                               m, k, n, gen))
-    for storage, c, window, softcap, qd in (
-            ("int8", 1, 0, 0.0, None), ("fp", 1, 0, 0.0, None),
-            ("int4", 1, 0, 0.0, None), ("int8", 32, 0, 0.0, None),
-            ("int8", 1, 64, 50.0, None), ("int4", 32, 64, 50.0, None),
-            ("fp", 32, 0, 50.0, None), ("int8", 1, 0, 0.0, torch.float32),
-            ("int4", 32, 64, 50.0, torch.float32)):
-        rows["pooled_decode_attention"].append(check_attention(
-            torch, timer, da, ref, storage=storage, c=c, window=window,
-            softcap=softcap, gen=gen, qdtype=qd))
+    serving = serving_kernel_rows(torch, timer, qmm, da, ref, gen)
+    rows = serving["rows"]
 
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
@@ -1670,6 +1773,11 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "tol": r["tol"],
                         "checks": len(rs)})
+        if name in ("int4_matmul", "pooled_decode_attention"):
+            kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
+                               rows=[{k: v for k, v in row.items() if k in (
+                                   "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+                                   for row in rs])
         if name == "fake_quant_rows":
             kernels[-1]["launches_from"] = ("the kernel checks: no entry point "
                                             "of the repo reaches fake_quant_rows")

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 # kernel library name -> its CUDA source
 SOURCES = {
@@ -35,6 +37,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_TICKETS: dict = {}
 
 
 def build_dir() -> Path:
@@ -56,8 +59,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()
-                          + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, the shared headers
+    of `csrc/` and the flags."""
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{digest[:12]}.so"
 
 
@@ -108,3 +114,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def ptr(t):
+    """A tensor's data pointer for a ctypes argument, or None (NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def tickets(device, n: int, owner: str):
+    """A zeroed int32 buffer of at least n tickets on `device`, one per
+    `owner` (a kernel that merges its splits in the last block to arrive):
+    made once with torch.zeros and grown when too short. The kernel leaves
+    every ticket it takes at zero, so the buffer is zero again when the
+    launch ends; launches on one stream run in turn."""
+    key = (owner, str(device))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf

@@ -120,6 +120,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int BM = 128;          // output rows of a block tile
@@ -629,10 +631,6 @@ constexpr int TC_OPND = BM * TC_LS;        // bf16 elements an operand a stage (
 static_assert(TC_BK * TC_TS <= TC_OPND, "operand slot too small");
 static_assert(4 * BM * 4 <= TC_STAGES * 2 * TC_OPND * 2, "epilogue buffer does not fit");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -644,44 +642,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b, the 16-deep product summed by the tensor core from zero and then
-// added to d by four round-to-nearest f32 adds. The tensor core's own
-// accumulation truncates: over a contraction of hundreds of thousands of
-// products (the head's three planes) its error drifts one way, far enough
-// to move ~7 % of the bf16-rounded sums to the other neighbour; added this
-// way, only the short partials truncate.
-__device__ __forceinline__ void mma_bf16_rn(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1) {
-  float p[4];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
-        "f"(0.f), "f"(0.f));
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], p[e]);
 }
 
 // Stage the contraction slice [l0, l0 + 32) of an operand whose output index

@@ -9,6 +9,12 @@ masks come from the pool's `pos` rows inside the kernel; GQA runs as
 (Hkv, C * q_per_kv) query rows per kv head. The call returns the
 UNNORMALIZED (acc, m, l) so `attend_chunk` can merge the chunk's own keys.
 
+The kernel splits the key walk across blocks by `decode_plan`: splits of
+`KV_SPLIT` keys from key 0 whatever the call (so a row's bits depend only on
+its own keys, not on the pool's size or its other slots), merged in split
+order by the last block of each (slot, kv head, row tile) to finish. bf16
+queries run QK^T and P.V on the tensor cores; f32 queries on f32 FMAs.
+
 A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
 launches the kernel, and a build or launch failure raises. Launches are
 counted in `pooled_decode_attention.launches`.
@@ -22,7 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 NEG_INF = ref.NEG_INF
-MAX_ROWS_PER_BLOCK = 64
+KV_SPLIT = 64  # keys of a split (csrc/decode_attention.cu KS, checked at load)
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
 
 _KV_KIND = {torch.bfloat16: 0, torch.float32: 1}
@@ -34,23 +40,50 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v ks vs pos qpos acc m l | B T Hkv G D GT kind q_bf16 window
+        # q k v ks vs pos qpos acc m l part_acc part_ml tickets | B T C Hkv
+        # qpk D GT kind q_bf16 window | qscale softcap stream
         lib.decode_attention_launch.argtypes = (
-            [p] * 10 + [i] * 9 + [ctypes.c_float, p])
-        lib.decode_attention_launch.restype = ctypes.c_int
-        lib.decode_attention_smem_bytes.argtypes = [i, i]
+            [p] * 13 + [i] * 10 + [ctypes.c_float] * 2 + [p])
+        lib.decode_attention_launch.restype = i
+        lib.decode_attention_smem_bytes.argtypes = [i, i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.decode_attention_split.argtypes = []
+        lib.decode_attention_split.restype = i
+        if lib.decode_attention_split() != KV_SPLIT:
+            raise RuntimeError(f"decode_attention.cu split {lib.decode_attention_split()} "
+                               f"!= KV_SPLIT {KV_SPLIT}")
         _SIGNED = True
     return lib
 
 
-def _rows_per_block(lib, g: int, d: int) -> int:
-    gt = min(g, MAX_ROWS_PER_BLOCK)
-    while gt > 1 and lib.decode_attention_smem_bytes(gt, d) > SMEM_LIMIT:
-        gt //= 2
-    if lib.decode_attention_smem_bytes(gt, d) > SMEM_LIMIT:
+def _require_cuda(device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"decode attention kernel needs CUDA tensors, got {device}")
+
+
+def decode_plan(t: int, g: int, q_bf16: bool, max_rows: int = 32) -> dict:
+    """How the kernel cuts a call: `splits` of KV_SPLIT keys over the T
+    cache rows (a function of T alone: the split boundaries sit at fixed
+    keys, so idle rows past the live keys only add wholly masked splits,
+    which the merge skips), and tiles of `rows` query rows of a kv head (for
+    bf16 a multiple of 16, a warp's mma rows), which no row's sum order
+    depends on. A block is 128 threads either way. Tiles of 32 rows beat 64
+    at a 32-token prefill chunk on the card: twice the blocks, each merging
+    half the rows."""
+    step = 16 if q_bf16 else 1
+    rows = min(max_rows, -(-g // step) * step)
+    return {"splits": -(-t // KV_SPLIT), "rows": rows, "row_tiles": -(-g // rows)}
+
+
+def _plan(lib, t: int, g: int, d: int, q_bf16: bool) -> dict:
+    """`decode_plan`, with fewer rows a tile where head_dim needs the room."""
+    plan = decode_plan(t, g, q_bf16)
+    smem = lambda pl: lib.decode_attention_smem_bytes(pl["rows"], d, int(q_bf16))
+    while plan["rows"] > (16 if q_bf16 else 1) and smem(plan) > SMEM_LIMIT:
+        plan = decode_plan(t, g, q_bf16, max_rows=plan["rows"] // 2)
+    if smem(plan) > SMEM_LIMIT:
         raise ValueError(f"head_dim {d} does not fit the kernel's shared memory")
-    return gt
+    return plan
 
 
 def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
@@ -59,7 +92,8 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
     """Flash-decode over the pooled cache; returns partial reductions.
 
     q:        (B, C, H, D) bf16 or f32 queries, the compute dtype. Scaled
-              by D**-0.5 in f32 here and cast back, like the fallback.
+              by D**-0.5 in f32 in the kernel and cast back, as the plain
+              version does.
     k_store:  (B, T, Hkv, D) fp values, or int8 code bytes with the last
               axis D (int8) or D/2 (nibble-packed int4).
     k_scale:  (B, T, Hkv, 1) f32 scales, or None for the fp cache.
@@ -73,8 +107,7 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
             q, k_store, v_store, k_scale, v_scale, kv_pos, q_pos,
             q_per_kv=q_per_kv, window=window, softcap=softcap)
     b, c, h, d = q.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention kernel needs CUDA tensors, got {q.device}")
+    _require_cuda(q.device)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bf16 or f32, got {q.dtype}")
     if h % q_per_kv:
@@ -102,39 +135,46 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
                          f"{tuple(q_pos.shape)}: want {(b, t)} / {(b, c)}")
 
     g = c * q_per_kv
-    qs = (q.to(torch.float32) * d ** -0.5).to(q.dtype)
-    q5 = qs.reshape(b, c, hkv, q_per_kv, d).permute(0, 2, 1, 3, 4)
-    q5 = q5.reshape(b, hkv, g, d).contiguous()
-    qp = torch.repeat_interleave(q_pos.to(torch.int32), q_per_kv, dim=1).contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    if d % (16 if q_bf16 else 4):  # bf16: the mma tiles; f32: 16-byte rows
+        raise ValueError(f"head_dim {d} is not a multiple of {16 if q_bf16 else 4}")
+    if t == 0:
+        raise ValueError("the cache has no rows")
+    q = q.contiguous()
+    qp = q_pos.to(torch.int32).contiguous()
     pos = kv_pos.to(torch.int32).contiguous()
     k_store = k_store.contiguous()
     v_store = v_store.contiguous()
+    ks = vs = None
     if quantized:
         ks = k_scale.reshape(b, t, hkv).to(torch.float32).contiguous()
         vs = v_scale.reshape(b, t, hkv).to(torch.float32).contiguous()
-        ks_ptr, vs_ptr = ks.data_ptr(), vs.data_ptr()
-    else:
-        ks_ptr = vs_ptr = None
-    acc = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, c, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, c, h), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, c, h), dtype=torch.float32, device=q.device)
     lib = _lib()
-    gt = _rows_per_block(lib, g, d)
+    plan = _plan(lib, t, g, d, q_bf16)
+    part_acc = part_ml = tickets = None
+    if plan["splits"] > 1:  # each split's triple, and the row tiles' tickets
+        part_acc = torch.empty((b * hkv, plan["splits"], g, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b * hkv, plan["splits"], g, 2), dtype=torch.float32,
+                              device=q.device)
+        tickets = build.tickets(q.device, b * hkv * plan["row_tiles"], "decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # queries scale by D**-0.5 in f32 inside the kernel, then round to q's
+    # dtype, as the plain version does
     rc = lib.decode_attention_launch(
-        q5.data_ptr(), k_store.data_ptr(), v_store.data_ptr(), ks_ptr, vs_ptr,
-        pos.data_ptr(), qp.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, t, hkv, g, d, gt, kind, int(q.dtype == torch.bfloat16),
-        int(window), float(softcap), stream)
+        q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(), build.ptr(ks),
+        build.ptr(vs), pos.data_ptr(), qp.data_ptr(), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), build.ptr(part_acc), build.ptr(part_ml), build.ptr(tickets), b, t,
+        c, hkv, q_per_kv, d,
+        plan["rows"], kind, int(q_bf16), int(window), d ** -0.5, float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention_launch failed: cudaError {rc} "
                            f"(B={b}, T={t}, Hkv={hkv}, G={g}, D={d})")
     pooled_decode_attention.launches += 1
-    # (B, Hkv, C*q_per_kv, ...) rows back to the (B, C, H, ...) layout
-    acc = acc.reshape(b, hkv, c, q_per_kv, d).permute(0, 2, 1, 3, 4)
-    m = m.reshape(b, hkv, c, q_per_kv).permute(0, 2, 1, 3)
-    l = l.reshape(b, hkv, c, q_per_kv).permute(0, 2, 1, 3)
-    return acc.reshape(b, c, h, d), m.reshape(b, c, h), l.reshape(b, c, h)
+    return acc, m, l
 
 
 pooled_decode_attention.launches = 0

@@ -53,6 +53,12 @@ _QAT_SIGNED = False
 DEFAULT_TILES = (128, 128, 512)  # (bm, bn, bk)
 BWD_SCRATCH_BUDGET_BYTES = 8 * 1024 * 1024
 QAT_TILE = 128  # output tile edge of csrc/qat_matmul.cu (checked at load)
+# int4_matmul's tiling (csrc/quant_matmul.cu, checked at load): 128 output
+# columns a block of 8 warps, 16-deep mma steps; and the blocks of one wave
+# its plan aims at, two on each of an H100's 132 SMs (a constant: never read
+# from the card, so the plan, and the bits, are the same on any card)
+INT4_COLS, INT4_STEP, INT4_WARPS = 128, 16, 8
+INT4_BLOCKS = 264
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,10 +66,40 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("quant_matmul")
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.int_matmul_launch.restype = ctypes.c_int
+        lib.int_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.int4_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.int4_matmul_tile.argtypes = []
+        for fn in (lib.int_matmul_launch, lib.int4_matmul_launch, lib.int4_matmul_tile):
+            fn.restype = i
+        if lib.int4_matmul_tile() != INT4_COLS * 1000 + INT4_STEP // 2:
+            raise RuntimeError(f"quant_matmul.cu int4 tile {lib.int4_matmul_tile()} != "
+                               f"({INT4_COLS}, {INT4_STEP // 2})")
         _SIGNED = True
     return lib
+
+
+def int4_plan(k: int, n: int) -> dict:
+    """How `int4_matmul` cuts a (K, N) weight: 128-column tiles (one block
+    each, 8 warps), and the contraction into `splits` ranges of
+    `ksteps_per_split` 16-deep mma steps: as many blocks as one wave holds
+    (`INT4_BLOCKS`; a second, partial wave would double the time) where the
+    column tiles alone leave the card idle, and at least one step a warp.
+    A function of (K, N) only: every output element's sum order, hence its
+    bits, is the same whatever M the call has."""
+    col_tiles = _cdiv(n, INT4_COLS)
+    ksteps = max(1, _cdiv(k, INT4_STEP))
+    splits = max(1, min(INT4_BLOCKS // col_tiles, ksteps // INT4_WARPS))
+    per = _cdiv(ksteps, splits)
+    return {"col_tiles": col_tiles, "ksteps": ksteps, "splits": _cdiv(ksteps, per),
+            "ksteps_per_split": per}
+
+
+def int4_token_tiles(m: int) -> tuple[int, int]:
+    """(tokens a block carries, token tiles): one 8-token mma n-tile for
+    decode (M <= 8), else four. It sets only how many tokens share one
+    dequantized weight tile, never an element's sum order."""
+    tok = 8 if m <= 8 else 32
+    return tok, _cdiv(m, tok)
 
 
 def _check(x, codes, scale, k_rows: int):
@@ -82,22 +118,11 @@ def _check(x, codes, scale, k_rows: int):
                          f"{tuple(codes.shape)} scale {tuple(scale.shape)}")
 
 
-def _launch(x, codes, scale, packed: bool) -> torch.Tensor:
-    m, k = x.shape
-    n = codes.shape[1]
-    xb = x.to(torch.bfloat16).contiguous()
-    codes = codes.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    vec = int(n % 4 == 0 and codes.data_ptr() % 4 == 0)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().int_matmul_launch(xb.data_ptr(), codes.data_ptr(),
-                                  scale.data_ptr(), out.data_ptr(), m, k, n,
-                                  int(packed), vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"int_matmul_launch failed: cudaError {rc} "
-                           f"(M={m}, K={k}, N={n}, packed={packed})")
-    return out
+def _operands(x, codes, scale):
+    """bf16 x, the codes and f32 scales, contiguous; and an empty f32 out."""
+    out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
+    return (x.to(torch.bfloat16).contiguous(), codes.contiguous(),
+            scale.to(torch.float32).contiguous(), out)
 
 
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
@@ -106,20 +131,41 @@ def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     if x.device.type == "cpu":
         return ref.int_matmul(x, w_codes, w_col_scale)
     _check(x, w_codes, w_col_scale, x.shape[1])
-    out = _launch(x, w_codes, w_col_scale, packed=False)
+    xb, codes, scale, out = _operands(x, w_codes, w_col_scale)
+    (m, k), n = xb.shape, codes.shape[1]
+    vec = int(n % 4 == 0 and codes.data_ptr() % 4 == 0)
+    rc = _lib().int_matmul_launch(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                                  out.data_ptr(), m, k, n, vec,
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    _raise("int_matmul_launch", rc, m, k, n)
     int_matmul.launches += 1
     return out
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                 w_col_scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ dequant(packed (K/2, N) int8 nibble pairs, col_scale (N,))."""
+    """x (M, K) @ dequant(packed (K/2, N) int8 nibble pairs, col_scale (N,)),
+    on the tensor cores by `int4_plan`'s split of the contraction."""
     if x.device.type == "cpu":
         return ref.int4_matmul(x, w_packed, w_col_scale)
     if x.shape[-1] % 2:
         raise ValueError(f"int4_matmul needs an even K, got {x.shape[-1]}")
     _check(x, w_packed, w_col_scale, x.shape[1] // 2)
-    out = _launch(x, w_packed, w_col_scale, packed=True)
+    xb, codes, scale, out = _operands(x, w_packed, w_col_scale)
+    (m, k), n = xb.shape, codes.shape[1]
+    plan = int4_plan(k, n)
+    splits = plan["splits"]
+    part = tickets = None
+    if splits > 1:  # f32 sums of each split, and the tiles' tickets
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        tickets = build.tickets(x.device, plan["col_tiles"] * int4_token_tiles(m)[1],
+                                "int4_matmul")
+    vec = int(n % 16 == 0 and codes.data_ptr() % 16 == 0)
+    rc = _lib().int4_matmul_launch(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                                   out.data_ptr(), build.ptr(part), build.ptr(tickets),
+                                   m, k, n, splits, plan["ksteps_per_split"], vec,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    _raise("int4_matmul_launch", rc, m, k, n)
     int4_matmul.launches += 1
     return out
 

@@ -115,7 +115,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(device),
         "step_host_ms": sorted(host_ms)[len(host_ms) // 2],
         "step_device_elapsed_ms": window_ms / STEPS,
-        **device_summary(prof, window_ms, STEPS, top_n=15),
+        **device_summary(prof, window_ms, STEPS, top_n=40),
         "launches_per_step": {k: v / STEPS for k, v in launch_counts().items()},
         "decode_tok_s": SLOTS * 1e3 / (window_ms / STEPS),
     }

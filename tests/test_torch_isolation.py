@@ -109,10 +109,13 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     fq = ("fake_quant_tensor_launch", "fake_quant_rows_launch")
     fake = {name: types.SimpleNamespace(**{
         fn: types.SimpleNamespace() for fn in (
-            "int_matmul_launch", "decode_attention_launch",
+            "int_matmul_launch", "int4_matmul_launch", "decode_attention_launch",
             "decode_attention_smem_bytes", "bin_stats_launch") + qat + fq})
         for name in build.SOURCES}
     fake["qat_matmul"].qat_tile = lambda: quant_matmul.QAT_TILE
+    fake["quant_matmul"].int4_matmul_tile = (
+        lambda: quant_matmul.INT4_COLS * 1000 + quant_matmul.INT4_STEP // 2)
+    fake["decode_attention"].decode_attention_split = lambda: decode_attention.KV_SPLIT
     fake["bin_stats"].bin_stats_tile = lambda: bin_stats.TILE
     monkeypatch.setattr(build, "load", lambda name: fake[name])
     monkeypatch.setattr(quant_matmul, "_SIGNED", False)
@@ -126,6 +129,7 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     fake_quant._lib()
     bin_stats._lib()
     for lib, fn in (("quant_matmul", "int_matmul_launch"),
+                    ("quant_matmul", "int4_matmul_launch"),
                     ("decode_attention", "decode_attention_launch"),
                     ("decode_attention", "decode_attention_smem_bytes"),
                     ("bin_stats", "bin_stats_launch"),
