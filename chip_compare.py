@@ -31,19 +31,31 @@ with the four results, in run order. Tasks, on the shapes of
              busy ms a step and each QAT kernel's device ms, losses; and the
              process's peak device memory.
   serving    the serving kernels at `chip_smoke.py` phase 2's shapes
-             (granite-8b): int4_matmul at its six shapes, int_matmul at its
-             three, pooled_decode_attention at its nine: kernel, plain,
+             (granite-8b): int4_matmul at its six shapes (`INT4_ROWS`),
+             int_matmul at its six (`INT8_ROWS`: the head at M 4 and 32, the
+             w8a8 linears at M 4) and at the kernel bench's (256, 1024,
+             512), pooled_decode_attention at its nine: kernel, plain,
              library and bound ms.
+  quantizer  bin_stats_2d at `chip_smoke.py` phase 10's seven rows
+             (`BIN_STATS_ROWS`: the kernel bench's (4096, 1024) at 16 bins,
+             granite-8b's w_in at 16 and 256 bins, odd and misaligned
+             edges): kernel, plain and bound ms.
+  head_plans int_matmul at granite-8b's head (K 4096, N 49152), M 4 and 32,
+             under its plan (`int4_plan`) and under plans of 2 and 3
+             contraction splits: ms (the parent, whose int_matmul takes no
+             such plan, reports none).
   prof_decode
              `repro_torch.launch.profile_decode` (cell A: granite-8b, 36
              layers, w4a4, int8 KV, 4 slots): host ms and device busy ms a
-             decode step, and the device ms a step of int4_matmul's and the
-             decode attention's kernels (each checkout's own kernel names).
+             decode step, and the device ms a step of int4_matmul's,
+             int_matmul's (the head) and the decode attention's kernels
+             (each checkout's own kernel names).
 
 Needs one CUDA card and nvcc. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -53,16 +65,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TASKS = ("head", "tiles", "steps_qwen", "steps_moe", "prof_qwen", "prof_moe", "serving",
-         "prof_decode")
+         "quantizer", "head_plans", "prof_decode")
 # the serving kernels' device kernels, by name, in either checkout
 DECODE_KERNELS = {"int4_matmul": ("int4_tc_kernel", "int_matmul_kernel<true"),
+                  "int_matmul": ("int8_tc_kernel", "int_matmul_kernel<4"),
                   "pooled_decode_attention": ("decode_tc_kernel", "decode_f32_kernel",
                                               "flash_decode_kernel")}
+# int_matmul at the kernel bench's shape (cell E), beside phase 2's rows
+KERNEL_BENCH_INT8 = (256, 1024, 512)
+
+
+def own_rows():
+    """This checkout's `chip_smoke.py` (not the one on sys.path, which may
+    be the parent's), for its row lists: both sides run the same rows."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_rows", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _row(r: dict, name: str) -> dict:
     keep = ("shape", "path", "planes", "plan", "ms", "plain_ms", "library_ms", "bound_ms",
-            "prologue_ms")
+            "prologue_ms", "device_kernels")
     return {"name": name, **{k: r[k] for k in keep if k in r}}
 
 
@@ -82,7 +106,7 @@ def run_one(root: Path, task: str) -> dict:
     build.build_all()
     out = {"root": str(root), "task": task}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if task in ("head", "tiles", "serving"):
+    if task in ("head", "tiles", "serving", "quantizer", "head_plans"):
         timer = cs.Timer(torch)
         rows = []
     if task == "head":
@@ -115,11 +139,11 @@ def run_one(root: Path, task: str) -> dict:
                                               cs.MOE_QS), "quant_matmul_bwd_batched"))
     elif task == "serving":
         from repro_torch.kernels import decode_attention as da
-        for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
-                        (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
+        own = own_rows()
+        for m, k, n in own.INT4_ROWS:
             rows.append(_row(cs.check_matmul(torch, timer, qmm, ref, True, m, k, n, gen),
                              "int4_matmul"))
-        for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
+        for m, k, n in own.INT8_ROWS + (KERNEL_BENCH_INT8,):
             rows.append(_row(cs.check_matmul(torch, timer, qmm, ref, False, m, k, n, gen),
                              "int_matmul"))
         for storage, c, window, softcap, qd in (
@@ -131,10 +155,36 @@ def run_one(root: Path, task: str) -> dict:
             rows.append(_row(cs.check_attention(
                 torch, timer, da, ref, storage=storage, c=c, window=window,
                 softcap=softcap, gen=gen, qdtype=qd), "pooled_decode_attention"))
+    elif task == "quantizer":
+        from repro_torch.kernels import bin_stats as bs
+        for args, kw in own_rows().BIN_STATS_ROWS:
+            r = cs.check_bin_stats(torch, timer, bs, ref, *args, gen, **kw)
+            rows.append({**_row(r, "bin_stats_2d"), "bins": r["bins"], "case": r["case"]})
+            torch.cuda.empty_cache()
+    elif task == "head_plans" and hasattr(qmm, "int8_col_tiles"):
+        k, n = 4096, 49152
+        x, _, w, scale = cs._int_operands(torch, False, 32, k, n, gen)
+        plan = qmm.int4_plan
+        try:
+            for splits in (1, 2, 3):
+                def variant(kk, nn, splits=splits):
+                    pl = plan(kk, nn)
+                    per = -(-pl["ksteps"] // splits)
+                    return dict(pl, splits=-(-pl["ksteps"] // per), ksteps_per_split=per)
+                qmm.int4_plan = variant
+                for m in (4, 32):
+                    rows.append({"name": "int_matmul", "shape": [m, k, n],
+                                 "splits": variant(k, n)["splits"],
+                                 "ms": timer.ms(lambda: qmm.int_matmul(x[:m], w, scale))})
+        finally:
+            qmm.int4_plan = plan
     elif task == "prof_decode":
         from repro_torch.launch import profile_decode
         r = profile_decode.main([])
-        per_kernel = {name: sum(k["ms_per_step"] for k in r["top_kernels"]
+        # the costliest kernels, and (where the checkout lists them) every
+        # kernel of the port's sources, however small
+        seen = {k["name"]: k for k in r["top_kernels"] + r.get("named_kernels", [])}
+        per_kernel = {name: sum(k["ms_per_step"] for k in seen.values()
                                 if any(p in k["name"] for p in pats))
                       for name, pats in DECODE_KERNELS.items()}
         out.update({k: r[k] for k in ("step_host_ms", "step_device_elapsed_ms",
@@ -168,7 +218,7 @@ def run_one(root: Path, task: str) -> dict:
                                       "named_kernels", "losses") if k in r},
                    **{k: r[k] for k in ("obr_ms", "osc_update_ms") if k in r},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if task in ("head", "tiles", "serving"):
+    if task in ("head", "tiles", "serving", "quantizer", "head_plans"):
         out["rows"] = rows
     return out
 

@@ -10,15 +10,20 @@ Phases (any failure exits non-zero before the final line is printed):
   2. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes granite-8b's serving path gives it, with the stated
                tolerance, run twice for identical bits; prints its plan
-               (int4_matmul's contraction splits, the attention's key
-               splits and row tiles), the kernel's median ms, the plain
-               version's ms, one PyTorch library call computing the same
-               function (timed here only, never used by the port) and the
-               least time the card could take (bytes over 3.35 TB/s or
-               operations over 989 TFLOP/s, whichever is larger). Then
-               int4_matmul's rows at M 1, 4 and 32 must be bit-equal where
-               they overlap, and an attention slot's triple the same bits in
-               a pool of 4, alone, and with T 160 grown to 256 by idle rows.
+               (int4_matmul's and int_matmul's contraction splits, the
+               attention's key splits and row tiles), the kernel's median
+               ms, the plain version's ms, one PyTorch library call
+               computing the same function (timed here only, never used by
+               the port) and the least time the card could take (bytes
+               over 3.35 TB/s or operations over 989 TFLOP/s, whichever is
+               larger), and the device kernels one call launches, as
+               torch.profiler names them.
+               int_matmul runs at all five w8a8 linears of granite-8b at
+               M 4 (w_gate / w_in, w_out, wq, wk / wv, the head) and the
+               head at M 32. Then int4_matmul's and int_matmul's rows at
+               M 1, 4 and 32 must be bit-equal where they overlap, and an
+               attention slot's triple the same bits in a pool of 4, alone,
+               and with T 160 grown to 256 by idle rows.
   3. serve   — `repro_torch.launch.serve` on full-width granite-8b, all 36
                layers, w4a4 weights, int8 KV, 4 slots, 8 requests of 128
                prompt tokens and 32 new tokens, chunk 32: prints prefill and
@@ -59,7 +64,10 @@ Phases (any failure exits non-zero before the final line is printed):
                2^-110, and whether mma.sync keeps a bf16 subnormal lo
                (reported); with the same four numbers a kernel (the f32 SIMT
                line beside the three planes' bound), and the bars of the CPU
-               tests.
+               tests; on the tensor cores dws is held as in phase 5b (the
+               plain bar plus its differing bf16(xd^T dY) summands x
+               |q - mf u|, read from a launch with w = 0, each summand held
+               to the dW bar).
   6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
                layers, tied head, QKV bias), w4a4, MCKD top-16, sentinel on,
                batch 8 x 512, 3 steps saving at step 2, then a second call to
@@ -116,6 +124,10 @@ Phases (any failure exits non-zero before the final line is printed):
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
+Phases 2, 5 and 10 each draw their random inputs from a generator of their
+own, seeded with 100 x SEED + the phase's number, so that rows added to one
+phase leave the others' inputs as they were.
+
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). Imports
 nothing of JAX.
 """
@@ -134,6 +146,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores, H100 SXM
 NEG_INF = -2.0e9
+SEED = 0
 
 
 def fail(msg: str) -> None:
@@ -185,6 +198,23 @@ def _same_bits(torch, a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
+def device_kernels(torch, fn, windows: int = 3, calls: int = 3) -> list:
+    """The port's device kernels (its CUDA sources' anonymous namespace) that
+    fn launches, by name and template arguments, as torch.profiler reads
+    them: the union over a few windows of a few calls each, since a short
+    window on the card now and then comes back without some of its kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = set()
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names |= {re.sub(r"^.*?\(anonymous namespace\)::", "", e.key).split("(")[0]
+                  for e in prof.key_averages() if "(anonymous namespace)::" in e.key}
+    return sorted(names)
+
+
 def _int_operands(torch, packed: bool, m: int, k: int, n: int, gen):
     dev = "cuda"
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -223,13 +253,17 @@ def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
     name = "int4_matmul" if packed else "int_matmul"
-    plan = ""
-    if packed:
-        row["plan"] = dict(qmm.int4_plan(k, n), token_tiles=qmm.int4_token_tiles(m))
-        row["plan"]["blocks"] = (row["plan"]["col_tiles"] * row["plan"]["splits"]
-                                 * row["plan"]["token_tiles"][1])
-        plan = (f" [plan: {row['plan']['splits']} splits x "
-                f"{row['plan']['ksteps_per_split']} steps, {row['plan']['blocks']} blocks]")
+    # both kernels cut the contraction by int4_plan; int_matmul's blocks
+    # are 128 columns wide at decode and 64 at prefill
+    pl = dict(qmm.int4_plan(k, n), token_tiles=qmm.int4_token_tiles(m))
+    tiles = pl["col_tiles"] if packed else qmm.int8_col_tiles(m, n)
+    pl["block_cols"] = qmm.INT4_COLS if packed else qmm.INT8_COLS[int(m > 8)]
+    pl["blocks"] = tiles * pl["splits"] * pl["token_tiles"][1]
+    row["plan"] = pl
+    row["device_kernels"] = device_kernels(torch, kern)
+    plan = (f" [plan: {pl['splits']} splits x {pl['ksteps_per_split']} steps, "
+            f"{pl['blocks']} blocks of {pl['block_cols']} columns; "
+            f"{', '.join(row['device_kernels'])}]")
     log(f"  {name} M={m} K={k} N={n}{plan}: max|err| {err:.3e} (tol {tol:.3e}), "
         f"repeat {'ok' if repeat else 'DIFFERS'}; "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -242,16 +276,19 @@ def check_matmul(torch, timer, qmm, ref, packed: bool, m: int, k: int, n: int,
     return row
 
 
-def check_m_independence(torch, qmm, k: int, n: int, gen) -> dict:
-    """int4_matmul's rows at M 1, 4 and 32 bit-equal where they overlap: the
-    plan, hence each element's sum order, depends on (K, N) alone."""
-    x, _, w, scale = _int_operands(torch, True, 32, k, n, gen)
-    ys = {m: qmm.int4_matmul(x[:m], w, scale) for m in (1, 4, 32)}
+def check_m_independence(torch, qmm, k: int, n: int, gen, packed: bool = True) -> dict:
+    """int4_matmul's (or int_matmul's) rows at M 1, 4 and 32 bit-equal where
+    they overlap: the plan, hence each element's sum order, depends on
+    (K, N) alone (not on the block width or the token tiles)."""
+    x, _, w, scale = _int_operands(torch, packed, 32, k, n, gen)
+    kern = qmm.int4_matmul if packed else qmm.int_matmul
+    name = kern.__name__
+    ys = {m: kern(x[:m], w, scale) for m in (1, 4, 32)}
     torch.cuda.synchronize()
     ok = all(_same_bits(torch, ys[m], ys[32][:m]) for m in (1, 4))
-    log(f"  int4_matmul K={k} N={n}: rows at M 1, 4, 32 bit-equal: {ok}")
+    log(f"  {name} K={k} N={n}: rows at M 1, 4, 32 bit-equal: {ok}")
     if not ok:
-        fail(f"int4_matmul {k}x{n}: a row's bits depend on M")
+        fail(f"{name} {k}x{n}: a row's bits depend on M")
     return {"shape": [k, n], "m": [1, 4, 32], "equal": ok}
 
 
@@ -394,16 +431,26 @@ def check_slot_independence(torch, da, *, storage: str, c: int, gen, qdtype=None
             "pool_eq_alone": b_ok, "t_eq_grown": t_ok}
 
 
+# (M, K, N) rows of phase 2 (`chip_compare.py` runs the same ones):
+# int4_matmul at granite-8b's w4a4 linears at decode and prefill; int_matmul
+# at its head at decode and prefill, then the w8a8 model's other N-side
+# linears at decode (w_gate / w_in, w_out, wq, wk / wv)
+INT4_ROWS = ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096), (4, 4096, 1024),
+             (32, 4096, 14336), (32, 14336, 4096))
+INT8_ROWS = ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336), (4, 14336, 4096),
+             (4, 4096, 4096), (4, 4096, 1024))
+
+
 def serving_kernel_rows(torch, timer, qmm, da, ref, gen) -> dict:
     """Phase 2: the serving kernels against their plain versions at
     granite-8b's shapes, each run twice for identical bits; int4_matmul's
-    M-independence and the attention's B- and T-independence."""
+    and int_matmul's M-independence and the attention's B- and
+    T-independence."""
     rows = {"int4_matmul": [], "int_matmul": [], "pooled_decode_attention": []}
-    for m, k, n in ((4, 4096, 14336), (4, 14336, 4096), (4, 4096, 4096),
-                    (4, 4096, 1024), (32, 4096, 14336), (32, 14336, 4096)):
+    for m, k, n in INT4_ROWS:
         rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
                                                 m, k, n, gen))
-    for m, k, n in ((4, 4096, 49152), (32, 4096, 49152), (4, 4096, 14336)):
+    for m, k, n in INT8_ROWS:
         rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
                                                m, k, n, gen))
     for storage, c, window, softcap, qd in (
@@ -417,6 +464,8 @@ def serving_kernel_rows(torch, timer, qmm, da, ref, gen) -> dict:
             softcap=softcap, gen=gen, qdtype=qd))
     indep = {"int4_matmul": [check_m_independence(torch, qmm, k, n, gen) for k, n in
                              ((4096, 14336), (14336, 4096), (4096, 1024))],
+             "int_matmul": [check_m_independence(torch, qmm, k, n, gen, packed=False)
+                            for k, n in ((4096, 49152), (4096, 14336))],
              "pooled_decode_attention": [
                  check_slot_independence(torch, da, storage=st, c=c, gen=gen, qdtype=qd)
                  for st, c, qd in (("int8", 1, None), ("int8", 32, None), ("int4", 1, None),
@@ -726,7 +775,10 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
                   gen, qs, x_dtype=None) -> dict:
     """quant_matmul_bwd (combined) or quant_matmul_dx / _dw (split) against
     the plain versions; the scalar and per-column sums within 1e-4 of their
-    sum of |summands|; a second launch on the same inputs gives the same
+    sum of |summands| (on the tensor cores dws, as in phase 5b, may also
+    differ by its differing bf16(xd^T dY) summands x |q - mf u|, read from
+    a launch with w = 0: those must be the real dW where w is in range and
+    meet the dW bar); a second launch on the same inputs gives the same
     bits; on the tensor-core path, the prologue bit-equal to the plain
     dequantization and the cotangent's planes. The split dx / dw run on the
     tensor cores, f32 cotangents as three planes whose sum must be dY
@@ -785,18 +837,45 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
                     f"{abs(got[2].item() - want[2].item()):.3e} vs 1e-4 x {l1b:.3e}")]
         worst = max(worst, (got[0] - want[0]).abs().max().item())
     if name in ("quant_matmul_bwd", "quant_matmul_dw"):
-        gw, ww = (got[3], got[4]) if name == "quant_matmul_bwd" else got
-        rw, rws = (want[3], want[4]) if name == "quant_matmul_bwd" else want
+        at = 3 if name == "quant_matmul_bwd" else 0
+        gw, ww, rw, rws = got[at], got[at + 1], want[at], want[at + 1]
         dw_abs = xd.abs().T @ cot.abs()
         ex, frac = _bf16_close(torch, gw, rw, dw_abs, m)
-        del dw_abs
         mf = ref._in_range(u_w, qs["q_n_w"], qs["q_p_w"])
-        part = (ref._bf16(xd.T @ cot) * (q_w - mf * u_w)).abs()
-        l1 = part.sum(dim=1 if k_side else 0, keepdim=True)
-        del part, mf
-        dws_ok = bool(((ww - rws).abs() <= 1e-4 * l1).all())
+        dwd = ref._bf16(xd.T @ cot)
+        fac = (q_w - mf * u_w).abs()
+        axis = 1 if k_side else 0
+        l1 = (dwd.abs() * fac).sum(dim=axis, keepdim=True)
+        flips = torch.zeros_like(l1)
+        if path == "tc":
+            # phase 5b's allowance (ROADMAP Queue 3): the tile's f32 order
+            # rounds some bf16(xd^T dY) summands to the other bf16
+            # neighbour (the dW bar allows that), and at clipped weights
+            # (|q - mf u| up to 4 at 3 bits) one such flip can move a sum
+            # past 1e-4 x sum|summands|; so each sum may also differ by its
+            # differing summands x |q - mf u|. The kernel's summands come
+            # from a launch with w = 0 (every code in range): they must be
+            # the real dW wherever w is in range and meet the dW bar.
+            dwd_k = fn(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[at]
+            real = bool(torch.equal(gw, dwd_k * mf))
+            ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
+            flips = ((dwd_k - dwd).abs() * fac).sum(dim=axis, keepdim=True)
+            checks += [("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW "
+                        "where in range"),
+                       ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
+                        f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
+            del dwd_k
+        del dw_abs, dwd, fac, mf
+        gap = (ww - rws).abs()
+        allowed = 1e-4 * l1 + flips
+        dws_ok = bool((gap <= allowed).all())
+        past = int((gap > 1e-4 * l1).sum().item())
+        vs_plain = (gap / (1e-4 * l1).clamp_min(1e-30)).max().item()
+        use = (gap / allowed.clamp_min(1e-30)).max().item()
         checks += [("dW", ex <= 0 and frac <= 0.01, f"excess {ex:.2e}, differing {frac:.2e}"),
-                   ("dws", dws_ok, f"max {(ww - rws).abs().max().item():.3e}")]
+                   ("dws", dws_ok, f"max {gap.max().item():.3e}, {vs_plain:.3f} x the plain "
+                    f"bar, {use:.3f} of the allowance; {past} sums past the plain bar")]
+        del gap, l1, flips, allowed
         worst = max(worst, (gw - rw).abs().max().item())
     del got, want
     # yardstick: the two products on operands dequantized beforehand
@@ -1439,15 +1518,27 @@ def check_bin_stats(torch, timer, bs, ref, label, shape, q_n, q_p, gen, *,
            "library": "none: no one PyTorch call gives per-bin count, sum "
                       "and sum of squares (histc counts only; bincount "
                       "needs the codes)",
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "device_kernels": device_kernels(torch, kern)}
     log(f"  bin_stats_2d {label} {tuple(shape)} bins={n_bins}"
         f"{' misaligned' if misaligned else ''}: counts equal {counts_equal}, "
         f"count sum - n {count_gap:.0f} (slack {slack:.0f}), sums within bar "
         f"{sums_ok} (max|err| {err:.3e}); kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library n/a, bound {b_ms:.4f} ms ({b_by})")
+        f"{row['plain_ms']:.4f} ms, library n/a, bound {b_ms:.4f} ms ({b_by}); "
+        f"{', '.join(row['device_kernels'])}")
     if not (counts_equal and count_gap <= slack and sums_ok):
         fail(f"bin_stats_2d {label} {shape} disagrees with its plain version")
     return row
+
+
+# bin_stats_2d's rows of phase 10 (`chip_compare.py` runs the same ones):
+# (label, shape, Q_N, Q_P), options
+BIN_STATS_ROWS = ((("kernel_bench wq", (4096, 1024), 8, 7), {}),
+                  (("granite-8b w_in w4", (4096, 14336), 8, 7), {}),
+                  (("granite-8b w_in w8", (4096, 14336), 128, 127), {}),
+                  (("odd", (513, 7), 4, 3), {}), (("odd", (1000, 33), 2, 1), {}),
+                  (("odd", (100, 33), 128, 127), {"misaligned": True}),
+                  (("odd", (64, 64), 1, 1), {}))
 
 
 def quantizer_kernel_checks(torch, timer, ops, ref, gen) -> tuple[dict, int]:
@@ -1486,14 +1577,7 @@ def quantizer_kernel_checks(torch, timer, ops, ref, gen) -> tuple[dict, int]:
         rows["fake_quant_rows"].append(check_fake_quant_rows(
             torch, timer, fq, ref, *args, gen, **kw))
     rows_launches = ops.launch_counts()["fake_quant_rows"]
-    for args, kw in (
-            (("kernel_bench wq", (4096, 1024), 8, 7), {}),
-            (("granite-8b w_in w4", (4096, 14336), 8, 7), {}),
-            (("granite-8b w_in w8", (4096, 14336), 128, 127), {}),
-            (("odd", (513, 7), 4, 3), {}),
-            (("odd", (1000, 33), 2, 1), {}),
-            (("odd", (100, 33), 128, 127), dict(misaligned=True)),
-            (("odd", (64, 64), 1, 1), {})):
+    for args, kw in BIN_STATS_ROWS:
         rows["bin_stats_2d"].append(check_bin_stats(
             torch, timer, bs, ref, *args, gen, **kw))
         torch.cuda.empty_cache()
@@ -1575,7 +1659,10 @@ def main() -> None:
                 log(f"    {entry}{line.strip()}")
 
     # 2. kernels
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    def phase_gen(phase: int):
+        return torch.Generator(device="cuda").manual_seed(100 * SEED + phase)
+
+    gen = phase_gen(2)
     timer = Timer(torch)
     log("kernels (each against its plain version on the card):")
     serving = serving_kernel_rows(torch, timer, qmm, da, ref, gen)
@@ -1584,6 +1671,7 @@ def main() -> None:
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
     log("qat kernels (each against its plain version on the card):")
+    gen = phase_gen(5)
     m = 8 * 512
     qat_rows = {name: [] for name in QAT_KERNELS}
     # quant_matmul at qwen's FFN (w_in, then the down projection), a K-side
@@ -1667,7 +1755,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 10. the quantizer kernels (10-12) against their plain versions
-    q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, gen)
+    q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, phase_gen(10))
     torch.cuda.empty_cache()
 
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
@@ -1773,11 +1861,14 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "tol": r["tol"],
                         "checks": len(rs)})
-        if name in ("int4_matmul", "pooled_decode_attention"):
+        if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
                                    "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
                                    for row in rs])
+        if any("device_kernels" in row for row in rs):
+            kernels[-1]["device_kernels"] = sorted(
+                {d for row in rs for d in row.get("device_kernels", [])})
         if name == "fake_quant_rows":
             kernels[-1]["launches_from"] = ("the kernel checks: no entry point "
                                             "of the repo reaches fake_quant_rows")

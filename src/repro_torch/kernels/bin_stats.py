@@ -4,9 +4,13 @@
 (src/repro/kernels/bin_stats.py:48): (3, n_bins) f32 [count, sum, sum of
 squares] of w over the bins of clip(round(w / max(s, 1e-9)), -Q_N, Q_P) +
 Q_N, in one pass over w. Bound on the card by reading w once (4 bytes an
-element); the kernel keeps a fixed summation order (per-block f64 partials,
-then a fixed-order f64 finish, no float atomics) and is far from that bound
-at 8 bits, where its per-bin scan does 256 compares an element.
+element). Each element's code is computed once, by its own lane; a warp
+groups equal codes (`__match_any_sync`) and the group's lowest lane adds
+the group's count, sum and sum of squares (summed over a fixed lane tree
+in f64) to the warp's own bins, so an element's work does not grow with
+the bin count. The order is fixed (warp bins in warp order, per-block f64
+partials, then a fixed-order f64 finish, no float atomics): the bits
+repeat.
 
 A CPU tensor takes the plain version in `kernels/ref.py` (index_add_ in f64,
 rounded once); a CUDA tensor launches the kernel, and a build or launch
@@ -20,7 +24,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-TILE = 4096              # elements a block stages at a time (csrc/bin_stats.cu)
+TILE = 4096              # elements of a block step (csrc/bin_stats.cu)
+THREADS = 256            # threads a block, each taking 4 float4s of a tile
 BLOCKS_TARGET = 132 * 4  # about 4 blocks on each of the H100's 132 SMs
 _SIGNED = False
 
@@ -54,7 +59,7 @@ def bin_stats_2d(w: torch.Tensor, scale, *, q_n: int, q_p: int) -> torch.Tensor:
     """w (M, N) with a per-tensor scale (0-d tensor or number) ->
     (3, q_n + q_p + 1) f32 [count, sum, sum of squares]. Replaces the TPU
     kernel `bin_stats_2d` (src/repro/kernels/bin_stats.py:48); bound by
-    HBM bytes (w read once), and far from it at wide codes (module note)."""
+    HBM bytes (w read once)."""
     if w.device.type == "cpu":
         return ref.bin_stats_2d(w, scale, q_n=q_n, q_p=q_p)
     if w.device.type != "cuda":

@@ -8,132 +8,160 @@
 // sequential grid in VMEM scratch.
 //
 // What bounds it on an H100: it reads each weight once (4 bytes) and
-// writes 3 x n_bins floats, so HBM bandwidth (3.35 TB/s); its few flops an
-// element are far from the compute line. The design below does not reach
-// that bound for wide codes: it trades speed for a fixed summation order
-// (no float atomics, so a run's bits do not depend on scheduling), as the
-// QAT kernels of this package do.
+// writes 3 x n_bins floats, so HBM bandwidth (3.35 TB/s) bounds it; the
+// warp work of each step of 32 elements is the real limit: a
+// __match_any_sync, whose cost grows with the distinct codes in the step
+// (most at 256 bins), and a five-level tree of f64 shuffles, a fixed cost
+// (most of the time at 16 bins). An element's work no longer grows with
+// n_bins. Sums keep a fixed order (no float atomics), so a run's bits do
+// not depend on scheduling, as in the QAT kernels of this package.
 //
 //   bin_stats_partial_kernel: block b takes a fixed range of elements (the
-//     rows of w, flattened), `tiles` tiles of TILE elements. For each tile
-//     its 256 threads stage w (f32) and the codes (uint8) in shared memory.
-//     The threads are split as n_bins bins x S = 256 / n_bins slices; the
-//     thread of (slice j, bin c) scans slice j's 32-bit words of 4 codes
-//     (j, j + S, ...) for byte c and, on a match, adds 1, w and w * w to its
-//     own accumulators. The accumulators are f64 (count as an int), so
-//     the sums are exact to far below an f32 ulp whatever the order; the
-//     cost is paid only on a match (once an element). The S slices are
-//     then added in slice order into the block's (3, n_bins) f64 partial.
+//     rows of w, flattened), `tiles` tiles of TILE elements; thread t loads
+//     float4 u * 256 + t of a tile (u < 4) and computes its 4 codes, each
+//     element by its own lane (code_of). For each of them the warp groups equal
+//     codes with __match_any_sync; every lane sums its group's values (and
+//     squares) in f64 over a fixed tree of aligned lane blocks of 2, 4, 8,
+//     16, 32 (a block's group sum taken by one shuffle from its lowest
+//     member), and the group's lowest lane adds the count (a popcount,
+//     exact), the sum and the sum of squares to the warp's own f64 bins in
+//     shared memory: one lane a bin in a step, so no atomics. At the end the
+//     8 warps' bins are added in warp order into the block's (3, n_bins)
+//     f64 partial.
 //   bin_stats_finish_kernel: one warp per output value sums the blocks'
 //     partials in a fixed order (lane l takes blocks l, l + 32, ..., then a
 //     fixed shuffle tree) in f64 and rounds once to f32, so the counts are
 //     exact below 2^24 and correctly rounded above, as in the plain version.
-//
-// The scan costs n_bins byte compares an element (spread over n_bins
-// threads), which is cheap at 2-4 bits and the bottleneck at 8 bits (256
-// bins); a warp-aggregated (match_any) or sorted design is the next step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int NTHREADS = 256;
-constexpr int TILE = 4096;            // elements staged per step
-constexpr int WORDS = TILE / 4;       // 32-bit words of codes per tile
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int TILE = 4096;                  // elements of a block step
+constexpr int U = TILE / (4 * NTHREADS);    // float4s a thread a tile
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t code_of(float w, float s, float lo, float hi, int q_n) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(w, s)), lo), hi);
-  return static_cast<uint32_t>(static_cast<int>(q) + q_n);
+// The bin of w: clip(rint(w / s), lo, hi) + q_n, the quotient rounded as an
+// IEEE division and rint to even, as in the plain version. The quotient is
+// first taken as w * (1 / s), within 3 units of its last place of the
+// correctly rounded one, so both round to the same integer unless a
+// half-integer lies that close; there (about one element in 10^5 of
+// Gaussian data) the division itself is taken. Clipping before rounding
+// gives the same code (lo and hi are integers), and adding 1.5 x 2^23
+// rounds to an integer (ties to even) whose bits are the code: no
+// quarter-rate rounding or conversion instruction.
+__device__ __forceinline__ uint32_t code_of(float w, float s, float inv_s, float lo, float hi,
+                                            int q_n) {
+  constexpr float MAGIC = 12582912.f;  // 1.5 x 2^23
+  float q = fminf(fmaxf(__fmul_rn(w, inv_s), lo), hi);
+  float t = __fadd_rn(q, MAGIC);
+  if (0.5f - fabsf(__fsub_rn(q, __fsub_rn(t, MAGIC))) <= fabsf(q) * 9.5367431640625e-07f) {
+    q = fminf(fmaxf(__fdiv_rn(w, s), lo), hi);  // within |q| 2^-20 of a half-integer
+    t = __fadd_rn(q, MAGIC);
+  }
+  return static_cast<uint32_t>(__float_as_int(t) - 0x4B400000 + q_n);
 }
 
-// a byte of v is zero (exact as a test of "any"; per-byte flags may be wrong)
-__device__ __forceinline__ bool has_zero_byte(uint32_t v) {
-  return ((v - 0x01010101u) & ~v & 0x80808080u) != 0u;
+// Adds the warp's 32 elements (one a lane: code, value; code n_bins for no
+// element) to the warp's bins ([3][n_bins] f64: count, sum, sum of
+// squares). Lanes with equal codes form a group (__match_any_sync); every
+// lane sums its group's values and squares in f64 over a fixed tree of
+// aligned lane blocks of 2, 4, 8, 16 and 32 (the other half-block's group
+// sum read by one shuffle from its lowest member), so all members hold the
+// same bits; the group's lowest lane adds the count (a popcount, exact),
+// the sum and the sum of squares to the bins: one lane a bin, so no atomics.
+__device__ __forceinline__ void warp_add(double* bins, int n_bins, uint32_t code, float v,
+                                         int lane) {
+  const unsigned group = __match_any_sync(FULL, code);
+  // the tree's first level pairs lanes 2i, 2i + 1: one f32 shuffle
+  const float vo = __shfl_xor_sync(FULL, v, 1);
+  const double x = v;
+  double s1 = x, s2 = x * x;  // exact: an f32 square fits an f64
+  if (group & (1u << (lane ^ 1))) {
+    const double xo = vo;
+    s1 += xo;
+    s2 = fma(xo, xo, s2);
+  }
+#pragma unroll
+  for (int k = 1; k < 5; ++k) {
+    // the other half of this lane's aligned block of 2^(k+1) lanes
+    const int half = 1 << k;
+    const unsigned other = group & (((1u << half) - 1u) << ((lane ^ half) & ~(half - 1)));
+    const int src = other ? __ffs(other) - 1 : lane;
+    const double o1 = __shfl_sync(FULL, s1, src);
+    const double o2 = __shfl_sync(FULL, s2, src);
+    if (other) {
+      s1 += o1;
+      s2 += o2;
+    }
+  }
+  if (code < static_cast<uint32_t>(n_bins) && lane == __ffs(group) - 1) {
+    bins[code] += static_cast<double>(__popc(group));
+    bins[n_bins + code] += s1;
+    bins[2 * n_bins + code] += s2;
+  }
+  __syncwarp();  // the next step's leaders may take the same bin
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// A tile's U float4s of thread tid (u * NTHREADS + tid), zeros past n.
+__device__ __forceinline__ void load_tile(float (&v)[U][4], const float* w, long long base,
+                                          long long n, int tid, int vec) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long e = base + 4 * (u * NTHREADS + tid);
+    if (vec && e + 3 < n) {
+      const float4 t4 = __ldcs(reinterpret_cast<const float4*>(w + e));
+      v[u][0] = t4.x; v[u][1] = t4.y; v[u][2] = t4.z; v[u][3] = t4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[u][j] = e + j < n ? w[e + j] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 4)
 bin_stats_partial_kernel(const float* __restrict__ w, const float* __restrict__ scale,
                          double* __restrict__ partial, long long n, int tiles,
                          int q_n, int q_p, int vec) {
-  __shared__ __align__(16) float ws[TILE];
-  __shared__ __align__(16) uint32_t cs[WORDS];
-  __shared__ double red[3][NTHREADS];
-
+  extern __shared__ double bins[];  // [NWARPS][3][n_bins]
   const int n_bins = q_n + q_p + 1;
-  const int slices = NTHREADS / n_bins;
-  const int tid = threadIdx.x;
-  const int bin = tid % n_bins;
-  const int slice = tid / n_bins;
-  const bool active = slice < slices;
-  const uint32_t pattern = static_cast<uint32_t>(bin) * 0x01010101u;
-  const float s = fmaxf(*scale, 1e-9f);
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int i = tid; i < NWARPS * 3 * n_bins; i += NTHREADS) bins[i] = 0.0;
+  __syncthreads();
+  double* mine = bins + (tid / 32) * 3 * n_bins;
+  const float s = fmaxf(*scale, 1e-9f), inv_s = __frcp_rn(s);
   const float lo = -static_cast<float>(q_n), hi = static_cast<float>(q_p);
 
-  long long cnt = 0;
-  double s1 = 0.0, s2 = 0.0;
   const long long first = static_cast<long long>(blockIdx.x) * tiles * TILE;
   for (int t = 0; t < tiles; ++t) {
     const long long base = first + static_cast<long long>(t) * TILE;
     if (base >= n) break;
-    const int valid = static_cast<int>(n - base < TILE ? n - base : TILE);
-    __syncthreads();  // the previous tile's readers are done
-    for (int k = tid; k < WORDS; k += NTHREADS) {
-      float v[4];
-      const long long e = base + 4 * k;
-      if (vec && 4 * k + 3 < valid) {
-        const float4 t4 = *reinterpret_cast<const float4*>(w + e);
-        v[0] = t4.x; v[1] = t4.y; v[2] = t4.z; v[3] = t4.w;
-      } else {
+    float v[U][4];
+    load_tile(v, w, base, n, tid, vec);
+    const bool full = base + TILE <= n;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = (4 * k + c < valid) ? w[e + c] : 0.f;
-      }
-      uint32_t word = 0;
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // bytes past the end hold 0xff, a valid bin at 8 bits: the scan
-        // masks them by index
-        const uint32_t code = (4 * k + c < valid) ? code_of(v[c], s, lo, hi, q_n) : 0xffu;
-        word |= code << (8 * c);
+      for (int j = 0; j < 4; ++j) {
+        const long long e = base + 4 * (u * NTHREADS + tid) + j;
+        const uint32_t code =
+            full || e < n ? code_of(v[u][j], s, inv_s, lo, hi, q_n) : n_bins;
+        warp_add(mine, n_bins, code, v[u][j], lane);
       }
-      cs[k] = word;
-      *reinterpret_cast<float4*>(ws + 4 * k) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int words = (valid + 3) / 4;
-    for (int k = slice; k < words; k += slices) {
-      const uint32_t word = cs[k];
-      if (!has_zero_byte(word ^ pattern)) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * k + c;
-        if (((word >> (8 * c)) & 0xffu) == static_cast<uint32_t>(bin) && i < valid) {
-          const double x = static_cast<double>(ws[i]);
-          cnt += 1;
-          s1 += x;
-          s2 = fma(x, x, s2);
-        }
-      }
-    }
   }
 
-  // slices in order into the block's partial
-  __syncthreads();
-  red[0][tid] = static_cast<double>(cnt);
-  red[1][tid] = s1;
-  red[2][tid] = s2;
+  // the warps' bins in warp order into the block's partial
   __syncthreads();
   if (tid < n_bins) {
-    double a0 = 0.0, a1 = 0.0, a2 = 0.0;
-    for (int j = 0; j < slices; ++j) {
-      a0 += red[0][j * n_bins + tid];
-      a1 += red[1][j * n_bins + tid];
-      a2 += red[2][j * n_bins + tid];
-    }
     double* p = partial + static_cast<long long>(blockIdx.x) * 3 * n_bins;
-    p[tid] = a0;
-    p[n_bins + tid] = a1;
-    p[2 * n_bins + tid] = a2;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      double a = bins[q * n_bins + tid];
+      for (int wp = 1; wp < NWARPS; ++wp) a += bins[(wp * 3 + q) * n_bins + tid];
+      p[q * n_bins + tid] = a;
+    }
   }
 }
 
@@ -168,7 +196,9 @@ extern "C" int bin_stats_launch(const void* w, const void* scale, void* partial,
   if (n_bins > NTHREADS || n_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n > 0) {
-    bin_stats_partial_kernel<<<blocks, NTHREADS, 0, st>>>(
+    // at most 8 x 3 x 256 f64 = 48 KB, the static limit: no attribute needed
+    const size_t smem = sizeof(double) * NWARPS * 3 * n_bins;
+    bin_stats_partial_kernel<<<blocks, NTHREADS, smem, st>>>(
         static_cast<const float*>(w), static_cast<const float*>(scale),
         static_cast<double*>(partial), n, tiles, q_n, q_p, vec);
     const cudaError_t err = cudaGetLastError();

@@ -4,7 +4,9 @@ Serving, over int-coded weights: `int_matmul` (one int8 code a byte) and
 `int4_matmul` (two nibble-packed codes a byte) replace the JAX package's
 Pallas kernels of the same names (src/repro/kernels/quant_matmul.py:819 and
 :863). Both compute x @ bf16(code * max(col_scale, 1e-9)) with bf16 x and
-f32 accumulation.
+f32 accumulation, on the tensor cores, with the contraction cut by one
+plan (`int4_plan`, a function of (K, N) only) into splits that the last
+block of each tile merges in order.
 
 Training, over latent f32 weights (the QAT hot path): `quant_matmul` (the
 fused fake-quant forward, :81), `quant_matmul_dx` (:241), `quant_matmul_dw`
@@ -59,6 +61,11 @@ QAT_TILE = 128  # output tile edge of csrc/qat_matmul.cu (checked at load)
 # from the card, so the plan, and the bits, are the same on any card)
 INT4_COLS, INT4_STEP, INT4_WARPS = 128, 16, 8
 INT4_BLOCKS = 264
+# int_matmul's output columns a block (csrc/quant_matmul.cu, checked at
+# load): 128 for decode (M <= 8), 64 for prefill, whose four 8-token n-tiles
+# would hold too many accumulators at 128; its steps, warps and plan are
+# int4_matmul's, so the width never changes an element's sum
+INT8_COLS = (128, 64)
 
 
 def _lib() -> ctypes.CDLL:
@@ -66,24 +73,31 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("quant_matmul")
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        # x codes scale out part tickets | M K N [ldx] splits per vec | stream
+        lib.int_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.int4_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.int4_matmul_tile.argtypes = []
-        for fn in (lib.int_matmul_launch, lib.int4_matmul_launch, lib.int4_matmul_tile):
+        lib.int_matmul_tile.argtypes = []
+        for fn in (lib.int_matmul_launch, lib.int4_matmul_launch, lib.int4_matmul_tile,
+                   lib.int_matmul_tile):
             fn.restype = i
         if lib.int4_matmul_tile() != INT4_COLS * 1000 + INT4_STEP // 2:
             raise RuntimeError(f"quant_matmul.cu int4 tile {lib.int4_matmul_tile()} != "
                                f"({INT4_COLS}, {INT4_STEP // 2})")
+        if lib.int_matmul_tile() != INT8_COLS[0] * 1000 + INT8_COLS[1]:
+            raise RuntimeError(f"quant_matmul.cu int8 tile {lib.int_matmul_tile()} != "
+                               f"{INT8_COLS}")
         _SIGNED = True
     return lib
 
 
 def int4_plan(k: int, n: int) -> dict:
-    """How `int4_matmul` cuts a (K, N) weight: 128-column tiles (one block
-    each, 8 warps), and the contraction into `splits` ranges of
-    `ksteps_per_split` 16-deep mma steps: as many blocks as one wave holds
-    (`INT4_BLOCKS`; a second, partial wave would double the time) where the
-    column tiles alone leave the card idle, and at least one step a warp.
+    """How `int4_matmul` and `int_matmul` cut a (K, N) weight: 128-column
+    tiles (one block each, 8 warps), and the contraction into `splits`
+    ranges of `ksteps_per_split` 16-deep mma steps: as many blocks as one
+    wave holds (`INT4_BLOCKS`; a second, partial wave would double the
+    time) where the column tiles alone leave the card idle, and at least
+    one step a warp.
     A function of (K, N) only: every output element's sum order, hence its
     bits, is the same whatever M the call has."""
     col_tiles = _cdiv(n, INT4_COLS)
@@ -100,6 +114,22 @@ def int4_token_tiles(m: int) -> tuple[int, int]:
     dequantized weight tile, never an element's sum order."""
     tok = 8 if m <= 8 else 32
     return tok, _cdiv(m, tok)
+
+
+def int8_col_tiles(m: int, n: int) -> int:
+    """`int_matmul`'s column tiles at M rows: 128 columns a block for decode
+    (M <= 8), 64 for prefill (`INT8_COLS`). The plan's splits are
+    `int4_plan(K, N)`'s whatever the width."""
+    return _cdiv(n, INT8_COLS[int(m > 8)])
+
+
+def _plan_scratch(plan: dict, m: int, n: int, tiles: int, device, owner: str):
+    """(part, tickets) for a split plan: f32 sums of each split and one
+    ticket a (column tile, token tile); (None, None) with one split."""
+    if plan["splits"] == 1:
+        return None, None
+    part = torch.empty((plan["splits"], m, n), dtype=torch.float32, device=device)
+    return part, build.tickets(device, tiles * int4_token_tiles(m)[1], owner)
 
 
 def _check(x, codes, scale, k_rows: int):
@@ -127,15 +157,22 @@ def _operands(x, codes, scale):
 
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
                w_col_scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ dequant(codes (K, N) int8, col_scale (N,)) -> (M, N) f32."""
+    """x (M, K) @ dequant(codes (K, N) int8, col_scale (N,)) -> (M, N) f32,
+    on the tensor cores by `int4_plan`'s split of the contraction."""
     if x.device.type == "cpu":
         return ref.int_matmul(x, w_codes, w_col_scale)
     _check(x, w_codes, w_col_scale, x.shape[1])
     xb, codes, scale, out = _operands(x, w_codes, w_col_scale)
     (m, k), n = xb.shape, codes.shape[1]
-    vec = int(n % 4 == 0 and codes.data_ptr() % 4 == 0)
+    if k % 2 or xb.data_ptr() % 4:  # the kernel reads x in aligned bf16 pairs
+        xb = torch.nn.functional.pad(xb, (0, k % 2))
+    plan = int4_plan(k, n)
+    part, tickets = _plan_scratch(plan, m, n, int8_col_tiles(m, n), x.device, "int_matmul")
+    vec = int(n % 16 == 0 and codes.data_ptr() % 16 == 0)
     rc = _lib().int_matmul_launch(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                                  out.data_ptr(), m, k, n, vec,
+                                  out.data_ptr(), build.ptr(part), build.ptr(tickets),
+                                  m, k, n, xb.shape[1], plan["splits"],
+                                  plan["ksteps_per_split"], vec,
                                   torch.cuda.current_stream(x.device).cuda_stream)
     _raise("int_matmul_launch", rc, m, k, n)
     int_matmul.launches += 1
@@ -154,16 +191,11 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     xb, codes, scale, out = _operands(x, w_packed, w_col_scale)
     (m, k), n = xb.shape, codes.shape[1]
     plan = int4_plan(k, n)
-    splits = plan["splits"]
-    part = tickets = None
-    if splits > 1:  # f32 sums of each split, and the tiles' tickets
-        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-        tickets = build.tickets(x.device, plan["col_tiles"] * int4_token_tiles(m)[1],
-                                "int4_matmul")
+    part, tickets = _plan_scratch(plan, m, n, plan["col_tiles"], x.device, "int4_matmul")
     vec = int(n % 16 == 0 and codes.data_ptr() % 16 == 0)
     rc = _lib().int4_matmul_launch(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                                    out.data_ptr(), build.ptr(part), build.ptr(tickets),
-                                   m, k, n, splits, plan["ksteps_per_split"], vec,
+                                   m, k, n, plan["splits"], plan["ksteps_per_split"], vec,
                                    torch.cuda.current_stream(x.device).cuda_stream)
     _raise("int4_matmul_launch", rc, m, k, n)
     int4_matmul.launches += 1

@@ -8,8 +8,10 @@ The serving path of `chip_smoke.py`'s main run: full-width granite-8b, all
 steps the way the engine runs them (each step ends by copying its logits
 to the host): host wall ms per step, the device's elapsed ms (CUDA
 events), and, from torch.profiler over the same steps, the device time per
-kernel and the device's busy share of the window. Prints one JSON line
-last; `--out` also writes it to a file.
+kernel and the device's busy share of the window: the costliest kernels
+(`top_kernels`) and every kernel of the port's CUDA sources, which live in
+an anonymous namespace (`named_kernels`), however small. Prints one JSON
+line last; `--out` also writes it to a file.
 """
 from __future__ import annotations
 
@@ -115,7 +117,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(device),
         "step_host_ms": sorted(host_ms)[len(host_ms) // 2],
         "step_device_elapsed_ms": window_ms / STEPS,
-        **device_summary(prof, window_ms, STEPS, top_n=40),
+        **device_summary(prof, window_ms, STEPS, top_n=40, named="(anonymous namespace)::"),
         "launches_per_step": {k: v / STEPS for k, v in launch_counts().items()},
         "decode_tok_s": SLOTS * 1e3 / (window_ms / STEPS),
     }

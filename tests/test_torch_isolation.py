@@ -115,6 +115,8 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     fake["qat_matmul"].qat_tile = lambda: quant_matmul.QAT_TILE
     fake["quant_matmul"].int4_matmul_tile = (
         lambda: quant_matmul.INT4_COLS * 1000 + quant_matmul.INT4_STEP // 2)
+    fake["quant_matmul"].int_matmul_tile = (
+        lambda: quant_matmul.INT8_COLS[0] * 1000 + quant_matmul.INT8_COLS[1])
     fake["decode_attention"].decode_attention_split = lambda: decode_attention.KV_SPLIT
     fake["bin_stats"].bin_stats_tile = lambda: bin_stats.TILE
     monkeypatch.setattr(build, "load", lambda name: fake[name])

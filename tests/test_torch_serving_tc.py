@@ -1,8 +1,8 @@
 """The serving kernels' tensor-core designs, as far as the CPU can see them.
 
-`int4_matmul` (csrc/quant_matmul.cu) cuts the contraction into splits by
-`quant_matmul.int4_plan` and dequantizes nibbles by a byte permute into the
-mantissa of 2^23; `pooled_decode_attention` (csrc/decode_attention.cu) splits
+`int4_matmul` and `int_matmul` (csrc/quant_matmul.cu) cut the contraction
+into splits by `quant_matmul.int4_plan` and dequantize nibbles or int8 bytes
+by a byte permute into the mantissa of 2^23; `pooled_decode_attention` (csrc/decode_attention.cu) splits
 the key walk into splits of `KV_SPLIT` keys and merges them in split order.
 No kernel runs here, so this pins what surrounds them: that the plans ignore
 M, B and the live slots; that the merge rule, applied to the plain version
@@ -164,6 +164,99 @@ def test_kernel_dequantization_is_the_plain_rule_bit_for_bit():
     assert int(finite.sum()) == n - 1  # only 3e38 overflows
     eye = torch.eye(16, dtype=torch.bfloat16)
     plain = ref.int4_matmul(eye, packed[:, finite], scale[finite])
+    assert torch.equal(plain.view(torch.int32),
+                       got[:, finite].to(torch.float32).view(torch.int32))
+
+
+def _int8_launch(calls, m, k, n):
+    meta = dict(device="meta")
+    out = qmm.int_matmul(torch.empty((m, k), dtype=torch.bfloat16, **meta),
+                         torch.empty((k, n), dtype=torch.int8, **meta),
+                         torch.empty((n,), **meta))
+    assert tuple(out.shape) == (m, n) and out.dtype == torch.float32
+    name, args = calls[-1]
+    assert name == "int_matmul_launch"
+    # x codes scale out part tickets | M K N ldx splits ksteps_per_split vec | stream
+    return dict(zip(("M", "K", "N", "ldx", "splits", "per", "vec"), args[6:13]),
+                part=args[4], tickets=args[5])
+
+
+@pytest.mark.parametrize("kn", [(4096, 49152), (4096, 14336), (14336, 4096), (4096, 4096),
+                                (4096, 1024), (64, 96), (129, 65)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_wrapper_passes_the_plan_whatever_m(fake_serving_lib, kn):
+    """int_matmul takes int4_matmul's (K, N) plan at every M (decode, a
+    ragged batch, prefill chunks of 32 and 4 x 32 rows), whatever its block
+    width; an odd K reaches the kernel as x rows padded to an even length."""
+    calls, _ = fake_serving_lib
+    k, n = kn
+    plan = qmm.int4_plan(k, n)
+    before = qmm.int_matmul.launches
+    for m in (1, 4, 8, 9, 32, 128):
+        got = _int8_launch(calls, m, k, n)
+        assert (got["M"], got["K"], got["N"], got["ldx"]) == (m, k, n, k + k % 2)
+        assert (got["splits"], got["per"]) == (plan["splits"], plan["ksteps_per_split"])
+        assert (got["part"] is None) == (plan["splits"] == 1)
+        assert (got["tickets"] is None) == (plan["splits"] == 1)
+        assert got["vec"] == int(n % 16 == 0)
+    assert qmm.int_matmul.launches == before + 6
+    if plan["splits"] > 1:  # its own tickets, one a (column tile, token tile)
+        buf = build._TICKETS[("int_matmul", "meta")]
+        assert buf.numel() >= qmm.int8_col_tiles(128, n) * qmm.int4_token_tiles(128)[1]
+        assert ("int4_matmul", "meta") not in build._TICKETS
+
+
+@pytest.mark.parametrize("m,cols", [(1, 128), (4, 128), (8, 128), (9, 64), (32, 64),
+                                    (128, 64)])
+def test_int8_col_tiles(m, cols):
+    for n in (1, 64, 65, 128, 129, 49152):
+        assert qmm.int8_col_tiles(m, n) == math.ceil(n / cols)
+    assert qmm.INT8_COLS[int(m > 8)] == cols
+
+
+def test_failed_int8_launch_raises_without_fallback(fake_serving_lib):
+    calls, status = fake_serving_lib
+    status["rc"] = 2  # cudaErrorMemoryAllocation
+    before = qmm.int_matmul.launches
+    with pytest.raises(RuntimeError, match="int_matmul_launch failed: cudaError 2"):
+        _int8_launch(calls, 4, 4096, 49152)
+    assert [name for name, _ in calls] == ["int_matmul_launch"]
+    assert qmm.int_matmul.launches == before
+
+
+def _kernel_dequant8(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 codes -> (K, N) bf16 as csrc/quant_matmul.cu's int8 kernel
+    computes them: each byte biased by x ^ 0x80 (code + 128) goes into the
+    low byte of 0x4B000000 (2^23 + code + 128 as an f32), 2^23 + 128 is
+    subtracted, the f32 is multiplied by max(s, 1e-9) and rounded to bf16."""
+    biased = (codes.to(torch.int32) & 0xFF) ^ 0x80
+    code = (biased | 0x4B000000).view(torch.float32) - torch.tensor(8388736.0)
+    s = torch.maximum(scale.to(torch.float32), torch.tensor(1e-9, dtype=torch.float32))
+    return (code * s).to(torch.bfloat16)
+
+
+def test_int8_kernel_dequantization_is_the_plain_rule_bit_for_bit():
+    """All 256 codes against the scales of the int4 test (below the 1e-9
+    floor, subnormal, zero, ordinary, and large enough to overflow): the
+    biased byte permute gives each code exactly, and the one f32 product
+    rounds as ref.int_matmul's rule."""
+    rng = np.random.default_rng(1)
+    scales = np.concatenate([
+        np.array([0.0, 1e-12, 1e-40, 1.4e-45, 1e-9, 1.0000001e-9, 3.7e-3, 1.0, 0.1,
+                  1e30, 3.0e38], np.float32),
+        rng.random(53).astype(np.float32) * np.float32(0.05)])
+    n = scales.size
+    codes = torch.from_numpy(np.tile(np.arange(-128, 128, dtype=np.int8)[:, None], (1, n)))
+    scale = torch.from_numpy(scales)
+    got = _kernel_dequant8(codes, scale)
+    want = (codes.to(torch.float32) * torch.clamp(scale, min=ref.EPS)).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # ref.int_matmul's own weights, read out by identity rows (on the
+    # columns without an infinite weight: only 3e38 overflows)
+    finite = torch.isfinite(got.to(torch.float32)).all(0)
+    assert int(finite.sum()) == n - 1
+    eye = torch.eye(256, dtype=torch.bfloat16)
+    plain = ref.int_matmul(eye, codes[:, finite], scale[finite])
     assert torch.equal(plain.view(torch.int32),
                        got[:, finite].to(torch.float32).view(torch.int32))
 
