@@ -40,6 +40,22 @@ Phases (any failure exits non-zero before the final line is printed):
                the chunked prefill's online-softmax merge rounds otherwise
                than a one-shot prefill, and one ulp can flip a 4-bit code
                (the JAX package's own int4 engine test shows the same).
+  12. moe serve — `repro_torch.launch.serve` on full-width
+               granite-moe-1b-a400m, all 24 layers, 32 experts top 8, tied
+               head, w3a3 weights (3-bit packed experts: the
+               dequantize-and-einsum fallback in 8-row blocks; an 8-bit
+               f32 router), int8 KV, 4 slots, 8 requests of 128 prompt
+               tokens and 32 new tokens, chunk 32 (run after phase 4):
+               phase 3's numbers, int4_matmul's and pooled_decode_attention's
+               launches (each > 0) and its stream contract at the config's
+               own capacity factor 1.25 (a one-chunk prefill has
+               greedy_generate's shape and capacity; a decode step's 4 tokens
+               fit an expert's 8 slots); then a token's MoE-layer output the
+               same bits at M 1, 4 and 32, a slot's decode logits the same
+               bits alone, in a pool of 4 and beside 3 idle slots; the expert
+               dequantization's ms a decode step; and a 4-layer cut's logits
+               on a 16-token prompt against the CPU, int8 and fp KV, with
+               phase 4's bars.
   5. qat kernels — each QAT kernel against its plain version at the shapes
                of the training path (M = 8 x 512 tokens of qwen1.5-0.5b):
                quant_matmul (the tensor-core path) at both FFN shapes, a
@@ -66,8 +82,10 @@ Phases (any failure exits non-zero before the final line is printed):
                line beside the three planes' bound), and the bars of the CPU
                tests; on the tensor cores dws is held as in phase 5b (the
                plain bar plus its differing bf16(xd^T dY) summands x
-               |q - mf u|, read from a launch with w = 0, each summand held
-               to the dW bar).
+               |q - mf u|, read from a launch with w = 0, each summand the
+               real dW where w is in range and held to the dW bar; the
+               allowance approved for phase 5 too, ROADMAP Queue 3), each
+               row printing the share of the allowance it uses (<= 1.0).
   6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
                layers, tied head, QKV bias), w4a4, MCKD top-16, sentinel on,
                batch 8 x 512, 3 steps saving at step 2, then a second call to
@@ -133,6 +151,7 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import re
 import statistics
@@ -600,7 +619,10 @@ def check_stream_contract(torch, M, serve, run, new_tokens: int, chunk: int):
 
 
 def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
-                check_streams: bool, cpu_reference: bool) -> dict:
+                check_streams: bool, cpu_reference: bool, extra=None) -> dict:
+    """Serve through the CLI with the launch counts set to 0 just before and
+    read just after; then the stream contract, the CPU reference and
+    `extra(run)` (its dict under "extra") as asked."""
     log(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -635,7 +657,108 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
         check_against_cpu(torch, M, run, run.qcfg)
         check_against_cpu(torch, M, run, run.qcfg.replace(kv_cache_bits=0))
     return {"counts": counts, "summary": run.summary, "peak": run.peak_bytes,
-            "wall": wall}
+            "wall": wall, "extra": extra(run) if extra else None}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE serving
+# ---------------------------------------------------------------------------
+
+def check_moe_row_independence(torch, M, run) -> dict:
+    """A token's MoE-layer output (router, experts, combine) is the same bits
+    at M 1, 4 and 32 (capacities 8, 8 and 16), and a slot's decode logits
+    the same bits alone, in a pool of 4 and beside 3 idle slots (pos = -1:
+    routed, taking capacity), after the same 16-token prefill: the router's
+    f32 product runs in fixed 128-row blocks, the experts' bf16 products in
+    8-row blocks, and softmax, the stable sort and the k-sum are per row.
+    The token is first in every expert's capacity order, so never dropped."""
+    from repro_torch.models import moe
+    cfg, qcfg, params, dev = run.cfg, run.qcfg, run.params, run.device
+    gen = torch.Generator(device=dev).manual_seed(100 * SEED + 12)
+    p = params["layers"][0]["moe"]
+    x = torch.randn((1, 32, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    outs = [moe.moe_ffn(p, x[:, :m], cfg, qcfg, torch.bfloat16)[0][0, 0]
+            for m in (1, 4, 32)]
+    plen, max_len = 16, 20
+    prompts = torch.from_numpy(run.prompts[:4, :plen]).to(dev)
+    nxt = torch.from_numpy(run.prompts[:4, plen:plen + 1]).to(dev)
+    pos = torch.arange(plen, dtype=torch.int32, device=dev)[None]
+
+    def decode(rows, idle=()):
+        pool = M.init_cache(cfg, qcfg, rows, max_len, dev)
+        for r in range(rows):  # each slot's own prefill, inserted as the engine does
+            one = M.init_cache(cfg, qcfg, 1, max_len, dev)
+            M.prefill_step(params, one, {"tokens": prompts[r:r + 1], "pos": pos}, cfg, qcfg)
+            M.cache_slot_insert(pool, one, r)
+        dpos = torch.full((rows, 1), plen, dtype=torch.int32, device=dev)
+        dpos[list(idle)] = -1
+        lg, _ = M.decode_step(params, pool, {"tokens": nxt[:rows], "pos": dpos}, cfg, qcfg)
+        return lg[0, 0]
+
+    alone, pooled, beside_idle = decode(1), decode(4), decode(4, (1, 2, 3))
+    torch.cuda.synchronize()
+    res = {"moe_m_1_4_32": all(_same_bits(torch, o, outs[0]) for o in outs[1:]),
+           "pool_eq_alone": _same_bits(torch, pooled, alone),
+           "idle_eq_alone": _same_bits(torch, beside_idle, alone)}
+    log(f"  MoE layer 0, token 0 at M 1, 4, 32: same bits {res['moe_m_1_4_32']}; "
+        f"decode logits of slot 0 in a pool of 4 == alone: {res['pool_eq_alone']}; "
+        f"beside 3 idle slots == alone: {res['idle_eq_alone']}")
+    if not all(res.values()):
+        fail(f"MoE serving: a row's bits depend on its pool: {res}")
+    return res
+
+
+def expert_dequant(torch, run) -> dict:
+    """What the serving fallback's expert dequantization costs a decode step:
+    every layer's three expert weights unpacked and scaled to bf16 as
+    `common._serving_linear` does (bf16(code) x bf16(scale)); CUDA events
+    around the whole step's set (72 weights, far past L2), median of 5."""
+    from repro_torch.core.quantizer import unpack_int4
+    from repro_torch.models.common import pack_axis_of
+    ws = [(lay["moe"][n], n) for lay in run.params["layers"]
+          for n in ("moe_in", "moe_gate", "moe_out") if n in lay["moe"]]
+
+    def step():
+        for p, n in ws:
+            codes = p["codes4"]
+            unpack_int4(codes, pack_axis_of(n) % codes.dim()).to(torch.bfloat16) \
+                * p["w_scale"].to(torch.bfloat16)
+
+    step()
+    times = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    read = sum(p["codes4"].numel() for p, _ in ws)
+    written = 2 * 2 * read  # two codes a byte, two bytes a bf16 weight
+    ms = statistics.median(times)
+    res = {"ms_per_decode_step": ms, "weights": len(ws), "bytes_read": read,
+           "bytes_written": written,
+           "bound_ms": bound(read + written, 0)[0]}
+    log(f"  expert dequantization a decode step: {ms:.3f} ms for {len(ws)} weights "
+        f"({read / 1e9:.3f} GB of codes read, {written / 1e9:.3f} GB bf16 written; "
+        f"bound {res['bound_ms']:.3f} ms)")
+    return res
+
+
+def moe_serve_checks(torch, M):
+    """Phase 12's checks beyond serve_phase's: row independence, the expert
+    dequantization's cost, and a 4-layer cut's logits against the CPU."""
+    def checks(run) -> dict:
+        indep = check_moe_row_independence(torch, M, run)
+        dq = expert_dequant(torch, run)
+        cut = copy.copy(run)
+        cut.cfg = run.cfg.replace(n_layers=4)
+        cut.params = dict(run.params, layers=run.params["layers"][:4])
+        log("  4-layer cut against the CPU:")
+        check_against_cpu(torch, M, cut, run.qcfg)
+        check_against_cpu(torch, M, cut, run.qcfg.replace(kv_cache_bits=0))
+        return {"independence": indep, "expert_dequant": dq}
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -1779,6 +1902,16 @@ def main() -> None:
          "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
         ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
 
+    # 12. MoE serving: full-width granite-moe-1b-a400m, all 24 layers
+    moe_serve = serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "granite-moe-1b-a400m", "--quant", "w3a3", "--kv-bits", "8",
+         "--batch", "8", "--slots", "4", "--prompt-len", "128",
+         "--new-tokens", "32", "--chunk", "32"],
+        ("int4_matmul", "pooled_decode_attention"), True, cpu_reference=False,
+        extra=moe_serve_checks(torch, M))
+    torch.cuda.empty_cache()
+
     # 6. QAT training, the main path of the training slice: full-width
     #    qwen1.5-0.5b, 3 steps saving at step 2, then a restored 4th step
     from repro_torch.launch import train
@@ -1861,6 +1994,8 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "tol": r["tol"],
                         "checks": len(rs)})
+        if name in ("int4_matmul", "pooled_decode_attention"):
+            kernels[-1]["launches_moe_serve"] = moe_serve["counts"][name]
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
@@ -1902,6 +2037,10 @@ def main() -> None:
         "peak_gib": (moe_run["report"].peak_bytes or 0) / 2**30,
         "losses": moe_run["report"].losses, "metrics": moe_run["report"].metrics,
         "launches_per_step": moe_step, "route": moe_route},
+        "moe_serve": {
+        "throughput": moe_serve["summary"]["throughput"],
+        "peak_gib": (moe_serve["peak"] or 0) / 2**30, "launches": moe_serve["counts"],
+        "wall_s": moe_serve["wall"], **moe_serve["extra"]},
         "kernel_bench": {
         "launches": bench_counts, "equivalence": bench["equivalence"],
         "decode_parity": bench["decode_parity"],

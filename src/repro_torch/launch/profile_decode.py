@@ -1,9 +1,11 @@
 """Where a pooled decode step's time goes on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--out FILE]
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--out FILE] \
+        [--arch granite-moe-1b-a400m --quant w3a3]
 
 The serving path of `chip_smoke.py`'s main run: full-width granite-8b, all
-36 layers, w4a4 weights, int8 KV, 4 slots. Builds random serving params
+36 layers, w4a4 weights, int8 KV, 4 slots (or `--arch` / `--quant`, as
+phase 12 serves granite-moe-1b-a400m at w3a3). Builds random serving params
 (seed 0), prefills every slot with a 128-token prompt, then times 8 decode
 steps the way the engine runs them (each step ends by copying its logits
 to the host): host wall ms per step, the device's elapsed ms (CUDA
@@ -68,10 +70,12 @@ def print_summary(result: dict) -> None:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.profile_decode")
     ap.add_argument("--out", default="")
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--quant", default=QUANT)
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
-    cfg = get_config(ARCH)
-    qcfg = get_preset(QUANT).replace(kv_cache_bits=KV_BITS, a_bits=32)
+    cfg = get_config(args.arch)
+    qcfg = get_preset(args.quant).replace(kv_cache_bits=KV_BITS, a_bits=32)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_serving_params(cfg, qcfg, gen, device)
     max_len = PROMPT_LEN + STEPS + 4
@@ -111,7 +115,7 @@ def main(argv=None) -> dict:
         end.synchronize()
     window_ms = start.elapsed_time(end)
     result = {
-        "arch": cfg.name, "layers": cfg.n_layers, "quant": QUANT,
+        "arch": cfg.name, "layers": cfg.n_layers, "quant": args.quant,
         "kv_bits": KV_BITS, "slots": SLOTS,
         "cache_len": p, "steps": STEPS,
         "device": torch.cuda.get_device_name(device),

@@ -267,18 +267,45 @@ def _row_matmul(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     return out[:m]
 
 
+# Capacity rows an expert product takes at a time: `moe.capacity` is a
+# multiple of 8 and at least 8, so every block is whole, and a decode step
+# (c = 8 for up to 8 x E / top_k tokens at factor 1) is one block.
+EXPERT_ROWS = 8
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (g, E, c, K) @ w (E, K, N) -> (g, E, c, N) as bmm over blocks of
+    EXPERT_ROWS of each expert's g * c capacity rows: like `_row_matmul`,
+    the library sees one shape whatever the capacity is, so a token's bits
+    do not depend on how many tokens share the step."""
+    g, e, c, k = x.shape
+    x3 = x.transpose(0, 1).reshape(e, g * c, k)
+    out = torch.cat([torch.bmm(blk, w) for blk in x3.split(EXPERT_ROWS, dim=1)],
+                    dim=1)
+    return out.reshape(e, g, c, -1).transpose(0, 1)
+
+
+# Serving contractions outside FUSED_EQS that must not let the library pick
+# a summation order by row count: the MoE router (f32, a 2D contraction
+# through `_row_matmul`) and the expert einsums (`_expert_matmul`).
+ROW_BLOCK_EQS = {"td,de->te": 1}
+
+
 def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, out_dtype=None, *,
             row_blocks: bool = True):
     """jnp.einsum over operands of one dtype: with out_dtype (JAX's
     preferred_element_type) the products are summed in that dtype; bf16
     operands are exact in f32, so upcasting them first is the same sum.
-    The 2D contractions of FUSED_EQS run through `_row_matmul` for serving
-    (row_blocks); training contracts latent weights in one product, so that
-    a weight's gradient is one f32 sum rounded once (a bf16 gradient summed
-    over row blocks would round at every block)."""
+    The 2D contractions of FUSED_EQS and ROW_BLOCK_EQS run through
+    `_row_matmul` for serving (row_blocks), the expert einsums through
+    `_expert_matmul`; training contracts latent weights in one product, so
+    that a weight's gradient is one f32 sum rounded once (a bf16 gradient
+    summed over row blocks would round at every block)."""
     if out_dtype is not None:
         x, w = x.to(out_dtype), w.to(out_dtype)
-    n_k = FUSED_EQS.get(eq)
+    if row_blocks and eq in FUSED_BATCHED_EQS:
+        return _expert_matmul(x, w)
+    n_k = FUSED_EQS.get(eq, ROW_BLOCK_EQS.get(eq) if row_blocks else None)
     if n_k is None:
         return torch.einsum(eq, x, w)
     k = math.prod(w.shape[:n_k])

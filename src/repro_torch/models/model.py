@@ -2,7 +2,7 @@
 params, the cache pool, chunk steps.
 
 PyTorch counterpart of `repro.models.model` for attention blocks with a
-dense FFN (training and serving) or an MoE FFN (training only). The JAX
+dense or an MoE FFN, for training and serving. The JAX
 package stacks the layers of each pattern position along a
 leading axis for `lax.scan` ("groups") plus an unrolled "tail"; this port
 keeps a plain per-layer list (`params["layers"][i]`, `cache["layers"][i]`),
@@ -47,9 +47,10 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_trained(cfg: ArchConfig) -> None:
-    """The families the port trains: attention blocks with a dense or an
-    MoE FFN."""
+def _check_ported(cfg: ArchConfig) -> None:
+    """The families the port trains and serves: attention blocks with a
+    dense or an MoE FFN (recurrent, cross and frontend patterns are
+    refused)."""
     for bd in cfg.pattern:
         if (bd.attn not in ("global", "local") or bd.ffn not in ("dense", "moe")
                 or bd.cross_attn):
@@ -60,16 +61,6 @@ def _check_trained(cfg: ArchConfig) -> None:
     if cfg.frontend != "none" or cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.name}: frontend/learned positions "
                                   "are not ported yet")
-
-
-def _check_served(cfg: ArchConfig) -> None:
-    """The families the port serves: dense attention-only blocks."""
-    _check_trained(cfg)
-    if any(bd.ffn == "moe" for bd in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: serving an MoE model is not ported yet (int-coded "
-            "(E, K, N) experts in convert_to_serving and the expert einsums "
-            "of the serving linear): ROADMAP.md Queue 1, 'MoE serving'")
 
 
 def params_device(params: dict) -> torch.device:
@@ -119,7 +110,7 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
     (which must live on `device`). Same distributions as the JAX package's
     `init_params`, different values; layer i is params["layers"][i]."""
     cfg.validate()
-    _check_trained(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     params = {"embed": embed_init(generator, qcfg, v, d, device),
@@ -191,7 +182,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
     jax.checkpoint does: the block's kernels then run twice.
     """
-    _check_trained(cfg)
+    _check_ported(cfg)
     cdtype = _cdtype(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
@@ -291,7 +282,7 @@ def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
     them at once. `generator` must live on `device`.
     """
     cfg.validate()
-    _check_served(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     top = {"embed": embed_init(generator, qcfg, v, d, device),
@@ -314,7 +305,7 @@ def init_cache(cfg: ArchConfig, qcfg: QuantConfig, batch: int, cache_len: int,
                device=None) -> dict:
     """Fresh decode cache (pre-prefill): one KV cache per layer; local
     (ring) layers hold min(window, cache_len) rows."""
-    _check_served(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     cdtype = _cdtype(cfg)
     layers = []
@@ -398,6 +389,10 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     if cfg.sandwich_norm:
         out = apply_norm(p["ln1_post"], out, cfg.norm)
     x = x + out
+    if bd.ffn == "moe":  # the aux losses are training metrics: dropped
+        y, _ = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, cfg.norm),
+                               cfg, qcfg, cdtype)
+        return x + y, (k, v)
     x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
     return x, (k, v)
 

@@ -6,8 +6,13 @@ renormalized; tokens are scattered into (E, C, d) capacity buffers in
 token-major, then slot, order (a running count per expert), over-capacity
 slots go to a dump row and are dropped; the three expert linears run
 through the batched QAT kernels (`qlinear` on "gecd,edf->gecf" /
-"gecf,efd->gecd"); outputs are gathered back, weighted by gate * keep in
-the compute dtype and summed over the k slots.
+"gecf,efd->gecd"), or in serving form (int codes) through the
+dequantize-and-einsum fallback, as in the reference, as bmm over blocks of
+8 capacity rows (`common._expert_matmul`); outputs are gathered back,
+weighted by gate * keep in the compute dtype and summed over the k slots.
+Serving routes padding and idle rows (pos = -1) too, and they take
+capacity, as in the reference: a step's drops depend on its other rows,
+so streams are bit-exact across pools only at a capacity without drops.
 
 The router's f32 sums are taken in another order than XLA's, so where the
 reference's logits tie exactly (at init the router's 8-bit activation
@@ -118,7 +123,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
     routed = [_route_group(xg[i], ei[i], c, e, k, cdtype) for i in range(grp)]
     buf = torch.stack([r[0] for r in routed])             # (g, e, c, d)
 
-    # expert compute: the batched QAT kernels, per-expert scales
+    # expert compute: the batched QAT kernels (latent weights) or the
+    # row-blocked fallback (int codes), per-expert scales
     if cfg.ffn_gated:
         gt = qlinear(p["moe_gate"], buf, "moe_gate", qcfg, "gecd,edf->gecf",
                      cdtype)

@@ -27,7 +27,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for m in ("repro_torch.kernels.build", "repro_torch.launch.train",
               "repro_torch.train.train_step", "repro_torch.train.checkpoint",
-              "repro_torch.optim.adamw", "repro_torch.core.kd"):
+              "repro_torch.optim.adamw", "repro_torch.core.kd",
+              "repro_torch.serve.simulate", "repro_torch.testing.faultinject",
+              "repro_torch.launch.serving_bench"):
         assert m in mods, m
     assert len(mods) > 30
     code = ("import importlib, sys\n"

@@ -317,9 +317,19 @@ def test_two_layer_forward_matches_both_jax_routes():
 
 
 def test_moe_serving_still_refused():
+    """Serving refuses what the port does not run: since MoE serving was
+    ported (tests/test_torch_moe_serving.py) that is no longer an MoE model
+    but a recurrent pattern (xlstm-350m); the MoE model now gets int-coded
+    serving params and a cache."""
+    from repro_torch.configs.registry import get_config, reduced_config
     _, tc = configs(ARCH)
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        TM.init_serving_params(tc, t_get_preset("w4a4"),
+    params = TM.init_serving_params(tc, t_get_preset("w4a4"),
+                                    torch.Generator().manual_seed(0), "cpu")
+    assert "codes4" in params["layers"][0]["moe"]["moe_in"]
+    assert len(TM.init_cache(tc, t_get_preset("w4a4"), 1, 8, "cpu")["layers"]) == tc.n_layers
+    rc = reduced_config(get_config("xlstm-350m"))
+    with pytest.raises(NotImplementedError, match="attention blocks"):
+        TM.init_serving_params(rc, t_get_preset("w4a4"),
                                torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        TM.init_cache(tc, t_get_preset("w4a4"), 1, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="attention blocks"):
+        TM.init_cache(rc, t_get_preset("w4a4"), 1, 8, "cpu")
