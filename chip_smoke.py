@@ -139,6 +139,33 @@ Phases (any failure exits non-zero before the final line is printed):
                in the summary line): every gate passes, and
                fake_quant_2d / bin_stats_2d are launched (fake_quant_rows
                has no entry point: its launches are phase 10's).
+  13. serve  — `repro_torch.launch.serve` on full-width musicgen-medium, all
+               48 layers (learned positions, layernorm, gelu, untied 8-bit
+               head), w4a4, int8 KV, 4 slots, 8 requests of 128 prompt
+               tokens and 32 new tokens, chunk 32 (run after phase 12):
+               phase 3's numbers, kernels 7, 8 and 9 launched, streams
+               equal greedy_generate with a one-chunk prefill, a slot's
+               decode logits the same bits alone, pooled and beside idle
+               slots, and a 4-layer cut against the CPU with phase 4's
+               bars. Phase 2 holds kernels 7-9 at its shapes and phase 5
+               the QAT kernels at the training shapes of phase 14 (the
+               f32 SIMT backward at musicgen-medium's and paper-deit-t's
+               heads, the one-plane split dx / dw at musicgen-medium's
+               w_in, paper-bert-base's head on three planes).
+  14. train  — `repro_torch.launch.train --arch musicgen-medium` (w4a4, MCKD,
+               batch 8 x 512, 3 steps); `run_training` on full-width
+               paper-bert-base (w2a2, OBR, oscillation tracked, batch 32 x
+               128) and paper-deit-t (w3a3, batch 64 x 197 patches): finite
+               losses, health 0, s/step, peak memory, and each run's QAT
+               launches equal to `qat_launches_per_step`, which decides
+               each linear's backward route by `quant_matmul.bwd_route` on
+               the padded shape as the dispatcher does. Then the MCKD store
+               on the card: paper-bert-base's fp teacher builds a shard of
+               2 batches x 4 window_crop views, read back bit for bit, and
+               one w2a2 MCKD step trains from it.
+  15. tables — the five paper-table twins (`repro_torch.tables`) at their
+               reference size, steps cut to TABLE_STEPS: their rows,
+               every value finite.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -492,6 +519,30 @@ def serving_kernel_rows(torch, timer, qmm, da, ref, gen) -> dict:
     return {"rows": rows, "independence": indep}
 
 
+# musicgen-medium's serving shapes (phase 13's path, run in phase 2 after
+# granite-8b's rows): int4_matmul at its w4a4 N-side linears (wq / wk / wv,
+# w_in, w_out) at decode and prefill, int_matmul at its untied 8-bit head,
+# the attention at D 64 over 24 kv heads (q_per_kv 1) with int8 KV
+MUSICGEN_INT4_ROWS = ((4, 1536, 1536), (4, 1536, 6144), (4, 6144, 1536),
+                      (32, 1536, 6144), (32, 6144, 1536))
+MUSICGEN_INT8_ROWS = ((4, 1536, 2048), (32, 1536, 2048))
+
+
+def musicgen_kernel_rows(torch, timer, qmm, da, ref, gen, rows: dict) -> None:
+    """Kernels 7-9 against their plain versions at musicgen-medium's
+    serving shapes, appended to phase 2's rows."""
+    for m, k, n in MUSICGEN_INT4_ROWS:
+        rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
+                                                m, k, n, gen))
+    for m, k, n in MUSICGEN_INT8_ROWS:
+        rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
+                                               m, k, n, gen))
+    for c in (1, 32):
+        rows["pooled_decode_attention"].append(check_attention(
+            torch, timer, da, ref, storage="int8", c=c, window=0, softcap=0.0,
+            gen=gen, hkv=24, q_per_kv=1, d=64))
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the serving path
 # ---------------------------------------------------------------------------
@@ -664,21 +715,11 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
 # phase 12: MoE serving
 # ---------------------------------------------------------------------------
 
-def check_moe_row_independence(torch, M, run) -> dict:
-    """A token's MoE-layer output (router, experts, combine) is the same bits
-    at M 1, 4 and 32 (capacities 8, 8 and 16), and a slot's decode logits
-    the same bits alone, in a pool of 4 and beside 3 idle slots (pos = -1:
-    routed, taking capacity), after the same 16-token prefill: the router's
-    f32 product runs in fixed 128-row blocks, the experts' bf16 products in
-    8-row blocks, and softmax, the stable sort and the k-sum are per row.
-    The token is first in every expert's capacity order, so never dropped."""
-    from repro_torch.models import moe
+def slot_independence(torch, M, run) -> dict:
+    """A slot's decode logits are the same bits alone, in a pool of 4 and
+    beside 3 idle slots (pos = -1), after the same 16-token prefill of each
+    slot inserted as the engine does."""
     cfg, qcfg, params, dev = run.cfg, run.qcfg, run.params, run.device
-    gen = torch.Generator(device=dev).manual_seed(100 * SEED + 12)
-    p = params["layers"][0]["moe"]
-    x = torch.randn((1, 32, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
-    outs = [moe.moe_ffn(p, x[:, :m], cfg, qcfg, torch.bfloat16)[0][0, 0]
-            for m in (1, 4, 32)]
     plen, max_len = 16, 20
     prompts = torch.from_numpy(run.prompts[:4, :plen]).to(dev)
     nxt = torch.from_numpy(run.prompts[:4, plen:plen + 1]).to(dev)
@@ -697,9 +738,28 @@ def check_moe_row_independence(torch, M, run) -> dict:
 
     alone, pooled, beside_idle = decode(1), decode(4), decode(4, (1, 2, 3))
     torch.cuda.synchronize()
+    return {"pool_eq_alone": _same_bits(torch, pooled, alone),
+            "idle_eq_alone": _same_bits(torch, beside_idle, alone)}
+
+
+def check_moe_row_independence(torch, M, run) -> dict:
+    """A token's MoE-layer output (router, experts, combine) is the same bits
+    at M 1, 4 and 32 (capacities 8, 8 and 16), and a slot's decode logits
+    the same bits alone, in a pool of 4 and beside 3 idle slots (pos = -1:
+    routed, taking capacity), after the same 16-token prefill: the router's
+    f32 product runs in fixed 128-row blocks, the experts' bf16 products in
+    8-row blocks, and softmax, the stable sort and the k-sum are per row.
+    The token is first in every expert's capacity order, so never dropped."""
+    from repro_torch.models import moe
+    cfg, qcfg, params, dev = run.cfg, run.qcfg, run.params, run.device
+    gen = torch.Generator(device=dev).manual_seed(100 * SEED + 12)
+    p = params["layers"][0]["moe"]
+    x = torch.randn((1, 32, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    outs = [moe.moe_ffn(p, x[:, :m], cfg, qcfg, torch.bfloat16)[0][0, 0]
+            for m in (1, 4, 32)]
+    torch.cuda.synchronize()
     res = {"moe_m_1_4_32": all(_same_bits(torch, o, outs[0]) for o in outs[1:]),
-           "pool_eq_alone": _same_bits(torch, pooled, alone),
-           "idle_eq_alone": _same_bits(torch, beside_idle, alone)}
+           **slot_independence(torch, M, run)}
     log(f"  MoE layer 0, token 0 at M 1, 4, 32: same bits {res['moe_m_1_4_32']}; "
         f"decode logits of slot 0 in a pool of 4 == alone: {res['pool_eq_alone']}; "
         f"beside 3 idle slots == alone: {res['idle_eq_alone']}")
@@ -751,13 +811,37 @@ def moe_serve_checks(torch, M):
     def checks(run) -> dict:
         indep = check_moe_row_independence(torch, M, run)
         dq = expert_dequant(torch, run)
-        cut = copy.copy(run)
-        cut.cfg = run.cfg.replace(n_layers=4)
-        cut.params = dict(run.params, layers=run.params["layers"][:4])
-        log("  4-layer cut against the CPU:")
-        check_against_cpu(torch, M, cut, run.qcfg)
-        check_against_cpu(torch, M, cut, run.qcfg.replace(kv_cache_bits=0))
+        cut_against_cpu(torch, M, run)
         return {"independence": indep, "expert_dequant": dq}
+    return checks
+
+
+def cut_against_cpu(torch, M, run, layers: int = 4) -> None:
+    """The run's model cut to its first `layers` layers, its logits on a
+    16-token prompt against the CPU's (phase 4's bars), at the run's KV
+    cache and at an fp one."""
+    cut = copy.copy(run)
+    cut.cfg = run.cfg.replace(n_layers=layers)
+    cut.params = dict(run.params, layers=run.params["layers"][:layers])
+    log(f"  {layers}-layer cut against the CPU:")
+    check_against_cpu(torch, M, cut, run.qcfg)
+    check_against_cpu(torch, M, cut, run.qcfg.replace(kv_cache_bits=0))
+
+
+def dense_serve_checks(torch, M):
+    """Phase 13's checks beyond serve_phase's: a slot's decode logits the
+    same bits alone, pooled and beside idle slots (layernorm's f64 row
+    means, learned positions gathered per row at max(pos, 0)), and a
+    4-layer cut's logits against the CPU."""
+    def checks(run) -> dict:
+        res = slot_independence(torch, M, run)
+        log(f"  decode logits of slot 0 in a pool of 4 == alone: "
+            f"{res['pool_eq_alone']}; beside 3 idle slots == alone: "
+            f"{res['idle_eq_alone']}")
+        if not all(res.values()):
+            fail(f"{run.cfg.name} serving: a row's bits depend on its pool: {res}")
+        cut_against_cpu(torch, M, run)
+        return {"independence": res}
     return checks
 
 
@@ -988,6 +1072,20 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
                        ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
                         f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
             del dwd_k
+        simt_info = None
+        if path == "simt":
+            # not a check: the shares of bf16(xd^T dY) off its correctly
+            # rounded value (f64 product), in the kernel (its w = 0 launch)
+            # and in the plain version, and how far correctly rounded
+            # summands would put dws from the plain dws (ROADMAP Queue 3)
+            dwd_k = fn(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[at]
+            dwe = ref._bf16((xd.double().T @ cot.double()).float())
+            dws_e = (dwe * (q_w - mf * u_w)).sum(dim=axis, keepdim=True)
+            simt_info = {"kernel_off": (dwd_k != dwe).float().mean().item(),
+                         "plain_off": (dwd != dwe).float().mean().item(),
+                         "exact_vs_plain_bar": ((dws_e - rws).abs()
+                                                / (1e-4 * l1).clamp_min(1e-30)).max().item()}
+            del dwd_k, dwe, dws_e
         del dw_abs, dwd, fac, mf
         gap = (ww - rws).abs()
         allowed = 1e-4 * l1 + flips
@@ -1027,6 +1125,14 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
            "bound_f32_ms": b32, "prologue_ms": prologue_ms, "split": split}
     if name != "quant_matmul_bwd":  # the grid and its finish: the call less its prologue
         row["grid_tflops"] = ops * planes / (row["ms"] - prologue_ms) / 1e9
+    simt_txt = ""
+    if path == "simt":  # the split route's three planes on the same inputs, for comparison
+        row["split_route_ms"] = timer.ms(lambda: qmm._split_bwd(*args, qs, round_cot))
+        row["summands"] = simt_info
+        simt_txt = (f"; bf16(xd^T dY) off the correctly rounded value: kernel "
+                    f"{simt_info['kernel_off']:.2e}, plain {simt_info['plain_off']:.2e}; "
+                    f"correctly rounded summands {simt_info['exact_vs_plain_bar']:.3f} x the "
+                    f"plain dws bar")
     pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
     tag = f"{path}, {planes} plane{'s' * (planes > 1)}" if planes else path
     b32_txt = "" if b32 is None else f", f32 SIMT line {b32:.4f} ms"
@@ -1036,7 +1142,9 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
         + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
         f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
         + b32_txt + (f", grid {row['grid_tflops']:.1f} TFLOP/s" if "grid_tflops" in row
-                     else ""))
+                     else "")
+        + (f", split route {row['split_route_ms']:.4f} ms" if path == "simt" else "")
+        + simt_txt)
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
         fail(f"{name} {m}x{k}x{n} disagrees with its plain version on {bad}")
@@ -1302,30 +1410,83 @@ QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
                "quant_matmul_bwd_batched")
 
 
-def qat_launches_per_step(cfg) -> dict:
-    """Launches a train step makes, from the model: every block linear runs
-    its forward twice (remat recomputes the block in the backward) and its
-    combined backward once: the 4 attention linears and a dense FFN's on
-    the 2D kernels, an MoE FFN's expert linears on the batched ones (the
-    router stays on the f32 einsum); the tied head, whose vocab-wide N
-    takes the split route, runs the forward once and dx / dw once each."""
-    ffn = 3 if cfg.ffn_gated else 2
+def qat_linears(cfg, qcfg, tokens: int) -> list:
+    """Every linear of a train step that takes the QAT kernels, as
+    (name, count in the model, M, K, N, f32 cotangent, batched, remat):
+    a block linear whose kind quantizes both its input and its weight (not
+    at 1 bit), with its (K, N) from the config (wq / wk / wv, wo, the dense
+    FFN's, an MoE FFN's expert linears at the per-expert capacity rows; the
+    router stays on the f32 einsum), and the head (untied, or tied as the
+    transposed per-tensor embedding). Block linears run their forward twice
+    (remat recomputes the block in the backward); the head once."""
+    from repro_torch.core.policy import act_spec, weight_spec
+    from repro_torch.models.common import NAME2KIND
+    from repro_torch.models.moe import capacity
+
+    def fused(name, wname=None):
+        a, w = act_spec(qcfg, NAME2KIND[name]), weight_spec(qcfg, NAME2KIND[wname or name])
+        return a is not None and w is not None and a.bits != 1 and w.bits != 1
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
     moe = sum(cfg.block_at(i).ffn == "moe" for i in range(cfg.n_layers))
-    dense = 4 * cfg.n_layers + ffn * (cfg.n_layers - moe)
-    return {"quant_matmul": 2 * dense + 1, "quant_matmul_bwd": dense,
-            "quant_matmul_dx": 1, "quant_matmul_dw": 1,
-            "quant_matmul_batched": 2 * ffn * moe,
-            "quant_matmul_bwd_batched": ffn * moe}
+    dense = cfg.n_layers - moe
+    out = []
+    for name, k, n in (("wq", d, h * hd), ("wk", d, hkv * hd), ("wv", d, hkv * hd),
+                       ("wo", h * hd, d)):
+        if fused(name):
+            out.append((name, cfg.n_layers, tokens, k, n, False, False, True))
+    ffn = (("w_gate", d, f),) if cfg.ffn_gated else ()
+    ffn += (("w_in", d, f), ("w_out", f, d))
+    for name, k, n in ffn:
+        if dense and fused(name):
+            out.append((name, dense, tokens, k, n, False, False, True))
+        moe_name = {"w_gate": "moe_gate", "w_in": "moe_in", "w_out": "moe_out"}[name]
+        if moe and fused(moe_name):
+            groups = cfg.moe_dispatch_groups
+            rows = groups * capacity(tokens // groups, cfg)
+            out.append((moe_name, moe, rows, k, n, False, True, True))
+    tied_ok = (cfg.tie_embeddings and fused("lm_head", "embed")
+               and weight_spec(qcfg, "embed").granularity == "per_tensor")
+    if tied_ok or (not cfg.tie_embeddings and fused("lm_head")):
+        out.append(("lm_head", 1, tokens, d, cfg.padded_vocab, True, False, False))
+    return out
 
 
-def formula(cfg) -> str:
-    ffn = 3 if cfg.ffn_gated else 2
-    if cfg.pattern[0].ffn == "moe":
-        return (f"quant_matmul 2 x 4 x {cfg.n_layers} + 1, quant_matmul_bwd 4 x "
-                f"{cfg.n_layers}, dx / dw 1 (head), quant_matmul_batched 2 x "
-                f"{ffn} x {cfg.n_layers}, quant_matmul_bwd_batched {ffn} x {cfg.n_layers}")
-    return (f"quant_matmul 2 x (4 + {ffn}) x {cfg.n_layers} + 1, quant_matmul_bwd "
-            f"(4 + {ffn}) x {cfg.n_layers}, dx / dw 1 (head)")
+def qat_launches_per_step(cfg, qcfg, tokens: int) -> dict:
+    """Launches a train step makes, from `qat_linears`: each linear's
+    forward (twice for a block linear), and its backward on the route the
+    dispatcher takes (`quant_matmul.bwd_route` on the padded shape, the
+    per-expert shape for the batched kernels): the combined backward once
+    ("tc" for bf16 cotangents, "simt" for the head's f32 ones), or, past
+    the reference's scratch budget, the split dx / dw once each (expert by
+    expert for the batched kernels)."""
+    from repro_torch.kernels.quant_matmul import bwd_route
+    c = dict.fromkeys(QAT_KERNELS, 0)
+    for _, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
+        e = cfg.n_experts if batched else 1
+        c["quant_matmul_batched" if batched else "quant_matmul"] += count * (2 if remat else 1)
+        if bwd_route(m, k, n, not f32_cot) == "split":
+            c["quant_matmul_dx"] += count * e
+            c["quant_matmul_dw"] += count * e
+        else:
+            c["quant_matmul_bwd_batched" if batched else "quant_matmul_bwd"] += count
+    return c
+
+
+def formula(cfg, qcfg, tokens: int) -> str:
+    """`qat_launches_per_step`'s terms: each linear, its count, its
+    forwards and its backward route."""
+    from repro_torch.kernels.quant_matmul import bwd_route
+    parts = []
+    for name, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
+        route = bwd_route(m, k, n, not f32_cot)
+        route += " (3 planes)" if route == "split" and f32_cot else (
+            " (1 plane)" if route == "split" else "")
+        each = f" x {cfg.n_experts} experts" if batched and route.startswith("split") else ""
+        parts.append(f"{name} ({m}, {k}, {n}) x {count}: fwd {2 if remat else 1}, "
+                     f"bwd {route}{each}")
+    return "; ".join(parts)
 
 
 def train_phase(torch, ops, train, argv: list, expect_start: int,
@@ -1460,33 +1621,32 @@ def route_check(torch, arch: str = "qwen1.5-0.5b", quant: str = "w4a4",
             "as_is": {"loss": d_raw, "worst": top_raw}, "choice_flips": flips}
 
 
-def moe_train_phase(torch, ops, steps: int = 3) -> dict:
-    """The MoE training path through `run_training` (the CLI has no flag for
-    oscillation tracking, as in the reference): full-width 24-layer
-    granite-moe-1b-a400m, w3a3 (OBR lambda 0.1 on a cosine ramp over the
-    run), track_oscillation, MCKD top-16, sentinel on, batch 8 x 512, seed
-    0, the CLI's optimizer settings; no checkpoint is written (save_every
-    beyond the run: the full state with its oscillation state is ~24 GB)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.policy import get_preset
+def training_run(torch, ops, cfg, qcfg, *, batch: int, seq: int, steps: int,
+                 tag: str, strict_health: bool) -> dict:
+    """`run_training` on the card with the launch counts set to 0 just
+    before and read just after: MCKD top-16, sentinel on, seed 0, the CLI's
+    optimizer settings, no checkpoint written (save_every beyond the run).
+    Finite losses; health 0 every step (strict_health) or no fatal bit;
+    with OBR on, obr_lambda 0 at step 0 and > 0 after and loss_obr > 0;
+    with oscillation tracked, osc_frac every step."""
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.launch import train
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.sentinel import SentinelConfig
     from repro_torch.train.state import TrainConfig
     import shutil
-    cfg = get_config("granite-moe-1b-a400m")
-    qcfg = get_preset("w3a3").replace(track_oscillation=True)
     tcfg = TrainConfig(total_steps=steps, warmup_steps=2, kd="mckd", kd_topk=16,
                        adamw=AdamWConfig(lr_peak=3e-3), sentinel=SentinelConfig())
-    ckpt_dir = ROOT / "build" / "chip_smoke_moe_ckpt"
+    ckpt_dir = ROOT / "build" / f"chip_smoke_{tag}_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    log(f"train: run_training({cfg.name}, 24 layers, w3a3 + OBR, "
-        f"track_oscillation, batch 8 x 512, {steps} steps)")
+    log(f"train: run_training({cfg.name}, {cfg.n_layers} layers, "
+        f"w{qcfg.w_bits}a{qcfg.a_bits}{' + OBR' if qcfg.obr_lambda else ''}"
+        f"{', track_oscillation' if qcfg.track_oscillation else ''}, batch "
+        f"{batch} x {seq}, {steps} steps)")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rep = train.run_training(cfg, qcfg, tcfg, DataConfig(seed=0), steps=steps,
-                             batch_size=8, seq_len=512, ckpt_dir=str(ckpt_dir),
+                             batch_size=batch, seq_len=seq, ckpt_dir=str(ckpt_dir),
                              save_every=10 ** 6, log_every=1, seed=0,
                              device="cuda")
     torch.cuda.synchronize()
@@ -1498,24 +1658,167 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
     s_step = statistics.median(steady)
     log(f"  wall {wall:.1f} s (params built on the card included), s/step "
         f"{[round(v, 3) for v in rep.step_seconds]} (median after the first "
-        f"{s_step:.3f} s, {8 * 512 / s_step:.0f} tokens/s), losses {rep.losses}, "
+        f"{s_step:.3f} s, {batch * seq / s_step:.0f} tokens/s), losses {rep.losses}, "
         f"health {rep.healths}, peak {(rep.peak_bytes or 0) / 2**30:.2f} GiB, "
         f"checkpoint files {written}")
     for i, mm in enumerate(rep.metrics):
         log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in mm.items()))
     if rep.steps_run != steps or len(rep.healths) != steps:
-        fail(f"MoE train run ran {rep.steps_run} steps; expected {steps}")
+        fail(f"{cfg.name} train run ran {rep.steps_run} steps; expected {steps}")
     if not all(v == v and abs(v) < float("inf") for v in rep.losses):
-        fail(f"non-finite MoE training loss: {rep.losses}")
-    if any(h & SentinelConfig().fatal_bits for h in rep.healths):
-        fail(f"fatal sentinel health bits in the MoE run: {rep.healths}")
-    lams = [mm["obr_lambda"] for mm in rep.metrics]
-    if lams[0] != 0.0 or not all(v > 0 for v in lams[1:]):
-        fail(f"obr_lambda should be 0 at step 0 and > 0 after: {lams}")
-    if not all("osc_frac" in mm and mm["loss_obr"] > 0 for mm in rep.metrics):
-        fail(f"OBR / oscillation metrics missing: {rep.metrics}")
+        fail(f"non-finite {cfg.name} training loss: {rep.losses}")
+    bad = [h for h in rep.healths if (h if strict_health
+                                      else h & SentinelConfig().fatal_bits)]
+    if bad:
+        fail(f"sentinel health bits in the {cfg.name} run: {rep.healths}")
+    if qcfg.obr_lambda > 0:
+        lams = [mm["obr_lambda"] for mm in rep.metrics]
+        if lams[0] != 0.0 or not all(v > 0 for v in lams[1:]):
+            fail(f"obr_lambda should be 0 at step 0 and > 0 after: {lams}")
+        if not all(mm["loss_obr"] > 0 for mm in rep.metrics):
+            fail(f"OBR metrics missing: {rep.metrics}")
+    if qcfg.track_oscillation and not all("osc_frac" in mm for mm in rep.metrics):
+        fail(f"oscillation metrics missing: {rep.metrics}")
     return {"report": rep, "counts": counts, "wall": wall, "s_step": s_step,
-            "tokens_s": 8 * 512 / s_step, "cfg": cfg}
+            "tokens_s": batch * seq / s_step, "cfg": cfg, "qcfg": qcfg}
+
+
+def moe_train_phase(torch, ops, steps: int = 3) -> dict:
+    """The MoE training path through `run_training` (the CLI has no flag for
+    oscillation tracking, as in the reference): full-width 24-layer
+    granite-moe-1b-a400m, w3a3 (OBR lambda 0.1 on a cosine ramp over the
+    run), track_oscillation, batch 8 x 512 (`training_run`; no checkpoint:
+    the full state with its oscillation state is ~24 GB)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    return training_run(torch, ops, get_config("granite-moe-1b-a400m"),
+                        get_preset("w3a3").replace(track_oscillation=True),
+                        batch=8, seq=512, steps=steps, tag="moe",
+                        strict_health=False)
+
+
+def check_launches(run: dict, steps: int, tokens: int,
+                   every_kernel: bool = False) -> dict:
+    """A run's QAT launches equal `qat_launches_per_step` x steps (and,
+    with every_kernel, each QAT kernel was launched)."""
+    per_step = qat_launches_per_step(run["cfg"], run["qcfg"], tokens)
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"  launches {run['counts']}; per step {per_step} "
+        f"({formula(run['cfg'], run['qcfg'], tokens)}) x {steps} steps = {want}")
+    if (run["counts"] != want or not any(want.values())
+            or (every_kernel and not all(want.values()))):
+        fail(f"{run['cfg'].name} QAT launches {run['counts']} != {per_step} "
+             f"per step x {steps}")
+    return per_step
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the MCKD store on the card
+# ---------------------------------------------------------------------------
+
+def mckd_store_phase(torch) -> dict:
+    """Full-width paper-bert-base's fp teacher (random, seed 0) builds one
+    MCKD shard: 2 batches of 8 x 256 tokens, 4 window_crop views of 128
+    each, top-16 labels. iter_shard reads every item back bit for bit
+    against the labels of the teacher's logits as it built them; then one
+    make_train_step step (w2a2, MCKD from the shard's first item, no
+    teacher in the loop) gives a finite loss and health 0."""
+    import numpy as np
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.kd import make_topk_labels
+    from repro_torch.core.policy import QuantConfig, get_preset
+    from repro_torch.data.mckd_store import MCKDStore, window_crop
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.sentinel import SentinelConfig
+    from repro_torch.train.state import TrainConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    cfg, fp = get_config("paper-bert-base"), QuantConfig(mode="off")
+    root = ROOT / "build" / "chip_smoke_mckd"
+    shutil.rmtree(root, ignore_errors=True)
+    t_params = M.init_params(cfg, fp, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    built = []
+
+    @torch.no_grad()
+    def teacher_apply(view):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in view.items()}
+        logits = M.forward(t_params, b, cfg, fp)[0]
+        built.append([t.cpu().numpy() for t in make_topk_labels(logits, 16)])
+        return logits
+
+    store = MCKDStore(str(root), k=16, n_crops=4)
+    batches = [sample_batch(cfg, DataConfig(), i, 8, 256) for i in range(2)]
+    t0 = time.perf_counter()
+    store.build_shard(0, teacher_apply, batches, lambda b, m: window_crop(b, m, 128))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    items = list(store.iter_shard(0))
+    same = len(items) == len(built) == 8 and all(
+        np.array_equal(it["kd_idx"], ki) and np.array_equal(
+            it["kd_p"].view(np.int32), kp.view(np.int32))
+        for it, (ki, kp) in zip(items, built))
+    del t_params
+    qcfg = get_preset("w2a2")
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, kd="mckd", kd_topk=16,
+                       sentinel=SentinelConfig())
+    state = init_state(cfg, qcfg, tcfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    _, m = make_train_step(cfg, qcfg, tcfg)(
+        state, {k: torch.from_numpy(v).cuda() for k, v in items[0].items()})
+    loss, health = float(m["loss"]), int(m["health"])
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"mckd store: {cfg.name} fp teacher, 2 batches x 4 views of 8 x 128, "
+        f"top-16: built in {build_s:.2f} s, {len(items)} items read back bit for bit: "
+        f"{same}; one w2a2 MCKD step from the shard: loss {loss:.4f}, health {health}")
+    if not same:
+        fail("MCKD store: the shard read back differs from the labels built")
+    if not (loss == loss and abs(loss) < float("inf")) or health:
+        fail(f"MCKD step from the store: loss {loss}, health {health}")
+    return {"items": len(items), "bit_equal": same, "build_s": build_s,
+            "loss": loss, "health": health}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the paper-table twins
+# ---------------------------------------------------------------------------
+
+TABLES = ("table1_sensitivity", "table2_sdam", "table4_qat", "table5_kd",
+          "table7_oscillation")
+TABLE_STEPS = 20
+
+
+def tables_phase(torch) -> dict:
+    """Each paper-table twin at its reference size (reduced 2-layer
+    qwen1.5-0.5b, batch 16 x 16) with its step count cut to TABLE_STEPS;
+    prints its rows, every value finite."""
+    import importlib
+    import math
+    out = {}
+    for name in TABLES:
+        mod = importlib.import_module(f"repro_torch.tables.{name}")
+        t0 = time.perf_counter()
+        rows = mod.run(steps=TABLE_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flat = (rows.items() if isinstance(rows, dict) else
+                [(r[0] if len(r) == 3 else f"{r[0]} {r[1]}-bit", r[-2:]) for r in rows])
+        log(f"table {name}: {TABLE_STEPS} steps a run, {wall:.1f} s")
+        vals = []
+        for key, v in flat:
+            if isinstance(v, dict):
+                vals += list(v.values())
+                txt = ", ".join(f"{k} {x:.4g}" for k, x in v.items())
+            elif isinstance(v, float):
+                vals.append(v)
+                txt = f"SDAM {v:.4e}"
+            else:
+                vals += list(v)
+                txt = f"eval CE {v[0]:.4f}, acc {v[1]:.4f}"
+            log(f"  {key}: {txt}")
+        if not all(isinstance(x, float) and math.isfinite(x) for x in vals):
+            fail(f"{name}: a value is not finite: {rows}")
+        out[name] = {"steps": TABLE_STEPS, "wall_s": wall, "rows": rows}
+    return out
 
 # ---------------------------------------------------------------------------
 # phase 10: the quantizer kernels (fake_quant_2d, fake_quant_rows,
@@ -1790,6 +2093,8 @@ def main() -> None:
     log("kernels (each against its plain version on the card):")
     serving = serving_kernel_rows(torch, timer, qmm, da, ref, gen)
     rows = serving["rows"]
+    log("kernels at musicgen-medium's serving shapes:")
+    musicgen_kernel_rows(torch, timer, qmm, da, ref, gen, rows)
 
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
@@ -1848,6 +2153,33 @@ def main() -> None:
             fail(f"{name} took paths {[r['path'] for r in qat_rows[name]]}")
     edges = split_edges(torch, timer, qmm, ref, gen)
     torch.cuda.empty_cache()
+    # the learned-position models' training shapes, after the rows above
+    # (which keep their inputs): the forward at musicgen-medium's w_in and
+    # head and at paper-bert-base's and paper-deit-t's heads; the f32 SIMT
+    # backward's training path, musicgen-medium's and paper-deit-t's heads;
+    # the split dx / dw at musicgen-medium's w_in, one plane (the split
+    # route of a dense FFN), and at paper-bert-base's head, three planes
+    log("qat kernels at musicgen-medium's, paper-bert-base's and paper-deit-t's shapes:")
+    for mm, k, n, qs in ((m, 1536, 6144, QAT_QS), (m, 1536, 2048, HEAD_QS),
+                         (32 * 128, 768, 30720, HEAD_QS), (64 * 197, 192, 1024, HEAD_QS)):
+        qat_rows["quant_matmul"].append(check_qat_fwd(
+            torch, timer, qmm, ref, mm, k, n, False, gen, qs))
+        torch.cuda.empty_cache()
+    for mm, k, n in ((m, 1536, 2048), (64 * 197, 192, 1024)):
+        qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", mm, k, n, False, False,
+            gen, HEAD_QS))
+        torch.cuda.empty_cache()
+    if [r["path"] for r in qat_rows["quant_matmul_bwd"][-2:]] != ["simt"] * 2:
+        fail("the f32 heads' quant_matmul_bwd did not take the SIMT path")
+    for name in ("quant_matmul_dx", "quant_matmul_dw"):
+        for mm, k, n, round_cot, qs in ((m, 1536, 6144, True, QAT_QS),
+                                        (32 * 128, 768, 30720, False, HEAD_QS)):
+            if qmm.bwd_route(mm, k, n, round_cot) != "split":
+                fail(f"({mm}, {k}, {n}) would not take the split route in training")
+            qat_rows[name].append(check_qat_bwd(
+                torch, timer, qmm, ref, name, mm, k, n, False, round_cot, gen, qs))
+            torch.cuda.empty_cache()
 
     # the batched (MoE expert) kernels at granite-moe's training shapes: 32
     # experts x 1280 capacity rows (8 x 512 tokens, top 8, factor 1.25),
@@ -1912,6 +2244,17 @@ def main() -> None:
         extra=moe_serve_checks(torch, M))
     torch.cuda.empty_cache()
 
+    # 13. learned positions and layernorm on the serving path: full-width
+    #     musicgen-medium, all 48 layers
+    music_serve = serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "musicgen-medium", "--quant", "w4a4", "--kv-bits", "8",
+         "--batch", "8", "--slots", "4", "--prompt-len", "128",
+         "--new-tokens", "32", "--chunk", "32"],
+        ("int4_matmul", "int_matmul", "pooled_decode_attention"), True,
+        cpu_reference=False, extra=dense_serve_checks(torch, M))
+    torch.cuda.empty_cache()
+
     # 6. QAT training, the main path of the training slice: full-width
     #    qwen1.5-0.5b, 3 steps saving at step 2, then a restored 4th step
     from repro_torch.launch import train
@@ -1924,13 +2267,10 @@ def main() -> None:
     first = train_phase(torch, ops, train, targv + ["--steps", "3"], 0, 3)
     resumed = train_phase(torch, ops, train, targv + ["--steps", "4"], 3, 1)
     from repro_torch.configs.registry import get_config
-    per_step = qat_launches_per_step(get_config("qwen1.5-0.5b"))
+    from repro_torch.core.policy import get_preset
     for run, n_steps in ((first, 3), (resumed, 1)):
-        want = {k: v * n_steps for k, v in per_step.items()}
-        if run["counts"] != want or any(run["counts"][k] <= 0 for k in want if want[k]):
-            fail(f"QAT launches {run['counts']} != {per_step} per step x {n_steps}")
-    log(f"  launches per step {per_step} ({formula(get_config('qwen1.5-0.5b'))}): "
-        "both runs match")
+        run.update(cfg=get_config("qwen1.5-0.5b"), qcfg=get_preset("w4a4"))
+        per_step = check_launches(run, n_steps, 8 * 512)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     # 7. the kernel route against the unfused composition, on the card
@@ -1938,15 +2278,39 @@ def main() -> None:
     torch.cuda.empty_cache()
     # 8. MoE QAT training with OBR and oscillation tracking, full width
     moe_run = moe_train_phase(torch, ops)
-    moe_step = qat_launches_per_step(moe_run["cfg"])
-    want = {k: v * 3 for k, v in moe_step.items()}
-    log(f"  launches {moe_run['counts']}; per step {moe_step} "
-        f"({formula(moe_run['cfg'])}) x 3 steps = {want}")
-    if moe_run["counts"] != want or any(moe_run["counts"][k] <= 0 for k in want):
-        fail(f"MoE QAT launches {moe_run['counts']} != {moe_step} per step x 3")
+    moe_step = check_launches(moe_run, 3, 8 * 512, every_kernel=True)
     torch.cuda.empty_cache()
     # 9. the MoE kernel route against the unfused composition, at init
     moe_route = route_check(torch, "granite-moe-1b-a400m", "w3a3")
+    torch.cuda.empty_cache()
+    # 14. training the learned-position models at full width: musicgen-medium
+    #     through the CLI, the paper's BERT-base (w2a2, OBR, oscillation
+    #     tracked) and DeiT-T (w3a3, 197 patches) through run_training; then
+    #     the MCKD store on the card
+    music_dir = ROOT / "build" / "chip_smoke_musicgen_ckpt"
+    shutil.rmtree(music_dir, ignore_errors=True)
+    music_train = train_phase(
+        torch, ops, train, ["--arch", "musicgen-medium", "--quant", "w4a4",
+                            "--kd", "mckd", "--batch", "8", "--seq", "512",
+                            "--steps", "3", "--save-every", str(10 ** 6),
+                            "--ckpt", str(music_dir)], 0, 3)
+    shutil.rmtree(music_dir, ignore_errors=True)
+    music_train.update(cfg=get_config("musicgen-medium"), qcfg=get_preset("w4a4"))
+    music_step = check_launches(music_train, 3, 8 * 512)
+    torch.cuda.empty_cache()
+    paper_runs = {}
+    for arch, qcfg, batch, seq in (
+            ("paper-bert-base", get_preset("w2a2").replace(track_oscillation=True), 32, 128),
+            ("paper-deit-t", get_preset("w3a3"), 64, 197)):
+        run = training_run(torch, ops, get_config(arch), qcfg, batch=batch, seq=seq,
+                           steps=3, tag=arch, strict_health=True)
+        run["per_step"] = check_launches(run, 3, batch * seq)
+        paper_runs[arch] = run
+        torch.cuda.empty_cache()
+    store = mckd_store_phase(torch)
+    torch.cuda.empty_cache()
+    # 15. the paper-table twins, steps cut
+    tables = tables_phase(torch)
     torch.cuda.empty_cache()
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
     bench_counts, bench = kernel_bench_phase(torch, ops)
@@ -1997,6 +2361,12 @@ def main() -> None:
         if name in ("int4_matmul", "pooled_decode_attention"):
             kernels[-1]["launches_moe_serve"] = moe_serve["counts"][name]
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
+            kernels[-1]["launches_musicgen_serve"] = music_serve["counts"][name]
+        if name in QAT_KERNELS:
+            kernels[-1]["launches_train"] = {
+                "musicgen-medium": music_train["counts"][name],
+                **{a: r["counts"][name] for a, r in paper_runs.items()}}
+        if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
                                    "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
@@ -2041,6 +2411,22 @@ def main() -> None:
         "throughput": moe_serve["summary"]["throughput"],
         "peak_gib": (moe_serve["peak"] or 0) / 2**30, "launches": moe_serve["counts"],
         "wall_s": moe_serve["wall"], **moe_serve["extra"]},
+        "musicgen_serve": {
+        "throughput": music_serve["summary"]["throughput"],
+        "peak_gib": (music_serve["peak"] or 0) / 2**30,
+        "launches": music_serve["counts"], "wall_s": music_serve["wall"],
+        **music_serve["extra"]},
+        "learned_pos_train": {
+        arch: {"s_per_step": r["s_step"], "tokens_per_s": r["tokens_s"],
+               "step_seconds": r["report"].step_seconds,
+               "peak_gib": (r["report"].peak_bytes or 0) / 2**30,
+               "losses": r["report"].losses, "healths": r["report"].healths,
+               "metrics": r["report"].metrics, "launches_per_step": per}
+        for arch, r, per in (("musicgen-medium", music_train, music_step),
+                             *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
+        "mckd_store": store,
+        "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}
+                   for k, v in tables.items()},
         "kernel_bench": {
         "launches": bench_counts, "equivalence": bench["equivalence"],
         "decode_parity": bench["decode_parity"],

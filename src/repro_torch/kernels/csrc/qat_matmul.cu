@@ -74,8 +74,9 @@
 // 2^-134); an f32 above bf16's largest finite value splits to Inf.
 //
 // SIMT tile (f32 FMA on bf16 values held in f32, exact products): the
-// combined backward, 2D and per expert, for f32 cotangents (no model the port
-// trains launches it). 128 x 128 outputs a block of 256 threads, 8 x 8 a
+// combined backward, 2D and per expert, for f32 cotangents (the 2D form on
+// the untied heads narrow enough for the combined route: musicgen-medium's,
+// paper-deit-t's). 128 x 128 outputs a block of 256 threads, 8 x 8 a
 // thread, the contraction walked 8 at a time through shared memory, the next
 // slice's loads in flight while the current one is multiplied; each operand
 // is dequantized as it is staged.
@@ -127,9 +128,11 @@ namespace {
 constexpr int BM = 128;          // output rows of a block tile
 constexpr int BN = 128;          // output columns of a block tile
 constexpr int BK = 8;            // contraction slice staged per step
+constexpr int FOLD = 128;        // SIMT contraction rows summed before a fold (multiple of BK)
 constexpr int NT = 256;          // threads a block: 16 x 16, 8 x 8 outputs each
 constexpr int PAD = 4;           // keeps the staging stores free of bank conflicts
 constexpr float EPS = 1e-9f;
+static_assert(FOLD % BK == 0, "a fold ends a staged slice");
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -224,7 +227,12 @@ struct DY {  // dY (M, N): A(m, n) for dX (L = n), B(m, n) for dW (L = m)
 
 // ---------------------------------------------------------------------------
 // The GEMM tile: acc[r][c] = sum_l A(i0 + row(r), l) * B(l, j0 + col(c)),
-// rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise with tx.
+// rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise with tx. Each
+// FOLD-deep chunk of the contraction is summed by FMA from zero and then added
+// to a running total (the last, partial chunk too). One f32 accumulator over
+// a long contraction (12,608 at paper-deit-t's head, dW) drifts far enough
+// that bf16(dW) leaves its correctly rounded value more often than the plain
+// version's does (phase 5 of chip_smoke.py prints both shares).
 // ---------------------------------------------------------------------------
 
 struct Smem {
@@ -263,6 +271,11 @@ __device__ __forceinline__ void gemm_tile(const LA& la, const LB& lb, int i0, in
     ra[p] = la.load(i0 + i, l);
     rb[p] = lb.load(l2, j0 + j);
   }
+  float tot[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) tot[r][c] = 0.f;
   for (int l0 = 0; l0 < L; l0 += BK) {
     __syncthreads();  // the previous slice's readers are done
 #pragma unroll
@@ -297,7 +310,20 @@ __device__ __forceinline__ void gemm_tile(const LA& la, const LB& lb, int i0, in
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
     }
+    if ((l0 + BK) % FOLD == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          tot[r][c] = __fadd_rn(tot[r][c], acc[r][c]);
+          acc[r][c] = 0.f;
+        }
+    }
   }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(tot[r][c], acc[r][c]);
 }
 
 // Fixed-order sum of one value per thread; the result is valid in thread 0.

@@ -29,8 +29,9 @@ that dequantizes each operand once into zero-padded bf16 scratch, then an
 mma.sync tile, the expert on the grid; the scratch lives for the call. The
 split dx / dw take f32 cotangents (the head's) as three exact bf16 planes
 (`ref.cotangent_planes`), whose bf16 x bf16 products sum to the f32
-products. Only the combined backwards with f32 cotangents (`bwd_route`, on
-no training path) run on the SIMT tile, which dequantizes as it stages.
+products. Only the combined backwards with f32 cotangents (`bwd_route`:
+the untied heads narrow enough for the combined route) run on the SIMT
+tile, which dequantizes as it stages.
 `fwd_prologue` / `bwd_prologue` run the prologues alone, 2D or per expert,
 for checks.
 

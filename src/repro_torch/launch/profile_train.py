@@ -4,7 +4,8 @@
 
 A training path of `chip_smoke.py` at full width, all layers, MCKD top-16
 labels, sentinel on, batch 8 x 512: qwen1.5-0.5b under w4a4 (the default),
-or granite-moe-1b-a400m under w3a3 (OBR on) with oscillation tracking.
+granite-moe-1b-a400m under w3a3 (OBR on) with oscillation tracking, or
+musicgen-medium under w4a4 (learned positions, audio frames).
 Builds the train state from a seed, runs one warm-up step, then profiles
 `--steps` steps with torch.profiler: host wall ms per step, the device's
 elapsed ms (CUDA events), the device time per kernel (the 20 costliest,
@@ -41,7 +42,8 @@ from repro_torch.train.train_step import make_train_step, obr_
 BATCH, SEQ = 8, 512
 # arch -> (quant preset, track_oscillation): the training paths of chip_smoke.py
 PATHS = {"qwen1.5-0.5b": ("w4a4", False),
-         "granite-moe-1b-a400m": ("w3a3", True)}
+         "granite-moe-1b-a400m": ("w3a3", True),
+         "musicgen-medium": ("w4a4", False)}
 
 
 def _device_ms(fn, reps: int = 3) -> float:

@@ -2,7 +2,8 @@
 params, the cache pool, chunk steps.
 
 PyTorch counterpart of `repro.models.model` for attention blocks with a
-dense or an MoE FFN, for training and serving. The JAX
+dense or an MoE FFN, rope or learned positions and the audio / vision-patch
+frontends, for training and serving. The JAX
 package stacks the layers of each pattern position along a
 leading axis for `lax.scan` ("groups") plus an unrolled "tail"; this port
 keeps a plain per-layer list (`params["layers"][i]`, `cache["layers"][i]`),
@@ -24,8 +25,6 @@ in the JAX package) and commits the layers' appends only after all layers
 and the lm head have run, so a step that raises leaves its cache unchanged.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.utils.checkpoint
@@ -49,18 +48,21 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
 
 def _check_ported(cfg: ArchConfig) -> None:
     """The families the port trains and serves: attention blocks with a
-    dense or an MoE FFN (recurrent, cross and frontend patterns are
-    refused)."""
+    dense or an MoE FFN, rope / learned / no positions, and the audio-frame
+    and vision-patch frontends (as precomputed `frontend_embeds`).
+    Recurrent blocks and cross-attention are refused (ROADMAP.md Queue 1,
+    item 5: recurrent families, with cross-attention beside them)."""
     for bd in cfg.pattern:
         if (bd.attn not in ("global", "local") or bd.ffn not in ("dense", "moe")
                 or bd.cross_attn):
             raise NotImplementedError(
                 f"{cfg.name}: the port runs attention blocks with a dense or "
                 f"MoE FFN (got attn={bd.attn!r}, ffn={bd.ffn!r}, "
-                f"cross={bd.cross_attn})")
-    if cfg.frontend != "none" or cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.name}: frontend/learned positions "
-                                  "are not ported yet")
+                f"cross={bd.cross_attn}); recurrent blocks and "
+                "cross-attention are not ported yet (ROADMAP.md Queue 1, "
+                "item 5)")
+    if cfg.pos not in ("rope", "learned", "none"):
+        raise NotImplementedError(f"{cfg.name}: positions {cfg.pos!r}")
 
 
 def params_device(params: dict) -> torch.device:
@@ -103,6 +105,13 @@ def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device,
     return p
 
 
+def pos_embed_init(gen: torch.Generator, cfg: ArchConfig, device=None
+                   ) -> torch.Tensor:
+    """The learned position table: f32 (max_seq, d_model), 0.02 N(0, 1)."""
+    return torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
+                       dtype=torch.float32, device=device) * 0.02
+
+
 def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random latent QAT params (f32 weights, LSQ scale inits, activation
@@ -115,6 +124,8 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
     v, d = cfg.padded_vocab, cfg.d_model
     params = {"embed": embed_init(generator, qcfg, v, d, device),
               "final_norm": norm_init(d, cfg.norm, device)}
+    if cfg.pos == "learned":
+        params["pos_embed"] = pos_embed_init(generator, cfg, device)
     if cfg.tie_embeddings:
         params["lm_head"] = tied_head_act_init(qcfg, device)
     else:
@@ -172,11 +183,26 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     return x, sdam, lb, drop
 
 
+def _token_inputs(params, tokens, fe, cfg: ArchConfig, qcfg: QuantConfig,
+                  cdtype) -> torch.Tensor:
+    """The sqrt(d)-scaled token embeddings, plus the audio frames (B, S, d)
+    where the config has that frontend and the batch carries them."""
+    x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdtype, device=x.device)
+    if cfg.frontend == "audio_frames" and fe is not None:
+        x = x + fe.to(cdtype)
+    return x
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
             remat: bool = False):
-    """Full-sequence forward. batch: tokens (B, S). Returns (logits (B, S,
-    padded_vocab) f32, aux) with aux {"lb_loss", "drop_frac"} summed over
-    the layers and "act_sdam" their mean, as the reference sums them.
+    """Full-sequence forward. batch: tokens (B, S) [+ frontend_embeds]:
+    audio frames (B, S, d) are added to the scaled token embeddings;
+    vision patches (B, P, d) replace them (an encoder over the patches,
+    whose logits are per patch). Learned positions add rows 0..S-1 of
+    `pos_embed`. Returns (logits (B, S, padded_vocab) f32, aux) with aux
+    {"lb_loss", "drop_frac"} summed over the layers and "act_sdam" their
+    mean, as the reference sums them.
 
     remat=True recomputes each block in the backward pass
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
@@ -184,10 +210,15 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     """
     _check_ported(cfg)
     cdtype = _cdtype(cfg)
-    tokens = batch["tokens"]
-    x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdtype, device=x.device)
-    positions = torch.arange(x.shape[1], device=x.device)
+    fe = batch.get("frontend_embeds")
+    if cfg.frontend == "vision_patches":
+        x = fe.to(cdtype)  # an encoder over the patches: no token embedding
+    else:
+        x = _token_inputs(params, batch["tokens"], fe, cfg, qcfg, cdtype)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][:s].to(cdtype)[None]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     sdam_sum = lb_sum = drop_sum = zero
     for i, p in enumerate(params["layers"]):
@@ -286,9 +317,11 @@ def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     top = {"embed": embed_init(generator, qcfg, v, d, device),
-           "final_norm": norm_init(d, cfg.norm, device),
-           "lm_head": (tied_head_act_init(qcfg, device) if cfg.tie_embeddings
-                       else lm_head_init(generator, qcfg, d, v, device))}
+           "final_norm": norm_init(d, cfg.norm, device)}
+    if cfg.pos == "learned":  # drawn where init_params draws it
+        top["pos_embed"] = pos_embed_init(generator, cfg, device)
+    top["lm_head"] = (tied_head_act_init(qcfg, device) if cfg.tie_embeddings
+                      else lm_head_init(generator, qcfg, d, v, device))
     params = convert_to_serving(top, qcfg)
     params["layers"] = [
         convert_to_serving(_layer_train_init(generator, cfg, qcfg, device,
@@ -402,15 +435,18 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
                  qcfg: QuantConfig):
     """Multi-token step against the cache (chunked prefill / decode).
 
-    batch: tokens (B,C) int, pos (B,C) int (-1 = padding). Returns
-    (logits (B,C,V) f32, cache) with the chunk appended to `cache` in place.
+    batch: tokens (B,C) int, pos (B,C) int (-1 = padding) [+ audio
+    frontend_embeds (B,C,d)]. Returns (logits (B,C,V) f32, cache) with the
+    chunk appended to `cache` in place.
     C=1 is the classic decode step; C=prompt_len against a fresh cache is a
     full prefill whose [:, -1] logits seed generation.
     """
     cdtype = _cdtype(cfg)
     tokens, pos = batch["tokens"], batch["pos"]
-    x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
-    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdtype, device=x.device)
+    x = _token_inputs(params, tokens, batch.get("frontend_embeds"), cfg, qcfg,
+                      cdtype)
+    if cfg.pos == "learned":  # padding rows (pos -1) read row 0
+        x = x + params["pos_embed"][pos.clamp(min=0).long()].to(cdtype)
     appends = []
     for i, p in enumerate(params["layers"]):
         x, kv = block_decode(p, x, cfg.block_at(i), cfg, qcfg,

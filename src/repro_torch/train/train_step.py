@@ -17,6 +17,8 @@ is added as g + lambda * g_obr, as the reference does. With
 `qcfg.track_oscillation`, the Eq. 12 update runs on the post-update
 weights. Gradient compression is not ported yet and raises
 NotImplementedError when the step is built (`state.check_supported`).
+`make_eval_step` gives the hard-label cross-entropy and accuracy of a
+forward (the paper-table drivers' metric).
 """
 from __future__ import annotations
 
@@ -214,3 +216,17 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
         return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(cfg: ArchConfig, qcfg: QuantConfig):
+    """eval_step(params, batch) -> {"ce", "acc"}: the hard-label
+    cross-entropy and the argmax accuracy of one forward, no gradients."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        logits, _ = forward(params, batch, cfg, qcfg)
+        ce = hard_ce(logits, batch["labels"])
+        pred = torch.argmax(logits, dim=-1)
+        acc = torch.mean((pred == batch["labels"].to(pred.dtype))
+                         .to(torch.float32))
+        return {"ce": ce, "acc": acc}
+    return eval_step
