@@ -22,6 +22,20 @@ with the four results, in run order. Tasks, on the shapes of
   tiles      the one-plane tensor-core tiles: quant_matmul at (4096, 1024,
              2816) and the qwen head, quant_matmul_bwd at (4096, 1024,
              2816), quant_matmul_bwd_batched at (32, 1280, 1024, 512).
+  f32_bwd    the combined backward with f32 cotangents (the untied heads'):
+             quant_matmul_bwd at paper-deit-t's head (12608, 192, 1024),
+             musicgen-medium's (4096, 1536, 2048) and (4096, 1024, 2816),
+             quant_matmul_bwd_batched at (32, 1280, 1024, 512): kernel,
+             plain, library, bound and split-route ms, and each device
+             kernel's ms a call (torch.profiler, 5 calls, fresh inputs).
+  bwd_bits   a SHA-1 of the five outputs of quant_matmul_bwd with bf16
+             cotangents at (4096, 1024, 2816), (4096, 1024, 1024) K-side
+             and (257, 129, 65) K-side, of the split route (`_split_bwd`)
+             at musicgen-medium's head with f32 cotangents and at (4096,
+             1024, 2816) with bf16 ones, and of quant_matmul_bwd_batched
+             at (32, 1280, 1024, 512) with bf16 cotangents, on inputs
+             drawn the same way on both sides: equal digests are equal
+             bits.
   steps_qwen `repro_torch.launch.train`, qwen1.5-0.5b w4a4, 4 steps, the
              profiler off: s/step, losses, peak memory.
   steps_moe  granite-moe-1b-a400m w3a3 + OBR, 5 steps through
@@ -64,8 +78,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TASKS = ("head", "tiles", "steps_qwen", "steps_moe", "prof_qwen", "prof_moe", "serving",
-         "quantizer", "head_plans", "prof_decode")
+TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "steps_qwen", "steps_moe", "prof_qwen",
+         "prof_moe", "serving", "quantizer", "head_plans", "prof_decode")
+ROW_TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "serving", "quantizer", "head_plans")
 # the serving kernels' device kernels, by name, in either checkout
 DECODE_KERNELS = {"int4_matmul": ("int4_tc_kernel", "int_matmul_kernel<true"),
                   "int_matmul": ("int8_tc_kernel", "int_matmul_kernel<4"),
@@ -85,9 +100,27 @@ def own_rows():
 
 
 def _row(r: dict, name: str) -> dict:
-    keep = ("shape", "path", "planes", "plan", "ms", "plain_ms", "library_ms", "bound_ms",
-            "prologue_ms", "device_kernels")
+    keep = ("shape", "path", "planes", "dw_splits", "plan", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_f32_ms", "split_route_ms", "prologue_ms", "device_kernels")
     return {"name": name, **{k: r[k] for k in keep if k in r}}
+
+
+def device_ms(torch, fn, calls: int = 5) -> dict:
+    """Each device kernel's ms a call of fn (torch.profiler over `calls`
+    calls after one), by name without its namespace and arguments."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.split("(anonymous namespace)::")[-1].split("(")[0][:80]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def run_one(root: Path, task: str) -> dict:
@@ -106,7 +139,7 @@ def run_one(root: Path, task: str) -> dict:
     build.build_all()
     out = {"root": str(root), "task": task}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if task in ("head", "tiles", "serving", "quantizer", "head_plans"):
+    if task in ROW_TASKS:
         timer = cs.Timer(torch)
         rows = []
     if task == "head":
@@ -137,6 +170,53 @@ def run_one(root: Path, task: str) -> dict:
                          "quant_matmul_bwd"))
         rows.append(_row(cs.check_batched_bwd(torch, timer, qmm, ref, 32, 1280, 1024, 512, gen,
                                               cs.MOE_QS), "quant_matmul_bwd_batched"))
+    elif task == "f32_bwd":
+        m = 8 * 512
+        for mm, k, n, qs in ((64 * 197, 192, 1024, cs.HEAD_QS), (m, 1536, 2048, cs.HEAD_QS),
+                             (m, 1024, 2816, cs.QAT_QS)):
+            r = _row(cs.check_qat_bwd(torch, timer, qmm, ref, "quant_matmul_bwd", mm, k, n,
+                                      False, False, gen, qs), "quant_matmul_bwd")
+            x, w, a_s, a_b, ws = cs.qat_operands(torch, mm, k, n, False, gen, qs)
+            dy = torch.randn((mm, n), generator=gen, device="cuda")
+            r["device_ms"] = device_ms(torch, lambda: qmm.quant_matmul_bwd(
+                dy, x, w, a_s, a_b, ws, round_cot=False, **qs))
+            rows.append(r)
+            del x, w, dy
+            torch.cuda.empty_cache()
+        r = _row(cs.check_batched_bwd(torch, timer, qmm, ref, 32, 1280, 1024, 512, gen,
+                                      cs.MOE_QS, round_cot=False), "quant_matmul_bwd_batched")
+        x, w, a_s, a_b, ws = cs.batched_operands(torch, 32, 1280, 1024, 512, gen, cs.MOE_QS)
+        dy = torch.randn((32, 1280, 512), generator=gen, device="cuda")
+        r["device_ms"] = device_ms(torch, lambda: qmm.quant_matmul_bwd_batched(
+            dy, x, w, a_s, a_b, ws, round_cot=False, **cs.MOE_QS))
+        rows.append(r)
+    elif task == "bwd_bits":
+        import hashlib
+
+        def digest(outs):
+            return hashlib.sha1(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                         for t in outs)).hexdigest()
+
+        m = 8 * 512
+        cases = (("quant_matmul_bwd", m, 1024, 2816, False, True, cs.QAT_QS),
+                 ("quant_matmul_bwd", m, 1024, 1024, True, True, cs.QAT_QS),
+                 ("quant_matmul_bwd", 257, 129, 65, True, True, cs.QAT_QS),
+                 ("_split_bwd", m, 1536, 2048, False, False, cs.HEAD_QS),
+                 ("_split_bwd", m, 1024, 2816, False, True, cs.QAT_QS))
+        for name, mm, k, n, k_side, round_cot, qs in cases:
+            x, w, a_s, a_b, ws = cs.qat_operands(torch, mm, k, n, k_side, gen, qs)
+            dy = torch.randn((mm, n), generator=gen, device="cuda")
+            if name == "_split_bwd":
+                outs = qmm._split_bwd(dy, x, w, a_s, a_b, ws, qs, round_cot)
+            else:
+                outs = qmm.quant_matmul_bwd(dy, x, w, a_s, a_b, ws, round_cot=round_cot, **qs)
+            rows.append({"name": name, "shape": [mm, k, n], "round_cot": round_cot,
+                         "digest": digest(outs)})
+        x, w, a_s, a_b, ws = cs.batched_operands(torch, 32, 1280, 1024, 512, gen, cs.MOE_QS)
+        dy = torch.randn((32, 1280, 512), generator=gen, device="cuda")
+        rows.append({"name": "quant_matmul_bwd_batched", "shape": [32, 1280, 1024, 512],
+                     "round_cot": True, "digest": digest(qmm.quant_matmul_bwd_batched(
+                         dy, x, w, a_s, a_b, ws, **cs.MOE_QS))})
     elif task == "serving":
         from repro_torch.kernels import decode_attention as da
         own = own_rows()
@@ -218,7 +298,7 @@ def run_one(root: Path, task: str) -> dict:
                                       "named_kernels", "losses") if k in r},
                    **{k: r[k] for k in ("obr_ms", "osc_update_ms") if k in r},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if task in ("head", "tiles", "serving", "quantizer", "head_plans"):
+    if task in ROW_TASKS:
         out["rows"] = rows
     return out
 

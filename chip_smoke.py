@@ -64,12 +64,17 @@ Phases (any failure exits non-zero before the final line is printed):
                (one with f32 x), each row within 1e-5 x max|y| and every
                element within the f32 order bound, run twice for identical
                bits, its prologue bit-equal to the plain dequantization;
-               quant_matmul_bwd at the FFN's two shapes and wo (bf16
-               cotangents, the tensor-core path), at granite-moe's attention
-               shapes (w3a3), at odd, misaligned shapes (one with f32 x), and
-               once with f32 cotangents (the SIMT path), each row naming its
-               path, run twice for identical bits, and on the tensor-core
-               path its prologue bit-equal to the plain dequantization;
+               quant_matmul_bwd, the combined backward on the tensor cores,
+               at the FFN's two shapes and wo (bf16 cotangents, one plane),
+               at granite-moe's attention shapes (w3a3), at odd, misaligned
+               shapes (one with f32 x), and with f32 cotangents on three
+               planes (at (4096, 1024, 2816), and last at two odd shapes
+               whose dW contraction `dw_splits` cuts in ranges), each row
+               naming its path, planes and dW ranges S, run twice for
+               identical bits, its prologue bit-equal to the plain
+               dequantization; an f32 row in one dW range bit-equal to the
+               split route ("as split") and each f32 row with the split
+               route's time beside its own;
                quant_matmul_dx / _dw (the split grids, on the tensor cores)
                at the head with f32 cotangents as three exact bf16 planes
                (the planes bit-equal to the plain split, hi + mid + lo == dY
@@ -78,14 +83,17 @@ Phases (any failure exits non-zero before the final line is printed):
                outputs) and at an odd K-side shape with f32 cotangents; the
                split's edges: a softmax head cotangent with entries below
                2^-110, and whether mma.sync keeps a bf16 subnormal lo
-               (reported); with the same four numbers a kernel (the f32 SIMT
+               (reported); with the same four numbers a kernel (the f32
                line beside the three planes' bound), and the bars of the CPU
-               tests; on the tensor cores dws is held as in phase 5b (the
+               tests; dws is held as in phase 5b (the
                plain bar plus its differing bf16(xd^T dY) summands x
                |q - mf u|, read from a launch with w = 0, each summand the
                real dW where w is in range and held to the dW bar; the
                allowance approved for phase 5 too, ROADMAP Queue 3), each
-               row printing the share of the allowance it uses (<= 1.0).
+               row printing the share of the allowance it uses (<= 1.0);
+               each f32 row that computes dW also prints the shares of
+               bf16(xd^T dY) off its correctly rounded value in the kernel
+               and in the plain version.
   6. train   — `repro_torch.launch.train` on full-width qwen1.5-0.5b (24
                layers, tied head, QKV bias), w4a4, MCKD top-16, sentinel on,
                batch 8 x 512, 3 steps saving at step 2, then a second call to
@@ -106,14 +114,14 @@ Phases (any failure exits non-zero before the final line is printed):
                each row naming its path, run twice for identical bits, its
                prologue bit-equal to the plain dequantization, and experts 0
                and E-1 bit-equal in all five outputs to quant_matmul_bwd on
-               their slices; on the tensor cores dws may also differ from
-               the plain dws by its differing bf16(xd^T dY) summands x
-               |q - mf u| (read from a launch with w = 0, each summand held
-               to the dW bar); the backward also with f32 cotangents (the
-               SIMT path) and once on its split route (a wide N past the
-               reference's scratch budget: the split grids on the tensor
-               cores, expert by expert, with the tensor-core rows' bars);
-               run with phase 5.
+               their slices; dws may also differ from the plain dws by its
+               differing bf16(xd^T dY) summands x |q - mf u| (read from a
+               launch with w = 0, each summand held to the dW bar); the
+               backward also with f32 cotangents (three planes, the 2D
+               backward's dW ranges, the split route's time beside it) and
+               once on its split route (a wide N past the reference's
+               scratch budget: the split grids, expert by expert); run with
+               phase 5.
   8. train   — `run_training` on full-width granite-moe-1b-a400m (24 layers,
                32 experts top 8, tied head), w3a3 (OBR lambda 0.1 on a cosine
                ramp) with oscillation tracking, MCKD top-16, sentinel on,
@@ -149,8 +157,9 @@ Phases (any failure exits non-zero before the final line is printed):
                slots, and a 4-layer cut against the CPU with phase 4's
                bars. Phase 2 holds kernels 7-9 at its shapes and phase 5
                the QAT kernels at the training shapes of phase 14 (the
-               f32 SIMT backward at musicgen-medium's and paper-deit-t's
-               heads, the one-plane split dx / dw at musicgen-medium's
+               f32 combined backward on three planes at musicgen-medium's
+               head, one dW range, and paper-deit-t's, 13 ranges; the
+               one-plane split dx / dw at musicgen-medium's
                w_in, paper-bert-base's head on three planes).
   14. train  — `repro_torch.launch.train --arch musicgen-medium` (w4a4, MCKD,
                batch 8 x 512, 3 steps); `run_training` on full-width
@@ -982,15 +991,21 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
                   gen, qs, x_dtype=None) -> dict:
     """quant_matmul_bwd (combined) or quant_matmul_dx / _dw (split) against
     the plain versions; the scalar and per-column sums within 1e-4 of their
-    sum of |summands| (on the tensor cores dws, as in phase 5b, may also
-    differ by its differing bf16(xd^T dY) summands x |q - mf u|, read from
-    a launch with w = 0: those must be the real dW where w is in range and
-    meet the dW bar); a second launch on the same inputs gives the same
-    bits; on the tensor-core path, the prologue bit-equal to the plain
-    dequantization and the cotangent's planes. The split dx / dw run on the
-    tensor cores, f32 cotangents as three planes whose sum must be dY
-    exactly; with bf16 cotangents, where quant_matmul_bwd's route is the
-    tensor cores' too, their outputs must equal its bits."""
+    sum of |summands| (dws, as in phase 5b, may also differ by its
+    differing bf16(xd^T dY) summands x |q - mf u|, read from a launch with
+    w = 0: those must be the real dW where w is in range and meet the dW
+    bar); a second launch on the same inputs gives the same bits; the
+    prologue bit-equal to the plain dequantization and the cotangent's
+    planes. Everything runs on the tensor cores, f32 cotangents as three
+    planes whose sum must be dY exactly. With bf16 cotangents, where
+    quant_matmul_bwd's route is the combined one too, the split dx / dw
+    outputs must equal its bits; an f32 combined row whose dW contraction
+    is one range (`dw_splits`) must equal the split route's bits in all
+    five outputs, and prints the split route's time beside its own. Every
+    f32 row that computes dW prints the shares of bf16(xd^T dY) off its
+    correctly rounded value (an f64 product) in the kernel and in the
+    plain version, and how far correctly rounded summands would put dws
+    from the plain dws (ROADMAP Queue 3)."""
     x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype)
     dy = torch.randn((m, n), generator=gen, device="cuda")
     kw = dict(round_cot=round_cot, **qs)
@@ -999,9 +1014,9 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     plain_fn = getattr(ref, name)
     kern = lambda: fn(*args, **kw)
     plain = lambda: plain_fn(*args, **kw)
-    path = (qmm.bwd_route(m, k, n, round_cot) if name == "quant_matmul_bwd"
-            else "tc")
-    planes = qmm.plane_count(round_cot) if path == "tc" else None
+    path = qmm.bwd_route(m, k, n) if name == "quant_matmul_bwd" else "tc"
+    planes = qmm.plane_count(round_cot)
+    splits = qmm.dw_splits(m, k, n, planes)[0] if name == "quant_matmul_bwd" else 1
     got, want = kern(), plain()
     again = kern()
     torch.cuda.synchronize()
@@ -1011,23 +1026,27 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     u_w, q_w, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
     cot = ref._cotangent(dy, round_cot)
     checks, worst = [("repeat", repeat, "same bits on a second launch")], 0.0
-    prologue_ms, split = None, None
-    if path == "tc":
-        same, prologue_ms, dyb = check_prologue(torch, timer, qmm, ref, args, qs, planes)
-        checks.append(("prologue", same, f"bit-equal to the plain dequantization, "
-                       f"{planes} plane{'s' * (planes > 1)}"))
-        if planes == 3:
-            holds, below, err = check_split(torch, dyb, dy, n)
-            split = {"exact": holds, "below_2^-110": below, "worst_below": err}
-            checks.append(("split", holds, f"hi + mid + lo == dY in f64 over all {m * n} "
-                           f"cotangents; {below} below 2^-110"))
-        del dyb
-    if name != "quant_matmul_bwd" and round_cot and qmm.bwd_route(m, k, n, True) == "tc":
+    split = vs_plain = past = summands = None
+    same, prologue_ms, dyb = check_prologue(torch, timer, qmm, ref, args, qs, planes)
+    checks.append(("prologue", same, f"bit-equal to the plain dequantization, "
+                   f"{planes} plane{'s' * (planes > 1)}"))
+    if planes == 3:
+        holds, below, err = check_split(torch, dyb, dy, n)
+        split = {"exact": holds, "below_2^-110": below, "worst_below": err}
+        checks.append(("split", holds, f"hi + mid + lo == dY in f64 over all {m * n} "
+                       f"cotangents; {below} below 2^-110"))
+    del dyb
+    if name != "quant_matmul_bwd" and round_cot and qmm.bwd_route(m, k, n) == "tc":
         both = qmm.quant_matmul_bwd(*args, **kw)
         mine = both[:3] if name == "quant_matmul_dx" else both[3:]
         checks.append(("as combined", all(_same_bits(torch, a, b) for a, b in zip(got, mine)),
                        "bit-equal to quant_matmul_bwd's tensor-core outputs"))
         del both, mine
+    if name == "quant_matmul_bwd" and not round_cot and splits == 1:
+        routed = qmm._split_bwd(*args, qs, round_cot)
+        checks.append(("as split", all(_same_bits(torch, a, b) for a, b in zip(got, routed)),
+                       "one dW range: bit-equal to the split route in all five"))
+        del routed
     if name in ("quant_matmul_bwd", "quant_matmul_dx"):
         dx_abs = cot.abs() @ wd.abs().T
         ex, frac = _bf16_close(torch, got[0], want[0], dx_abs, n)
@@ -1053,40 +1072,26 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
         fac = (q_w - mf * u_w).abs()
         axis = 1 if k_side else 0
         l1 = (dwd.abs() * fac).sum(dim=axis, keepdim=True)
-        flips = torch.zeros_like(l1)
-        if path == "tc":
-            # phase 5b's allowance (ROADMAP Queue 3): the tile's f32 order
-            # rounds some bf16(xd^T dY) summands to the other bf16
-            # neighbour (the dW bar allows that), and at clipped weights
-            # (|q - mf u| up to 4 at 3 bits) one such flip can move a sum
-            # past 1e-4 x sum|summands|; so each sum may also differ by its
-            # differing summands x |q - mf u|. The kernel's summands come
-            # from a launch with w = 0 (every code in range): they must be
-            # the real dW wherever w is in range and meet the dW bar.
-            dwd_k = fn(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[at]
-            real = bool(torch.equal(gw, dwd_k * mf))
-            ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
-            flips = ((dwd_k - dwd).abs() * fac).sum(dim=axis, keepdim=True)
-            checks += [("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW "
-                        "where in range"),
-                       ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
-                        f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
-            del dwd_k
-        simt_info = None
-        if path == "simt":
-            # not a check: the shares of bf16(xd^T dY) off its correctly
-            # rounded value (f64 product), in the kernel (its w = 0 launch)
-            # and in the plain version, and how far correctly rounded
-            # summands would put dws from the plain dws (ROADMAP Queue 3)
-            dwd_k = fn(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[at]
-            dwe = ref._bf16((xd.double().T @ cot.double()).float())
-            dws_e = (dwe * (q_w - mf * u_w)).sum(dim=axis, keepdim=True)
-            simt_info = {"kernel_off": (dwd_k != dwe).float().mean().item(),
-                         "plain_off": (dwd != dwe).float().mean().item(),
-                         "exact_vs_plain_bar": ((dws_e - rws).abs()
-                                                / (1e-4 * l1).clamp_min(1e-30)).max().item()}
-            del dwd_k, dwe, dws_e
-        del dw_abs, dwd, fac, mf
+        # phase 5b's allowance (ROADMAP Queue 3): the tile's f32 order
+        # rounds some bf16(xd^T dY) summands to the other bf16 neighbour
+        # (the dW bar allows that), and at clipped weights (|q - mf u| up
+        # to 4 at 3 bits) one such flip can move a sum past 1e-4 x
+        # sum|summands|; so each sum may also differ by its differing
+        # summands x |q - mf u|. The kernel's summands come from a launch
+        # with w = 0 (every code in range): they must be the real dW
+        # wherever w is in range and meet the dW bar.
+        dwd_k = fn(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[at]
+        real = bool(torch.equal(gw, dwd_k * mf))
+        ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
+        flips = ((dwd_k - dwd).abs() * fac).sum(dim=axis, keepdim=True)
+        checks += [("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW "
+                    "where in range"),
+                   ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
+                    f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
+        if not round_cot:
+            summands = summand_shares(torch, ref, dwd_k, dwd, xd, cot, q_w - mf * u_w,
+                                      lambda t: t.sum(dim=axis, keepdim=True), rws, l1)
+        del dwd_k, dw_abs, dwd, fac, mf
         gap = (ww - rws).abs()
         allowed = 1e-4 * l1 + flips
         dws_ok = bool((gap <= allowed).all())
@@ -1111,44 +1116,66 @@ def check_qat_bwd(torch, timer, qmm, ref, name, m, k, n, k_side, round_cot,
     nbytes = (m * n * 4 + m * k * x.element_size() + k * n * 4 + ws.numel() * 4
               + 8 + outs)
     ops = 2.0 * m * k * n * products
-    # f32 cotangents: the f32 SIMT line, and the line of the three planes'
-    # bf16 products on the tensor cores (the least time for this kernel's work)
+    # f32 cotangents: the f32 line, and the line of the three planes' bf16
+    # products on the tensor cores (the least time for this kernel's work)
     b32 = None if round_cot else bound(nbytes, ops, F32_OPS_PER_S)[0]
-    b_ms, b_by = (bound(nbytes, ops * planes) if planes else
-                  bound(nbytes, ops, BF16_OPS_PER_S if round_cot else F32_OPS_PER_S))
+    b_ms, b_by = bound(nbytes, ops * planes)
     row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
-           "round_cot": round_cot, "path": path, "planes": planes, "x": str(x.dtype)[6:],
-           "max_abs_err": worst,
+           "round_cot": round_cot, "path": path, "planes": planes, "dw_splits": splits,
+           "x": str(x.dtype)[6:], "max_abs_err": worst,
            "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands|",
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(libs[name]), "bound_ms": b_ms, "bound_by": b_by,
-           "bound_f32_ms": b32, "prologue_ms": prologue_ms, "split": split}
+           "bound_f32_ms": b32, "prologue_ms": prologue_ms, "split": split,
+           "dws_vs_plain": vs_plain, "dws_past_plain": past, "summands": summands}
     if name != "quant_matmul_bwd":  # the grid and its finish: the call less its prologue
         row["grid_tflops"] = ops * planes / (row["ms"] - prologue_ms) / 1e9
-    simt_txt = ""
-    if path == "simt":  # the split route's three planes on the same inputs, for comparison
+    if name == "quant_matmul_bwd" and not round_cot:  # the split route on the same inputs
         row["split_route_ms"] = timer.ms(lambda: qmm._split_bwd(*args, qs, round_cot))
-        row["summands"] = simt_info
-        simt_txt = (f"; bf16(xd^T dY) off the correctly rounded value: kernel "
-                    f"{simt_info['kernel_off']:.2e}, plain {simt_info['plain_off']:.2e}; "
-                    f"correctly rounded summands {simt_info['exact_vs_plain_bar']:.3f} x the "
-                    f"plain dws bar")
-    pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
-    tag = f"{path}, {planes} plane{'s' * (planes > 1)}" if planes else path
-    b32_txt = "" if b32 is None else f", f32 SIMT line {b32:.4f} ms"
+    tag = f"{path}, {planes} plane{'s' * (planes > 1)}"
+    if name == "quant_matmul_bwd":
+        tag += f", S={splits}"
     log(f"  {name} [{tag}] M={m} K={k} N={n} ({row['w_scale']} scales, "
         f"{row['x']} x, {'bf16' if round_cot else 'f32'} cotangents): "
         + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
-        + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
-        f"torch.matmul(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-        + b32_txt + (f", grid {row['grid_tflops']:.1f} TFLOP/s" if "grid_tflops" in row
-                     else "")
-        + (f", split route {row['split_route_ms']:.4f} ms" if path == "simt" else "")
-        + simt_txt)
+        + f"; kernel {row['ms']:.4f} ms, prologue {prologue_ms:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.matmul(dequant) {row['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})"
+        + ("" if b32 is None else f", f32 line {b32:.4f} ms")
+        + (f", grid {row['grid_tflops']:.1f} TFLOP/s" if "grid_tflops" in row else "")
+        + (f", split route {row['split_route_ms']:.4f} ms" if "split_route_ms" in row else "")
+        + ("" if summands is None else summand_text(summands)))
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
         fail(f"{name} {m}x{k}x{n} disagrees with its plain version on {bad}")
     return row
+
+
+def summand_shares(torch, ref, dwd_k, dwd, xd, cot, factor, dws_of, rws, l1) -> dict:
+    """Not a check: the shares of bf16(xd^T dY) off its correctly rounded
+    value (an f64 product, summed over 512-row blocks of M) in the kernel
+    (its w = 0 launch, dwd_k) and in the plain version (dwd), and how far
+    correctly rounded summands would put dws (dws_of their products with
+    factor = q - mf u) from the plain dws rws, in plain bars 1e-4 x l1
+    (ROADMAP Queue 3). xd (..., M, K), cot (..., M, N), the rest as dW."""
+    exact = None
+    for r0 in range(0, xd.shape[-2], 512):  # f64 copies of a head's cotangent are GBs
+        part = (xd[..., r0:r0 + 512, :].double().transpose(-1, -2)
+                @ cot[..., r0:r0 + 512, :].double())
+        exact = part if exact is None else exact + part
+    dwe = ref._bf16(exact.float())
+    del exact
+    dws_e = dws_of(dwe * factor)
+    return {"kernel_off": (dwd_k != dwe).float().mean().item(),
+            "plain_off": (dwd != dwe).float().mean().item(),
+            "exact_vs_plain_bar": ((dws_e - rws).abs()
+                                   / (1e-4 * l1).clamp_min(1e-30)).max().item()}
+
+
+def summand_text(s: dict) -> str:
+    return (f"; bf16(xd^T dY) off the correctly rounded value: kernel {s['kernel_off']:.2e}, "
+            f"plain {s['plain_off']:.2e}; correctly rounded summands "
+            f"{s['exact_vs_plain_bar']:.3f} x the plain dws bar")
 
 
 def split_edges(torch, timer, qmm, ref, gen) -> dict:
@@ -1274,17 +1301,21 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
                       x_dtype=None, round_cot=True) -> dict:
     """quant_matmul_bwd_batched against its plain version, with the bars of
     check_qat_bwd per expert; the path is `bwd_route` on the per-expert
-    shape (the tensor cores for bf16 cotangents, the SIMT tile for f32
-    ones, or split expert by expert through the split dx / dw grids on the
-    tensor cores past the reference's scratch budget). A second launch
-    gives the same bits; experts 0 and E-1 are bit-equal, in all five
-    outputs, to quant_matmul_bwd on their slices; on the tensor cores (tc
-    and split) the prologue alone is bit-equal to the plain dequantization,
-    and dws may differ from the plain dws by 1e-4 x sum|summands| plus what
-    its differing summands account for (below)."""
+    shape: the combined backward ("tc", one plane for bf16 cotangents,
+    three for f32 ones, the dW contraction cut as `dw_splits` cuts the
+    per-expert shape), or split expert by expert through the split dx / dw
+    grids past the reference's scratch budget; all on the tensor cores. A
+    second launch gives the same bits; experts 0 and E-1 are bit-equal, in
+    all five outputs, to quant_matmul_bwd on their slices; the prologue
+    alone is bit-equal to the plain dequantization, and dws may differ from
+    the plain dws by 1e-4 x sum|summands| plus what its differing summands
+    account for (below). An f32 row prints the split route's time (every
+    expert through it) and check_qat_bwd's summand shares beside its own."""
     x, w, a_s, a_b, ws = batched_operands(torch, e, m, k, n, gen, qs, x_dtype)
     dy = torch.randn((e, m, n), generator=gen, device="cuda")
-    path = qmm.bwd_route(m, k, n, round_cot)
+    path = qmm.bwd_route(m, k, n)
+    planes = qmm.plane_count(round_cot)
+    splits = qmm.dw_splits(m, k, n, planes)[0] if path == "tc" else 1
     kw = dict(round_cot=round_cot, **qs)
     args = (dy, x, w, a_s, a_b, ws)
     kern = lambda: qmm.quant_matmul_bwd_batched(*args, **kw)
@@ -1305,12 +1336,8 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
         del two_d
     checks.append(("per-expert", as_2d,
                    f"experts {ends} bit-equal to quant_matmul_bwd in all five"))
-    tensor_cores = path in ("tc", "split")  # the split route: the 2D split grids
-    prologue_ms = None
-    if tensor_cores:
-        same, prologue_ms, _ = check_prologue(torch, timer, qmm, ref, args, qs,
-                                              qmm.plane_count(round_cot))
-        checks.append(("prologue", same, "bit-equal to the plain dequantization"))
+    same, prologue_ms, _ = check_prologue(torch, timer, qmm, ref, args, qs, planes)
+    checks.append(("prologue", same, "bit-equal to the plain dequantization"))
     s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
     u, q, xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])
     uw, qw, wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])
@@ -1327,32 +1354,30 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     dwd = ref._bf16(xd.transpose(1, 2) @ cot)
     fac = (qw - ref._in_range(uw, qs["q_n_w"], qs["q_p_w"]) * uw).abs()
     l1w = (dwd.abs() * fac).sum(dim=1)
-    flips = torch.zeros_like(l1w)
-    summand_checks = []
-    if tensor_cores:
-        # dws sums the summands bf16(xd^T dY) x (q - mf u) over K. The tile's
-        # f32 order rounds some of bf16(xd^T dY) to the other bf16 neighbour
-        # of the plain version's (the dW bar allows that), and at clipped
-        # weights (|q - mf u| up to 4) one such flip can move a K = 512
-        # column's dws past 1e-4 x sum|summands|. So each column's allowance
-        # adds, to that, |its kernel summand - the plain one| x |q - mf u|
-        # summed over the summands that differ. The kernel's summands come
-        # from a launch with w = 0 (every code in range, so dW is
-        # bf16(xd^T dY) on every element): they must be the real launch's dW
-        # wherever w is in range, and meet the dW bar against the plain ones
-        # on every element, clipped ones included.
-        dwd_k = qmm.quant_matmul_bwd_batched(dy, x, torch.zeros_like(w), a_s, a_b,
-                                             ws, **kw)[3]
-        mfw = ref._in_range(uw, qs["q_n_w"], qs["q_p_w"])
-        real = bool(torch.equal(got[3], dwd_k * mfw))
-        ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
-        flips = ((dwd_k - dwd).abs() * fac).sum(dim=1)
-        summand_checks = [
-            ("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW where in range"),
-            ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
-             f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
-        del dwd_k, mfw
-    del dw_abs, dwd, fac
+    # dws sums the summands bf16(xd^T dY) x (q - mf u) over K. The tile's
+    # f32 order rounds some of bf16(xd^T dY) to the other bf16 neighbour of
+    # the plain version's (the dW bar allows that), and at clipped weights
+    # (|q - mf u| up to 4) one such flip can move a K = 512 column's dws
+    # past 1e-4 x sum|summands|. So each column's allowance adds, to that,
+    # |its kernel summand - the plain one| x |q - mf u| summed over the
+    # summands that differ. The kernel's summands come from a launch with w
+    # = 0 (every code in range, so dW is bf16(xd^T dY) on every element):
+    # they must be the real launch's dW wherever w is in range, and meet the
+    # dW bar against the plain ones on every element, clipped ones included.
+    dwd_k = qmm.quant_matmul_bwd_batched(dy, x, torch.zeros_like(w), a_s, a_b, ws, **kw)[3]
+    mfw = ref._in_range(uw, qs["q_n_w"], qs["q_p_w"])
+    real = bool(torch.equal(got[3], dwd_k * mfw))
+    ex_d, fr_d = _bf16_close(torch, dwd_k, dwd, dw_abs, m)
+    flips = ((dwd_k - dwd).abs() * fac).sum(dim=1)
+    summand_checks = [
+        ("summands", real, "the w = 0 launch's bf16(xd^T dY) is the real dW where in range"),
+        ("xd^T dY", ex_d <= 0 and fr_d <= 0.01,
+         f"every element: excess {ex_d:.2e}, differing {fr_d:.2e}")]
+    summands = None
+    if not round_cot:
+        summands = summand_shares(torch, ref, dwd_k, dwd, xd, cot, qw - mfw * uw,
+                                  lambda t: t.sum(dim=1), want[4], l1w)
+    del dwd_k, mfw, dw_abs, dwd, fac
     gap = (got[4] - want[4]).abs()
     allowed = 1e-4 * l1w + flips
     dws_ok = bool((gap <= allowed).all())
@@ -1378,22 +1403,31 @@ def check_batched_bwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     lib = lambda: (torch.bmm(ct, wl.transpose(1, 2)), torch.bmm(xl.transpose(1, 2), ct))
     nbytes = e * (m * n * 4 + m * k * x.element_size() + k * n * 4 + 8 + n * 4
                   + m * k * 4 + 8 + k * n * 4 + n * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * e * m * k * n,
-                       BF16_OPS_PER_S if round_cot else F32_OPS_PER_S)
-    row = {"shape": [e, m, k, n], "path": path, "x": str(x.dtype)[6:],
-           "round_cot": round_cot, "max_abs_err": worst,
+    ops = 4.0 * e * m * k * n
+    # f32 cotangents: the three planes' bf16 products, beside the f32 line
+    b_ms, b_by = bound(nbytes, ops * planes)
+    b32 = None if round_cot else bound(nbytes, ops, F32_OPS_PER_S)[0]
+    row = {"shape": [e, m, k, n], "path": path, "planes": planes, "dw_splits": splits,
+           "x": str(x.dtype)[6:], "round_cot": round_cot, "max_abs_err": worst,
            "tol": "bf16 ulp + f32 order bound; sums 1e-4 x sum|summands| per expert "
-                  "(tc dws: + the differing summands x |q - mf u|)",
+                  "(dws: + the differing summands x |q - mf u|)",
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by,
-           "prologue_ms": prologue_ms, "dws_vs_plain": vs_plain,
-           "dws_allowance_used": use, "dws_flip_cols": flip_cols}
-    pro = "" if prologue_ms is None else f", prologue {prologue_ms:.4f} ms"
-    log(f"  quant_matmul_bwd_batched [{path}] E={e} M={m} K={k} N={n} ({row['x']} x, "
+           "bound_f32_ms": b32, "prologue_ms": prologue_ms, "dws_vs_plain": vs_plain,
+           "dws_allowance_used": use, "dws_flip_cols": flip_cols, "summands": summands}
+    if path == "tc" and not round_cot:  # every expert on the split route, same inputs
+        row["split_route_ms"] = timer.ms(
+            lambda: qmm.quant_matmul_bwd_batched(*args, scratch_budget=0, **kw))
+    tag = f"{path}, {planes} plane{'s' * (planes > 1)}" + (f", S={splits}" if path == "tc"
+                                                            else "")
+    log(f"  quant_matmul_bwd_batched [{tag}] E={e} M={m} K={k} N={n} ({row['x']} x, "
         f"{'bf16' if round_cot else 'f32'} cotangents): "
         + "; ".join(f"{c} {'ok' if ok else 'FAIL'} ({msg})" for c, ok, msg in checks)
-        + f"; kernel {row['ms']:.4f} ms{pro}, plain {row['plain_ms']:.4f} ms, "
-        f"torch.bmm(dequant) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        + f"; kernel {row['ms']:.4f} ms, prologue {prologue_ms:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.bmm(dequant) {row['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})" + ("" if b32 is None else f", f32 line {b32:.4f} ms")
+        + (f", split route {row['split_route_ms']:.4f} ms" if "split_route_ms" in row else "")
+        + ("" if summands is None else summand_text(summands)))
     bad = [c for c, ok, _ in checks if not ok]
     if bad:
         fail(f"quant_matmul_bwd_batched {e}x{m}x{k}x{n} disagrees with its "
@@ -1458,15 +1492,15 @@ def qat_launches_per_step(cfg, qcfg, tokens: int) -> dict:
     forward (twice for a block linear), and its backward on the route the
     dispatcher takes (`quant_matmul.bwd_route` on the padded shape, the
     per-expert shape for the batched kernels): the combined backward once
-    ("tc" for bf16 cotangents, "simt" for the head's f32 ones), or, past
-    the reference's scratch budget, the split dx / dw once each (expert by
-    expert for the batched kernels)."""
+    ("tc": bf16 cotangents on one plane, the head's f32 ones on three), or,
+    past the reference's scratch budget, the split dx / dw once each
+    (expert by expert for the batched kernels)."""
     from repro_torch.kernels.quant_matmul import bwd_route
     c = dict.fromkeys(QAT_KERNELS, 0)
     for _, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
         e = cfg.n_experts if batched else 1
         c["quant_matmul_batched" if batched else "quant_matmul"] += count * (2 if remat else 1)
-        if bwd_route(m, k, n, not f32_cot) == "split":
+        if bwd_route(m, k, n) == "split":
             c["quant_matmul_dx"] += count * e
             c["quant_matmul_dw"] += count * e
         else:
@@ -1480,9 +1514,8 @@ def formula(cfg, qcfg, tokens: int) -> str:
     from repro_torch.kernels.quant_matmul import bwd_route
     parts = []
     for name, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
-        route = bwd_route(m, k, n, not f32_cot)
-        route += " (3 planes)" if route == "split" and f32_cot else (
-            " (1 plane)" if route == "split" else "")
+        route = bwd_route(m, k, n)
+        route += " (3 planes)" if f32_cot else (" (1 plane)" if route == "split" else "")
         each = f" x {cfg.n_experts} experts" if batched and route.startswith("split") else ""
         parts.append(f"{name} ({m}, {k}, {n}) x {count}: fwd {2 if remat else 1}, "
                      f"bwd {route}{each}")
@@ -2125,7 +2158,7 @@ def main() -> None:
         gen, QAT_QS))
     # granite-moe's attention linears (w3a3: wk / wv, and wq / wo K-side),
     # odd and misaligned shapes on the combined route (one with f32 x), and
-    # the f32-cotangent form on the SIMT path
+    # the f32-cotangent form (three planes, one dW range: as the split route)
     for mm, k, n, k_side, qs, xdt in (
             (m, 1024, 512, False, MOE_QS, None), (m, 1024, 1024, True, MOE_QS, None),
             (1000, 700, 300, False, QAT_QS, torch.float32),
@@ -2136,8 +2169,8 @@ def main() -> None:
     qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
         torch, timer, qmm, ref, "quant_matmul_bwd", m, 1024, 2816, False, False,
         gen, QAT_QS))
-    paths = [r["path"] for r in qat_rows["quant_matmul_bwd"]]
-    if paths != ["tc"] * 8 + ["simt"]:
+    paths = [(r["path"], r["planes"]) for r in qat_rows["quant_matmul_bwd"]]
+    if paths != [("tc", 1)] * 8 + [("tc", 3)]:
         fail(f"quant_matmul_bwd took paths {paths}")
     # the split dx / dw on the tensor cores: the tied head (f32 cotangents,
     # three planes), the FFN's shape with bf16 cotangents (one plane, held
@@ -2155,8 +2188,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the learned-position models' training shapes, after the rows above
     # (which keep their inputs): the forward at musicgen-medium's w_in and
-    # head and at paper-bert-base's and paper-deit-t's heads; the f32 SIMT
-    # backward's training path, musicgen-medium's and paper-deit-t's heads;
+    # head and at paper-bert-base's and paper-deit-t's heads; the f32
+    # combined backward's training path, musicgen-medium's head (one dW
+    # range: as the split route) and paper-deit-t's (the dW contraction in
+    # 13 ranges);
     # the split dx / dw at musicgen-medium's w_in, one plane (the split
     # route of a dense FFN), and at paper-bert-base's head, three planes
     log("qat kernels at musicgen-medium's, paper-bert-base's and paper-deit-t's shapes:")
@@ -2170,12 +2205,15 @@ def main() -> None:
             torch, timer, qmm, ref, "quant_matmul_bwd", mm, k, n, False, False,
             gen, HEAD_QS))
         torch.cuda.empty_cache()
-    if [r["path"] for r in qat_rows["quant_matmul_bwd"][-2:]] != ["simt"] * 2:
-        fail("the f32 heads' quant_matmul_bwd did not take the SIMT path")
+    heads = [(r["path"], r["planes"], r["dw_splits"] > 1)
+             for r in qat_rows["quant_matmul_bwd"][-2:]]
+    if heads != [("tc", 3, False), ("tc", 3, True)]:
+        fail(f"the f32 heads' quant_matmul_bwd took {heads}: want three planes, "
+             "musicgen-medium's in one dW range, paper-deit-t's split")
     for name in ("quant_matmul_dx", "quant_matmul_dw"):
         for mm, k, n, round_cot, qs in ((m, 1536, 6144, True, QAT_QS),
                                         (32 * 128, 768, 30720, False, HEAD_QS)):
-            if qmm.bwd_route(mm, k, n, round_cot) != "split":
+            if qmm.bwd_route(mm, k, n) != "split":
                 fail(f"({mm}, {k}, {n}) would not take the split route in training")
             qat_rows[name].append(check_qat_bwd(
                 torch, timer, qmm, ref, name, mm, k, n, False, round_cot, gen, qs))
@@ -2196,7 +2234,8 @@ def main() -> None:
     qat_rows["quant_matmul_batched"].append(check_batched_fwd(
         torch, timer, qmm, ref, 3, 257, 129, 65, gen, MOE_QS, torch.float32))
     # the batched backward at an odd shape with f32 x, with f32 cotangents
-    # (the SIMT path), and past the reference's scratch budget (split)
+    # (three planes, the 2D backward's dW ranges), and past the reference's
+    # scratch budget (split)
     qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
         torch, timer, qmm, ref, 3, 257, 129, 65, gen, MOE_QS, torch.float32))
     qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
@@ -2204,9 +2243,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     qat_rows["quant_matmul_bwd_batched"].append(check_batched_bwd(
         torch, timer, qmm, ref, 4, 256, 512, 8192, gen, MOE_QS))
-    paths = [r["path"] for r in qat_rows["quant_matmul_bwd_batched"]]
-    if paths != ["tc", "tc", "tc", "simt", "split"]:
+    paths = [(r["path"], r["planes"]) for r in qat_rows["quant_matmul_bwd_batched"]]
+    if paths != [("tc", 1)] * 3 + [("tc", 3), ("split", 1)]:
         fail(f"quant_matmul_bwd_batched took paths {paths}")
+    torch.cuda.empty_cache()
+    # the f32 combined backward's edges, after every row above (which keep
+    # their inputs): odd, misaligned shapes whose dW contraction is cut in
+    # ranges with a ragged last one (f32 x; K-side scales)
+    log("qat kernels: the f32 combined backward's split dW at odd shapes:")
+    for mm, k, n, k_side, xdt in ((1000, 700, 300, False, torch.float32),
+                                  (257, 129, 65, True, None)):
+        qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", mm, k, n, k_side, False, gen,
+            QAT_QS, xdt))
+        if qat_rows["quant_matmul_bwd"][-1]["dw_splits"] < 2:
+            fail(f"({mm}, {k}, {n}) f32 kept one dW range")
     torch.cuda.empty_cache()
 
     # 10. the quantizer kernels (10-12) against their plain versions
@@ -2383,6 +2434,11 @@ def main() -> None:
                     "quant_matmul_bwd_batched", "quant_matmul_dx", "quant_matmul_dw"):
             kernels[-1]["path"] = r["path"]
             kernels[-1]["prologue_ms"] = r["prologue_ms"]
+        if name in ("quant_matmul_bwd", "quant_matmul_bwd_batched"):
+            kernels[-1]["f32_rows"] = [{k: v for k, v in row.items() if k in (
+                "shape", "planes", "dw_splits", "ms", "prologue_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_f32_ms", "split_route_ms", "dws_vs_plain", "summands")}
+                for row in rs if not row["round_cot"]]
         if name in ("quant_matmul_dx", "quant_matmul_dw"):
             kernels[-1].update(
                 kernel=f"qat_{name[-2:]}_tc_kernel", planes=r["planes"],

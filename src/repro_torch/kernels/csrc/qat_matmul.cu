@@ -5,10 +5,9 @@
 //                 quant_matmul_batched (:141, body _qmm_batched_kernel :114)
 //   qat_dx_tc  <- quant_matmul_dx   (:241, body _qmm_dx_kernel :196)
 //   qat_dw_tc  <- quant_matmul_dw   (:361, body _qmm_dw_kernel :295)
-//   qat_bwd_tc (bf16 dY) / qat_bwd (f32 dY)
-//              <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453)
-//   qat_bwd_tc (bf16 dY, E > 1) / qat_bwd_batched (f32 dY)
-//              <- quant_matmul_bwd_batched (:743, body _qmm_bwd_batched_kernel :655)
+//   qat_bwd_tc <- quant_matmul_bwd  (:574, body _qmm_bwd_kernel :453) and, the
+//                 expert on the grid, quant_matmul_bwd_batched (:743, body
+//                 _qmm_bwd_batched_kernel :655)
 //
 // What each computes (Eq. 5-7 of the paper, LSQ+ activations, grouped weights):
 //   xd = bf16(clip(round((x - b) / max(s, 1e-9))) * s + b)      x (M, K), s, b scalars
@@ -19,42 +18,44 @@
 //        u = (x - b) / s; dsa = sum dxd * (q - mf*u); dba = sum dxd * (1 - mf)
 //   dw:  dwd = bf16(xd^T @ dY); dW = dwd * mask(w / ws); dws = sum dwd * (q - mf*u)
 //        per column (over K) or per row (over N)
-//   bwd: all five in one launch (+ the finish pass below).
+//   bwd: all five in one launch (+ the prologue and the finish pass below).
 // dY is rounded to bf16 when round_cot is set (a bf16 linear); the lm head keeps
-// it in f32 (round_cot = 0), and then the products are f32 x bf16-valued f32.
-// The dX / dW accumulators are rounded through bf16 in every case.
+// it in f32 (round_cot = 0), and then it is multiplied as three exact bf16
+// planes (below). The dX / dW accumulators are rounded through bf16 in every
+// case.
 //
 // What bounds them on an H100: at the training shapes (M = 4096 tokens, K and
-// N of 512..152064) every product is far above the tensor-core line (hundreds
+// N of 192..152064) every product is far above the tensor-core line (hundreds
 // of operations a byte), so the kernels are bound by operations: 2*M*K*N at
 // 989 TFLOP/s in bf16 (three times that for the head's f32 cotangents, below).
 //
-// Tensor cores (bf16 x bf16 products, f32 sums): the forward, 2D and per
-// expert (qat_fwd_tc_launch); the combined backward for bf16 cotangents, 2D
-// and per expert (qat_bwd_tc_launch, the form a training step launches for
-// every bf16 linear, the MoE experts' included); and the split dx / dw
-// (qat_dx_tc_launch, qat_dw_tc_launch: the vocab-wide head, and each expert
-// of a batched backward past the reference's scratch budget). Dequantizing
-// while staging would repeat __fdiv_rn + rintf + clamp + two rounded ops for
-// every operand element in every block that reads it
-// (at the qwen head each of 1,188 column blocks would divide all of x, each
-// of 32 row blocks the whole 1024 x 152064 weight), more f32 instructions
-// than the products' bound. So one prologue (qat_prologue_kernel) writes xd,
-// wd and the cotangent's bf16 planes to zero-padded bf16 scratch once, with
-// the device functions the SIMT tile stages with, so the same bits; the
-// scratch costs its bytes twice (written, read), ~0.3 ms for the 0.3 GB of
-// the qwen head's wd. The tile is then a plain bf16 GEMM: 128 x 128 outputs a
-// block of 8 warps (64 x 32 a warp, m16n8k16 fragments, 64 f32 accumulators
-// a thread), the contraction staged 32 deep by 16-byte cp.async in 2 stages
-// (rows padded by 8 bf16, so ldmatrix is free of bank conflicts;
-// ldmatrix.trans for operands contiguous along the output axis: wd in the
-// forward, xd and dY in dW). The forward's epilogue stores the f32
-// accumulators (8-byte pairs where N is even); the backward's recomputes u
-// from x / w and reduces the scale sums in a fixed order (in the thread, a
-// fixed shuffle tree, then shared memory in warp order). Two launches give
-// the same bits, and there are no float atomics. Products of exact bf16
-// values summed in f32 differ from any other order only inside the f32
-// order bound.
+// Every product runs on the tensor cores (bf16 x bf16 products, f32 sums):
+// the forward, 2D and per expert (qat_fwd_tc_launch); the combined backward,
+// 2D and per expert, for bf16 and f32 cotangents (qat_bwd_tc_launch: the form
+// a training step launches for every linear within the reference's combined
+// scratch budget, the MoE experts and the untied f32 heads of musicgen-medium
+// and paper-deit-t included); and the split dx / dw (qat_dx_tc_launch,
+// qat_dw_tc_launch: the vocab-wide head, and each expert of a batched
+// backward past the reference's scratch budget). Dequantizing while staging
+// would repeat __fdiv_rn + rintf + clamp + two rounded ops for every operand
+// element in every block that reads it (at the qwen head each of 1,188
+// column blocks would divide all of x, each of 32 row blocks the whole 1024 x
+// 152064 weight), more f32 instructions than the products' bound. So one
+// prologue (qat_prologue_kernel) writes xd, wd and the cotangent's bf16
+// planes to zero-padded bf16 scratch once (act_deq / w_deq: the plain
+// version's roundings, op by op); the scratch costs its bytes twice (written,
+// read), ~0.3 ms for the 0.3 GB of the qwen head's wd. The tile is then a
+// plain bf16 GEMM: 128 x 128 outputs a block of 8 warps (64 x 32 a warp,
+// m16n8k16 fragments, 64 f32 accumulators a thread), the contraction staged
+// 32 deep by 16-byte cp.async in 2 stages (rows padded by 8 bf16, so ldmatrix
+// is free of bank conflicts; ldmatrix.trans for operands contiguous along the
+// output axis: wd in the forward, xd and dY in dW). The forward's epilogue
+// stores the f32 accumulators (8-byte pairs where N is even); the backward's
+// recomputes u from x / w and reduces the scale sums in a fixed order (in the
+// thread, a fixed shuffle tree, then shared memory in warp order). Two
+// launches give the same bits, and there are no float atomics. Products of
+// exact bf16 values summed in f32 differ from any other order only inside
+// the f32 order bound.
 //
 // f32 cotangents on the tensor cores: an f32 x bf16 product is not exact in
 // bf16, and TF32 (10 mantissa bits) is not allowed. So the prologue splits
@@ -63,57 +64,66 @@
 // f32, so hi + mid + lo == y for every finite |y| >= 2^-110. Each plane's
 // products with wd (or xd) are exact bf16 x bf16 products, and the tile walks
 // the contraction once per plane (hi, mid, lo, in that order) into the same
-// f32 accumulators: the same products the f32 tile added, in another order,
-// at three times the bf16 work (still ~5x under the f32 SIMT line). Each
-// 16-deep mma partial is added with a round-to-nearest f32 add
-// (mma_bf16_rn): the tensor core's accumulation truncates, and over the
-// head's 3 x 152,064 products its drift alone moved 7 % of the bf16-rounded
-// dX off the plain version's (the bar allows 1 %). Where hi
-// is not finite, mid = lo = 0, so an Inf or NaN multiplies as in the plain
-// version. Below 2^-110, lo is a bf16 subnormal or lost (an error of at most
-// 2^-134); an f32 above bf16's largest finite value splits to Inf.
+// f32 accumulators: the same products an f32 GEMM adds, in another order, at
+// three times the bf16 work (still ~5x under the f32 line of 67 TFLOP/s
+// outside the tensor cores). Each 16-deep mma partial is added with a
+// round-to-nearest f32 add (mma_bf16_rn): the tensor core's accumulation
+// truncates, and over the head's 3 x 152,064 products its drift alone moved
+// 7 % of the bf16-rounded dX off the plain version's (the bar allows 1 %).
+// Where hi is not finite, mid = lo = 0, so an Inf or NaN multiplies as in the
+// plain version. Below 2^-110, lo is a bf16 subnormal or lost (an error of
+// at most 2^-134); an f32 above bf16's largest finite value splits to Inf.
 //
-// SIMT tile (f32 FMA on bf16 values held in f32, exact products): the
-// combined backward, 2D and per expert, for f32 cotangents (the 2D form on
-// the untied heads narrow enough for the combined route: musicgen-medium's,
-// paper-deit-t's). 128 x 128 outputs a block of 256 threads, 8 x 8 a
-// thread, the contraction walked 8 at a time through shared memory, the next
-// slice's loads in flight while the current one is multiplied; each operand
-// is dequantized as it is staged.
+// The split dW contraction (three planes only; S from dw_splits in
+// kernels/quant_matmul.py, a function of the per-expert shape alone): where
+// the combined grid is short of a wave and its dW tiles walk far deeper than
+// its dX tiles (paper-deit-t's head, M 12,608, K 192, N 1024: 198 dX tiles
+// 3 x 1,024 deep against 16 dW tiles 3 x 12,608 deep, so 16 SMs would work
+// on alone), M is cut into S ranges of a multiple of 32 rows, about a dX
+// tile's depth each, one block a (range, dW tile). A block writes its f32
+// sums to its range's slice of an (S, K, N) scratch; the last block of a
+// tile to arrive (an int ticket, atomicAdd after __threadfence, reset by
+// that block so the next launch finds it at zero) adds the S sums in range
+// order with round-to-nearest adds and runs the tile's epilogue on the
+// total. The order is fixed whatever the arrival, so two launches give the
+// same bits, with no float atomics. With S = 1 the dW tile is the split
+// route's (qat_dw_tc_kernel<3>), bit for bit; one plane (bf16 cotangents)
+// never splits.
 //
-// Left for later: the f32 combined backward onto the three planes (then the
-// SIMT tile can go); wgmma and TMA, a persistent grid and more stages for the
+// Left for later: wgmma and TMA, a persistent grid and more stages for the
 // tensor-core tile (the 128 x 128 mma.sync tile runs at a fraction of the 989
 // TFLOP/s peak); a split contraction for the one-wave dX grid of the head.
 //
 // What differs from the TPU design, and why:
 //   * No carried accumulators: the TPU grid runs in order and carries dX / dW
 //     and the scale sums across grid steps; here a block loops over the whole
-//     contraction for its output tile.
-//   * The dequantized operands reach HBM on the tensor-core path (the TPU
-//     kernels keep them in VMEM): on this card the bytes are the cheap side.
+//     contraction (or its range of it) for its output tile.
+//   * The dequantized operands reach HBM (the TPU kernels keep them in VMEM):
+//     on this card the bytes are the cheap side.
 //   * Scale cotangents without atomics: each block writes its partial sums
 //     (dsa/dba per block; dws per column over the block's rows, or per row over
 //     its columns) to a scratch the wrapper allocates, and one finish kernel adds
 //     them in a fixed order, so every result is the same from run to run.
 //   * The combined backward is one grid whose first blocks compute dX tiles and
 //     whose other blocks compute dW tiles, through the same device code as the
-//     split kernels, so the two routes give identical bits for bf16
-//     cotangents. The TPU's (bk, Np) VMEM panel has no counterpart.
+//     split kernels, so the two routes give identical bits (for f32
+//     cotangents, where the dW contraction is not split). The TPU's (bk, Np)
+//     VMEM panel has no counterpart.
 //   * Edges are masked in the kernel (and the scratch's pad is zero); the
 //     operands are not padded.
 //   * The batched (MoE expert) kernels put the expert on blockIdx.z (the
 //     prologue on blockIdx.y): a block offsets every per-expert operand (x, w,
 //     the (E,) activation scale and offset, the (E, N) column scales, dY, the
-//     scratch, the outputs and the partials) by its expert and then runs the
-//     same tile as the 2D kernel, so an expert's results are bit for bit those
-//     of the 2D kernels on its slices. The finish pass runs one row of blocks
-//     per expert (blockIdx.y). Expert weight scales are N-side only (the
-//     reference's eligibility rule), so the batched kernels take no row
-//     scales. At the MoE training shapes (32 experts x 1280 capacity rows, K
-//     and N of 512 / 1024) each expert is 40 forward output tiles, 1280
-//     blocks a launch, and 112 backward tiles (80 dX + 32 dW at K 1024, N
-//     512), 3584 blocks a launch.
+//     scratch, the outputs, the partials and the tickets) by its expert and
+//     then runs the same tile as the 2D kernel, so an expert's results are
+//     bit for bit those of the 2D kernels on its slices. The finish pass runs
+//     one row of blocks per expert (blockIdx.y). Expert weight scales are
+//     N-side only (the reference's eligibility rule), so the batched kernels
+//     take no row scales. At the MoE training shapes (32 experts x 1280
+//     capacity rows, K and N of 512 / 1024) each expert is 40 forward output
+//     tiles, 1280 blocks a launch, and 112 backward tiles (80 dX + 32 dW at K
+//     1024, N 512), 3584 blocks a launch (f32 cotangents: each dW tile in
+//     the 2D backward's 3 ranges, 5632 blocks).
 // Numerics: round half to even (rintf), IEEE division (built without fast math),
 // and the multiply and add of the dequantization rounded separately (no FMA
 // contraction), as the reference writes them.
@@ -127,12 +137,8 @@ namespace {
 
 constexpr int BM = 128;          // output rows of a block tile
 constexpr int BN = 128;          // output columns of a block tile
-constexpr int BK = 8;            // contraction slice staged per step
-constexpr int FOLD = 128;        // SIMT contraction rows summed before a fold (multiple of BK)
-constexpr int NT = 256;          // threads a block: 16 x 16, 8 x 8 outputs each
-constexpr int PAD = 4;           // keeps the staging stores free of bank conflicts
+constexpr int NT = 256;          // threads a block: 8 warps
 constexpr float EPS = 1e-9f;
-static_assert(FOLD % BK == 0, "a fold ends a staged slice");
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -162,25 +168,6 @@ __device__ __forceinline__ float w_deq(float w, float s, Quant q) {
   return bf16r(__fmul_rn(q.code(__fdiv_rn(w, s)), s));
 }
 
-// ---------------------------------------------------------------------------
-// Operand loaders. A is (I rows, L contraction), B is (L, J columns). load()
-// reads the raw value (0 outside the matrix) while the previous slice is being
-// multiplied; conv() turns it into the staged value (0 outside). L_FAST: the
-// operand is contiguous along L in memory, so neighbouring threads walk L.
-// ---------------------------------------------------------------------------
-
-template <class XT>
-struct XDeqT {  // A(k, m) = xd(m, k): dW = xd^T @ dY
-  static constexpr bool L_FAST = false;
-  const XT* x; int M, K; float s, b; Quant q;
-  __device__ float load(int k, int m) const {
-    return (m < M && k < K) ? ld(x, (size_t)m * K + k) : 0.f;
-  }
-  __device__ float conv(float v, int k, int m) const {
-    return (m < M && k < K) ? act_deq(v, s, b, q) : 0.f;
-  }
-};
-
 struct WQ {  // the weight quantizer: w (K, N), scales per column or per row
   const float* w; const float* ws; int K, N, k_side; Quant q;
   __device__ __forceinline__ float scale(int k, int n) const {
@@ -197,134 +184,9 @@ struct Args {
   const float* dy;         // (M, N) f32
   int M, K, N;
   int k_side;              // ws is per row (K,) instead of per column (N,)
-  int round_cot;           // dY rounded to bf16
   Quant qa, qw;
   __device__ __forceinline__ WQ wq() const { return WQ{w, ws, K, N, k_side, qw}; }
 };
-
-struct WDeqT {  // B(n, k) = wd(k, n): dX = dY @ wd^T
-  static constexpr bool L_FAST = true;
-  WQ a;
-  __device__ float load(int n, int k) const {
-    return (k < a.K && n < a.N) ? a.w[(size_t)k * a.N + n] : 0.f;
-  }
-  __device__ float conv(float v, int n, int k) const {
-    return (k < a.K && n < a.N) ? w_deq(v, a.scale(k, n), a.q) : 0.f;
-  }
-};
-
-template <bool L_IS_N>
-struct DY {  // dY (M, N): A(m, n) for dX (L = n), B(m, n) for dW (L = m)
-  static constexpr bool L_FAST = L_IS_N;
-  const float* dy; int M, N, round_cot;
-  __device__ float load(int r, int c) const {
-    return (r < M && c < N) ? dy[(size_t)r * N + c] : 0.f;
-  }
-  __device__ float conv(float v, int, int) const {
-    return round_cot ? bf16r(v) : v;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// The GEMM tile: acc[r][c] = sum_l A(i0 + row(r), l) * B(l, j0 + col(c)),
-// rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise with tx. Each
-// FOLD-deep chunk of the contraction is summed by FMA from zero and then added
-// to a running total (the last, partial chunk too). One f32 accumulator over
-// a long contraction (12,608 at paper-deit-t's head, dW) drifts far enough
-// that bf16(dW) leaves its correctly rounded value more often than the plain
-// version's does (phase 5 of chip_smoke.py prints both shares).
-// ---------------------------------------------------------------------------
-
-struct Smem {
-  float A[BK][BM + PAD];
-  float B[BK][BN + PAD];
-  float red[16][BM];       // epilogue reductions (16 partials per row/column)
-};
-
-__device__ __forceinline__ int tile_row(int ty, int r) { return (r < 4 ? 0 : 64) + ty * 4 + (r & 3); }
-
-__device__ __forceinline__ void a_index(bool l_fast, int e, int& i, int& l) {
-  if (l_fast) { i = e / BK; l = e % BK; } else { l = e / BM; i = e % BM; }
-}
-
-__device__ __forceinline__ void b_index(bool l_fast, int e, int& l, int& j) {
-  if (l_fast) { j = e / BK; l = e % BK; } else { l = e / BN; j = e % BN; }
-}
-
-template <class LA, class LB>
-__device__ __forceinline__ void gemm_tile(const LA& la, const LB& lb, int i0, int j0,
-                                          int L, float (&acc)[8][8], Smem& sm) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  constexpr int PER = BM * BK / NT;  // 4 elements of each operand a thread
-  float ra[PER], rb[PER];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    int i, l, j, l2;
-    a_index(LA::L_FAST, tid + p * NT, i, l);
-    b_index(LB::L_FAST, tid + p * NT, l2, j);
-    ra[p] = la.load(i0 + i, l);
-    rb[p] = lb.load(l2, j0 + j);
-  }
-  float tot[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) tot[r][c] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += BK) {
-    __syncthreads();  // the previous slice's readers are done
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      int i, l, j, l2;
-      a_index(LA::L_FAST, tid + p * NT, i, l);
-      b_index(LB::L_FAST, tid + p * NT, l2, j);
-      sm.A[l][i] = la.conv(ra[p], i0 + i, l0 + l);
-      sm.B[l2][j] = lb.conv(rb[p], l0 + l2, j0 + j);
-    }
-    __syncthreads();
-    if (l0 + BK < L) {
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        int i, l, j, l2;
-        a_index(LA::L_FAST, tid + p * NT, i, l);
-        b_index(LB::L_FAST, tid + p * NT, l2, j);
-        ra[p] = la.load(i0 + i, l0 + BK + l);
-        rb[p] = lb.load(l0 + BK + l2, j0 + j);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.A[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sm.A[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sm.B[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sm.B[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    if ((l0 + BK) % FOLD == 0) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          tot[r][c] = __fadd_rn(tot[r][c], acc[r][c]);
-          acc[r][c] = 0.f;
-        }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(tot[r][c], acc[r][c]);
-}
 
 // Fixed-order sum of one value per thread; the result is valid in thread 0.
 __device__ __forceinline__ float block_sum(float v, float* buf) {
@@ -338,120 +200,6 @@ __device__ __forceinline__ float block_sum(float v, float* buf) {
   return buf[0];
 }
 
-// ---------------------------------------------------------------------------
-// The SIMT backward tiles
-// ---------------------------------------------------------------------------
-
-// dX tile (rows m, columns k; contraction over n) + this block's dsa/dba.
-template <class XT>
-__device__ __forceinline__ void dx_tile(const Args& a, float* dx, float* part, int blk, Smem& sm) {
-  const int n_i = (a.M + BM - 1) / BM;
-  const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
-  DY<true> la{a.dy, a.M, a.N, a.round_cot};
-  WDeqT lb{a.wq()};
-  float acc[8][8];
-  gemm_tile(la, lb, i0, j0, a.N, acc, sm);
-  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
-  const XT* x = static_cast<const XT*>(a.x);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float sa = 0.f, sb = 0.f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int m = i0 + tile_row(ty, r);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int k = j0 + tile_row(tx, c);
-      if (m < a.M && k < a.K) {
-        const size_t at = (size_t)m * a.K + k;
-        const float dxd = bf16r(acc[r][c]);
-        const float u = __fdiv_rn(__fsub_rn(ld(x, at), b), s);
-        const float mf = a.qa.in_range(u);
-        const float q = a.qa.code(u);
-        dx[at] = __fmul_rn(dxd, mf);
-        sa = __fadd_rn(sa, __fmul_rn(dxd, __fsub_rn(q, __fmul_rn(mf, u))));
-        sb = __fadd_rn(sb, __fmul_rn(dxd, __fsub_rn(1.f, mf)));
-      }
-    }
-  }
-  float* buf = &sm.red[0][0];
-  const float ta = block_sum(sa, buf);
-  if (threadIdx.x == 0) part[2 * blk] = ta;
-  const float tb = block_sum(sb, buf);
-  if (threadIdx.x == 0) part[2 * blk + 1] = tb;
-}
-
-// dW tile (rows k, columns n; contraction over m) + this block's dws partials:
-// per column over its rows (part[row block][N]) or per row over its columns
-// (part[column block][K]).
-template <class XT>
-__device__ __forceinline__ void dw_tile(const Args& a, float* dw, float* part, int blk, Smem& sm) {
-  const int n_i = (a.K + BM - 1) / BM;
-  const int bi = blk % n_i, bj = blk / n_i;
-  const int i0 = bi * BM, j0 = bj * BN;
-  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
-  XDeqT<XT> la{static_cast<const XT*>(a.x), a.M, a.K, s, b, a.qa};
-  DY<false> lb{a.dy, a.M, a.N, a.round_cot};
-  const WQ wq = a.wq();
-  float acc[8][8];
-  gemm_tile(la, lb, i0, j0, a.M, acc, sm);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float rsum[8], csum[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) rsum[i] = csum[i] = 0.f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int k = i0 + tile_row(ty, r);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = j0 + tile_row(tx, c);
-      if (k < a.K && n < a.N) {
-        const size_t at = (size_t)k * a.N + n;
-        const float dwd = bf16r(acc[r][c]);
-        const float u = __fdiv_rn(a.w[at], wq.scale(k, n));
-        const float mf = a.qw.in_range(u);
-        const float q = a.qw.code(u);
-        dw[at] = __fmul_rn(dwd, mf);
-        const float p = __fmul_rn(dwd, __fsub_rn(q, __fmul_rn(mf, u)));
-        rsum[r] = __fadd_rn(rsum[r], p);
-        csum[c] = __fadd_rn(csum[c], p);
-      }
-    }
-  }
-  __syncthreads();  // sm.red is free (the GEMM's last readers are done)
-  if (a.k_side) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) sm.red[tx][tile_row(ty, r)] = rsum[r];
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) sm.red[ty][tile_row(tx, c)] = csum[c];
-  }
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    const int t = threadIdx.x;
-    float v = 0.f;
-#pragma unroll
-    for (int g = 0; g < 16; ++g) v += sm.red[g][t];
-    if (a.k_side) {
-      if (i0 + t < a.K) part[(size_t)bj * a.K + i0 + t] = v;
-    } else {
-      if (j0 + t < a.N) part[(size_t)bi * a.N + j0 + t] = v;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernels
-// ---------------------------------------------------------------------------
-
-// Blocks [0, n_dx) are dX tiles, the rest dW tiles.
-template <class XT>
-__global__ void __launch_bounds__(NT) qat_bwd_kernel(Args a, float* dx, float* part_x,
-                                                     float* dw, float* part_w, int n_dx) {
-  __shared__ __align__(16) Smem sm;
-  if ((int)blockIdx.x < n_dx) dx_tile<XT>(a, dx, part_x, blockIdx.x, sm);
-  else dw_tile<XT>(a, dw, part_w, blockIdx.x - n_dx, sm);
-}
-
 // Expert e's operands: every per-expert pointer advanced to its slice.
 template <class XT>
 __device__ __forceinline__ Args at_expert(Args a, int e) {
@@ -462,22 +210,6 @@ __device__ __forceinline__ Args at_expert(Args a, int e) {
   a.ws += (size_t)e * a.N;
   if (a.dy != nullptr) a.dy += (size_t)e * a.M * a.N;
   return a;
-}
-
-// Per expert: blocks [0, n_dx) are dX tiles, the rest dW tiles; each expert
-// owns 2 * n_dx dX partials and n_wp * N dws partials.
-template <class XT>
-__global__ void __launch_bounds__(NT) qat_bwd_batched_kernel(Args a, float* dx, float* part_x,
-                                                             float* dw, float* part_w,
-                                                             int n_dx, int n_wpart) {
-  __shared__ __align__(16) Smem sm;
-  const int e = blockIdx.z;
-  const Args ae = at_expert<XT>(a, e);
-  if ((int)blockIdx.x < n_dx)
-    dx_tile<XT>(ae, dx + (size_t)e * a.M * a.K, part_x + (size_t)e * 2 * n_dx, blockIdx.x, sm);
-  else
-    dw_tile<XT>(ae, dw + (size_t)e * a.K * a.N, part_w + (size_t)e * n_wpart,
-                blockIdx.x - n_dx, sm);
 }
 
 // The fixed-order finish: dsa / dba from n_sp block pairs (block 0), and dws[l]
@@ -521,9 +253,10 @@ __global__ void __launch_bounds__(NT) qat_finish_kernel(const float* part_x, int
 
 // ---------------------------------------------------------------------------
 // The tensor-core path: the forward (qat_fwd_tc_launch, 2D and per expert)
-// and the backward for bf16 cotangents (qat_bwd_tc_launch). A prologue
-// writes xd (M, ld_x), wd (K, ld_w) and, for the backward, bf16(dY) (M, ld_y)
-// once, each leading dimension a multiple of 8 with its pad zeroed; the tile
+// and the backwards (qat_bwd_tc_launch, the split dx / dw). A prologue
+// writes xd (M, ld_x), wd (K, ld_w) and, for the backward, the cotangent's
+// planes (planes, M, ld_y) once, each leading dimension a multiple of 8 with
+// its pad zeroed; the tile
 // then runs a plain bf16 GEMM: 16-byte cp.async into 2 stages of 32-deep
 // slices, ldmatrix, and mma.sync m16n8k16 with f32 accumulators.
 // ---------------------------------------------------------------------------
@@ -589,9 +322,9 @@ __device__ __forceinline__ void split3(float y, float& hi, float& mid, float& lo
   lo = bf16r(__fsub_rn(r, mid));
 }
 
-// One grid-stride pass over the arrays in chunks of 8 elements of a row: the
-// same act_deq / w_deq / bf16 rounding as the SIMT tile's staging, so the
-// values are those the SIMT kernels multiply, bit for bit. An operand whose
+// One grid-stride pass over the arrays in chunks of 8 elements of a row:
+// act_deq / w_deq and the bf16 rounding, so the values are the plain
+// version's dequantized operands, bit for bit. An operand whose
 // pointer is null is skipped: dY for the forward, xd for dX alone, wd for dW
 // alone. dY is written as `planes` consecutive (M, ld_y) planes: bf16(dY)
 // for one, split3's hi, mid and lo for three. Expert e = blockIdx.y (0 for
@@ -700,9 +433,11 @@ __device__ __forceinline__ TcOp tc_plane(const TcOp& op, int p) {
   return TcOp{op.p + (size_t)p * op.rows * op.ld, op.rows, op.ld};
 }
 
-// acc[mf][nf][e] = sum_l A(i, l) B(l, j) over l < L for the block's 128 x 128
-// tile at (i0, j0); warp w owns rows (w / 4) * 64 + mf * 16 + [0, 16) and
-// columns (w % 4) * 32 + nf * 8 + [0, 8), in the m16n8 accumulator layout.
+// acc[mf][nf][e] = sum_l A(i, l) B(l, j) over l0 <= l < l0 + L for the
+// block's 128 x 128 tile at (i0, j0) (l0: a split dW range's first row, a
+// multiple of 32; the operands' own rows still bound the walk); warp w owns
+// rows (w / 4) * 64 + mf * 16 + [0, 16) and columns (w % 4) * 32 + nf * 8 +
+// [0, 8), in the m16n8 accumulator layout.
 // PA / PB > 1: that operand is PA (PB) consecutive planes (the cotangent's
 // split), and the contraction is walked once per plane, in plane order,
 // into the same accumulators, the other operand read again for each; the
@@ -711,7 +446,7 @@ __device__ __forceinline__ TcOp tc_plane(const TcOp& op, int p) {
 // accumulators with round-to-nearest adds (mma_bf16_rn).
 template <bool A_T, bool B_T, int PA = 1, int PB = 1>
 __device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, int j0, int L,
-                                        float (&acc)[4][4][4], __nv_bfloat16* sm) {
+                                        float (&acc)[4][4][4], __nv_bfloat16* sm, int l0 = 0) {
   static_assert(PA == 1 || PB == 1, "planes in one operand only");
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int wi = (w / 4) * 64, wj = (w % 4) * 32;
@@ -730,8 +465,8 @@ __device__ __forceinline__ void tc_gemm(const TcOp& A, const TcOp& B, int i0, in
       p = kt / nl;
       l = kt - p * nl;
     }
-    tc_stage<A_T>(PA > 1 ? tc_plane(A, p) : A, i0, l * TC_BK, st);
-    tc_stage<B_T>(PB > 1 ? tc_plane(B, p) : B, j0, l * TC_BK, st + TC_OPND);
+    tc_stage<A_T>(PA > 1 ? tc_plane(A, p) : A, i0, l0 + l * TC_BK, st);
+    tc_stage<B_T>(PB > 1 ? tc_plane(B, p) : B, j0, l0 + l * TC_BK, st + TC_OPND);
   };
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
@@ -845,18 +580,14 @@ __device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const 
   }
 }
 
-// dW tile (rows k, columns n; contraction over m): A(k, m) = xd(m, k) and
-// B(m, n) = dyb(m, n) (P planes), both staged transposed. dws partials as
-// dw_tile's.
-template <int P>
-__device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const TcOp& dyb,
-                                           float* dw, float* part, int blk,
-                                           __nv_bfloat16* sm) {
-  const int n_i = (a.K + BM - 1) / BM;
-  const int bi = blk % n_i, bj = blk / n_i;
+// The dW tile's epilogue on its accumulators (the sum over all of M) for
+// tile (bi, bj): dW = bf16(acc) under the mask, and the dws partials per
+// column over its rows (part[bi][N]) or per row over its columns
+// (part[bj][K]), each reduced in a fixed order. sm must be free.
+__device__ __forceinline__ void dw_tc_epilogue(const Args& a, const float (&acc)[4][4][4],
+                                               float* dw, float* part, int bi, int bj,
+                                               __nv_bfloat16* sm) {
   const int i0 = bi * BM, j0 = bj * BN;
-  float acc[4][4][4];
-  tc_gemm<true, true, 1, P>(xd, dyb, i0, j0, a.M, acc, sm);
   const WQ wq = a.wq();
   float rsum[4][2], csum[4][2];  // [mf][row half], [nf][column parity]
 #pragma unroll
@@ -912,31 +643,121 @@ __device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const 
   }
 }
 
-// Blocks [0, n_dx) are dX tiles, the rest dW tiles (as qat_bwd_kernel).
+// dW tile (rows k, columns n; contraction over m): A(k, m) = xd(m, k) and
+// B(m, n) = dyb(m, n) (P planes), both staged transposed.
+template <int P>
+__device__ __forceinline__ void dw_tc_tile(const Args& a, const TcOp& xd, const TcOp& dyb,
+                                           float* dw, float* part, int blk,
+                                           __nv_bfloat16* sm) {
+  const int n_i = (a.K + BM - 1) / BM;
+  const int bi = blk % n_i, bj = blk / n_i;
+  float acc[4][4][4];
+  tc_gemm<true, true, 1, P>(xd, dyb, bi * BM, bj * BN, a.M, acc, sm);
+  dw_tc_epilogue(a, acc, dw, part, bi, bj, sm);
+}
+
+// One range of a split dW contraction: block blk is range r = blk / n_t of
+// tile t = blk % n_t (n_t dW tiles), rows [r * rows, r * rows + rows) of M
+// (rows % 32 == 0; the last range ends at M). It writes its sums to
+// part_s[r] (K, N); the last block of tile t to arrive (tickets[t], reset
+// by that block) adds part_s[0..splits) in that order with round-to-nearest
+// adds and runs the epilogue on the total, so the bits do not depend on
+// the order the blocks ran in.
+template <int P>
+__device__ __forceinline__ void dw_tc_split_tile(const Args& a, const TcOp& xd, const TcOp& dyb,
+                                                 float* dw, float* part, int blk, int splits,
+                                                 int rows, float* part_s, int* tickets,
+                                                 __nv_bfloat16* sm) {
+  __shared__ int last;
+  const int n_i = (a.K + BM - 1) / BM;
+  const int n_t = n_i * ((a.N + BN - 1) / BN);
+  const int r = blk / n_t, t = blk % n_t;
+  const int bi = t % n_i, bj = t / n_i;
+  const int i0 = bi * BM, j0 = bj * BN;
+  const int l0 = r * rows;
+  float acc[4][4][4];
+  tc_gemm<true, true, 1, P>(xd, dyb, i0, j0, min(rows, a.M - l0), acc, sm, l0);
+  const size_t slice = (size_t)a.K * a.N;
+  float* mine = part_s + r * slice;
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = i0 + tc_row(mf, e), n = j0 + tc_col(nf, e);
+        if (k < a.K && n < a.N) mine[(size_t)k * a.N + n] = acc[mf][nf][e];
+      }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + t, 1) == splits - 1;
+    if (last) tickets[t] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = i0 + tc_row(mf, e), n = j0 + tc_col(nf, e);
+        float v = 0.f;
+        if (k < a.K && n < a.N) {
+          const float* p = part_s + (size_t)k * a.N + n;
+          v = __ldcg(p);
+          for (int sp = 1; sp < splits; ++sp) v = __fadd_rn(v, __ldcg(p + sp * slice));
+        }
+        acc[mf][nf][e] = v;
+      }
+  dw_tc_epilogue(a, acc, dw, part, bi, bj, sm);
+}
+
+// Blocks [0, n_dx) are dX tiles, the rest dW tiles, on P cotangent planes
+// (1: bf16 cotangents; 3: f32 ones). With P = 3 and splits > 1 the dW
+// blocks are `splits` ranges of `rows` rows of each dW tile
+// (dw_tc_split_tile, on the (splits, K, N) scratch part_s and one ticket a
+// tile); else one block a dW tile, the split route's tile code.
 // EXPERTS (the batched backward): expert e = blockIdx.z advances every
 // per-expert operand (Args by at_expert, the three scratch arrays, dX, dW
 // and its 2 * n_dx dX and n_wpart dws partials, the layout qat_finish_kernel
-// reads per blockIdx.y) to its slice, then runs the 2D tile code, so its
-// bits are the 2D kernel's on those slices. A separate instance, so the 2D
-// kernel's code is unchanged and a profile names the two apart.
-template <class XT, bool EXPERTS>
+// reads per blockIdx.y, part_s and the tickets) to its slice, then runs the
+// 2D tile code, so its bits are the 2D kernel's on those slices. A separate
+// instance, so the 2D kernel's code is unchanged and a profile names the two
+// apart.
+template <class XT, bool EXPERTS, int P>
 __global__ void __launch_bounds__(NT, 2) qat_bwd_tc_kernel(Args a, TcOp xd, TcOp wd, TcOp dyb,
                                                            float* dx, float* part_x, float* dw,
-                                                           float* part_w, int n_dx, int n_wpart) {
+                                                           float* part_w, int n_dx, int n_wpart,
+                                                           float* part_s, int* tickets,
+                                                           int splits, int rows) {
   __shared__ __align__(128) __nv_bfloat16 sm[TC_STAGES * 2 * TC_OPND];
   if (EXPERTS) {
     const size_t e = blockIdx.z;
     a = at_expert<XT>(a, (int)e);
     xd.p += e * xd.rows * xd.ld;
     wd.p += e * wd.rows * wd.ld;
-    dyb.p += e * dyb.rows * dyb.ld;
+    dyb.p += e * P * dyb.rows * dyb.ld;
     dx += e * a.M * a.K;
     dw += e * a.K * a.N;
     part_x += e * 2 * n_dx;
     part_w += e * n_wpart;
+    if (P > 1 && splits > 1) {
+      part_s += e * splits * a.K * a.N;
+      tickets += e * (gridDim.x - n_dx) / splits;
+    }
   }
-  if ((int)blockIdx.x < n_dx) dx_tc_tile<XT, 1>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
-  else dw_tc_tile<1>(a, xd, dyb, dw, part_w, blockIdx.x - n_dx, sm);
+  const int blk = (int)blockIdx.x - n_dx;
+  if (blk < 0) dx_tc_tile<XT, P>(a, wd, dyb, dx, part_x, blockIdx.x, sm);
+  else if constexpr (P > 1) {
+    if (splits > 1) dw_tc_split_tile<P>(a, xd, dyb, dw, part_w, blk, splits, rows, part_s,
+                                        tickets, sm);
+    else dw_tc_tile<P>(a, xd, dyb, dw, part_w, blk, sm);
+  } else {
+    dw_tc_tile<P>(a, xd, dyb, dw, part_w, blk, sm);
+  }
 }
 
 // The split backward: the dX grid alone, or the dW grid alone (which reads no
@@ -1017,7 +838,7 @@ cudaError_t finish(const Args& a, const float* part_x, float* dsa, float* dba,
 
 Args make_args(const void* x, const void* w, const void* a_s, const void* a_b,
                const void* ws, const void* dy, int M, int K, int N, int k_side,
-               int round_cot, int qn_a, int qp_a, int qn_w, int qp_w) {
+               int qn_a, int qp_a, int qn_w, int qp_w) {
   Args a;
   a.x = x;
   a.w = static_cast<const float*>(w);
@@ -1027,7 +848,6 @@ Args make_args(const void* x, const void* w, const void* a_s, const void* a_b,
   a.dy = static_cast<const float*>(dy);
   a.M = M; a.K = K; a.N = N;
   a.k_side = k_side;
-  a.round_cot = round_cot;
   a.qa = Quant{static_cast<float>(qn_a), static_cast<float>(qp_a)};
   a.qw = Quant{static_cast<float>(qn_w), static_cast<float>(qp_w)};
   return a;
@@ -1036,37 +856,12 @@ Args make_args(const void* x, const void* w, const void* a_s, const void* a_b,
 }  // namespace
 
 // Every entry: pointers to contiguous tensors on the current device, x (M, K)
-// bf16 (x_bf16 = 1) or f32, w (K, N) f32, a_s / a_b 0-d f32, ws (N,) or (K,) f32
-// (k_side), dy (M, N) f32; outputs f32. Scratch (allocated by the caller):
-// part_x 2 * qat_dx_blocks floats, part_w qat_dws_partials floats. Launches on
-// `stream` and returns cudaGetLastError().
+// bf16 (x_bf16 = 1) or f32, w (K, N) f32, a_s / a_b 0-d f32, ws (N,) or (K,)
+// f32 (k_side), dy (M, N) f32; outputs f32. Scratch (allocated by the
+// caller): part_x 2 * (dX tiles) floats, part_w (dws partials) floats, and
+// the bf16 arrays below. Launches on `stream` and returns cudaGetLastError().
 
 extern "C" int qat_tile(void) { return BM; }
-
-extern "C" int qat_bwd_launch(const void* dy, const void* x, int x_bf16, const void* w,
-                              const void* a_s, const void* a_b, const void* ws, int k_side,
-                              void* dx, void* dsa, void* dba, void* dw, void* dws,
-                              void* part_x, void* part_w,
-                              int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                              int round_cot, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, round_cot, qn_a, qp_a, qn_w, qp_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* px = static_cast<float*>(part_x);
-  float* pw = static_cast<float*>(part_w);
-  const int n_dx = n_dx_blocks(a);
-  const int grid = n_dx + n_dw_blocks(a);
-  if (x_bf16)
-    qat_bwd_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a, static_cast<float*>(dx), px,
-                                                       static_cast<float*>(dw), pw, n_dx);
-  else
-    qat_bwd_kernel<float><<<grid, NT, 0, st>>>(a, static_cast<float*>(dx), px,
-                                               static_cast<float*>(dw), pw, n_dx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
-                                 pw, static_cast<float*>(dws), st));
-}
 
 // The tensor-core path's scratch: xd (M, ld_x), wd (K, ld_w) and, for the
 // backward, dyb (planes, M, ld_y) bf16 (E of each for the batched kernels),
@@ -1117,7 +912,7 @@ extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16
       !scratch_ok(dyb, ld_y, N) || (xd != nullptr && !scratch_ok(xd, ld_x, K)) ||
       (wd != nullptr && !scratch_ok(wd, ld_w, N)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y,
                                    static_cast<cudaStream_t>(stream), E, planes));
 }
@@ -1126,7 +921,7 @@ extern "C" int qat_bwd_prologue_launch(const void* dy, const void* x, int x_bf16
 // dx, dsa, dba from wd and the planes) or the dW grid (qat_dw_tc_launch: dw,
 // dws from xd and the planes), each then its finish, on the scratch that
 // qat_bwd_prologue_launch wrote with the same plane count (1 or 3). The
-// operands are qat_bwd_launch's (the tile's epilogue reads x or w and the
+// operands are qat_bwd_tc_launch's (the tile's epilogue reads x or w and the
 // scales); part_x / part_w as there.
 extern "C" int qat_dx_tc_launch(const void* x, int x_bf16, const void* w, const void* a_s,
                                 const void* a_b, const void* ws, int k_side, void* dx, void* dsa,
@@ -1136,7 +931,7 @@ extern "C" int qat_dx_tc_launch(const void* x, int x_bf16, const void* w, const 
   if (M <= 0 || K <= 0) return 0;
   if ((planes != 1 && planes != 3) || !scratch_ok(wd, ld_w, N) || !scratch_ok(dyb, ld_y, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
   const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
@@ -1165,7 +960,7 @@ extern "C" int qat_dw_tc_launch(const void* x, int x_bf16, const void* w, const 
   if (K <= 0 || N <= 0) return 0;
   if ((planes != 1 && planes != 3) || !scratch_ok(xd, ld_x, K) || !scratch_ok(dyb, ld_y, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
   const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
@@ -1180,49 +975,60 @@ extern "C" int qat_dw_tc_launch(const void* x, int x_bf16, const void* w, const 
                                  st));
 }
 
-// The combined backward on the tensor cores for bf16 cotangents only
-// (round_cot = 1): qat_bwd_launch's parameters plus the three scratch arrays
-// xd (E, M, ld_x), wd (E, K, ld_w), dyb (E, M, ld_y) and the expert count:
-// 2D (E = 1) or per expert (E > 1: the operands, outputs and partials of
-// qat_bwd_batched_launch, column scales only). Prologue (the expert on
-// blockIdx.y), tile (on blockIdx.z), finish (on blockIdx.y).
+namespace {
+using BwdKernel = void (*)(Args, TcOp, TcOp, TcOp, float*, float*, float*, float*, int, int,
+                           float*, int*, int, int);
+template <class XT>
+BwdKernel bwd_kernel(bool experts, int planes) {
+  if (experts)
+    return planes == 3 ? qat_bwd_tc_kernel<XT, true, 3> : qat_bwd_tc_kernel<XT, true, 1>;
+  return planes == 3 ? qat_bwd_tc_kernel<XT, false, 3> : qat_bwd_tc_kernel<XT, false, 1>;
+}
+}  // namespace
+
+// The combined backward on the tensor cores: the operands above, the three
+// scratch arrays xd (E, M, ld_x), wd (E, K, ld_w), dyb (E, planes, M,
+// ld_y), the expert count, 2D (E = 1) or per expert (E > 1: x (E, M, K), w
+// (E, K, N), a_s / a_b (E,), ws (E, N) column scales, dy (E, M, N); dx,
+// dsa, dba, dw, dws, part_x and part_w E of each), and the cotangent's
+// planes: 1 (bf16 cotangents) or 3 (f32). Prologue (the expert on
+// blockIdx.y), tile (on blockIdx.z), finish (on blockIdx.y). splits > 1
+// (planes 3 only): the dW contraction in `splits` ranges of split_rows rows
+// (a multiple of 32; the last range ends at M), on part_s (E, splits, K, N)
+// f32 and tickets, E x (dW tiles) ints at zero (left at zero).
 extern "C" int qat_bwd_tc_launch(const void* dy, const void* x, int x_bf16, const void* w,
                                  const void* a_s, const void* a_b, const void* ws, int k_side,
                                  void* dx, void* dsa, void* dba, void* dw, void* dws,
                                  void* part_x, void* part_w, void* xd, int ld_x, void* wd,
-                                 int ld_w, void* dyb, int ld_y, int E,
-                                 int M, int K, int N, int qn_a, int qp_a, int qn_w, int qp_w,
-                                 int round_cot, void* stream) {
+                                 int ld_w, void* dyb, int ld_y, void* part_s, void* tickets,
+                                 int splits, int split_rows, int E, int M, int K, int N,
+                                 int qn_a, int qp_a, int qn_w, int qp_w, int planes,
+                                 void* stream) {
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
-  if (!round_cot || (E > 1 && k_side) || dyb == nullptr ||
+  const bool split_ok = splits == 1 ||
+      (splits > 1 && planes == 3 && split_rows > 0 && split_rows % 32 == 0 &&
+       (splits - 1) * split_rows < M && M <= splits * split_rows && part_s != nullptr &&
+       tickets != nullptr);
+  if ((planes != 1 && planes != 3) || !split_ok || (E > 1 && k_side) || dyb == nullptr ||
       !tc_scratch_ok(K, N, xd, ld_x, wd, ld_w, dyb, ld_y))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, 1, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y, st, E);
+  cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, dyb, ld_y, st, E, planes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const TcOp oxd{static_cast<const __nv_bfloat16*>(xd), M, ld_x};
   const TcOp owd{static_cast<const __nv_bfloat16*>(wd), K, ld_w};
   const TcOp ody{static_cast<const __nv_bfloat16*>(dyb), M, ld_y};
   float* px = static_cast<float*>(part_x);
   float* pw = static_cast<float*>(part_w);
-  float* fdx = static_cast<float*>(dx);
-  float* fdw = static_cast<float*>(dw);
   const int n_dx = n_dx_blocks(a);
-  const int n_wpart = n_wp(a) * wp_len(a);
-  const dim3 grid(n_dx + n_dw_blocks(a), 1, E);
-  if (x_bf16 && E > 1)
-    qat_bwd_tc_kernel<__nv_bfloat16, true><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw,
-                                                                pw, n_dx, n_wpart);
-  else if (x_bf16)
-    qat_bwd_tc_kernel<__nv_bfloat16, false><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw,
-                                                                 pw, n_dx, n_wpart);
-  else if (E > 1)
-    qat_bwd_tc_kernel<float, true><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw, pw,
-                                                        n_dx, n_wpart);
-  else
-    qat_bwd_tc_kernel<float, false><<<grid, NT, 0, st>>>(a, oxd, owd, ody, fdx, px, fdw, pw,
-                                                         n_dx, n_wpart);
+  const dim3 grid(n_dx + n_dw_blocks(a) * splits, 1, E);
+  const BwdKernel kernel = x_bf16 ? bwd_kernel<__nv_bfloat16>(E > 1, planes)
+                                  : bwd_kernel<float>(E > 1, planes);
+  kernel<<<grid, NT, 0, st>>>(a, oxd, owd, ody, static_cast<float*>(dx), px,
+                              static_cast<float*>(dw), pw, n_dx, n_wp(a) * wp_len(a),
+                              static_cast<float*>(part_s), static_cast<int*>(tickets), splits,
+                              split_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
@@ -1240,7 +1046,7 @@ extern "C" int qat_fwd_tc_launch(const void* x, int x_bf16, const void* w, const
   if (E <= 0 || M <= 0 || N <= 0) return 0;
   if ((E > 1 && k_side) || !scratch_ok(xd, ld_x, K) || !scratch_ok(wd, ld_w, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 0, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prologue(a, x_bf16, xd, ld_x, wd, ld_w, nullptr, 0, st, E);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1260,40 +1066,7 @@ extern "C" int qat_fwd_prologue_launch(const void* x, int x_bf16, const void* w,
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
   if ((E > 1 && k_side) || !scratch_ok(xd, ld_x, K) || !scratch_ok(wd, ld_w, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, 0, qn_a, qp_a, qn_w, qp_w);
+  Args a = make_args(x, w, a_s, a_b, ws, nullptr, M, K, N, k_side, qn_a, qp_a, qn_w, qp_w);
   return static_cast<int>(prologue(a, x_bf16, xd, ld_x, wd, ld_w, nullptr, 0,
                                    static_cast<cudaStream_t>(stream), E));
-}
-
-// The batched (per-expert) backward on the SIMT tile, for f32 cotangents
-// (bf16 cotangents take qat_bwd_tc_launch with E > 1): x (E, M, K) bf16 or
-// f32, w (E, K, N) f32, a_s / a_b (E,) f32, ws (E, N) f32 column scales, dy
-// (E, M, N) f32; outputs f32 dx (E, M, K), dsa / dba (E,), dw (E, K, N), dws
-// (E, N). Scratch: part_x E * 2 * qat_dx_blocks floats, part_w E * cdiv(K,
-// 128) * N.
-
-extern "C" int qat_bwd_batched_launch(const void* dy, const void* x, int x_bf16,
-                                      const void* w, const void* a_s, const void* a_b,
-                                      const void* ws, void* dx, void* dsa, void* dba,
-                                      void* dw, void* dws, void* part_x, void* part_w,
-                                      int E, int M, int K, int N, int qn_a, int qp_a,
-                                      int qn_w, int qp_w, int round_cot, void* stream) {
-  if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
-  Args a = make_args(x, w, a_s, a_b, ws, dy, M, K, N, 0, round_cot, qn_a, qp_a, qn_w, qp_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* px = static_cast<float*>(part_x);
-  float* pw = static_cast<float*>(part_w);
-  const int n_dx = n_dx_blocks(a);
-  const int n_wpart = n_wp(a) * wp_len(a);
-  const dim3 grid(n_dx + n_dw_blocks(a), 1, E);
-  if (x_bf16)
-    qat_bwd_batched_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        a, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx, n_wpart);
-  else
-    qat_bwd_batched_kernel<float><<<grid, NT, 0, st>>>(
-        a, static_cast<float*>(dx), px, static_cast<float*>(dw), pw, n_dx, n_wpart);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(a, px, static_cast<float*>(dsa), static_cast<float*>(dba),
-                                 pw, static_cast<float*>(dws), st, E));
 }

@@ -21,17 +21,18 @@ they run the split dx / dw kernels (expert by expert for the batched one),
 so the port takes the same route at every shape; the GPU kernels themselves
 do not use the tiles.
 
-What runs on the card: both forwards, both combined backwards
-(`quant_matmul_bwd` and, per expert, `quant_matmul_bwd_batched`) with bf16
-cotangents, and the split dx / dw (the vocab-wide head, and each expert on
-the batched backward's split route) run on the tensor cores: a prologue
-that dequantizes each operand once into zero-padded bf16 scratch, then an
+What runs on the card: every product runs on the tensor cores, both
+forwards, both combined backwards (`quant_matmul_bwd` and, per expert,
+`quant_matmul_bwd_batched`) and the split dx / dw (the vocab-wide head, and
+each expert on the batched backward's split route): a prologue that
+dequantizes each operand once into zero-padded bf16 scratch, then an
 mma.sync tile, the expert on the grid; the scratch lives for the call. The
-split dx / dw take f32 cotangents (the head's) as three exact bf16 planes
+backwards take f32 cotangents (the lm heads') as three exact bf16 planes
 (`ref.cotangent_planes`), whose bf16 x bf16 products sum to the f32
-products. Only the combined backwards with f32 cotangents (`bwd_route`:
-the untied heads narrow enough for the combined route) run on the SIMT
-tile, which dequantizes as it stages.
+products; bf16 cotangents as one. Where the combined grid is short of a
+wave and its dW tiles are deep (paper-deit-t's tall, narrow head),
+`dw_splits` cuts the dW contraction into ranges that the last block of each
+tile adds in order.
 `fwd_prologue` / `bwd_prologue` run the prologues alone, 2D or per expert,
 for checks.
 
@@ -56,6 +57,12 @@ _QAT_SIGNED = False
 DEFAULT_TILES = (128, 128, 512)  # (bm, bn, bk)
 BWD_SCRATCH_BUDGET_BYTES = 8 * 1024 * 1024
 QAT_TILE = 128  # output tile edge of csrc/qat_matmul.cu (checked at load)
+# its contraction rows a pipeline stage (the combined backward refuses dW
+# ranges of other multiples), and the blocks of one wave its dW split aims
+# at (two on each of an H100's 132 SMs; a constant, never read from the
+# card, as INT4_BLOCKS)
+QAT_STAGE = 32
+QAT_BLOCKS = 264
 # int4_matmul's tiling (csrc/quant_matmul.cu, checked at load): 128 output
 # columns a block of 8 warps, 16-deep mma steps; and the blocks of one wave
 # its plan aims at, two on each of an H100's 132 SMs (a constant: never read
@@ -252,21 +259,15 @@ def _qat_lib() -> ctypes.CDLL:
                                          i, p, i, i, i, i, i, i, i, i, i, p]
         lib.qat_dw_tc_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, i,
                                          p, i, i, i, i, i, i, i, i, i, p]
-        lib.qat_bwd_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p, p,
-                                       p, p, i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_tc_launch.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p,
-                                          p, p, p, p, i, p, i, p, i, i, i, i,
-                                          i, i, i, i, i, i, p]
+                                          p, p, p, p, i, p, i, p, i, p, p, i,
+                                          i, i, i, i, i, i, i, i, i, i, p]
         lib.qat_bwd_prologue_launch.argtypes = [p, p, i, p, p, p, p, i, p, i,
                                                 p, i, p, i, i, i, i, i, i, i,
                                                 i, i, i, p]
-        lib.qat_bwd_batched_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
-                                               p, p, p, p, i, i, i, i, i, i,
-                                               i, i, i, p]
         for fn in (lib.qat_fwd_tc_launch, lib.qat_fwd_prologue_launch,
-                   lib.qat_dx_tc_launch, lib.qat_dw_tc_launch, lib.qat_bwd_launch,
-                   lib.qat_bwd_tc_launch, lib.qat_bwd_prologue_launch,
-                   lib.qat_bwd_batched_launch):
+                   lib.qat_dx_tc_launch, lib.qat_dw_tc_launch,
+                   lib.qat_bwd_tc_launch, lib.qat_bwd_prologue_launch):
             fn.restype = i
         if lib.qat_tile() != QAT_TILE:
             raise RuntimeError(f"qat_matmul.cu tile {lib.qat_tile()} != "
@@ -392,22 +393,15 @@ def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
     return out
 
 
-def bwd_route(m: int, k: int, n: int, round_cot: bool,
-              scratch_budget=None) -> str:
+def bwd_route(m: int, k: int, n: int, scratch_budget=None) -> str:
     """The kernels quant_matmul_bwd (and quant_matmul_bwd_batched, on the
     per-expert shape) takes for a CUDA tensor: "split" (the split dx / dw
-    grids on the tensor cores, where the reference splits; f32 cotangents
-    as three exact bf16 planes), else the combined backward on the tensor
-    cores ("tc", bf16 cotangents) or on the SIMT tile ("simt", f32
-    cotangents)."""
+    grids, where the reference splits), else "tc" (the combined backward);
+    both on the tensor cores, the cotangent on `plane_count` planes."""
     if not bwd_uses_combined(*padded_dims(m, k, n),
                              scratch_budget=scratch_budget):
         return "split"
-    return "tc" if round_cot else "simt"
-
-
-_BWD_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_launch"}
-_BWD_BATCHED_ENTRY = {"tc": "qat_bwd_tc_launch", "simt": "qat_bwd_batched_launch"}
+    return "tc"
 
 
 def plane_count(round_cot: bool) -> int:
@@ -415,6 +409,25 @@ def plane_count(round_cot: bool) -> int:
     (bf16(dY)) for bf16 cotangents, 3 (dY's exact split hi + mid + lo,
     `ref.cotangent_planes`) for f32 ones."""
     return 1 if round_cot else 3
+
+
+def dw_splits(m: int, k: int, n: int, planes: int) -> tuple[int, int]:
+    """(S, rows): how the combined backward cuts its dW contraction over M
+    rows: S ranges of `rows` rows (a multiple of `QAT_STAGE`; the last range
+    ends at M), one block a (range, dW tile), added in range order by the
+    tile's last block. One range (rows = M) on one plane (the bf16 tiles
+    keep their bits), where the grid's dX and dW tiles already fill a wave
+    of `QAT_BLOCKS`, or where M <= N (a dW tile then walks no deeper than a
+    dX tile); else ceil(M / N) ranges, each about a dX tile's depth N.
+    A function of the (per-expert) shape only, never of the card or of the
+    expert count: an expert of the batched backward cuts as the 2D backward
+    does on its slices, so their bits are equal."""
+    t = QAT_TILE
+    tiles = _cdiv(m, t) * _cdiv(k, t) + _cdiv(k, t) * _cdiv(n, t)
+    if planes == 1 or tiles >= QAT_BLOCKS or m <= n:
+        return 1, m
+    rows = _cdiv(_cdiv(m, _cdiv(m, n)), QAT_STAGE) * QAT_STAGE
+    return _cdiv(m, rows), rows
 
 
 def _bwd_tc_scratch(m: int, k: int, n: int, e: int = 1, planes: int = 1):
@@ -459,30 +472,43 @@ def _dw_outputs(k: int, n: int, k_side: bool, device):
             torch.empty((_cdiv(n, t) * k if k_side else _cdiv(k, t) * n,), **f32))
 
 
-def _bwd_launch(entry: str, dy, x, w, a_scale, a_offset, w_scale, qs: dict,
-                round_cot: bool):
-    """The combined backward (`entry`: the tensor cores' or the SIMT tile's)
-    on one launch (+ the prologue and the finish pass): (dX, dsa, dba, dW,
-    dws)."""
-    x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
-                                                   w_scale, dy)
-    m, k = x.shape
-    n = w.shape[1]
+def _dw_split_scratch(lead: tuple, m: int, k: int, n: int, splits: int, device):
+    """(part_s, tickets) for a dW contraction cut into `splits` ranges: the
+    ranges' f32 sums (*lead, S, K, N), allocated for the call, and one
+    int32 ticket a dW tile of every expert (`build.tickets`: zero, and left
+    at zero by the kernel); (None, None) for one range."""
+    if splits == 1:
+        return None, None
+    e = lead[0] if lead else 1
+    part_s = torch.empty((*lead, splits, k, n), dtype=torch.float32, device=device)
+    tiles = e * _cdiv(k, QAT_TILE) * _cdiv(n, QAT_TILE)
+    return part_s, build.tickets(device, tiles, "qat_bwd")
+
+
+def _bwd_tc(dy, x, w, a_s, a_b, ws, k_side: bool, qs: dict, round_cot: bool,
+            outs: tuple, parts: tuple) -> None:
+    """The combined backward on checked operands, 2D (x (M, K)) or per expert
+    (x (E, M, K)), in one `qat_bwd_tc_launch` (prologue, tile, finish pass):
+    into `outs` (dX, dsa, dba, dW, dws) with the scale partials `parts`
+    (part_x, part_w); the cotangent on `plane_count(round_cot)` planes, the
+    dW contraction cut by `dw_splits` (its (E, S, K, N) f32 sums and a
+    ticket a dW tile where S > 1)."""
+    lead, (m, k), n = tuple(x.shape[:-2]), x.shape[-2:], w.shape[-1]
+    e = lead[0] if lead else 1
     dev = x.device
-    (dxs, part_x), (dws, part_w) = _dx_outputs(m, k, dev), _dw_outputs(k, n, k_side, dev)
-    ptrs = [o.data_ptr() for o in dxs + dws + (part_x, part_w)]
-    if entry == "qat_bwd_tc_launch":  # scratch: the prologue's bf16 operands
-        for s in _bwd_tc_scratch_tensors((), m, k, n, dev):
-            ptrs += [s.data_ptr(), s.shape[1]]
-        ptrs.append(1)  # E: one expert
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_qat_lib(), entry)(
-        dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(),
-        int(k_side), *ptrs, m, k, n, qs["q_n_a"], qs["q_p_a"], qs["q_n_w"],
-        qs["q_p_w"], int(round_cot), stream)
-    _raise(entry, rc, m, k, n)
-    return dxs + dws
+    planes = plane_count(round_cot)
+    splits, rows = dw_splits(m, k, n, planes)
+    scratch = _bwd_tc_scratch_tensors(lead, m, k, n, dev, planes)
+    part_s, tickets = _dw_split_scratch(lead, m, k, n, splits, dev)
+    rc = _qat_lib().qat_bwd_tc_launch(
+        dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), int(k_side),
+        *(t.data_ptr() for t in outs + parts),
+        *(v for t in scratch for v in (t.data_ptr(), t.shape[-1])),
+        build.ptr(part_s), build.ptr(tickets), splits, rows, e, m, k, n,
+        qs["q_n_a"], qs["q_p_a"], qs["q_n_w"], qs["q_p_w"], planes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise("qat_bwd_tc_launch", rc, m, k, n)
 
 
 def _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool,
@@ -573,16 +599,18 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     `bwd_uses_combined` on the reference's padded shape."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     m, k = x.shape
-    route = bwd_route(m, k, w.shape[1], round_cot, scratch_budget)
-    if route == "split":
+    if bwd_route(m, k, w.shape[1], scratch_budget) == "split":
         return _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot)
     if x.device.type == "cpu":
         return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
                                     round_cot=round_cot, **qs)
-    out = _bwd_launch(_BWD_ENTRY[route], dy, x, w, a_scale, a_offset,
-                      w_scale, qs, round_cot)
+    x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
+                                                   w_scale, dy)
+    n, dev = w.shape[1], x.device
+    (dxs, part_x), (dws, part_w) = _dx_outputs(m, k, dev), _dw_outputs(k, n, k_side, dev)
+    _bwd_tc(dy, x, w, a_s, a_b, ws, k_side, qs, round_cot, dxs + dws, (part_x, part_w))
     quant_matmul_bwd.launches += 1
-    return out
+    return dxs + dws
 
 
 def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
@@ -677,16 +705,15 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
                              round_cot: bool = True, scratch_budget=None):
     """(dX (E, M, K), dsa (E, 1), dba (E, 1), dW (E, K, N), dws (E, N)), the
     scale sums raw, in one launch (+ the prologue and the finish pass), on
-    the route `bwd_route` gives the per-expert shape: the tensor cores
-    ("tc", bf16 cotangents), the SIMT tile ("simt", f32 cotangents), or,
-    where the reference's combined kernel would not fit its scratch budget
-    on the padded per-expert shape, expert by expert through the split
-    dx / dw (the reference's fallback; `quant_matmul_bwd`'s split route)."""
+    the route `bwd_route` gives the per-expert shape: the combined backward
+    ("tc", the expert on the grid), or, where the reference's combined
+    kernel would not fit its scratch budget on the padded per-expert shape,
+    expert by expert through the split dx / dw (the reference's fallback;
+    `quant_matmul_bwd`'s split route)."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     e, m, k = x.shape
     n = w.shape[2]
-    route = bwd_route(m, k, n, round_cot, scratch_budget)
-    if route == "split":
+    if bwd_route(m, k, n, scratch_budget) == "split":
         outs = []
         for i in range(e):
             dx_e, dsa_e, dba_e, dw_e, dws_e = _split_bwd(
@@ -708,17 +735,8 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
     dws = torch.empty((e, n), **f32)
     part_x = torch.empty((e * 2 * _cdiv(m, t) * _cdiv(k, t),), **f32)
     part_w = torch.empty((e * _cdiv(k, t) * n,), **f32)
-    ptrs = [o.data_ptr() for o in (dx, dsa, dba, dw, dws, part_x, part_w)]
-    entry = _BWD_BATCHED_ENTRY[route]
-    if route == "tc":  # k_side 0 (column scales), then the prologue's scratch
-        scratch = _bwd_tc_scratch_tensors((e,), m, k, n, dev)
-        ptrs = [0, *ptrs] + [v for s in scratch for v in (s.data_ptr(), s.shape[-1])]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_qat_lib(), entry)(
-        dy.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-        w.data_ptr(), a_s.data_ptr(), a_b.data_ptr(), ws.data_ptr(), *ptrs,
-        e, m, k, n, q_n_a, q_p_a, q_n_w, q_p_w, int(round_cot), stream)
-    _raise(entry, rc, m, k, n)
+    _bwd_tc(dy, x, w, a_s, a_b, ws, False, qs, round_cot, (dx, dsa, dba, dw, dws),
+            (part_x, part_w))
     quant_matmul_bwd_batched.launches += 1
     return dx, dsa, dba, dw, dws
 

@@ -160,8 +160,8 @@ def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     """The tensor-core backward's prologue: xd, wd and the cotangent's
     planes (`cotangent_planes`) as bf16 arrays of leading dimensions lds =
     (ld_x, ld_w, ld_y), zero past K, N and N; the planes (..., M, ld_y) for
-    one, (..., planes, M, ld_y) for three. xd and wd are the values the
-    SIMT kernels stage, bit for bit."""
+    one, (..., planes, M, ld_y) for three. xd and wd are `fwd_prologue`'s,
+    the operands every backward tile multiplies."""
     xd, wd = fwd_prologue(x, w, a_scale, a_offset, w_scale, q_n_a=q_n_a,
                           q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w, lds=lds[:2])
     ys = [_padded_bf16(t, lds[2]) for t in cotangent_planes(dy, planes)]

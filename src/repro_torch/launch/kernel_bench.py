@@ -309,12 +309,12 @@ def qat_bwd_traffic(device) -> dict:
 def tc_scratch_bytes(m: int, k: int, n: int, *, backward: bool) -> int:
     """Bytes of the tensor-core path's bf16 scratch on the CUDA kernels,
     written once by the prologue and read once by the tile: xd and wd for
-    the forward, and bf16(dY) as well for the backward (0 where the
-    backward's route is not the tensor cores'). Not in `kernel_bytes`,
-    which counts the boundary alone."""
+    the forward, and bf16(dY) as well for the (bf16-cotangent) backward (0
+    where the backward takes the split route, whose scratch this does not
+    count). Not in `kernel_bytes`, which counts the boundary alone."""
     if not backward:
         return 2 * sum(qmm._fwd_tc_scratch(m, k, n)[1])
-    if qmm.bwd_route(m, k, n, round_cot=True) != "tc":
+    if qmm.bwd_route(m, k, n) != "tc":
         return 0
     return 2 * sum(qmm._bwd_tc_scratch(m, k, n)[1])
 

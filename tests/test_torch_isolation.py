@@ -106,8 +106,7 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     from repro_torch.kernels import (bin_stats, build, decode_attention,
                                      fake_quant, quant_matmul)
     qat = ("qat_fwd_tc_launch", "qat_fwd_prologue_launch", "qat_dx_tc_launch",
-           "qat_dw_tc_launch", "qat_bwd_launch", "qat_bwd_tc_launch",
-           "qat_bwd_prologue_launch", "qat_bwd_batched_launch")
+           "qat_dw_tc_launch", "qat_bwd_tc_launch", "qat_bwd_prologue_launch")
     fq = ("fake_quant_tensor_launch", "fake_quant_rows_launch")
     fake = {name: types.SimpleNamespace(**{
         fn: types.SimpleNamespace() for fn in (

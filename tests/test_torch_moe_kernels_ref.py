@@ -151,12 +151,13 @@ def test_batched_route_rule_on_the_expert_shape():
     assert qmm.bwd_scratch_bytes(1280, 1024, 512) == 4 * (128 * 512 + 512 * 512 + 512)
     assert not qmm.bwd_uses_combined(*qmm.padded_dims(1280, 512, 8192))
     assert not qmm.bwd_uses_combined(1280, 1024, 512, scratch_budget=0)
-    # the CUDA path on that per-expert shape: bf16 cotangents on the
-    # combined route -> tensor cores, f32 -> SIMT, a wide N -> split
+    # the CUDA path on that per-expert shape: the combined route -> the
+    # combined tensor-core backward (bf16 and f32 cotangents), a wide N or a
+    # zero budget -> split
     for mkn in ((1280, 1024, 512), (1280, 512, 1024), (257, 129, 65)):
-        assert qmm.bwd_route(*mkn, True) == "tc" and qmm.bwd_route(*mkn, False) == "simt"
-        assert qmm.bwd_route(*mkn, True, scratch_budget=0) == "split"
-    assert {qmm.bwd_route(256, 512, 8192, r) for r in (True, False)} == {"split"}
+        assert qmm.bwd_route(*mkn) == "tc"
+        assert qmm.bwd_route(*mkn, scratch_budget=0) == "split"
+    assert qmm.bwd_route(256, 512, 8192) == "split"
 
 
 @pytest.mark.parametrize("round_cot", [True, False], ids=["bf16cot", "f32cot"])

@@ -1,9 +1,10 @@
-"""quant_matmul_bwd_batched's three routes: the tensor-core backward for
-bf16 cotangents (the prologue writes xd, wd and bf16(dY) to zero-padded
-bf16 scratch, the expert on blockIdx.y; then the 2D backward's mma.sync
-tile, the expert on blockIdx.z: `qat_bwd_tc_launch` with E > 1), the
-SIMT backward for f32 cotangents (`qat_bwd_batched_launch`), and past the
-reference's scratch budget the split dx / dw grids expert by expert.
+"""quant_matmul_bwd_batched's two routes: the tensor-core backward (the
+prologue writes xd, wd and the cotangent's planes to zero-padded bf16
+scratch, the expert on blockIdx.y; then the 2D backward's mma.sync tile,
+the expert on blockIdx.z: `qat_bwd_tc_launch` with E > 1; one plane,
+bf16(dY), for bf16 cotangents, three exact planes and the 2D backward's
+dW ranges for f32 ones), and past the reference's scratch budget the split
+dx / dw grids expert by expert.
 
 On the CPU no kernel runs, so this pins what surrounds them: the
 per-expert scratch shapes and bytes, the entry each route launches and the
@@ -52,17 +53,19 @@ def test_scratch_per_expert_shapes_and_bytes(emkn):
     assert all(t.dtype == torch.bfloat16 for t in (xd, wd, dyb))
 
 
-ENTRIES = ("qat_bwd_tc_launch", "qat_bwd_batched_launch", "qat_dx_tc_launch",
-           "qat_dw_tc_launch", "qat_bwd_prologue_launch", "qat_bwd_launch")
+ENTRIES = ("qat_bwd_tc_launch", "qat_dx_tc_launch", "qat_dw_tc_launch",
+           "qat_bwd_prologue_launch")
 
 
 @pytest.fixture
 def fake_lib(monkeypatch):
     """A fake kernel library that records each launch, operand checks that
     let meta tensors (no data, not on the CPU) through to the launch, and
-    scratch whose data pointers are tagged, so the argument order shows."""
+    scratch whose data pointers are tagged (the bf16 arrays 0x1000-0x3000,
+    a split dW's sums and tickets 0x4000 / 0x5000), so the argument order
+    shows; status["scratch"] keeps the shapes each allocation had."""
     calls = []
-    status = {"rc": 0}
+    status = {"rc": 0, "scratch": {}}
 
     def entry(name):
         def launch(*args):
@@ -84,12 +87,22 @@ def fake_lib(monkeypatch):
 
     def tensors(lead, m, k, n, device, planes=1, xd=True, wd=True):
         real = allocate(lead, m, k, n, "meta", planes, xd, wd)
+        status["scratch"]["bf16"] = [None if t is None else tuple(t.shape) for t in real]
         return tuple(None if t is None else
                      types.SimpleNamespace(shape=t.shape, dtype=t.dtype,
                                            data_ptr=lambda i=i: 0x1000 * (i + 1))
                      for i, t in enumerate(real))
 
+    split_scratch = qmm._dw_split_scratch
+
+    def sums(lead, m, k, n, splits, device):
+        real = split_scratch(lead, m, k, n, splits, "meta")
+        status["scratch"]["split"] = real
+        return tuple(None if t is None else types.SimpleNamespace(data_ptr=lambda v=v: v)
+                     for t, v in zip(real, (0x4000, 0x5000)))
+
     monkeypatch.setattr(qmm, "_qat_lib", lambda: lib)
+    monkeypatch.setattr(qmm, "_dw_split_scratch", sums)
     monkeypatch.setattr(qmm, "_qat_operands", operands)
     monkeypatch.setattr(qmm, "_batched_operands", batched)
     monkeypatch.setattr(qmm, "_bwd_tc_scratch_tensors", tensors)
@@ -117,8 +130,9 @@ def _check_shapes(out, e, m, k, n):
 def test_bf16_cotangents_launch_the_tensor_core_entry(fake_lib, emkn, x_dtype):
     """bf16 cotangents: qat_bwd_tc_launch once, in the declared order: dy,
     x, x_bf16, w, a_s, a_b, ws, k_side 0, dx, dsa, dba, dw, dws, part_x,
-    part_w, xd, ld_x, wd, ld_w, dyb, ld_y, E, M, K, N, the four code bounds,
-    round_cot 1, the stream."""
+    part_w, xd, ld_x, wd, ld_w, dyb, ld_y, the split dW's sums and tickets
+    (none: one plane never splits), splits 1, its rows M, E, M, K, N, the
+    four code bounds, planes 1, the stream."""
     calls, _ = fake_lib
     e, m, k, n = emkn
     before = qmm.quant_matmul_bwd_batched.launches
@@ -126,26 +140,44 @@ def test_bf16_cotangents_launch_the_tensor_core_entry(fake_lib, emkn, x_dtype):
     _check_shapes(out, e, m, k, n)
     assert [name for name, _ in calls] == ["qat_bwd_tc_launch"]
     args = calls[0][1]
-    assert len(args) == _c_param_count("qat_bwd_tc_launch") == 31
+    assert len(args) == _c_param_count("qat_bwd_tc_launch") == 35
     lds, _ = qmm._bwd_tc_scratch(m, k, n)
     assert args[2] == int(x_dtype == torch.bfloat16) and args[7] == 0
     assert args[15:21] == (0x1000, lds[0], 0x2000, lds[1], 0x3000, lds[2])
-    assert args[21:25] == (e, m, k, n)
-    assert args[25:29] == (QS["q_n_a"], QS["q_p_a"], QS["q_n_w"], QS["q_p_w"])
-    assert args[29] == 1
+    assert args[21:25] == (None, None, 1, m)
+    assert args[25:29] == (e, m, k, n)
+    assert args[29:33] == (QS["q_n_a"], QS["q_p_a"], QS["q_n_w"], QS["q_p_w"])
+    assert args[33] == 1
     assert qmm.quant_matmul_bwd_batched.launches == before + 1
 
 
-def test_f32_cotangents_launch_the_simt_entry(fake_lib):
-    calls, _ = fake_lib
-    e, m, k, n = 32, 1280, 1024, 512
+@pytest.mark.parametrize("emkn", [(32, 1280, 1024, 512), (3, 257, 129, 65), (2, 64, 1024, 2816)],
+                         ids=["experts-in", "odd", "wide"])
+def test_f32_cotangents_launch_the_tensor_core_entry(fake_lib, emkn):
+    """f32 cotangents: the same entry with planes 3, the planes' scratch
+    (E, 3, M, ld_y), and the 2D backward's dW ranges (`dw_splits` on the
+    per-expert shape, so an expert's bits are the 2D kernel's): where it
+    cuts, the (E, S, K, N) sums and one ticket a dW tile of every expert."""
+    calls, status = fake_lib
+    e, m, k, n = emkn
     before = qmm.quant_matmul_bwd_batched.launches
     out = qmm.quant_matmul_bwd_batched(*_meta_operands(e, m, k, n), round_cot=False, **QS)
     _check_shapes(out, e, m, k, n)
-    assert [name for name, _ in calls] == ["qat_bwd_batched_launch"]
+    assert [name for name, _ in calls] == ["qat_bwd_tc_launch"]
     args = calls[0][1]
-    assert len(args) == _c_param_count("qat_bwd_batched_launch") == 24
-    assert args[14:18] == (e, m, k, n) and args[22] == 0
+    assert len(args) == _c_param_count("qat_bwd_tc_launch")
+    lds, _ = qmm._bwd_tc_scratch(m, k, n)
+    assert status["scratch"]["bf16"] == [(e, m, lds[0]), (e, k, lds[1]), (e, 3, m, lds[2])]
+    splits, rows = qmm.dw_splits(m, k, n, 3)
+    assert args[23:29] == (splits, rows, e, m, k, n) and args[33] == 3
+    part_s, tickets = status["scratch"]["split"]
+    if splits == 1:
+        assert args[21:23] == (None, None) and part_s is None
+    else:
+        assert args[21:23] == (0x4000, 0x5000)
+        assert tuple(part_s.shape) == (e, splits, k, n) and part_s.dtype == torch.float32
+        assert tickets.dtype == torch.int32
+        assert tickets.numel() >= e * -(-k // 128) * -(-n // 128)
     assert qmm.quant_matmul_bwd_batched.launches == before + 1
 
 
@@ -179,7 +211,7 @@ def test_2d_tensor_core_launch_passes_one_expert(fake_lib):
                          torch.empty((), **meta), torch.empty((1, n), **meta), **QS)
     name, args = calls[0]
     assert name == "qat_bwd_tc_launch" and len(args) == _c_param_count(name)
-    assert args[21:25] == (1, m, k, n)
+    assert args[25:29] == (1, m, k, n)
 
 
 def test_failed_tc_launch_raises_without_fallback(fake_lib):

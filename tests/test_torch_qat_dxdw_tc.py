@@ -233,7 +233,7 @@ def fake_lib(monkeypatch):
     scratch whose data pointers are tagged (xd 0x1000, wd 0x2000, planes
     0x3000), so the pointers each entry gets show."""
     calls = []
-    rcs = dict.fromkeys(SPLIT_ENTRIES + ("qat_bwd_tc_launch", "qat_bwd_launch"), 0)
+    rcs = dict.fromkeys(SPLIT_ENTRIES + ("qat_bwd_tc_launch",), 0)
 
     def entry(name):
         def launch(*args):
@@ -334,7 +334,7 @@ def test_split_route_runs_one_prologue_then_both_grids(fake_lib, k_side):
 @pytest.mark.parametrize("failing", SPLIT_ENTRIES, ids=["prologue", "dx", "dw"])
 def test_failed_split_launch_raises_without_fallback(fake_lib, failing):
     """A failed launch of any of the three raises, names its entry, launches
-    nothing after it and counts nothing: no plain or SIMT fallback."""
+    nothing after it and counts nothing: no plain or combined fallback."""
     calls, rcs = fake_lib
     rcs[failing] = 2  # cudaErrorMemoryAllocation
     counts = (qmm.quant_matmul_dx.launches, qmm.quant_matmul_dw.launches)
@@ -362,15 +362,15 @@ def _c_param_kinds(fn: str) -> list:
     return ["p" if "*" in p else "i" for p in params.split(",") if p.strip()]
 
 
-@pytest.mark.parametrize("fn", SPLIT_ENTRIES)
+@pytest.mark.parametrize("fn", SPLIT_ENTRIES + ("qat_bwd_tc_launch",))
 def test_ctypes_types_follow_the_c_entries(monkeypatch, fn):
-    """Each split entry's ctypes argument types, in order: a pointer where
-    the C entry takes one, an int where it takes an int."""
+    """Each backward entry's ctypes argument types, in order: a pointer
+    where the C entry takes one, an int where it takes an int."""
     import ctypes
     fake = types.SimpleNamespace(qat_tile=lambda: qmm.QAT_TILE, **{
         name: types.SimpleNamespace() for name in (
-            "qat_fwd_tc_launch", "qat_fwd_prologue_launch", "qat_bwd_launch",
-            "qat_bwd_tc_launch", "qat_bwd_batched_launch") + SPLIT_ENTRIES})
+            "qat_fwd_tc_launch", "qat_fwd_prologue_launch",
+            "qat_bwd_tc_launch") + SPLIT_ENTRIES})
     monkeypatch.setattr(build, "load", lambda name: fake)
     monkeypatch.setattr(qmm, "_QAT_SIGNED", False)
     qmm._qat_lib()

@@ -230,7 +230,7 @@ def test_kernel_bench_counts_the_scratch_bytes():
     assert kb.tc_scratch_bytes(kb.M, kb.K, kb.N, backward=False) == fwd == 3_145_728
     bwd = fwd + 2 * 2 * 256 * 512
     assert kb.tc_scratch_bytes(kb.M, kb.K, kb.N, backward=True) == bwd
-    # past the reference's scratch budget the backward splits onto the SIMT tile
+    # past the reference's scratch budget the backward takes the split grids
     assert kb.tc_scratch_bytes(64, 1024, 152064, backward=True) == 0
     assert kb.tc_scratch_bytes(257, 129, 65, backward=False) == 2 * (
         2 * 257 * 136 + 2 * 129 * 72)
