@@ -175,6 +175,40 @@ Phases (any failure exits non-zero before the final line is printed):
   15. tables — the five paper-table twins (`repro_torch.tables`) at their
                reference size, steps cut to TABLE_STEPS: their rows,
                every value finite.
+  16. train  — `repro_torch.launch.train --arch xlstm-350m` at full width
+               and depth (24 layers: 21 mLSTM, 3 sLSTM; tied 50,304
+               head), w4a4, MCKD, batch 8 x 512, 3 steps saving at step 2,
+               then a restored 4th step: phase 6's gates, launches equal
+               `qat_launches_per_step` (the recurrent projections, the
+               N = 4 gates and the sLSTM's FFN on kernels 1 and 5).
+  17. serve  — `greedy_generate` over full-width recurrentgemma-9b (38
+               layers: RG-LRU and local attention, window 2048, MQA, head
+               dim 256, tied 256,000 head), w4a4, int8 KV, 8 x 128 prompt
+               tokens + 32 new (the engine refuses recurrent patterns, as
+               the reference's does): prefill and decode tok/s, peak
+               memory, kernels 8 and 9 launched (kernel 7 has no linear
+               here: every projection is 4-bit, the head tied); rows 0
+               and 7 alone give their batch rows' tokens and logits bits
+               at every step; a one-period cut (3 layers) against the CPU
+               with phase 4's bars.
+  18. serve  — the same over full-width xlstm-350m: kernels 7 (the 8-bit
+               gates, m_i / m_f at N = 4) and 8 launched, row bits, an
+               8-layer cut against the CPU.
+  19. train  — `run_training` on recurrentgemma-9b cut to one period (3
+               layers, full width), w4a4, 8 x 512, 2 steps: health 0,
+               launches equal the formula (the RG-LRU's g_a / g_x with f32
+               outputs, the split dx / dw past the scratch budget).
+  20. train  — `run_training` on llama-3.2-vision-11b cut to one period (5
+               layers, one cross layer, full width) with 1024 stub patch
+               embeddings a sample, w4a4, 4 x 512, 2 steps (xk / xv over
+               the 4 x 1024 patch rows); then its token-by-token decode
+               against its forward at init, the reference's bars, the
+               cached attention unfused as the reference's test runs it
+               (the kernel route's gap printed beside it).
+  Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
+  serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
+  C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
+  xlstm-350m's mq (4096, 2048, 2048) and its N = 4 gate (4096, 2048, 4).
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -550,6 +584,33 @@ def musicgen_kernel_rows(torch, timer, qmm, da, ref, gen, rows: dict) -> None:
         rows["pooled_decode_attention"].append(check_attention(
             torch, timer, da, ref, storage="int8", c=c, window=0, softcap=0.0,
             gen=gen, hkv=24, q_per_kv=1, d=64))
+
+
+# the recurrent families' serving shapes (phases 17-18's paths, run in phase
+# 2 after musicgen-medium's rows): int4_matmul at recurrentgemma-9b's gated
+# FFN (its RG-LRU's 4096 x 4096 linears are granite-8b's wq row) and at
+# xlstm-350m's m_up / mq / m_down; int_matmul at xlstm-350m's 8-bit gates
+# (m_i / m_f, N = 4 heads, at decode and a 1024-token prefill; s_i / s_f /
+# s_o); the attention at recurrentgemma-9b's local layers: D 256, MQA (one
+# kv head, q_per_kv 16), window 2048, int8 KV
+RECURRENT_INT4_ROWS = ((4, 4096, 12288), (4, 12288, 4096), (4, 1024, 2048),
+                       (4, 2048, 2048), (4, 2048, 1024))
+RECURRENT_INT8_ROWS = ((4, 2048, 4), (1024, 2048, 4), (4, 1024, 1024))
+
+
+def recurrent_kernel_rows(torch, timer, qmm, da, ref, gen, rows: dict) -> None:
+    """Kernels 7-9 against their plain versions at recurrentgemma-9b's and
+    xlstm-350m's serving shapes, appended to phase 2's rows."""
+    for m, k, n in RECURRENT_INT4_ROWS:
+        rows["int4_matmul"].append(check_matmul(torch, timer, qmm, ref, True,
+                                                m, k, n, gen))
+    for m, k, n in RECURRENT_INT8_ROWS:
+        rows["int_matmul"].append(check_matmul(torch, timer, qmm, ref, False,
+                                               m, k, n, gen))
+    for c in (1, 32):
+        rows["pooled_decode_attention"].append(check_attention(
+            torch, timer, da, ref, storage="int8", c=c, window=2048, softcap=0.0,
+            gen=gen, hkv=1, q_per_kv=16, d=256))
 
 
 # ---------------------------------------------------------------------------
@@ -1444,18 +1505,25 @@ QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
                "quant_matmul_bwd_batched")
 
 
-def qat_linears(cfg, qcfg, tokens: int) -> list:
+def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
     """Every linear of a train step that takes the QAT kernels, as
     (name, count in the model, M, K, N, f32 cotangent, batched, remat):
     a block linear whose kind quantizes both its input and its weight (not
-    at 1 bit), with its (K, N) from the config (wq / wk / wv, wo, the dense
-    FFN's, an MoE FFN's expert linears at the per-expert capacity rows; the
-    router stays on the f32 einsum), and the head (untied, or tied as the
-    transposed per-tensor embedding). Block linears run their forward twice
-    (remat recomputes the block in the backward); the head once."""
+    at 1 bit), with its (K, N) from the config: an attention block's wq /
+    wk / wv, wo; a cross layer's xq, xo and xk / xv (over the
+    `frontend_rows` patch rows); the dense FFN's, an MoE FFN's expert
+    linears at the per-expert capacity rows (the router stays on the f32
+    einsum); an mLSTM block's m_up_gate / m_up, mq / mk / mv, the m_i /
+    m_f gates (N = heads), m_down; an sLSTM block's s_z / s_i / s_f / s_o
+    and its 4/3-GLU FFN (its recurrent mix s_r is read whole, not a
+    linear); an RG-LRU block's g_gate / g_in, g_a / g_x, g_out; and the
+    head (untied, or tied as the transposed per-tensor embedding). Block
+    linears run their forward twice (remat recomputes the block in the
+    backward); the head once."""
     from repro_torch.core.policy import act_spec, weight_spec
     from repro_torch.models.common import NAME2KIND
     from repro_torch.models.moe import capacity
+    from repro_torch.models.recurrent import slstm_ff
 
     def fused(name, wname=None):
         a, w = act_spec(qcfg, NAME2KIND[name]), weight_spec(qcfg, NAME2KIND[wname or name])
@@ -1463,23 +1531,47 @@ def qat_linears(cfg, qcfg, tokens: int) -> list:
 
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
     h, hkv = cfg.n_heads, cfg.n_kv_heads
-    moe = sum(cfg.block_at(i).ffn == "moe" for i in range(cfg.n_layers))
-    dense = cfg.n_layers - moe
+    blocks = [cfg.block_at(i) for i in range(cfg.n_layers)]
+    n_of = lambda pred: sum(1 for bd in blocks if pred(bd))
+    attn = n_of(lambda bd: bd.attn in ("global", "local"))
+    cross = n_of(lambda bd: bd.cross_attn)
+    moe = n_of(lambda bd: bd.ffn == "moe")
+    dense = n_of(lambda bd: bd.ffn == "dense")
+    du, w = 2 * d, cfg.lru_width or d
     out = []
+
+    def add(name, count, m, k, n, label=None):
+        if count and fused(name):
+            out.append((label or name, count, m, k, n, False, False, True))
+
     for name, k, n in (("wq", d, h * hd), ("wk", d, hkv * hd), ("wv", d, hkv * hd),
                        ("wo", h * hd, d)):
-        if fused(name):
-            out.append((name, cfg.n_layers, tokens, k, n, False, False, True))
+        add(name, attn, tokens, k, n)
+    for name, m, k, n in (("xq", tokens, d, h * hd), ("xk", frontend_rows, d, hkv * hd),
+                          ("xv", frontend_rows, d, hkv * hd), ("xo", tokens, h * hd, d)):
+        add(name, cross, m, k, n)
     ffn = (("w_gate", d, f),) if cfg.ffn_gated else ()
     ffn += (("w_in", d, f), ("w_out", f, d))
     for name, k, n in ffn:
-        if dense and fused(name):
-            out.append((name, dense, tokens, k, n, False, False, True))
+        add(name, dense, tokens, k, n)
         moe_name = {"w_gate": "moe_gate", "w_in": "moe_in", "w_out": "moe_out"}[name]
         if moe and fused(moe_name):
             groups = cfg.moe_dispatch_groups
             rows = groups * capacity(tokens // groups, cfg)
             out.append((moe_name, moe, rows, k, n, False, True, True))
+    mlstm = n_of(lambda bd: bd.attn == "mlstm")
+    for name, k, n in (("m_up_gate", d, du), ("m_up", d, du), ("mq", du, du),
+                       ("mk", du, du), ("mv", du, du), ("m_i", du, h), ("m_f", du, h),
+                       ("m_down", du, d)):
+        add(name, mlstm, tokens, k, n)
+    slstm, f_ff = n_of(lambda bd: bd.attn == "slstm"), slstm_ff(d)
+    for name, k, n in (("s_z", d, d), ("s_i", d, d), ("s_f", d, d), ("s_o", d, d),
+                       ("w_gate", d, f_ff), ("w_in", d, f_ff), ("w_out", f_ff, d)):
+        add(name, slstm, tokens, k, n, name + (" (sLSTM)" if name.startswith("w_") else ""))
+    rglru = n_of(lambda bd: bd.attn == "rglru")
+    for name, k, n in (("g_gate", d, w), ("g_in", d, w), ("g_a", w, w), ("g_x", w, w),
+                       ("g_out", w, d)):
+        add(name, rglru, tokens, k, n)
     tied_ok = (cfg.tie_embeddings and fused("lm_head", "embed")
                and weight_spec(qcfg, "embed").granularity == "per_tensor")
     if tied_ok or (not cfg.tie_embeddings and fused("lm_head")):
@@ -1487,7 +1579,7 @@ def qat_linears(cfg, qcfg, tokens: int) -> list:
     return out
 
 
-def qat_launches_per_step(cfg, qcfg, tokens: int) -> dict:
+def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> dict:
     """Launches a train step makes, from `qat_linears`: each linear's
     forward (twice for a block linear), and its backward on the route the
     dispatcher takes (`quant_matmul.bwd_route` on the padded shape, the
@@ -1497,7 +1589,8 @@ def qat_launches_per_step(cfg, qcfg, tokens: int) -> dict:
     (expert by expert for the batched kernels)."""
     from repro_torch.kernels.quant_matmul import bwd_route
     c = dict.fromkeys(QAT_KERNELS, 0)
-    for _, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
+    for _, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens,
+                                                                  frontend_rows):
         e = cfg.n_experts if batched else 1
         c["quant_matmul_batched" if batched else "quant_matmul"] += count * (2 if remat else 1)
         if bwd_route(m, k, n) == "split":
@@ -1508,12 +1601,13 @@ def qat_launches_per_step(cfg, qcfg, tokens: int) -> dict:
     return c
 
 
-def formula(cfg, qcfg, tokens: int) -> str:
+def formula(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> str:
     """`qat_launches_per_step`'s terms: each linear, its count, its
     forwards and its backward route."""
     from repro_torch.kernels.quant_matmul import bwd_route
     parts = []
-    for name, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens):
+    for name, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens,
+                                                                     frontend_rows):
         route = bwd_route(m, k, n)
         route += " (3 planes)" if f32_cot else (" (1 plane)" if route == "split" else "")
         each = f" x {cfg.n_experts} experts" if batched and route.startswith("split") else ""
@@ -1731,18 +1825,229 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
 
 
 def check_launches(run: dict, steps: int, tokens: int,
-                   every_kernel: bool = False) -> dict:
+                   every_kernel: bool = False, frontend_rows: int = 0) -> dict:
     """A run's QAT launches equal `qat_launches_per_step` x steps (and,
     with every_kernel, each QAT kernel was launched)."""
-    per_step = qat_launches_per_step(run["cfg"], run["qcfg"], tokens)
+    per_step = qat_launches_per_step(run["cfg"], run["qcfg"], tokens, frontend_rows)
     want = {k: v * steps for k, v in per_step.items()}
     log(f"  launches {run['counts']}; per step {per_step} "
-        f"({formula(run['cfg'], run['qcfg'], tokens)}) x {steps} steps = {want}")
+        f"({formula(run['cfg'], run['qcfg'], tokens, frontend_rows)}) x {steps} steps = {want}")
     if (run["counts"] != want or not any(want.values())
             or (every_kernel and not all(want.values()))):
         fail(f"{run['cfg'].name} QAT launches {run['counts']} != {per_step} "
              f"per step x {steps}")
     return per_step
+
+
+# ---------------------------------------------------------------------------
+# phases 16-20: the recurrent families and cross-attention (cells K-O)
+# ---------------------------------------------------------------------------
+
+def greedy_serve_phase(torch, ops, M, serve, arch: str, quant: str, *,
+                       path_kernels: tuple, cut_layers: int, batch: int = 8,
+                       prompt_len: int = 128, new_tokens: int = 32,
+                       kv_bits: int = 8) -> dict:
+    """Serve full-width `arch` through `greedy_generate` (the serving path
+    of recurrent and cross patterns, which the engine refuses, as in the
+    reference): random int-coded params built on the card (seed 0),
+    `batch` synthetic prompts of `prompt_len` tokens, one prefill call,
+    then `new_tokens` - 1 decode calls, the launch counts set to 0 just
+    before and read just after. Prefill and decode tok/s from each call
+    timed between device syncs; peak memory. Gates: every kernel of
+    `path_kernels` launched, tokens in the vocabulary; rows independent: a
+    prompt's greedy run alone gives the same tokens and, step by step, the
+    same logits bits as its row inside the batch (rows 0 and batch - 1);
+    the model cut to `cut_layers` layers against the CPU (phase 4's bars)."""
+    import types
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    qcfg = get_preset(quant).replace(kv_cache_bits=kv_bits, a_bits=32)
+    log(f"serve: greedy_generate({cfg.name}, {cfg.n_layers} layers, {quant}, "
+        f"int{kv_bits} KV, {batch} x {prompt_len} + {new_tokens})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_serving_params(cfg, qcfg, torch.Generator(device=dev).manual_seed(0),
+                                   dev)
+    prompts = sample_batch(cfg, DataConfig(), 0, batch, prompt_len)["tokens"]
+    max_len = prompt_len + new_tokens
+
+    def generate(rows):
+        times, logits = [], []
+
+        def step(p, c, b):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, c = M.prefill_step(p, c, b, cfg, qcfg)
+            logits.append(lg[:, -1].clone())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return lg, c
+
+        cache = M.init_cache(cfg, qcfg, len(rows), max_len, dev)
+        toks, _ = serve.greedy_generate(step, params, cache,
+                                        torch.from_numpy(prompts[rows]).to(dev),
+                                        new_tokens)
+        return toks, times, logits
+
+    ops.reset_launch_counts()
+    toks, times, logits = generate(list(range(batch)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = time.perf_counter() - t0
+    prefill_tok_s = batch * prompt_len / times[0]
+    decode_tok_s = batch * (new_tokens - 1) / sum(times[1:])
+    log(f"  wall {wall:.1f} s (params built on the card included); prefill "
+        f"{prefill_tok_s:.1f} tok/s ({times[0] * 1e3:.1f} ms), decode "
+        f"{decode_tok_s:.1f} tok/s (median step "
+        f"{statistics.median(times[1:]) * 1e3:.1f} ms), peak {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on {cfg.name}'s serving path: {counts}")
+    if toks.shape != (batch, new_tokens) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{cfg.name}: generated tokens {tuple(toks.shape)} out of range")
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        fail(f"{cfg.name}: non-finite logits")
+    indep = {}
+    for r in (0, batch - 1):
+        t_alone, _, lg_alone = generate([r])
+        same_tok = bool(torch.equal(t_alone[0], toks[r]))
+        same_bits = all(_same_bits(torch, a[0], b[r]) for a, b in zip(lg_alone, logits))
+        indep[f"row_{r}"] = same_tok and same_bits
+        log(f"  row {r} alone == row {r} of the batch of {batch}: tokens {same_tok}, "
+            f"logits bits at all {len(logits)} steps {same_bits}")
+    if not all(indep.values()):
+        fail(f"{cfg.name} serving: a row's bits depend on its batch: {indep}")
+    run = types.SimpleNamespace(cfg=cfg, qcfg=qcfg, params=params, device=dev,
+                                prompts=prompts)
+    cut_against_cpu(torch, M, run, cut_layers)
+    del params, run, logits
+    torch.cuda.empty_cache()
+    return {"prefill_tok_s": prefill_tok_s, "decode_tok_s": decode_tok_s,
+            "prefill_ms": times[0] * 1e3,
+            "decode_step_ms": statistics.median(times[1:]) * 1e3,
+            "peak_gib": peak / 2**30, "launches": counts, "wall_s": wall,
+            "row_independence": indep, "tokens_row0": toks[0].tolist()}
+
+
+def cross_decode_check(torch, cfg, qcfg) -> dict:
+    """The cut llama-3.2-vision-11b's token by token decode against its
+    full forward (teacher forcing), latent params at init (cross gates 0,
+    as the reference's test_arch_smoke.py:57-91 runs it), 2 x 12 tokens
+    with 1024 patch embeddings, QAT linears on kernel 1: the reference's
+    bars (rtol 0.1, atol 0.6, top-1 agreement > 0.9), with the cached
+    attention unfused, as the reference's test runs it off the TPU. On the
+    kernel route (kernel 9) the flash-style P, rounded to bf16 against a
+    running max, differs from softmax-then-round by a bf16 ulp of P, which
+    the next 4-bit activation quantizer (scale 1 at init) turns into whole
+    codes: that gap is printed, not held (ROADMAP Queue 3)."""
+    import numpy as np
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    params = M.init_params(cfg, qcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    b, s = 2, 12
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in sample_batch(cfg, DataConfig(), 0, b, s).items()}
+    with torch.no_grad():
+        full = M.forward(params, batch, cfg, qcfg)[0].float()
+    res = {}
+    for route in ("off", "auto"):
+        q = qcfg.replace(fused_attention=route)
+        cache = M.init_cache(cfg, q, b, s, dev)
+        got = []
+        for t in range(s):
+            lg, cache = M.decode_step(params, cache, {
+                "tokens": batch["tokens"][:, t:t + 1],
+                "pos": torch.full((b,), t, dtype=torch.int32, device=dev)}, cfg, q)
+            got.append(lg[:, 0].float())
+        got = torch.stack(got, 1)
+        d = (got - full).abs()
+        res[route] = {"max_abs_dlogit": d.max().item(),
+                      "within_bars": bool((d <= 0.6 + 0.1 * full.abs()).all()),
+                      "top1_agreement": float((got.argmax(-1) == full.argmax(-1))
+                                              .float().mean())}
+        log(f"  decode vs forward ({cfg.name}, {cfg.n_layers} layers, {b} x {s}, "
+            f"cached attention {'unfused' if route == 'off' else 'on kernel 9'}): "
+            f"max|dlogit| {res[route]['max_abs_dlogit']:.3e}, within rtol 0.1 / atol "
+            f"0.6: {res[route]['within_bars']}, top-1 agreement "
+            f"{res[route]['top1_agreement']:.3f}")
+    if not (res["off"]["within_bars"] and res["off"]["top1_agreement"] > 0.9):
+        fail(f"{cfg.name}: decode departs from forward")
+    del params
+    torch.cuda.empty_cache()
+    return {"unfused_attention": res["off"], "kernel_route": res["auto"]}
+
+
+def recurrent_phases(torch, ops, train) -> dict:
+    """Phases 16-20 (cells K-O): QAT of full-depth xlstm-350m through the
+    CLI (3 steps saving at 2, then a restored 4th); serving full-depth
+    recurrentgemma-9b and xlstm-350m through greedy_generate; QAT of
+    recurrentgemma-9b cut to one period (3 layers) and of
+    llama-3.2-vision-11b cut to one period (5 layers, one cross layer)
+    through run_training, the latter's decode against its forward."""
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    out = {}
+    # 16 (K). xlstm-350m QAT at full width and depth, through the CLI
+    ckpt_dir = ROOT / "build" / "chip_smoke_xlstm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    xargv = ["--arch", "xlstm-350m", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
+             "--seq", "512", "--save-every", "2", "--ckpt", str(ckpt_dir)]
+    first = train_phase(torch, ops, train, xargv + ["--steps", "3"], 0, 3)
+    resumed = train_phase(torch, ops, train, xargv + ["--steps", "4"], 3, 1)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for run, n in ((first, 3), (resumed, 1)):
+        run.update(cfg=get_config("xlstm-350m"), qcfg=get_preset("w4a4"))
+        per_step = check_launches(run, n, 8 * 512)
+    out["K"] = {"s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],
+                "step_seconds": first["report"].step_seconds,
+                "peak_gib": (first["report"].peak_bytes or 0) / 2**30,
+                "losses": first["report"].losses + resumed["report"].losses,
+                "launches_per_step": per_step, "counts": first["counts"]}
+    torch.cuda.empty_cache()
+    # 17 (L). recurrentgemma-9b served at full width and depth
+    out["L"] = greedy_serve_phase(
+        torch, ops, M, serve, "recurrentgemma-9b", "w4a4",
+        path_kernels=("int4_matmul", "pooled_decode_attention"), cut_layers=3)
+    # 18 (M). xlstm-350m served at full width and depth
+    out["M"] = greedy_serve_phase(
+        torch, ops, M, serve, "xlstm-350m", "w4a4",
+        path_kernels=("int4_matmul", "int_matmul"), cut_layers=8)
+    # 19 (N). recurrentgemma-9b QAT, cut to one period
+    cfg = get_config("recurrentgemma-9b").replace(n_layers=3)
+    run = training_run(torch, ops, cfg, get_preset("w4a4"), batch=8, seq=512,
+                       steps=2, tag="rgemma", strict_health=True)
+    out["N"] = {"s_per_step": run["s_step"], "tokens_per_s": run["tokens_s"],
+                "step_seconds": run["report"].step_seconds,
+                "peak_gib": (run["report"].peak_bytes or 0) / 2**30,
+                "losses": run["report"].losses,
+                "launches_per_step": check_launches(run, 2, 8 * 512),
+                "counts": run["counts"]}
+    torch.cuda.empty_cache()
+    # 20 (O). llama-3.2-vision-11b QAT, cut to one period, 1024 patches
+    cfg = get_config("llama-3.2-vision-11b").replace(n_layers=5)
+    run = training_run(torch, ops, cfg, get_preset("w4a4"), batch=4, seq=512,
+                       steps=2, tag="vision", strict_health=True)
+    out["O"] = {"s_per_step": run["s_step"], "tokens_per_s": run["tokens_s"],
+                "step_seconds": run["report"].step_seconds,
+                "peak_gib": (run["report"].peak_bytes or 0) / 2**30,
+                "losses": run["report"].losses,
+                "launches_per_step": check_launches(
+                    run, 2, 4 * 512, frontend_rows=4 * cfg.n_frontend_tokens),
+                "counts": run["counts"]}
+    torch.cuda.empty_cache()
+    out["O"]["decode_vs_forward"] = cross_decode_check(torch, cfg, get_preset("w4a4"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2128,6 +2433,8 @@ def main() -> None:
     rows = serving["rows"]
     log("kernels at musicgen-medium's serving shapes:")
     musicgen_kernel_rows(torch, timer, qmm, da, ref, gen, rows)
+    log("kernels at recurrentgemma-9b's and xlstm-350m's serving shapes:")
+    recurrent_kernel_rows(torch, timer, qmm, da, ref, gen, rows)
 
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
@@ -2259,6 +2566,16 @@ def main() -> None:
         if qat_rows["quant_matmul_bwd"][-1]["dw_splits"] < 2:
             fail(f"({mm}, {k}, {n}) f32 kept one dW range")
     torch.cuda.empty_cache()
+    # the recurrent families' training shapes, after the rows above: the
+    # forward and the combined backward at xlstm-350m's mq / mk / mv (w4a4)
+    # and at its m_i / m_f gates (8 bits, N = 4 heads)
+    log("qat kernels at xlstm-350m's shapes:")
+    for k, n, qs in ((2048, 2048, QAT_QS), (2048, 4, HEAD_QS)):
+        qat_rows["quant_matmul"].append(check_qat_fwd(
+            torch, timer, qmm, ref, m, k, n, False, gen, qs))
+        qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", m, k, n, False, True, gen, qs))
+        torch.cuda.empty_cache()
 
     # 10. the quantizer kernels (10-12) against their plain versions
     q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, phase_gen(10))
@@ -2363,6 +2680,8 @@ def main() -> None:
     # 15. the paper-table twins, steps cut
     tables = tables_phase(torch)
     torch.cuda.empty_cache()
+    # 16-20. the recurrent families and cross-attention (cells K-O)
+    recurrent = recurrent_phases(torch, ops, train)
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
     bench_counts, bench = kernel_bench_phase(torch, ops)
     counts.update(first["counts"])
@@ -2416,7 +2735,11 @@ def main() -> None:
         if name in QAT_KERNELS:
             kernels[-1]["launches_train"] = {
                 "musicgen-medium": music_train["counts"][name],
-                **{a: r["counts"][name] for a, r in paper_runs.items()}}
+                **{a: r["counts"][name] for a, r in paper_runs.items()},
+                **{cell: recurrent[cell]["counts"][name] for cell in "KNO"}}
+        if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
+            kernels[-1]["launches_recurrent_serve"] = {
+                cell: recurrent[cell]["launches"][name] for cell in "LM"}
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
@@ -2481,6 +2804,8 @@ def main() -> None:
         for arch, r, per in (("musicgen-medium", music_train, music_step),
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
+        "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
+                      for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}
                    for k, v in tables.items()},
         "kernel_bench": {

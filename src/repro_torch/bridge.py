@@ -174,21 +174,43 @@ def state_from_jax(np_state: dict, cfg: ArchConfig, device=None,
     return state
 
 
+def _cache_node(node, device, g):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _cache_node(v, device, g) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return tuple(_cache_node(v, device, g) for v in node)
+    a = np.asarray(node)
+    return to_torch(a if g is None else a[g], device)
+
+
 def cache_from_jax(np_cache: dict, cfg: ArchConfig, device=None) -> dict:
-    """JAX decode cache (numpy leaves; KVCache tuples) -> the port's cache."""
+    """JAX decode cache (numpy leaves) -> the port's cache: per layer its
+    "kv" KVCache, recurrent state dict ("mlstm", "slstm", "rglru") and
+    cross K / V ("xkv"), each layer's slice of the stacked groups."""
     device = resolve_device(device)
     layers = []
     for key, pos, g in _layer_paths(cfg):
-        kv = np_cache[key][pos]["kv"]
-        layers.append({"kv": KVCache(*(
-            None if leaf is None else to_torch(np.asarray(leaf) if g is None
-                                               else np.asarray(leaf)[g], device)
-            for leaf in kv))})
+        lay = {}
+        for name, node in np_cache[key][pos].items():
+            lay[name] = _cache_node(node, device, g)
+            if name == "kv":
+                lay[name] = KVCache(*lay[name])
+        layers.append(lay)
     return {"layers": layers}
 
 
 def cache_to_numpy(cache: dict) -> list:
-    """The port's cache -> per layer (k, v, k_scale, v_scale, pos) numpy
-    tuples (None for the fp cache's scales); bf16 as f32."""
-    return [tuple(None if t is None else to_numpy(t) for t in lay["kv"])
-            for lay in cache["layers"]]
+    """The port's cache -> per layer a dict like the cache's: "kv" a
+    (k, v, k_scale, v_scale, pos) numpy tuple (None for the fp cache's
+    scales), "xkv" (k, v), a recurrent state a dict; bf16 as f32."""
+    def conv(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(conv(v) for v in node)
+        return to_numpy(node)
+    return [conv(lay) for lay in cache["layers"]]

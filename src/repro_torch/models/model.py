@@ -1,9 +1,12 @@
 """Decoder assembly: latent QAT params and the training forward, serving
 params, the cache pool, chunk steps.
 
-PyTorch counterpart of `repro.models.model` for attention blocks with a
-dense or an MoE FFN, rope or learned positions and the audio / vision-patch
-frontends, for training and serving. The JAX
+PyTorch counterpart of `repro.models.model` for every block of the
+registry: attention (global / local) with a dense or an MoE FFN, the
+recurrent mLSTM, sLSTM and RG-LRU blocks (`models.recurrent`), and the
+cross-attention sublayer over vision-patch embeddings; rope or learned
+positions and the audio / vision-patch frontends, for training and
+serving. The JAX
 package stacks the layers of each pattern position along a
 leading axis for `lax.scan` ("groups") plus an unrolled "tail"; this port
 keeps a plain per-layer list (`params["layers"][i]`, `cache["layers"][i]`),
@@ -21,8 +24,13 @@ Entry points:
 
 The caches are updated IN PLACE. A step runs every layer against the
 cache as it was (each layer attends to its cache before its own append, as
-in the JAX package) and commits the layers' appends only after all layers
-and the lm head have run, so a step that raises leaves its cache unchanged.
+in the JAX package) and commits the layers' appends and their new
+recurrent states only after all layers and the lm head have run, so a step
+that raises leaves its cache unchanged. A layer's cache is a dict: "kv"
+(a KVCache) for attention, "mlstm" (C, n, m, conv), "slstm" (c, n, h, m)
+or "rglru" (h, conv) for a recurrent block, plus "xkv" (the cross
+attention's K, V) for a cross layer. As in the reference, no step writes
+"xkv": served cross layers attend to the zero K/V `init_cache` made.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.core.sdam import sdam as sdam_metric
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (NAME2KIND, activation, apply_norm,
                                        convert_to_serving, embed_init,
                                        embed_lookup, linear_init, lm_head_apply,
@@ -46,25 +55,6 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """The families the port trains and serves: attention blocks with a
-    dense or an MoE FFN, rope / learned / no positions, and the audio-frame
-    and vision-patch frontends (as precomputed `frontend_embeds`).
-    Recurrent blocks and cross-attention are refused (ROADMAP.md Queue 1,
-    item 5: recurrent families, with cross-attention beside them)."""
-    for bd in cfg.pattern:
-        if (bd.attn not in ("global", "local") or bd.ffn not in ("dense", "moe")
-                or bd.cross_attn):
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs attention blocks with a dense or "
-                f"MoE FFN (got attn={bd.attn!r}, ffn={bd.ffn!r}, "
-                f"cross={bd.cross_attn}); recurrent blocks and "
-                "cross-attention are not ported yet (ROADMAP.md Queue 1, "
-                "item 5)")
-    if cfg.pos not in ("rope", "learned", "none"):
-        raise NotImplementedError(f"{cfg.name}: positions {cfg.pos!r}")
-
-
 def params_device(params: dict) -> torch.device:
     emb = params["embed"]
     return next(iter(emb.values())).device
@@ -74,34 +64,63 @@ def params_device(params: dict) -> torch.device:
 # Latent QAT params, built on the device
 # ===========================================================================
 
+def _attn_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device,
+               cross: bool) -> dict:
+    """Self-attention's wq / wk / wv / wo, or cross-attention's xq / xk /
+    xv / xo (no bias) with its f32 gate xgate (0: tanh(0) shuts the
+    sublayer at init) and norm ln_x (model.py:48-67)."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    pre = "x" if cross else "w"
+    bias = cfg.qkv_bias and not cross
+    lin = lambda name, shape, std, ga, b=None: linear_init(
+        gen, pre + name, qcfg, shape, std=std, group_axes=ga, bias_shape=b,
+        device=device)
+    p = {pre + "q": lin("q", (d, h, hd), d ** -0.5, (1,), (h, hd) if bias else None),
+         pre + "k": lin("k", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
+         pre + "v": lin("v", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
+         pre + "o": lin("o", (h, hd, d), (h * hd) ** -0.5, (0,))}
+    if cross:
+        p["xgate"] = torch.zeros((), dtype=torch.float32, device=device)
+        p["ln_x"] = norm_init(d, cfg.norm, device)
+    return p
+
+
 def _layer_train_init(gen, cfg: ArchConfig, qcfg: QuantConfig, device,
                       bd: BlockDef) -> dict:
-    """One global/local attention block with a dense or MoE FFN, with the
-    JAX package's shapes, groups and standard deviations
-    (model.py:48-105)."""
-    d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim_, cfg.d_ff)
-    lin = lambda name, shape, std, ga=(), bias=None: linear_init(
-        gen, name, qcfg, shape, std=std, group_axes=ga, bias_shape=bias,
-        device=device)
-    bias = cfg.qkv_bias
-    p = {"ln1": norm_init(d, cfg.norm, device),
-         "wq": lin("wq", (d, h, hd), d ** -0.5, (1,), (h, hd) if bias else None),
-         "wk": lin("wk", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
-         "wv": lin("wv", (d, hkv, hd), d ** -0.5, (1,), (hkv, hd) if bias else None),
-         "wo": lin("wo", (h, hd, d), (h * hd) ** -0.5, (0,))}
-    if cfg.sandwich_norm:
-        p["ln1_post"] = norm_init(d, cfg.norm, device)
-    p["ln2"] = norm_init(d, cfg.norm, device)
+    """One block with the JAX package's layout, shapes, groups and
+    standard deviations (`block_init`, model.py:79-102): an mLSTM or sLSTM
+    block is its flat dict (its own FFN, if any, inside); an RG-LRU block
+    is {"rg": ..., "ln1": ...} (ln1 is read by nothing, as in the
+    reference) plus its FFN; an attention block ln1 + wq / wk / wv / wo;
+    then the cross-attention leaves and the dense or MoE FFN."""
+    d, f = cfg.d_model, cfg.d_ff
+    lin = lambda name, shape, std: linear_init(gen, name, qcfg, shape, std=std,
+                                               device=device)
+    if bd.attn == "mlstm":
+        p = rec.mlstm_init(gen, cfg, qcfg, device)
+    elif bd.attn == "slstm":
+        p = rec.slstm_init(gen, cfg, qcfg, device)
+    elif bd.attn == "rglru":
+        p = {"rg": rec.rglru_init(gen, cfg, qcfg, device),
+             "ln1": norm_init(d, cfg.norm, device)}
+    else:
+        p = {"ln1": norm_init(d, cfg.norm, device)}
+        p.update(_attn_init(gen, cfg, qcfg, device, cross=False))
+        if cfg.sandwich_norm:
+            p["ln1_post"] = norm_init(d, cfg.norm, device)
+    if bd.cross_attn:
+        p.update(_attn_init(gen, cfg, qcfg, device, cross=True))
     if bd.ffn == "moe":
+        p["ln2"] = norm_init(d, cfg.norm, device)
         p["moe"] = moe_mod.moe_init(gen, cfg, qcfg, device)
-        return p
-    p["w_in"] = lin("w_in", (d, f), d ** -0.5)
-    p["w_out"] = lin("w_out", (f, d), f ** -0.5)
-    if cfg.ffn_gated:
-        p["w_gate"] = lin("w_gate", (d, f), d ** -0.5)
-    if cfg.sandwich_norm:
-        p["ln2_post"] = norm_init(d, cfg.norm, device)
+    elif bd.ffn == "dense":
+        p["ln2"] = norm_init(d, cfg.norm, device)
+        p["w_in"] = lin("w_in", (d, f), d ** -0.5)
+        p["w_out"] = lin("w_out", (f, d), f ** -0.5)
+        if cfg.ffn_gated:
+            p["w_gate"] = lin("w_gate", (d, f), d ** -0.5)
+        if cfg.sandwich_norm:
+            p["ln2_post"] = norm_init(d, cfg.norm, device)
     return p
 
 
@@ -119,7 +138,6 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
     (which must live on `device`). Same distributions as the JAX package's
     `init_params`, different values; layer i is params["layers"][i]."""
     cfg.validate()
-    _check_ported(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     params = {"embed": embed_init(generator, qcfg, v, d, device),
@@ -164,20 +182,53 @@ def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
     return x + out
 
 
+def _cross_sublayer(p, x, kv, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
+    """x + tanh(xgate) * xo(attend(xq(ln_x(x)), K, V)), non-causal over the
+    frontend's K / V (model.py:169-178)."""
+    xn = apply_norm(p["ln_x"], x, cfg.norm)
+    q = qlinear(p["xq"], xn, "xq", qcfg, "bsd,dhk->bshk", cdtype)
+    k, v = kv
+    o = attn.attend_full(q, k, v, causal=False, window=0, softcap=0.0,
+                         q_positions=torch.arange(x.shape[1], device=x.device),
+                         k_positions=torch.arange(k.shape[1], device=x.device),
+                         q_per_kv=cfg.q_per_kv)
+    out = qlinear(p["xo"], o, "xo", qcfg, "bshk,hkd->bsd", cdtype)
+    return x + torch.tanh(p["xgate"]).to(cdtype) * out
+
+
+def cross_kv(p, embeds, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
+    """The cross-attention K / V of the frontend embeddings (B, P, d)."""
+    k = qlinear(p["xk"], embeds, "xk", qcfg, "bsd,dhk->bshk", cdtype)
+    v = qlinear(p["xv"], embeds, "xv", qcfg, "bsd,dhk->bshk", cdtype)
+    return k, v
+
+
 def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
-                qcfg: QuantConfig, positions: torch.Tensor, cdtype):
+                qcfg: QuantConfig, positions: torch.Tensor, cross_embeds,
+                cdtype):
     """One training block: (x, sdam, lb_loss, drop_frac) with sdam the
     block output's SDAM (a metric: no gradient flows through it) and the
-    MoE FFN's load-balance loss and drop fraction (zeros for a dense FFN)."""
-    x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype)
+    MoE FFN's load-balance loss and drop fraction (zeros otherwise).
+    cross_embeds: the vision patches (B, P, d) a cross layer attends to."""
+    if bd.attn == "mlstm":
+        x, _ = rec.mlstm_block(p, x, cfg, qcfg, cdtype)
+    elif bd.attn == "slstm":
+        x, _ = rec.slstm_block(p, x, cfg, qcfg, cdtype)
+    elif bd.attn == "rglru":
+        x, _ = rec.rglru_block(p["rg"], x, cfg, qcfg, cdtype)
+    else:
+        x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype)
+    if bd.cross_attn:
+        x = _cross_sublayer(p, x, cross_kv(p, cross_embeds, cfg, qcfg, cdtype),
+                            cfg, qcfg, cdtype)
+    lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     if bd.ffn == "moe":
         xn = apply_norm(p["ln2"], x, cfg.norm)
         y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype)
         x = x + y
         lb, drop = maux["lb_loss"], maux["drop_frac"]
-    else:
+    elif bd.ffn == "dense":
         x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
-        lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     with torch.no_grad():
         sdam = sdam_metric(x)
     return x, sdam, lb, drop
@@ -198,8 +249,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
             remat: bool = False):
     """Full-sequence forward. batch: tokens (B, S) [+ frontend_embeds]:
     audio frames (B, S, d) are added to the scaled token embeddings;
-    vision patches (B, P, d) replace them (an encoder over the patches,
-    whose logits are per patch). Learned positions add rows 0..S-1 of
+    vision patches (B, P, d) replace them where no block has cross
+    attention (an encoder over the patches, whose logits are per patch),
+    and are the cross layers' K / V source otherwise (the token
+    embeddings stay the input). Learned positions add rows 0..S-1 of
     `pos_embed`. Returns (logits (B, S, padded_vocab) f32, aux) with aux
     {"lb_loss", "drop_frac"} summed over the layers and "act_sdam" their
     mean, as the reference sums them.
@@ -208,13 +261,16 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
     jax.checkpoint does: the block's kernels then run twice.
     """
-    _check_ported(cfg)
     cdtype = _cdtype(cfg)
     fe = batch.get("frontend_embeds")
-    if cfg.frontend == "vision_patches":
+    cross_embeds = None
+    if (cfg.frontend == "vision_patches"
+            and not any(b.cross_attn for b in cfg.pattern)):
         x = fe.to(cdtype)  # an encoder over the patches: no token embedding
     else:
         x = _token_inputs(params, batch["tokens"], fe, cfg, qcfg, cdtype)
+        if cfg.frontend == "vision_patches":
+            cross_embeds = fe
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cfg.pos == "learned":
@@ -225,11 +281,11 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
         bd = cfg.block_at(i)
         if remat:
             x, sdam, lb, drop = torch.utils.checkpoint.checkpoint(
-                block_apply, p, x, bd, cfg, qcfg, positions, cdtype,
-                use_reentrant=False)
+                block_apply, p, x, bd, cfg, qcfg, positions, cross_embeds,
+                cdtype, use_reentrant=False)
         else:
             x, sdam, lb, drop = block_apply(p, x, bd, cfg, qcfg, positions,
-                                            cdtype)
+                                            cross_embeds, cdtype)
         sdam_sum = sdam_sum + sdam
         lb_sum = lb_sum + lb
         drop_sum = drop_sum + drop
@@ -313,7 +369,6 @@ def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
     them at once. `generator` must live on `device`.
     """
     cfg.validate()
-    _check_ported(cfg)
     device = resolve_device(device)
     v, d = cfg.padded_vocab, cfg.d_model
     top = {"embed": embed_init(generator, qcfg, v, d, device),
@@ -334,30 +389,62 @@ def init_serving_params(cfg: ArchConfig, qcfg: QuantConfig,
 # Cache pool
 # ===========================================================================
 
+RECURRENT = ("mlstm", "slstm", "rglru")
+
+
+def _layer_cache_init(cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
+                      batch: int, cache_len: int, cdtype, device) -> dict:
+    """One layer's fresh cache (model.py:337-359): a KV cache (local ring
+    layers hold min(window, cache_len) rows) or a recurrent block's initial
+    state, plus zero cross K / V (B, n_frontend_tokens, Hkv, hd) for a
+    cross layer."""
+    c: dict = {}
+    if bd.attn in ("global", "local"):
+        eff = min(cfg.window, cache_len) if bd.attn == "local" else cache_len
+        c["kv"] = attn.init_kv_cache(qcfg, batch, eff, cfg.n_kv_heads,
+                                     cfg.head_dim_, cdtype, device)
+    elif bd.attn == "mlstm":
+        c["mlstm"] = rec.mlstm_fresh_state(cfg, batch, device)
+    elif bd.attn == "slstm":
+        c["slstm"] = rec.slstm_state_init(batch, cfg.n_heads,
+                                          cfg.d_model // cfg.n_heads, device)
+    elif bd.attn == "rglru":
+        c["rglru"] = rec.rglru_state_init(batch, cfg.lru_width or cfg.d_model,
+                                          cfg.conv_kernel, device)
+    if bd.cross_attn:
+        shape = (batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.head_dim_)
+        c["xkv"] = tuple(torch.zeros(shape, dtype=cdtype, device=device)
+                         for _ in range(2))
+    return c
+
+
 def init_cache(cfg: ArchConfig, qcfg: QuantConfig, batch: int, cache_len: int,
                device=None) -> dict:
-    """Fresh decode cache (pre-prefill): one KV cache per layer; local
-    (ring) layers hold min(window, cache_len) rows."""
-    _check_ported(cfg)
+    """Fresh decode cache (pre-prefill), one dict per layer
+    (`_layer_cache_init`)."""
     device = resolve_device(device)
     cdtype = _cdtype(cfg)
-    layers = []
-    for i in range(cfg.n_layers):
-        bd = cfg.block_at(i)
-        eff = min(cfg.window, cache_len) if bd.attn == "local" else cache_len
-        layers.append({"kv": attn.init_kv_cache(qcfg, batch, eff, cfg.n_kv_heads,
-                                                cfg.head_dim_, cdtype, device)})
-    return {"layers": layers}
+    return {"layers": [_layer_cache_init(cfg, qcfg, cfg.block_at(i), batch,
+                                         cache_len, cdtype, device)
+                       for i in range(cfg.n_layers)]}
+
+
+def _map_node(fn, nodes):
+    first = nodes[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _map_node(fn, [n[k] for n in nodes]) for k in first}
+    if isinstance(first, tuple):  # KVCache, or xkv's (k, v)
+        parts = [_map_node(fn, list(p)) for p in zip(*nodes)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    return fn(*nodes)
 
 
 def _map_cache(fn, *caches) -> dict:
     """Apply fn to matching tensors of caches with one layout (None stays)."""
-    out = []
-    for layers in zip(*(c["layers"] for c in caches)):
-        kvs = [lay["kv"] for lay in layers]
-        out.append({"kv": attn.KVCache(*(
-            None if parts[0] is None else fn(*parts) for parts in zip(*kvs)))})
-    return {"layers": out}
+    return {"layers": [_map_node(fn, list(layers))
+                       for layers in zip(*(c["layers"] for c in caches))]}
 
 
 def cache_clone(cache: dict) -> dict:
@@ -376,7 +463,9 @@ def cache_slot_insert(pool: dict, row: dict, slot: int) -> dict:
 
 def cache_slot_reset(pool: dict, template: dict, slot: int) -> dict:
     """Recycle one slot: restore its rows from a pristine batch-1 cache
-    (pos back to -1 — attention masks them; stale codes stay, masked)."""
+    (pos back to -1 — attention masks them; stale codes stay, masked;
+    recurrent states back to their initial values, which are not all zero:
+    the m stabilizers start at -1e9)."""
     return cache_slot_insert(pool, template, slot)
 
 
@@ -403,31 +492,46 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                  qcfg: QuantConfig, cache: dict, pos: torch.Tensor, cdtype):
     """Chunk step against one layer's cache. x: (B,C,d); pos: (B,C).
 
-    Returns (x, (k, v)): the chunk's roped K/V, for the caller to append
-    once the whole step has run. pos entries of -1 mark padding (partial
+    Returns (x, pending): {"kv": (k, v)}, the chunk's roped K/V, or
+    {name: new state} for a recurrent block, for the caller to commit once
+    the whole step has run. pos entries of -1 mark padding (partial
     prefill chunks / idle serving slots): their K/V never reach the cache
-    and they attend to nothing.
+    and they attend to nothing. Recurrent blocks consume every chunk token
+    unconditionally, so padded chunks are only valid for attention blocks
+    (the serving engine refuses recurrent and cross patterns).
     """
-    xn = apply_norm(p["ln1"], x, cfg.norm)
-    q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype)
-    k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype)
-    v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype)
-    if cfg.pos == "rope":
-        q = attn.rope_apply(q, pos, cfg.rope_theta)
-        k = attn.rope_apply(k, pos, cfg.rope_theta)
-    o = attn.attend_chunk(q, k, v, cache["kv"], qcfg, q_per_kv=cfg.q_per_kv,
-                          pos=pos, window=cfg.window if bd.attn == "local" else 0,
-                          softcap=cfg.attn_softcap)
-    out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
-    if cfg.sandwich_norm:
-        out = apply_norm(p["ln1_post"], out, cfg.norm)
-    x = x + out
+    if bd.attn in RECURRENT:
+        block = {"mlstm": rec.mlstm_block, "slstm": rec.slstm_block,
+                 "rglru": rec.rglru_block}[bd.attn]
+        x, st = block(p["rg"] if bd.attn == "rglru" else p, x, cfg, qcfg,
+                      cdtype, state=cache[bd.attn])
+        pending = {bd.attn: st}
+    else:
+        xn = apply_norm(p["ln1"], x, cfg.norm)
+        q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype)
+        k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype)
+        v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype)
+        if cfg.pos == "rope":
+            q = attn.rope_apply(q, pos, cfg.rope_theta)
+            k = attn.rope_apply(k, pos, cfg.rope_theta)
+        o = attn.attend_chunk(q, k, v, cache["kv"], qcfg, q_per_kv=cfg.q_per_kv,
+                              pos=pos,
+                              window=cfg.window if bd.attn == "local" else 0,
+                              softcap=cfg.attn_softcap)
+        out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
+        if cfg.sandwich_norm:
+            out = apply_norm(p["ln1_post"], out, cfg.norm)
+        x = x + out
+        pending = {"kv": (k, v)}
+    if bd.cross_attn:
+        x = _cross_sublayer(p, x, cache["xkv"], cfg, qcfg, cdtype)
     if bd.ffn == "moe":  # the aux losses are training metrics: dropped
         y, _ = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, cfg.norm),
                                cfg, qcfg, cdtype)
-        return x + y, (k, v)
-    x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
-    return x, (k, v)
+        x = x + y
+    elif bd.ffn == "dense":
+        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+    return x, pending
 
 
 @torch.no_grad()
@@ -437,7 +541,7 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
 
     batch: tokens (B,C) int, pos (B,C) int (-1 = padding) [+ audio
     frontend_embeds (B,C,d)]. Returns (logits (B,C,V) f32, cache) with the
-    chunk appended to `cache` in place.
+    chunk appended to `cache` in place and the recurrent states advanced.
     C=1 is the classic decode step; C=prompt_len against a fresh cache is a
     full prefill whose [:, -1] logits seed generation.
     """
@@ -447,23 +551,29 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
                       cdtype)
     if cfg.pos == "learned":  # padding rows (pos -1) read row 0
         x = x + params["pos_embed"][pos.clamp(min=0).long()].to(cdtype)
-    appends = []
+    pending = []
     for i, p in enumerate(params["layers"]):
-        x, kv = block_decode(p, x, cfg.block_at(i), cfg, qcfg,
-                             cache["layers"][i], pos, cdtype)
-        appends.append(kv)
+        x, pend = block_decode(p, x, cfg.block_at(i), cfg, qcfg,
+                               cache["layers"][i], pos, cdtype)
+        pending.append(pend)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_apply(
         params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
         final_softcap=cfg.final_softcap,
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
     rows = {}  # one index computation per cache shape, not per layer
-    for i, (k, v) in enumerate(appends):
-        kv = cache["layers"][i]["kv"]
-        key = (kv.k.shape[1], cfg.block_at(i).attn == "local")
-        if key not in rows:
-            rows[key] = attn.append_rows(pos, *key)
-        attn.cache_write_rows(kv, k, v, pos, rows[key], qcfg)
+    for i, pend in enumerate(pending):
+        lay = cache["layers"][i]
+        if "kv" in pend:
+            kv = lay["kv"]
+            key = (kv.k.shape[1], cfg.block_at(i).attn == "local")
+            if key not in rows:
+                rows[key] = attn.append_rows(pos, *key)
+            attn.cache_write_rows(kv, *pend["kv"], pos, rows[key], qcfg)
+        for name in RECURRENT:
+            if name in pend:
+                for key, t in pend[name].items():
+                    lay[name][key].copy_(t)
     return logits, cache
 
 

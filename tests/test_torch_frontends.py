@@ -545,12 +545,19 @@ def test_serving_init_equals_converted_training_init(arch):
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "xlstm-350m",
                                   "recurrentgemma-9b"])
 def test_cross_attention_and_recurrent_blocks_still_refused(arch):
+    """Since the recurrent blocks and cross-attention were ported
+    (tests/test_torch_recurrent*.py) the port builds their latent and
+    serving params and caches; what still refuses them is the serving
+    engine, with the reference's own message: pos = -1 chunk padding is
+    undefined for a recurrence (greedy_generate serves them)."""
+    from repro_torch.serve import ModelExecutor
     tc = treg.reduced_config(treg.get_config(arch))
     tq = t_get_preset("w4a4")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TM.init_params(tc, tq, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TM.init_serving_params(tc, tq, torch.Generator().manual_seed(0), "cpu")
+    TM.init_params(tc, tq, torch.Generator().manual_seed(0), "cpu")
+    sp = TM.init_serving_params(tc, tq, torch.Generator().manual_seed(0), "cpu")
+    assert len(TM.init_cache(tc, tq, 1, 8, "cpu")["layers"]) == tc.n_layers
+    with pytest.raises(ValueError, match="attention-only patterns"):
+        ModelExecutor(sp, tc, tq, n_slots=1, max_len=8)
 
 
 @pytest.mark.parametrize("arch", ["paper-deit-t", "musicgen-medium"])

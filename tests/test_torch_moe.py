@@ -319,17 +319,20 @@ def test_two_layer_forward_matches_both_jax_routes():
 def test_moe_serving_still_refused():
     """Serving refuses what the port does not run: since MoE serving was
     ported (tests/test_torch_moe_serving.py) that is no longer an MoE model
-    but a recurrent pattern (xlstm-350m); the MoE model now gets int-coded
-    serving params and a cache."""
+    but a recurrent pattern (xlstm-350m) in the serving engine; the MoE
+    model gets int-coded serving params and a cache, and since the
+    recurrent blocks were ported so does xlstm-350m, which the engine
+    refuses with the reference's message (greedy_generate serves it)."""
     from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.serve import ModelExecutor
     _, tc = configs(ARCH)
     params = TM.init_serving_params(tc, t_get_preset("w4a4"),
                                     torch.Generator().manual_seed(0), "cpu")
     assert "codes4" in params["layers"][0]["moe"]["moe_in"]
     assert len(TM.init_cache(tc, t_get_preset("w4a4"), 1, 8, "cpu")["layers"]) == tc.n_layers
     rc = reduced_config(get_config("xlstm-350m"))
-    with pytest.raises(NotImplementedError, match="attention blocks"):
-        TM.init_serving_params(rc, t_get_preset("w4a4"),
-                               torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="attention blocks"):
-        TM.init_cache(rc, t_get_preset("w4a4"), 1, 8, "cpu")
+    sp = TM.init_serving_params(rc, t_get_preset("w4a4"),
+                                torch.Generator().manual_seed(0), "cpu")
+    assert "mlstm" in TM.init_cache(rc, t_get_preset("w4a4"), 1, 8, "cpu")["layers"][0]
+    with pytest.raises(ValueError, match="attention-only patterns"):
+        ModelExecutor(sp, rc, t_get_preset("w4a4"), n_slots=1, max_len=8)

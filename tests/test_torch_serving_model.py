@@ -154,6 +154,7 @@ def test_cache_matches_jax_after_prefill():
     j_layers = bridge.cache_to_numpy(bridge.cache_from_jax(
         jax.tree.map(np.asarray, jcache), tc, "cpu"))
     for jl, tl in zip(j_layers, bridge.cache_to_numpy(tcache)):
+        jl, tl = jl["kv"], tl["kv"]
         np.testing.assert_array_equal(tl[4], jl[4])                  # pos
         np.testing.assert_allclose(tl[0], jl[0], rtol=0, atol=1e-5)  # k
         np.testing.assert_allclose(tl[1], jl[1], rtol=0, atol=1e-5)  # v
