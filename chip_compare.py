@@ -44,6 +44,19 @@ with the four results, in run order. Tasks, on the shapes of
              `repro_torch.launch.profile_train` on the two archs: device
              busy ms a step and each QAT kernel's device ms, losses; and the
              process's peak device memory.
+  quant_bits a SHA-1 of the outputs of every quantizer path on finite
+             inputs drawn the same way on both sides (equal digests are
+             equal bits): quant_matmul and its prologue at (4096, 1024,
+             2816), a K-side (4096, 1024, 1024), an odd (257, 129, 65) and
+             granite-moe's (4096, 1024, 512) w3a3; quant_matmul_batched at
+             (32, 1280, 1024, 512); quant_matmul_dx / _dw at (4096, 1024,
+             2816) with f32 cotangents; int_matmul / int4_matmul at (4,
+             4096, 14336) and (32, 4096, 14336); fake_quant_2d (f32, and
+             bf16 with an offset), fake_quant_rows and bin_stats_2d at
+             phase 10's first shapes; and the ms of fake_quant_2d at
+             (4096, 1024), fake_quant_rows at (32, 524288) and the QAT
+             prologues at (4096, 1024, 2816) (the forward's, the
+             backward's on one plane and on three).
   serving    the serving kernels at `chip_smoke.py` phase 2's shapes
              (granite-8b): int4_matmul at its six shapes (`INT4_ROWS`),
              int_matmul at its six (`INT8_ROWS`: the head at M 4 and 32, the
@@ -53,7 +66,8 @@ with the four results, in run order. Tasks, on the shapes of
   quantizer  bin_stats_2d at `chip_smoke.py` phase 10's seven rows
              (`BIN_STATS_ROWS`: the kernel bench's (4096, 1024) at 16 bins,
              granite-8b's w_in at 16 and 256 bins, odd and misaligned
-             edges): kernel, plain and bound ms.
+             edges): kernel, plain and bound ms, and each device kernel's
+             ms a call (the partial pass and the finish).
   head_plans int_matmul at granite-8b's head (K 4096, N 49152), M 4 and 32,
              under its plan (`int4_plan`) and under plans of 2 and 3
              contraction splits: ms (the parent, whose int_matmul takes no
@@ -78,9 +92,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "steps_qwen", "steps_moe", "prof_qwen",
-         "prof_moe", "serving", "quantizer", "head_plans", "prof_decode")
-ROW_TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "serving", "quantizer", "head_plans")
+TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "quant_bits", "steps_qwen", "steps_moe",
+         "prof_qwen", "prof_moe", "serving", "quantizer", "head_plans", "prof_decode")
+ROW_TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "quant_bits", "serving", "quantizer",
+             "head_plans")
 # the serving kernels' device kernels, by name, in either checkout
 DECODE_KERNELS = {"int4_matmul": ("int4_tc_kernel", "int_matmul_kernel<true"),
                   "int_matmul": ("int8_tc_kernel", "int_matmul_kernel<4"),
@@ -217,6 +232,65 @@ def run_one(root: Path, task: str) -> dict:
         rows.append({"name": "quant_matmul_bwd_batched", "shape": [32, 1280, 1024, 512],
                      "round_cot": True, "digest": digest(qmm.quant_matmul_bwd_batched(
                          dy, x, w, a_s, a_b, ws, **cs.MOE_QS))})
+    elif task == "quant_bits":
+        import hashlib
+        from repro_torch.kernels import bin_stats as bs, fake_quant as fq
+
+        def digest(outs):  # bf16 read as its 16-bit patterns
+            return hashlib.sha1(b"".join(
+                (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+                .contiguous().cpu().numpy().tobytes() for t in outs)).hexdigest()
+
+        def add(name, shape, outs, **kw):
+            rows.append({"name": name, "shape": list(shape), "digest": digest(outs), **kw})
+
+        m, f32, bf16 = 8 * 512, torch.float32, torch.bfloat16
+        for mm, k, n, k_side, qs in ((m, 1024, 2816, False, cs.QAT_QS),
+                                     (m, 1024, 1024, True, cs.QAT_QS),
+                                     (257, 129, 65, True, cs.QAT_QS),
+                                     (m, 1024, 512, False, cs.MOE_QS)):
+            args = cs.qat_operands(torch, mm, k, n, k_side, gen, qs)
+            add("quant_matmul", (mm, k, n), [qmm.quant_matmul(*args, **qs)])
+            add("fwd_prologue", (mm, k, n), qmm.fwd_prologue(*args, **qs))
+        args = cs.batched_operands(torch, 32, 1280, 1024, 512, gen, cs.MOE_QS)
+        add("quant_matmul_batched", (32, 1280, 1024, 512),
+            [qmm.quant_matmul_batched(*args, **cs.MOE_QS)])
+        args = cs.qat_operands(torch, m, 1024, 2816, False, gen, cs.QAT_QS)
+        dy = torch.randn((m, 2816), generator=gen, device="cuda")
+        for name in ("quant_matmul_dx", "quant_matmul_dw"):
+            add(name, (m, 1024, 2816), getattr(qmm, name)(dy, *args, round_cot=False,
+                                                          **cs.QAT_QS))
+        for planes in (1, 3):
+            rows.append({"name": f"bwd_prologue ({planes})", "shape": [m, 1024, 2816],
+                         "ms": timer.ms(lambda p=planes: qmm.bwd_prologue(
+                             dy, *args, planes=p, **cs.QAT_QS))})
+        rows.append({"name": "fwd_prologue", "shape": [m, 1024, 2816],
+                     "ms": timer.ms(lambda: qmm.fwd_prologue(*args, **cs.QAT_QS))})
+        del args, dy
+        for packed in (False, True):
+            x, _, w, scale = cs._int_operands(torch, packed, 32, 4096, 14336, gen)
+            kern = qmm.int4_matmul if packed else qmm.int_matmul
+            add(kern.__name__, (4, 4096, 14336), [kern(x[:4], w, scale)])
+            add(kern.__name__, (32, 4096, 14336), [kern(x, w, scale)])
+        x = torch.randn((4096, 1024), generator=gen, device="cuda") * 0.1
+        add("fake_quant_2d", (4096, 1024), [fq.fake_quant_2d(
+            x, torch.tensor(0.05, device="cuda"), None, q_n=8, q_p=7)])
+        add("bin_stats_2d", (4096, 1024), [bs.bin_stats_2d(
+            x, torch.tensor(0.05, device="cuda"), q_n=8, q_p=7)])
+        xb = (torch.randn((4096, 2816), generator=gen, device="cuda") * 2).to(bf16)
+        add("fake_quant_2d", (4096, 2816), [fq.fake_quant_2d(
+            xb, torch.tensor(0.3, device="cuda"), torch.tensor(-0.2, device="cuda"),
+            q_n=0, q_p=15)])
+        xr = torch.randn((32, 1024 * 512), generator=gen, device="cuda") * 1024 ** -0.5
+        rs = 2 * xr.abs().mean(dim=1, keepdim=True) / 3 ** 0.5
+        add("fake_quant_rows", (32, 524288), [fq.fake_quant_rows(xr, rs, q_n=4, q_p=3)])
+        del x, xb, xr
+        rows.append({**_row(cs.check_fake_quant(
+            torch, timer, fq, ref, "kernel_bench wq", (4096, 1024), f32, 8, 7, gen,
+            std=0.1, scale=0.05), "fake_quant_2d")})
+        rows.append({**_row(cs.check_fake_quant_rows(
+            torch, timer, fq, ref, "granite-moe experts w3", (32, 1024 * 512), f32, 4, 3,
+            gen, std=1024 ** -0.5), "fake_quant_rows")})
     elif task == "serving":
         from repro_torch.kernels import decode_attention as da
         own = own_rows()
@@ -239,7 +313,11 @@ def run_one(root: Path, task: str) -> dict:
         from repro_torch.kernels import bin_stats as bs
         for args, kw in own_rows().BIN_STATS_ROWS:
             r = cs.check_bin_stats(torch, timer, bs, ref, *args, gen, **kw)
-            rows.append({**_row(r, "bin_stats_2d"), "bins": r["bins"], "case": r["case"]})
+            w = torch.randn(args[1], generator=gen, device="cuda") * args[1][-1] ** -0.5
+            dev = device_ms(torch, lambda: bs.bin_stats_2d(
+                w, torch.tensor(0.05, device="cuda"), q_n=args[2], q_p=args[3]))
+            rows.append({**_row(r, "bin_stats_2d"), "bins": r["bins"], "case": r["case"],
+                         "device_ms": dev})
             torch.cuda.empty_cache()
     elif task == "head_plans" and hasattr(qmm, "int8_col_tiles"):
         k, n = 4096, 49152

@@ -205,10 +205,36 @@ Phases (any failure exits non-zero before the final line is printed):
                against its forward at init, the reference's bars, the
                cached attention unfused as the reference's test runs it
                (the kernel route's gap printed beside it).
+  21. faults — `run_training` on full-width paper-bert-base (w2a2, OBR,
+               oscillation tracked, batch 32 x 128) through the NaN
+               rollback scenario of the reference's
+               test_e2e_nan_rollback_recovery: 14 steps saving every 4, the
+               token embedding NaN-poisoned before step 9 and the step-8
+               checkpoint corrupted; loop steps 9 and 10 fatal, one
+               rollback to step 4, lr_scale 0.5, 20 steps run, step 12's
+               checkpoint verified, QAT launches equal the formula x 20;
+               then SIGTERM before step 3: a forced checkpoint at 3, a
+               clean exit, the signal handlers restored. Prints the health
+               bits by step, each save's seconds and the checkpoint size.
+  22. compress — phase 6's run again with --compress-grads (int8 gradients
+               with error feedback): step 0's loss bit-equal to phase 6's,
+               health 0, launches equal the formula, |err| <= scale / 2
+               after every step; compress_leaf on the card bit-equal to the
+               CPU at the tied head's (152064, 1024); s/step, tokens/s and
+               peak memory beside phase 6's.
   Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
   serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
   C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
   xlstm-350m's mq (4096, 2048, 2048) and its N = 4 gate (4096, 2048, 4).
+  NaN and Inf pass through every quantizer as in the reference's kernels:
+  phase 2 runs int_matmul and int4_matmul with a NaN column scale, phase 5
+  quant_matmul, quant_matmul_bwd (one plane and three) and
+  quant_matmul_batched at (4096, 1024, 2816) with NaN in 3 weights and 3
+  activations, ±Inf in one activation each and a NaN column scale (on
+  power-of-two grids, so the sums are exact), phase 10 fake_quant_2d /
+  fake_quant_rows with NaN / ±Inf in x and NaN scales and bin_stats_2d
+  with non-finite weights: NaN where the plain version has it, bit-equal
+  elsewhere (bin_stats: counts equal, NaN / Inf positions equal).
 Then one JSON line with every kernel's numbers, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
@@ -2348,6 +2374,373 @@ def quantizer_kernel_checks(torch, timer, ops, ref, gen) -> tuple[dict, int]:
     return rows, rows_launches
 
 
+# ---------------------------------------------------------------------------
+# NaN and Inf through the quantizer kernels (rows of phases 2, 5 and 10)
+# ---------------------------------------------------------------------------
+
+def _nan_same(torch, got, want) -> tuple[bool, int]:
+    """NaN at the same positions and every other element bit-equal (a NaN's
+    payload bits aside). Returns (holds, NaN count)."""
+    got, want = got.float(), want.float()
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    same = torch.equal(gn, wn) and torch.equal(
+        torch.where(wn, 0.0, got).view(torch.int32),
+        torch.where(wn, 0.0, want).view(torch.int32))
+    return same, int(wn.sum().item())
+
+
+def _grid_qat_operands(torch, gen, e, m, k, n):
+    """QAT operands on power-of-two grids (x on 2^-3, w on 2^-6, dY on 2^-3,
+    scales 2^-2 and 2^-5, offset -2^-1), so every product and partial sum is
+    exact in f32 and a finite output does not depend on the summation
+    order; then NaN in 3 weights and 3 activations, +Inf and -Inf in one
+    activation each and one NaN column scale (expert e - 1 only when e > 1:
+    the other experts stay finite). e = 0: the 2D operands."""
+    dev = "cuda"
+    lead = (e,) if e else ()
+    x = (torch.randint(-16, 17, lead + (m, k), generator=gen, device=dev)
+         * 2.0 ** -3).to(torch.bfloat16)
+    w = torch.randint(-20, 21, lead + (k, n), generator=gen, device=dev) * 2.0 ** -6
+    dy = torch.randint(-8, 9, lead + (m, n), generator=gen, device=dev) * 2.0 ** -3
+    ws = torch.full(lead + ((n,) if e else (1, n)), 2.0 ** -5, device=dev)
+    xs, wsl, wss = (x[-1], w[-1], ws[-1]) if e else (x, w, ws.view(-1))
+    nan = float("nan")
+    for r, c in ((1, 2), (m // 2, k - 1), (m - 1, 0)):
+        xs[r, c] = nan
+    xs[2, 3], xs[3, 4] = float("inf"), float("-inf")
+    for r, c in ((0, 1), (k // 3, n - 2), (k - 1, 5)):
+        wsl[r, c] = nan
+    wss[7] = nan
+    a_s = torch.full((e, 1) if e else (), 0.25, device=dev)
+    a_b = torch.full((e, 1) if e else (), -0.5, device=dev)
+    return x, w, a_s, a_b, ws, dy
+
+
+def nan_qat_rows(torch, qmm, ref, gen) -> list:
+    """Phase 5's NaN / Inf rows: quant_matmul, quant_matmul_bwd on one plane
+    (bf16 dY) and on three (f32 dY), and quant_matmul_batched (expert 1 of
+    2 carrying the non-finite values), at (4096, 1024, 2816) on grid
+    operands (`_grid_qat_operands`): every output NaN where the plain
+    version's is, bit-equal elsewhere."""
+    m, k, n = 8 * 512, 1024, 2816
+    out = []
+    x, w, a_s, a_b, ws, dy = _grid_qat_operands(torch, gen, 0, m, k, n)
+    cases = [("quant_matmul", lambda: (qmm.quant_matmul(x, w, a_s, a_b, ws, **QAT_QS),),
+              lambda: (ref.quant_matmul(x, w, a_s, a_b, ws, **QAT_QS),))]
+    for planes, rc in ((1, True), (3, False)):
+        cases.append((f"quant_matmul_bwd, {planes} plane{'s' * (planes > 1)}",
+                      lambda rc=rc: qmm.quant_matmul_bwd(dy, x, w, a_s, a_b, ws,
+                                                         round_cot=rc, **QAT_QS),
+                      lambda rc=rc: ref.quant_matmul_bwd(dy, x, w, a_s, a_b, ws,
+                                                         round_cot=rc, **QAT_QS)))
+    for name, kern, plain in cases:
+        out.append(_nan_row(torch, name, [m, k, n], kern, plain))
+    del x, w, dy
+    torch.cuda.empty_cache()
+    x, w, a_s, a_b, ws, _ = _grid_qat_operands(torch, gen, 2, m, k, n)
+    out.append(_nan_row(torch, "quant_matmul_batched", [2, m, k, n],
+                        lambda: (qmm.quant_matmul_batched(x, w, a_s, a_b, ws, **QAT_QS),),
+                        lambda: (ref.quant_matmul_batched(x, w, a_s, a_b, ws, **QAT_QS),)))
+    if out[-1]["nan"][0] == 0 or not bool(torch.isfinite(
+            qmm.quant_matmul_batched(x, w, a_s, a_b, ws, **QAT_QS)[0]).all()):
+        fail("quant_matmul_batched: expert 1's NaN did not show, or expert 0 is not finite")
+    return out
+
+
+def _nan_row(torch, name, shape, kern, plain) -> dict:
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    res = [_nan_same(torch, g, wv) for g, wv in zip(got, want)]
+    row = {"name": name, "shape": shape, "nan": [c for _, c in res],
+           "same": all(ok for ok, _ in res)}
+    log(f"  {name} {tuple(shape)} with NaN / ±Inf inputs: NaN where the plain "
+        f"version's is and bit-equal elsewhere {row['same']} (NaN counts by "
+        f"output {row['nan']})")
+    if not row["same"] or not any(row["nan"]):
+        fail(f"{name} {shape}: NaN / Inf not passed on as its plain version does")
+    return row
+
+
+def nan_serving_rows(torch, qmm, ref, gen) -> list:
+    """Phase 2's NaN-scale rows: int_matmul and int4_matmul at granite-8b's
+    w_in (4, 4096, 14336) with one NaN column scale (and one 0 scale, at
+    the 1e-9 floor), x and the scales on power-of-two grids so that the
+    sums are exact: the NaN column where the plain version's is, bit-equal
+    elsewhere."""
+    out = []
+    m, k, n = 4, 4096, 14336
+    for packed in (False, True):
+        x, codes, w, _ = _int_operands(torch, packed, m, k, n, gen)
+        x = (torch.randint(-8, 9, (m, k), generator=gen, device="cuda")
+             * 2.0 ** -3).to(torch.bfloat16)
+        scale = torch.full((n,), 2.0 ** -6, device="cuda")
+        scale[5], scale[6] = float("nan"), 0.0
+        name = "int4_matmul" if packed else "int_matmul"
+        kern, plain = getattr(qmm, name), getattr(ref, name)
+        row = _nan_row(torch, f"{name} (NaN column scale)", [m, k, n],
+                       lambda: (kern(x, w, scale),), lambda: (plain(x, w, scale),))
+        if row["nan"] != [m]:
+            fail(f"{name}: a NaN column scale gave {row['nan']} NaN, want {m}")
+        out.append(row)
+    return out
+
+
+def nan_quantizer_rows(torch, ref, gen) -> list:
+    """Phase 10's NaN / Inf rows: fake_quant_2d (f32 with offset, then a NaN
+    scale), fake_quant_rows (one NaN row scale) on (4096, 1024) with NaN
+    and ±Inf in x: NaN where the plain version's is, bit-equal elsewhere;
+    bin_stats_2d with a w whose square overflows f32, a +Inf, NaN with
+    ±Inf, and a NaN scale: counts equal, NaN and ±Inf where the plain
+    version has them, the finite sums within 1e-5 of each bin's sum of
+    |summands| (of its finite elements)."""
+    from repro_torch.kernels import bin_stats as bs, fake_quant as fq
+    out = []
+    x = torch.randn((4096, 1024), generator=gen, device="cuda")
+    x[0, 3] = x[17, 0] = x[4095, 1023] = float("nan")
+    x[1, 1], x[2, 7] = float("inf"), float("-inf")
+    s, b, nan = torch.tensor(0.3, device="cuda"), torch.tensor(-0.2, device="cuda"), \
+        torch.tensor(float("nan"), device="cuda")
+    for label, sc in (("finite scale, offset", s), ("NaN scale", nan)):
+        out.append(_nan_row(
+            torch, f"fake_quant_2d ({label})", [4096, 1024],
+            lambda sc=sc: (fq.fake_quant_2d(x, sc, b, q_n=0, q_p=15),),
+            lambda sc=sc: (ref.fake_quant_2d(x, sc, b, q_n=0, q_p=15),)))
+    rs = torch.full((4096, 1), 0.2, device="cuda")
+    rs[9] = float("nan")
+    out.append(_nan_row(torch, "fake_quant_rows (a NaN row scale)", [4096, 1024],
+                        lambda: (fq.fake_quant_rows(x, rs, q_n=4, q_p=3),),
+                        lambda: (ref.fake_quant_rows(x, rs, q_n=4, q_p=3),)))
+    base = torch.randn((4096, 1024), generator=gen, device="cuda") * 0.02
+    for label, poison, sc in (
+            ("w^2 past f32", {(5, 5): 3e19}, 0.01),
+            ("+Inf", {(6, 1): float("inf")}, 0.01),
+            ("NaN, ±Inf", {(0, 3): float("nan"), (1, 1): float("inf"),
+                           (2, 7): float("-inf")}, 0.01),
+            ("NaN scale", {}, float("nan"))):
+        w = base.clone()
+        for at, v in poison.items():
+            w[at] = v
+        sc = torch.tensor(sc, device="cuda")
+        got, want = bs.bin_stats_2d(w, sc, q_n=8, q_p=7), ref.bin_stats_2d(w, sc, q_n=8, q_p=7)
+        torch.cuda.synchronize()
+        # each bin's sum of |summands| over its finite elements: the bar's scale
+        u = torch.clamp(torch.round(w / sc), -8, 7)
+        ok = torch.isfinite(w) & ~torch.isnan(u)
+        codes, wd = (u[ok] + 8).long(), w[ok].double()
+        mag = torch.zeros((2, 16), dtype=torch.float64, device="cuda")
+        mag[0].index_add_(0, codes, wd.abs())
+        mag[1].index_add_(0, codes, wd * wd)
+        fin = torch.isfinite(want[1:])
+        inf = torch.isinf(want)
+        same = (torch.equal(got[0], want[0])
+                and torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(inf, torch.isinf(got)) and torch.equal(got[inf], want[inf])
+                and bool(((got[1:] - want[1:]).double().abs() <= 1e-5 * mag)[fin].all()))
+        row = {"name": f"bin_stats_2d ({label})", "shape": [4096, 1024],
+               "nan": [int(torch.isnan(want).sum().item())], "same": same,
+               "finite_sums": int(fin.sum().item())}
+        log(f"  bin_stats_2d (4096, 1024) bins=16 {label}: counts equal, NaN / ±Inf "
+            f"where the plain version has them, finite sums within the bar: {same} "
+            f"({row['nan'][0]} NaN and {row['finite_sums']} finite of 32 sums)")
+        if not same:
+            fail(f"bin_stats_2d ({label}) disagrees with its plain version: "
+                 f"{got.tolist()} vs {want.tolist()}")
+        out.append(row)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: the training half of the fault contract, gradient compression
+# ---------------------------------------------------------------------------
+
+def fault_contract_phase(torch, ops) -> dict:
+    """Phase 21: `run_training` on full-width paper-bert-base (w2a2, OBR,
+    oscillation tracked, as in phase 14; batch 32 x 128) through the
+    scenario of tests/test_sentinel_faults.py::test_e2e_nan_rollback_recovery:
+    14 steps saving every 4 (synchronous saves), SentinelConfig(k 2, 2
+    retries, backoff 0.5), the token embedding NaN-poisoned before loop step
+    9 and the step-8 checkpoint byte-corrupted (seed 11). Gates: loop steps 9
+    and 10 NONFINITE_LOSS, no other fatal bit, one rollback, to step 4 (not
+    the corrupt 8), lr_scale 0.5, 20 steps run, final step 13 with a finite
+    loss, step 12's checkpoint verified, and the QAT launches equal to
+    `qat_launches_per_step` x 20 (a fatal step runs its forward and backward
+    too). Then the SIGTERM case (10 steps, SIGTERM before step 3): a forced
+    checkpoint at 3, a clean exit, the signal handlers restored. Prints the
+    health bits step by step, each save's seconds and the checkpoint's size."""
+    import shutil
+    import signal
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.testing import faultinject as fi
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import sentinel as S
+    from repro_torch.train.fault_tolerance import CheckpointManager
+    from repro_torch.train.state import TrainConfig
+    cfg, batch, seq = get_config("paper-bert-base"), 32, 128
+    qcfg = get_preset("w2a2").replace(track_oscillation=True)
+    d = ROOT / "build" / "chip_smoke_fault_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    scfg = S.SentinelConfig(k_consecutive=2, max_retries=2, lr_backoff=0.5)
+    tcfg = TrainConfig(total_steps=14, warmup_steps=2, sentinel=scfg)
+    handler = signal.getsignal(signal.SIGTERM)
+    mgr = CheckpointManager(str(d), save_every=4, async_io=False)
+    hooks = fi.chain(fi.OneShot(9, fi.poison_params_nan),
+                     fi.OneShot(9, lambda st: (fi.corrupt_checkpoint(
+                         str(d), step=8, seed=11), None)[1]))
+    saves, real_save = [], ckpt.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        path = real_save(*a, **kw)
+        saves.append({"step": a[2], "s": time.perf_counter() - t0,
+                      "bytes": Path(path).stat().st_size})
+        return path
+
+    log(f"fault contract: run_training({cfg.name}, {cfg.n_layers} layers, w2a2 + OBR, "
+        f"track_oscillation, batch {batch} x {seq}, 14 steps, save every 4; NaN "
+        f"embedding and a corrupt step-8 checkpoint at step 9)")
+    ckpt.save = timed_save
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rep = train.run_training(cfg, qcfg, tcfg, DataConfig(), steps=14,
+                                 batch_size=batch, seq_len=seq, ckpt_dir=str(d),
+                                 save_every=4, mgr=mgr, on_step=hooks, log_every=0,
+                                 device="cuda")
+    finally:
+        ckpt.save = real_save
+    wall = time.perf_counter() - t0
+    counts = {k: ops.launch_counts()[k] for k in QAT_KERNELS}
+    verified_12 = ckpt.verify(str(d), 12)
+    fatal = S.NONFINITE_LOSS | S.NONFINITE_GRAD
+    log(f"  wall {wall:.1f} s, steps run {rep.steps_run}, final step {rep.final_step}, "
+        f"rollbacks {rep.rollbacks} to {rep.rollback_to}, lr_scale {rep.lr_scale}, "
+        f"skipped {rep.skipped}, final loss {rep.final_loss:.6g}, step 12 verified "
+        f"{verified_12}")
+    log(f"  health by step run: {[S.describe(h) for h in rep.healths]}")
+    log(f"  losses {rep.losses}; the replayed step 5 {rep.losses[11]!r} against its "
+        f"first run {rep.losses[5]!r}")
+    log(f"  saves: " + ", ".join(f"step {s['step']} {s['s']:.2f} s" for s in saves)
+        + f"; checkpoint {saves[0]['bytes'] / 2**30:.3f} GiB")
+    healths_ok = (len(rep.healths) == 20
+                  and all(rep.healths[i] & S.NONFINITE_LOSS for i in (9, 10))
+                  and not any(h & scfg.fatal_bits for i, h in enumerate(rep.healths)
+                              if i not in (9, 10)))
+    gates = [("health", healths_ok), ("rollbacks", rep.rollbacks == 1),
+             ("to step 4", rep.rollback_to == [4]), ("lr_scale", rep.lr_scale == 0.5),
+             ("steps run", rep.steps_run == 20), ("final step", rep.final_step == 13),
+             ("final loss", rep.final_loss == rep.final_loss
+              and abs(rep.final_loss) < float("inf")),
+             ("step 12 verified", verified_12), ("saves", len(saves) >= 3)]
+    bad = [g for g, ok in gates if not ok]
+    if bad:
+        fail(f"fault contract on {cfg.name}: {bad} ({rep})")
+    run = {"counts": counts, "cfg": cfg, "qcfg": qcfg}
+    per_step = check_launches(run, rep.steps_run, batch * seq)
+    shutil.rmtree(d, ignore_errors=True)
+
+    # SIGTERM: a forced checkpoint and a clean exit at the step boundary
+    d2 = ROOT / "build" / "chip_smoke_sigterm_ckpt"
+    shutil.rmtree(d2, ignore_errors=True)
+    mgr2 = CheckpointManager(str(d2), save_every=100, async_io=False)
+    if signal.getsignal(signal.SIGTERM) != mgr2.guard._handler:
+        fail("the preemption guard did not take SIGTERM: firing it would end this run")
+    t0 = time.perf_counter()
+    rep2 = train.run_training(cfg, qcfg, TrainConfig(total_steps=10, warmup_steps=2,
+                                                     sentinel=S.SentinelConfig()),
+                              DataConfig(), steps=10, batch_size=batch, seq_len=seq,
+                              ckpt_dir=str(d2), save_every=100, mgr=mgr2,
+                              on_step=fi.sigterm_at(3), log_every=0, device="cuda")
+    restored = signal.getsignal(signal.SIGTERM) == handler
+    latest = ckpt.latest_step(str(d2), verified=True)
+    log(f"  SIGTERM before step 3: preempted {rep2.preempted}, final step "
+        f"{rep2.final_step}, newest verified checkpoint {latest}, final loss "
+        f"{rep2.final_loss:.6g}, handlers restored {restored} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(d2, ignore_errors=True)
+    if not (rep2.preempted and rep2.final_step == 3 and latest == 3 and restored
+            and rep2.final_loss == rep2.final_loss):
+        fail(f"SIGTERM on {cfg.name}: {rep2}, newest checkpoint {latest}, "
+             f"handlers restored {restored}")
+    return {"wall_s": wall, "steps_run": rep.steps_run, "final_step": rep.final_step,
+            "rollbacks": rep.rollbacks, "rollback_to": rep.rollback_to,
+            "lr_scale": rep.lr_scale, "healths": rep.healths, "losses": rep.losses,
+            "step_seconds": rep.step_seconds, "saves": saves,
+            "peak_gib": (rep.peak_bytes or 0) / 2**30, "launches": counts,
+            "launches_per_step": per_step,
+            "sigterm": {"preempted": rep2.preempted, "final_step": rep2.final_step,
+                        "checkpoint": latest, "handlers_restored": restored}}
+
+
+def compression_phase(torch, ops, train, cell_c: dict, argv: list) -> dict:
+    """Phase 22: cell C's run (`repro_torch.launch.train`, full-width
+    qwen1.5-0.5b, w4a4, MCKD, 8 x 512, 3 steps) again with --compress-grads,
+    beside phase 6's uncompressed run: step 0's loss bit-equal, finite
+    losses and health 0, launches equal the formula, and after every step
+    each leaf's |err| <= scale / 2 (times 1 + 2^-14 for the f32 roundings of
+    gf / scale, code x scale and gf - deq; scale = max|deq| / 127, read by a
+    wrapper around the step's `compress_tree`: two multi-tensor max-norms
+    a step); then `compress_leaf` on the
+    card bit-equal to the same call on the CPU for one gradient of the tied
+    head's size (152,064 x 1,024)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import get_preset
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.train import train_step as TS
+    cfg = registry.get_config(argv[argv.index("--arch") + 1])
+    tokens = int(argv[argv.index("--batch") + 1]) * int(argv[argv.index("--seq") + 1])
+    ratios, real = [], TS.compress_tree
+
+    def recorded(grads, err):  # max|err| / (max|deq| / 127) over the leaves
+        deq, new_err = real(grads, err)
+        inf = float("inf")
+        top = torch.stack(torch._foreach_norm(T.leaves(deq), inf))
+        ratios.append((torch.stack(torch._foreach_norm(T.leaves(new_err), inf))
+                       / torch.clamp(top / 127.0, min=1e-12)).max())
+        return deq, new_err
+
+    TS.compress_tree = recorded
+    try:
+        run = train_phase(torch, ops, train, argv + ["--compress-grads"], 0, 3)
+    finally:
+        TS.compress_tree = real
+    run.update(cfg=cfg, qcfg=get_preset(argv[argv.index("--quant") + 1]))
+    per_step = check_launches(run, 3, tokens)
+    worst = max(float(r) for r in ratios)
+    rep, base = run["report"], cell_c["report"]
+    same0 = rep.losses[0] == base.losses[0]
+    gen = torch.Generator().manual_seed(100 * SEED + 22)
+    head = (cfg.padded_vocab, cfg.d_model)
+    g = torch.randn(head, generator=gen) * 1e-3
+    e = torch.randn(head, generator=gen) * 1e-6
+    d_cpu, e_cpu = gc.compress_leaf(g, e)
+    d_dev, e_dev = gc.compress_leaf(g.cuda(), e.cuda())
+    leaf_same = (_same_bits(torch, d_dev.cpu(), d_cpu)
+                 and _same_bits(torch, e_dev.cpu(), e_cpu))
+    del g, e, d_cpu, e_cpu, d_dev, e_dev
+    log(f"  compressed against cell C: step 0 loss {rep.losses[0]!r} vs "
+        f"{base.losses[0]!r} (bit-equal {same0}); s/step {run['s_step']:.3f} vs "
+        f"{cell_c['s_step']:.3f}, tokens/s {run['tokens_s']:.0f} vs "
+        f"{cell_c['tokens_s']:.0f}, peak {(rep.peak_bytes or 0) / 2**30:.2f} vs "
+        f"{(base.peak_bytes or 0) / 2**30:.2f} GiB; worst |err| / (scale / 2) "
+        f"{2 * worst:.6f}; compress_leaf at {head} bit-equal to the CPU "
+        f"{leaf_same}")
+    if not (same0 and worst <= 0.5 * (1 + 2.0 ** -14) and leaf_same):
+        fail(f"gradient compression: step 0 loss equal {same0}, worst |err| / scale "
+             f"{worst}, compress_leaf as on the CPU {leaf_same}")
+    return {"s_per_step": run["s_step"], "tokens_per_s": run["tokens_s"],
+            "peak_gib": (rep.peak_bytes or 0) / 2**30, "losses": rep.losses,
+            "healths": rep.healths, "step_seconds": rep.step_seconds,
+            "launches_per_step": per_step, "err_over_half_scale": 2 * worst,
+            "compress_leaf_as_cpu": leaf_same,
+            "cell_c": {"s_per_step": cell_c["s_step"], "tokens_per_s": cell_c["tokens_s"],
+                       "peak_gib": (base.peak_bytes or 0) / 2**30,
+                       "losses": base.losses}}
+
+
 def kernel_bench_phase(torch, ops) -> tuple[dict, dict]:
     """`repro_torch.launch.kernel_bench` on the card: --smoke, then the
     full run, whose launches of kernels 10 and 12 must be > 0."""
@@ -2435,6 +2828,11 @@ def main() -> None:
     musicgen_kernel_rows(torch, timer, qmm, da, ref, gen, rows)
     log("kernels at recurrentgemma-9b's and xlstm-350m's serving shapes:")
     recurrent_kernel_rows(torch, timer, qmm, da, ref, gen, rows)
+    # NaN and Inf through the quantizers, on a generator of their own (the
+    # rows above keep their inputs)
+    nan_gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 26)
+    log("serving kernels with a NaN column scale (against their plain versions):")
+    nan_rows = {"serving": nan_serving_rows(torch, qmm, ref, nan_gen)}
 
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
@@ -2576,9 +2974,14 @@ def main() -> None:
         qat_rows["quant_matmul_bwd"].append(check_qat_bwd(
             torch, timer, qmm, ref, "quant_matmul_bwd", m, k, n, False, True, gen, qs))
         torch.cuda.empty_cache()
+    log("qat kernels with NaN / ±Inf inputs (against their plain versions):")
+    nan_rows["qat"] = nan_qat_rows(torch, qmm, ref, nan_gen)
+    torch.cuda.empty_cache()
 
     # 10. the quantizer kernels (10-12) against their plain versions
     q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, phase_gen(10))
+    log("quantizer kernels with NaN / ±Inf inputs (against their plain versions):")
+    nan_rows["quantizer"] = nan_quantizer_rows(torch, ref, nan_gen)
     torch.cuda.empty_cache()
 
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
@@ -2682,6 +3085,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     # 16-20. the recurrent families and cross-attention (cells K-O)
     recurrent = recurrent_phases(torch, ops, train)
+    torch.cuda.empty_cache()
+    # 21. the training half of the fault contract: NaN rollback and SIGTERM
+    #     on full-width paper-bert-base
+    faults = fault_contract_phase(torch, ops)
+    torch.cuda.empty_cache()
+    # 22. gradient compression on cell C's configuration, beside phase 6
+    cdir = ROOT / "build" / "chip_smoke_compress_ckpt"
+    shutil.rmtree(cdir, ignore_errors=True)
+    compressed = compression_phase(
+        torch, ops, train, first,
+        ["--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
+         "--seq", "512", "--save-every", str(10 ** 6), "--ckpt", str(cdir),
+         "--steps", "3"])
+    shutil.rmtree(cdir, ignore_errors=True)
+    torch.cuda.empty_cache()
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
     bench_counts, bench = kernel_bench_phase(torch, ops)
     counts.update(first["counts"])
@@ -2804,6 +3222,7 @@ def main() -> None:
         for arch, r, per in (("musicgen-medium", music_train, music_step),
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
+        "nan_rows": nan_rows, "fault_contract": faults, "compression": compressed,
         "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
                       for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}

@@ -1,7 +1,7 @@
 """Deterministic synthetic LM data pipeline (numpy outputs).
 
-Copy of `repro.data.synthetic.sample_batch`: sequences follow a learnable
-affine-successor process with noise,
+Copy of `repro.data.synthetic.sample_batch` and `oracle_ce`: sequences
+follow a learnable affine-successor process with noise,
   t_{i+1} = (a * t_i + c) mod V     with prob 1-p_noise
           = uniform(V)              with prob p_noise,
 keyed on (seed, step, host_index). The numpy generator is the same, so the
@@ -47,3 +47,11 @@ def sample_batch(cfg: ArchConfig, dcfg: DataConfig, step: int, batch: int,
         fe = rng.standard_normal((batch, seq, cfg.d_model)) * 0.02
         out["frontend_embeds"] = fe.astype(np.float32)
     return out
+
+
+def oracle_ce(cfg: ArchConfig, dcfg: DataConfig) -> float:
+    """CE of the Bayes-optimal predictor on this stream (nats)."""
+    v = cfg.vocab_size
+    p_succ = (1.0 - dcfg.p_noise) + dcfg.p_noise / v
+    return float(-(p_succ * np.log(p_succ)
+                   + (v - 1) * (dcfg.p_noise / v) * np.log(dcfg.p_noise / v)))

@@ -10,7 +10,10 @@ the group's count, sum and sum of squares (summed over a fixed lane tree
 in f64) to the warp's own bins, so an element's work does not grow with
 the bin count. The order is fixed (warp bins in warp order, per-block f64
 partials, then a fixed-order f64 finish, no float atomics): the bits
-repeat.
+repeat. NaN and Inf follow the reference's one-hot contraction (a NaN code
+counts nowhere; a bin's sum is NaN when a non-finite w outside it meets the
+one-hot's 0), as `ref.bin_stats_2d` spells out: a block whose bin sums show
+such a value counts them again in a rare second pass.
 
 A CPU tensor takes the plain version in `kernels/ref.py` (index_add_ in f64,
 rounded once); a CUDA tensor launches the kernel, and a build or launch

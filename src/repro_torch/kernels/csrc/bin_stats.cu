@@ -32,8 +32,27 @@
 //     partials in a fixed order (lane l takes blocks l, l + 32, ..., then a
 //     fixed shuffle tree) in f64 and rounds once to f32, so the counts are
 //     exact below 2^24 and correctly rounded above, as in the plain version.
+//
+// Non-finite values follow the reference's one-hot contraction, where an
+// element outside a bin adds w * 0 to its sum: a NaN code (w or s NaN) falls
+// in no bin, and a bin's sum (sum of squares) is NaN when an element outside
+// it has a non-finite w (f32 w * w). The hot loop is unchanged for that: a
+// NaN code lands in bin 0, and a NaN or Inf w, or one with |w| >= 2^64
+// (whose f32 square is Inf), leaves its block a bin sum that is not finite
+// or a sum of squares >= 2^128 (which many large finite w can also reach).
+// Only such a block reads its elements again and counts, in its shared
+// memory, each one whose f32 square is not finite, in total and by bin, and
+// each NaN code apart (integer-valued f64 atomics: exact in any order); then
+// it takes the NaN codes out of its bin 0 count and writes NaN into its
+// partial sum (sum of squares) of every bin that such an element outside it
+// reaches. Summed over the blocks, that is the reference's rule. With a NaN
+// scale every code is NaN: the finish writes counts 0 and sums 0, or NaN
+// where a block wrote one. ±Inf clips to an edge bin and sums as itself.
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
+
+#include "quant.cuh"
 
 namespace {
 
@@ -105,6 +124,27 @@ __device__ __forceinline__ void warp_add(double* bins, int n_bins, uint32_t code
   __syncwarp();  // the next step's leaders may take the same bin
 }
 
+// A block's counters of non-finite elements (in its shared memory, once
+// its bins are written out): [n_bins by bin, total] for a non-finite w, the
+// same for a non-finite f32 w * w, and the count of NaN codes.
+__host__ __device__ constexpr int slots(int n_bins) { return 2 * (n_bins + 1) + 1; }
+
+// Counts one w whose f32 square is not finite (a NaN code in no bin).
+__device__ __noinline__ void note_nonfinite(double* nf, int n_bins, float w, float s,
+                                            float inv_s, float lo, float hi, int q_n) {
+  const float p = __fmul_rn(w, inv_s);
+  const uint32_t code = p != p ? n_bins : code_of(w, s, inv_s, lo, hi, q_n);
+  const bool binned = code < static_cast<uint32_t>(n_bins);
+  double* sq = nf + n_bins + 1;
+  atomicAdd(sq + n_bins, 1.0);
+  if (binned) atomicAdd(sq + code, 1.0);
+  if (!(fabsf(w) <= FLT_MAX)) {
+    atomicAdd(nf + n_bins, 1.0);
+    if (binned) atomicAdd(nf + code, 1.0);
+  }
+  if (!binned) atomicAdd(nf + 2 * (n_bins + 1), 1.0);
+}
+
 // A tile's U float4s of thread tid (u * NTHREADS + tid), zeros past n.
 __device__ __forceinline__ void load_tile(float (&v)[U][4], const float* w, long long base,
                                           long long n, int tid, int vec) {
@@ -121,6 +161,19 @@ __device__ __forceinline__ void load_tile(float (&v)[U][4], const float* w, long
   }
 }
 
+// note_nonfinite for each of thread tid's elements of a tile whose square is
+// not finite (the tile loaded again).
+__device__ __noinline__ void note_tile(double* nf, int n_bins, const float* w, long long base,
+                                       long long n, int tid, int vec, float s, float inv_s,
+                                       float lo, float hi, int q_n) {
+  float v[U][4];
+  load_tile(v, w, base, n, tid, vec);
+  for (int u = 0; u < U; ++u)
+    for (int j = 0; j < 4; ++j)
+      if (!(fabsf(__fmul_rn(v[u][j], v[u][j])) <= FLT_MAX))
+        note_nonfinite(nf, n_bins, v[u][j], s, inv_s, lo, hi, q_n);
+}
+
 __global__ void __launch_bounds__(NTHREADS, 4)
 bin_stats_partial_kernel(const float* __restrict__ w, const float* __restrict__ scale,
                          double* __restrict__ partial, long long n, int tiles,
@@ -131,7 +184,7 @@ bin_stats_partial_kernel(const float* __restrict__ w, const float* __restrict__ 
   for (int i = tid; i < NWARPS * 3 * n_bins; i += NTHREADS) bins[i] = 0.0;
   __syncthreads();
   double* mine = bins + (tid / 32) * 3 * n_bins;
-  const float s = fmaxf(*scale, 1e-9f), inv_s = __frcp_rn(s);
+  const float s = floor_scale(*scale, 1e-9f), inv_s = __frcp_rn(s);
   const float lo = -static_cast<float>(q_n), hi = static_cast<float>(q_p);
 
   const long long first = static_cast<long long>(blockIdx.x) * tiles * TILE;
@@ -154,21 +207,44 @@ bin_stats_partial_kernel(const float* __restrict__ w, const float* __restrict__ 
 
   // the warps' bins in warp order into the block's partial
   __syncthreads();
+  double* p = partial + static_cast<long long>(blockIdx.x) * 3 * n_bins;
+  bool bad = false;  // a bin's f64 sum not finite, or its sum of squares >= 2^128
   if (tid < n_bins) {
-    double* p = partial + static_cast<long long>(blockIdx.x) * 3 * n_bins;
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       double a = bins[q * n_bins + tid];
       for (int wp = 1; wp < NWARPS; ++wp) a += bins[(wp * 3 + q) * n_bins + tid];
       p[q * n_bins + tid] = a;
+      if (q == 1) bad = !(fabs(a) <= DBL_MAX);
+      if (q == 2) bad = bad || !(a < 0x1p128);
+    }
+  }
+  // rare: a NaN or Inf w, or a w with |w| >= 2^64 (its f32 square is Inf),
+  // made a sum so; count such elements in the free shared bins and correct
+  if (__syncthreads_or(bad)) {
+    double* nf = bins;
+    for (int i = tid; i < slots(n_bins); i += NTHREADS) nf[i] = 0.0;
+    __syncthreads();
+    for (int t = 0; t < tiles; ++t) {
+      const long long base = first + static_cast<long long>(t) * TILE;
+      if (base < n) note_tile(nf, n_bins, w, base, n, tid, vec, s, inv_s, lo, hi, q_n);
+    }
+    __syncthreads();
+    if (tid < n_bins) {
+      const double nan = __longlong_as_double(0x7ff8000000000000LL);
+      const double* sq = nf + n_bins + 1;
+      if (tid == 0) p[0] -= nf[2 * (n_bins + 1)];  // the NaN codes binned at 0
+      if (nf[n_bins] > nf[tid]) p[n_bins + tid] = nan;
+      if (sq[n_bins] > sq[tid]) p[2 * n_bins + tid] = nan;
     }
   }
 }
 
-// out[v] for v < 3 * n_bins = f32(sum over blocks of partial[block][v])
+// out[v] for v < 3 * n_bins = f32(sum over blocks of partial[block][v]);
+// with a NaN scale (every code NaN), counts 0 and sums 0 or NaN.
 __global__ void __launch_bounds__(NTHREADS)
-bin_stats_finish_kernel(const double* __restrict__ partial, float* __restrict__ out,
-                        int blocks, int n_vals) {
+bin_stats_finish_kernel(const double* __restrict__ partial, const float* __restrict__ scale,
+                        float* __restrict__ out, int blocks, int n_vals) {
   const int v = (blockIdx.x * NTHREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (v >= n_vals) return;  // whole warps leave together
@@ -176,7 +252,9 @@ bin_stats_finish_kernel(const double* __restrict__ partial, float* __restrict__ 
   for (int b = lane; b < blocks; b += 32) acc += partial[static_cast<long long>(b) * n_vals + v];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[v] = static_cast<float>(acc);
+  if (lane == 0)
+    out[v] = *scale == *scale ? static_cast<float>(acc)
+                              : (v >= n_vals / 3 && acc != acc ? __int_as_float(0x7fc00000) : 0.f);
 }
 
 }  // namespace
@@ -209,6 +287,7 @@ extern "C" int bin_stats_launch(const void* w, const void* scale, void* partial,
   const int n_vals = 3 * n_bins;
   const int fin_blocks = (n_vals * 32 + NTHREADS - 1) / NTHREADS;
   bin_stats_finish_kernel<<<fin_blocks, NTHREADS, 0, st>>>(
-      static_cast<const double*>(partial), static_cast<float*>(out), blocks, n_vals);
+      static_cast<const double*>(partial), static_cast<const float*>(scale),
+      static_cast<float*>(out), blocks, n_vals);
   return static_cast<int>(cudaGetLastError());
 }

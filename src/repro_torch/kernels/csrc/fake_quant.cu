@@ -14,7 +14,8 @@
 //
 // Rounding is the reference kernel's, bit for bit (no --use_fast_math):
 //   u = (x - b) / s   __fsub_rn then __fdiv_rn (IEEE division)
-//   q = clip(rint(u)) rintf: half to even, as jnp.round
+//   q = clip(rint(u)) rintf: half to even, as jnp.round; NaN stays NaN
+//                     (clip_code, quant.cuh), as do NaN scales
 //   y = q * s + b     one rounding, __fmaf_rn: XLA fuses the TPU kernel's
 //                     multiply and add into a fused multiply-add
 //   y = q * s         __fmul_rn where there is no offset (rows variant, and
@@ -24,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "quant.cuh"
 
 namespace {
 
@@ -62,7 +65,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
 template <bool OFFSET>
 __device__ __forceinline__ float fq(float x, float s, float b, float lo, float hi) {
   const float u = OFFSET ? __fdiv_rn(__fsub_rn(x, b), s) : __fdiv_rn(x, s);
-  const float q = fminf(fmaxf(rintf(u), lo), hi);
+  const float q = clip_code(u, lo, hi);
   return OFFSET ? __fmaf_rn(q, s, b) : __fmul_rn(q, s);
 }
 
@@ -73,7 +76,7 @@ __global__ void __launch_bounds__(NTHREADS)
 fake_quant_tensor_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                          const float* __restrict__ offset, T* __restrict__ y,
                          long long n, int q_n, int q_p, int vec) {
-  const float s = fmaxf(*scale, 1e-9f);
+  const float s = floor_scale(*scale, 1e-9f);
   const float b = OFFSET ? *offset : 0.f;
   const float lo = -static_cast<float>(q_n), hi = static_cast<float>(q_p);
   const long long stride = static_cast<long long>(gridDim.x) * NTHREADS;
@@ -102,7 +105,7 @@ fake_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ row_sc
   const long long t0 = static_cast<long long>(blockIdx.x) * NTHREADS + threadIdx.x;
   const long long n4 = vec ? N / 4 : 0;
   for (int r = blockIdx.y; r < M; r += gridDim.y) {
-    const float s = fmaxf(row_scale[r], 1e-9f);
+    const float s = floor_scale(row_scale[r], 1e-9f);
     const T* xr = x + static_cast<long long>(r) * N;
     T* yr = y + static_cast<long long>(r) * N;
     for (long long i = t0; i < n4; i += stride) {

@@ -19,6 +19,8 @@
 //   dw:  dwd = bf16(xd^T @ dY); dW = dwd * mask(w / ws); dws = sum dwd * (q - mf*u)
 //        per column (over K) or per row (over N)
 //   bwd: all five in one launch (+ the prologue and the finish pass below).
+// NaN passes through clip and the scale floors, and the mask products mf * v are
+// selects, as in the reference (quant.cuh): a NaN or Inf masked out gives 0.
 // dY is rounded to bf16 when round_cot is set (a bf16 linear); the lm head keeps
 // it in f32 (round_cot = 0), and then it is multiplied as three exact bf16
 // planes (below). The dX / dW accumulators are rounded through bf16 in every
@@ -132,6 +134,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "quant.cuh"
 
 namespace {
 
@@ -149,10 +152,10 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-struct Quant {  // one quantizer's code range
+struct Quant {  // one quantizer's code range; a NaN u gives a NaN code (quant.cuh)
   float qn, qp;
   __device__ __forceinline__ float code(float u) const {
-    return fminf(fmaxf(rintf(u), -qn), qp);
+    return clip_code(u, -qn, qp);
   }
   __device__ __forceinline__ float in_range(float u) const {
     return (u >= -qn && u <= qp) ? 1.f : 0.f;
@@ -171,7 +174,7 @@ __device__ __forceinline__ float w_deq(float w, float s, Quant q) {
 struct WQ {  // the weight quantizer: w (K, N), scales per column or per row
   const float* w; const float* ws; int K, N, k_side; Quant q;
   __device__ __forceinline__ float scale(int k, int n) const {
-    return fmaxf(ws[k_side ? k : n], EPS);
+    return floor_scale(ws[k_side ? k : n], EPS);
   }
 };
 
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(NT) qat_prologue_kernel(Args a, __nv_bfloat16*
   if (xd != nullptr) xd += e * a.M * ld_x;
   if (wd != nullptr) wd += e * a.K * ld_w;
   if (dyb != nullptr) dyb += e * planes * a.M * ld_y;
-  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
+  const float s = floor_scale(*a.a_s, EPS), b = *a.a_b;
   const WQ wq = a.wq();
   const XT* x = static_cast<const XT*>(a.x);
   const size_t px = ld_x / 8, pw = ld_w / 8, py = ld_y / 8;
@@ -539,7 +542,7 @@ __device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const 
   const int i0 = (blk % n_i) * BM, j0 = (blk / n_i) * BN;
   float acc[4][4][4];
   tc_gemm<false, false, P, 1>(dyb, wd, i0, j0, a.N, acc, sm);
-  const float s = fmaxf(*a.a_s, EPS), b = *a.a_b;
+  const float s = floor_scale(*a.a_s, EPS), b = *a.a_b;
   const XT* x = static_cast<const XT*>(a.x);
   float sa = 0.f, sb = 0.f;
 #pragma unroll
@@ -555,8 +558,8 @@ __device__ __forceinline__ void dx_tc_tile(const Args& a, const TcOp& wd, const 
           const float u = __fdiv_rn(__fsub_rn(ld(x, at), b), s);
           const float mfl = a.qa.in_range(u);
           const float qc = a.qa.code(u);
-          dx[at] = __fmul_rn(dxd, mfl);
-          sa = __fadd_rn(sa, __fmul_rn(dxd, __fsub_rn(qc, __fmul_rn(mfl, u))));
+          dx[at] = mask_mul(dxd, mfl);
+          sa = __fadd_rn(sa, __fmul_rn(dxd, __fsub_rn(qc, mask_mul(u, mfl))));
           sb = __fadd_rn(sb, __fmul_rn(dxd, __fsub_rn(1.f, mfl)));
         }
       }
@@ -605,8 +608,8 @@ __device__ __forceinline__ void dw_tc_epilogue(const Args& a, const float (&acc)
           const float u = __fdiv_rn(a.w[at], wq.scale(k, n));
           const float mfl = a.qw.in_range(u);
           const float qc = a.qw.code(u);
-          dw[at] = __fmul_rn(dwd, mfl);
-          const float p = __fmul_rn(dwd, __fsub_rn(qc, __fmul_rn(mfl, u)));
+          dw[at] = mask_mul(dwd, mfl);
+          const float p = __fmul_rn(dwd, __fsub_rn(qc, mask_mul(u, mfl)));
           rsum[mf][e >> 1] = __fadd_rn(rsum[mf][e >> 1], p);
           csum[nf][e & 1] = __fadd_rn(csum[nf][e & 1], p);
         }

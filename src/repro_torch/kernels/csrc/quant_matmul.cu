@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "quant.cuh"
 
 namespace {
 
@@ -182,7 +183,7 @@ int4_tc_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
 
   float s[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) s[j] = col0 + j < N ? fmaxf(scale[col0 + j], 1e-9f) : 0.f;
+  for (int j = 0; j < 16; ++j) s[j] = col0 + j < N ? floor_scale(scale[col0 + j], 1e-9f) : 0.f;
 
   float acc[8][NT][4];
 #pragma unroll
@@ -355,7 +356,7 @@ int8_tc_kernel(const __nv_bfloat16* __restrict__ x,  // (M, ldx), ldx >= K, even
 
   float s[CW];
 #pragma unroll
-  for (int j = 0; j < CW; ++j) s[j] = col0 + j < N ? fmaxf(scale[col0 + j], 1e-9f) : 0.f;
+  for (int j = 0; j < CW; ++j) s[j] = col0 + j < N ? floor_scale(scale[col0 + j], 1e-9f) : 0.f;
 
   float acc[CW / 2][NT][4];
 #pragma unroll

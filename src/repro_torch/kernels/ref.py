@@ -55,6 +55,14 @@ def _in_range(u, q_n: int, q_p: int) -> torch.Tensor:
     return ((u >= -float(q_n)) & (u <= float(q_p))).to(torch.float32)
 
 
+def _masked(v, mf) -> torch.Tensor:
+    """v * mf as the reference computes it: XLA turns a product with a 0/1
+    mask converted from a predicate into a select, so a masked NaN or Inf
+    gives a zero (signed as v, which is the product's sign for a finite v:
+    every finite result keeps the product's bits)."""
+    return torch.where(mf > 0, v, torch.zeros_like(v).copysign(v))
+
+
 def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
                  q_n_w: int, q_p_w: int) -> torch.Tensor:
     """q_a(x) @ q_w(w) -> (M, N) f32: x (M, K) bf16 or f32, w (K, N) f32,
@@ -107,7 +115,7 @@ def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     dxd = _bf16(_cotangent(dy, round_cot) @ wd.T)
     u, q, _ = _act_codes(x, a_scale, a_offset, q_n_a, q_p_a)
     mf = _in_range(u, q_n_a, q_p_a)
-    return (dxd * mf, torch.sum(dxd * (q - mf * u)),
+    return (_masked(dxd, mf), torch.sum(dxd * (q - _masked(u, mf))),
             torch.sum(dxd * (1.0 - mf)))
 
 
@@ -121,9 +129,9 @@ def quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     dwd = _bf16(xd.T @ _cotangent(dy, round_cot))
     u, q, _ = _weight_codes(w, w_scale, q_n_w, q_p_w)
     mf = _in_range(u, q_n_w, q_p_w)
-    part = dwd * (q - mf * u)
+    part = dwd * (q - _masked(u, mf))
     k_side = w_scale.shape[0] != 1
-    return dwd * mf, torch.sum(part, dim=1 if k_side else 0, keepdim=True)
+    return _masked(dwd, mf), torch.sum(part, dim=1 if k_side else 0, keepdim=True)
 
 
 def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
@@ -198,12 +206,12 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
     uw, qw, wd = _weight_codes(w, s_w, q_n_w, q_p_w)
     dxd = _bf16(cot @ wd.transpose(1, 2))
     mf = _in_range(u, q_n_a, q_p_a)
-    dsa = torch.sum(dxd * (q - mf * u), dim=(1, 2)).reshape(-1, 1)
+    dsa = torch.sum(dxd * (q - _masked(u, mf)), dim=(1, 2)).reshape(-1, 1)
     dba = torch.sum(dxd * (1.0 - mf), dim=(1, 2)).reshape(-1, 1)
     dwd = _bf16(xd.transpose(1, 2) @ cot)
     mfw = _in_range(uw, q_n_w, q_p_w)
-    dws = torch.sum(dwd * (qw - mfw * uw), dim=1)
-    return dxd * mf, dsa, dba, dwd * mfw, dws
+    dws = torch.sum(dwd * (qw - _masked(uw, mfw)), dim=1)
+    return _masked(dxd, mf), dsa, dba, _masked(dwd, mfw), dws
 
 
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
@@ -323,15 +331,27 @@ def bin_stats_2d(w: torch.Tensor, scale, *, q_n: int, q_p: int) -> torch.Tensor:
     """(3, n_bins) f32 [count, sum, sum of squares] of w over the bins of
     code = clip(round(w / max(s, 1e-9)), -Q_N, Q_P) + Q_N (per-tensor s).
     Accumulated by index_add_ in f64 (w * w exact there) and rounded once,
-    without the reference oracle's (elements x bins) one-hot."""
+    without the reference oracle's (elements x bins) one-hot.
+
+    Non-finite values follow the reference's one-hot contraction: a NaN
+    code (w or s NaN) falls in no bin, and a bin's sum (sum of squares) is
+    NaN when an element outside it has a non-finite w (f32 w * w), whose
+    product with the one-hot's 0 is NaN. ±Inf clips to an edge bin."""
     w32 = w.reshape(-1).to(torch.float32)
     s = torch.clamp(torch.as_tensor(scale, dtype=torch.float32,
                                     device=w.device), min=EPS)
-    codes = (torch.clamp(torch.round(w32 / s), -float(q_n), float(q_p))
-             .to(torch.int64) + q_n)
+    u = torch.clamp(torch.round(w32 / s), -float(q_n), float(q_p))
+    binned = ~torch.isnan(u)
+    codes = torch.where(binned, u, 0.0).to(torch.int64) + q_n
+    n_bins = q_n + q_p + 1
     wd = w32.to(torch.float64)
-    out = torch.zeros((3, q_n + q_p + 1), dtype=torch.float64, device=w.device)
-    out[0].index_add_(0, codes, torch.ones_like(wd))
-    out[1].index_add_(0, codes, wd)
-    out[2].index_add_(0, codes, wd * wd)
+    out = torch.zeros((3, n_bins), dtype=torch.float64, device=w.device)
+    out[0].index_add_(0, codes[binned], torch.ones_like(wd[binned]))
+    out[1].index_add_(0, codes[binned], wd[binned])
+    out[2].index_add_(0, codes[binned], (wd * wd)[binned])
+    for row, bad in ((1, ~torch.isfinite(w32)), (2, ~torch.isfinite(w32 * w32))):
+        inside = torch.zeros(n_bins, dtype=torch.int64, device=w.device)
+        inside.index_add_(0, codes[binned & bad],
+                          torch.ones_like(codes[binned & bad]))
+        out[row] = torch.where(bad.sum() - inside > 0, torch.nan, out[row])
     return out.to(torch.float32)

@@ -4,10 +4,9 @@
         --quant w4a4 --steps 3 --batch 8 --seq 512 --ckpt build/ckpt-run1
 
 PyTorch counterpart of `repro.launch.train`, same flags without
---model-parallel, --compress-grads and --tpu-flags (sharding and gradient
-compression are not ported; TPU flags have no counterpart), plus --device
-(cuda unless "cpu" is asked for; no silent fallback) and --layers (cut the
-depth, 0 = the config's). Params are random (a torch generator seeded with
+--model-parallel and --tpu-flags (sharding is not ported; TPU flags have no
+counterpart), plus --device (cuda unless "cpu" is asked for; no silent
+fallback) and --layers (cut the depth, 0 = the config's). Params are random (a torch generator seeded with
 --seed), data comes from `sample_batch` with synthetic MCKD labels. The
 loop restores the newest verified checkpoint, steps, checks the sentinel's
 health bits (rolling back to the newest verified checkpoint with an LR
@@ -51,6 +50,7 @@ class RunReport:
     preempted: bool           # SIGTERM/SIGINT clean exit taken
     straggler_flags: int
     start_step: int = 0       # the step the loop started from (restored + 1)
+    rollback_to: list = dataclasses.field(default_factory=list)  # ckpt steps
     losses: list = dataclasses.field(default_factory=list)   # per step run
     healths: list = dataclasses.field(default_factory=list)  # sentinel bits
     step_seconds: list = dataclasses.field(default_factory=list)
@@ -135,6 +135,7 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
                       f"(skipped={int(m['sentinel_skipped'])})", flush=True)
             if runner.observe(health):
                 state, i = runner.rollback(state)
+                report.rollback_to.append(i - 1)
                 print(f"sentinel: {runner.scfg.k_consecutive} consecutive "
                       f"fatal steps -> rolled back to step {i - 1}, "
                       f"lr_scale={float(state['sent'].lr_scale):.3g} "
@@ -190,6 +191,8 @@ def main(argv=None) -> RunReport:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--compress-grads", action="store_true", dest="compress",
+                    help="int8 gradient compression with error feedback")
     ap.add_argument("--no-sentinel", action="store_true", dest="no_sentinel",
                     help="disable in-step health checks + rollback recovery")
     args = ap.parse_args(argv)
@@ -204,12 +207,14 @@ def main(argv=None) -> RunReport:
     tcfg = TrainConfig(total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 2),
                        grad_accum=args.grad_accum, kd=args.kd, kd_topk=16,
+                       compress_grads=args.compress,
                        adamw=AdamWConfig(lr_peak=args.lr),
                        sentinel=None if args.no_sentinel else SentinelConfig())
     dcfg = DataConfig(seed=args.seed)
     print(f"arch={cfg.name} layers={cfg.n_layers} quant={args.quant} "
-          f"kd={args.kd} accum={args.grad_accum} device={device} "
-          f"sentinel={'off' if args.no_sentinel else 'on'}", flush=True)
+          f"kd={args.kd} accum={args.grad_accum} compress={args.compress} "
+          f"device={device} sentinel={'off' if args.no_sentinel else 'on'}",
+          flush=True)
     report = run_training(
         cfg, qcfg, tcfg, dcfg, steps=args.steps, batch_size=args.batch,
         seq_len=args.seq, ckpt_dir=args.ckpt or default_ckpt_dir(cfg.name),

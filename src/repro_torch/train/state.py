@@ -4,9 +4,9 @@ PyTorch counterpart of `repro.train.state`. A plain dict:
   {"params": ..., "mu": ..., "nu": ..., "step": int32 0-d CPU tensor,
    "osc": (), "err": (), "sent": SentinelState | ()}
 "osc" holds one `OscState` per quantized weight (in `quant_leaf_paths`
-order) when `qcfg.track_oscillation` is set, else (). "err" (gradient-
-compression error feedback) stays empty: compression raises
-NotImplementedError in this port (ROADMAP.md, Queue 1).
+order) when `qcfg.track_oscillation` is set, else (). "err" holds the
+gradient-compression error feedback (`optim.grad_compress`: f32 zeros
+shaped like the params) when `tcfg.compress_grads` is set, else ().
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.core.policy import QuantConfig
 from repro_torch.models.model import init_params, quant_leaves
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.grad_compress import init_error_tree
 from repro_torch.train.sentinel import SentinelConfig, init_sentinel_state
 
 
@@ -43,18 +44,8 @@ class TrainConfig:
         return dataclasses.replace(self, **kw)
 
 
-def check_supported(tcfg: TrainConfig) -> None:
-    """Raise for the training settings this port does not run yet (every
-    quantizer setting trains, OBR and oscillation tracking included)."""
-    if tcfg.compress_grads:
-        raise NotImplementedError(
-            "gradient compression (optim/grad_compress.py) is not ported "
-            "yet: ROADMAP.md Queue 1, 'Distribution'")
-
-
 def init_state(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig,
                generator: torch.Generator, device=None) -> dict:
-    check_supported(tcfg)
     params = init_params(cfg, qcfg, generator, device)
     opt = adamw.init(params, tcfg.adamw)
     dev = next(iter(params["embed"].values())).device
@@ -64,6 +55,7 @@ def init_state(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig,
                     for w, s, spec in quant_leaves(params, qcfg))
     return {"params": params, "mu": opt.mu, "nu": opt.nu,
             "step": torch.zeros((), dtype=torch.int32),
-            "osc": osc, "err": (),
+            "osc": osc,
+            "err": init_error_tree(params) if tcfg.compress_grads else (),
             "sent": (init_sentinel_state(dev) if tcfg.sentinel is not None
                      else ())}

@@ -1,5 +1,6 @@
 """The training step: KD + OBR + load-balance loss, gradient
-accumulation, AdamW, oscillation telemetry, run sentinel.
+accumulation, optional gradient compression, AdamW, oscillation telemetry,
+run sentinel.
 
 PyTorch counterpart of `repro.train.train_step`:
 
@@ -15,10 +16,10 @@ leaf: each quantized weight's Eq. 10 value and gradient come from their own
 small autograd graph (the sum over leaves is separable), and its gradient
 is added as g + lambda * g_obr, as the reference does. With
 `qcfg.track_oscillation`, the Eq. 12 update runs on the post-update
-weights. Gradient compression is not ported yet and raises
-NotImplementedError when the step is built (`state.check_supported`).
-`make_eval_step` gives the hard-label cross-entropy and accuracy of a
-forward (the paper-table drivers' metric).
+weights. With `tcfg.compress_grads`, the gradients (OBR's included) go
+through int8 compression with error feedback (`optim.grad_compress`)
+before the sentinel reads them. `make_eval_step` gives the hard-label
+cross-entropy and accuracy of a forward (the paper-table twins' metric).
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from repro_torch.core.policy import QuantConfig
 from repro_torch.models.model import (forward, jax_leaf_groups,
                                      quant_leaf_paths, quant_leaves)
 from repro_torch.optim import adamw, schedule
+from repro_torch.optim.grad_compress import compress_tree
 from repro_torch.train import sentinel as sent
-from repro_torch.train.state import TrainConfig, check_supported
+from repro_torch.train.state import TrainConfig
 
 METRIC_KEYS = ("loss_main", "lb_loss", "drop_frac", "act_sdam")
 
@@ -159,7 +161,6 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
     optimizer runs; a fatal step skips the update, so params, moments,
     `osc` and `err` stay as they were.
     """
-    check_supported(tcfg)
     grad_fn = make_grad_fn(cfg, qcfg, tcfg, teacher_forward=teacher_forward,
                            extra_loss=extra_loss)
     osc_groups = None
@@ -178,6 +179,9 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
         else:
             metrics["loss_obr"] = torch.zeros_like(loss)
             metrics["obr_lambda"] = torch.zeros_like(loss)
+        new_err = state["err"]
+        if tcfg.compress_grads:
+            grads, new_err = compress_tree(grads, state["err"])
         if qcfg.track_oscillation and osc_groups is None:
             osc_groups = jax_leaf_groups(
                 [p for p, _, _, _ in quant_leaf_paths(params, qcfg)], cfg)
@@ -200,6 +204,7 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
         opt = adamw.AdamWState(state["mu"], state["nu"])
         if fatal:
             opt_metrics = {"grad_norm": adamw.global_norm(grads)}
+            new_err = state["err"]
         else:
             opt_metrics = adamw.update_(grads, opt, params, step, lr, tcfg.adamw)
         new_osc = state["osc"]
@@ -212,7 +217,8 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
             metrics["osc_frac"] = osc_fraction_mean(new_osc, osc_groups,
                                                     qcfg.osc_threshold)
         metrics.update({"loss": loss, "lr": lr, **opt_metrics})
-        new_state = dict(state, step=step + 1, sent=new_sent, osc=new_osc)
+        new_state = dict(state, step=step + 1, sent=new_sent, osc=new_osc,
+                         err=new_err)
         return new_state, metrics
 
     return train_step

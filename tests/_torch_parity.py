@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro.configs.registry import get_config, reduced_config
 from repro.core.policy import get_preset
@@ -168,3 +169,16 @@ def bf16_ulp(v) -> np.ndarray:
     a = np.abs(np.asarray(v, np.float64))
     e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
     return np.where(a > 0, 2.0 ** (e - 7), 0.0)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for a test module that imports this fixture:
+    small eager training steps gain nothing from more, and under a parallel
+    test run the default (every core, in each worker) oversubscribes the CPU
+    many times over."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

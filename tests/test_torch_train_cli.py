@@ -1,8 +1,8 @@
 """The port's training CLI and its fault tolerance on the CPU: a smoke run
-ends with a finite loss, CUDA is the default and its absence raises, a
-second run on the same checkpoint directory resumes from the saved step,
-and a corrupted newest checkpoint falls back to the previous one (mirrors
-of tests/test_checkpoint_ft.py); reduced granite-moe trains under w3a3,
+ends with a finite loss, CUDA is the default and its absence raises,
+--compress-grads trains, a second run on the same checkpoint directory
+resumes from the saved step, and a corrupted newest checkpoint falls back
+to the previous one (mirrors of tests/test_checkpoint_ft.py); reduced granite-moe trains under w3a3,
 and its oscillation state rides through a checkpoint."""
 import os
 
@@ -48,6 +48,14 @@ def test_cuda_is_the_default_and_raises_without_it(tmp_path):
     argv = [a for a in SMOKE if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         L.main(argv + ["--steps", "1", "--ckpt", str(tmp_path)])
+
+
+def test_compress_grads_flag_trains(tmp_path):
+    """--compress-grads: int8 gradients with error feedback through the
+    CLI; finite losses, no health bit."""
+    rep = L.main(SMOKE + ["--steps", "2", "--compress-grads", "--ckpt", str(tmp_path)])
+    assert rep.steps_run == 2 and all(np.isfinite(rep.losses))
+    assert rep.healths == [0, 0]
 
 
 def test_second_run_resumes_from_the_saved_step(tmp_path):
@@ -111,15 +119,19 @@ def test_async_checkpointer_lands_and_drains(tmp_path):
         ac.submit(_state(0), 2)
 
 
-def test_unported_settings_raise():
-    """Gradient compression is not ported and raises; OBR (w2a2's lambda)
-    and oscillation tracking now build a state, the latter with one
-    oscillation state per quantized weight."""
+def test_compression_obr_and_oscillation_states():
+    """Gradient compression builds an "err" tree of f32 zeros shaped like
+    the params (and no tree without it); OBR (w2a2's lambda) and
+    oscillation tracking build a state, the latter with one oscillation
+    state per quantized weight."""
     cfg = reduced_config(get_config("qwen1.5-0.5b"))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(cfg, get_preset("w4a4"), TrainConfig(compress_grads=True),
-                   gen, "cpu")
+    st = init_state(cfg, get_preset("w4a4"), TrainConfig(compress_grads=True),
+                    gen, "cpu")
+    assert [p for p, _ in T.flatten(st["err"])] == [p for p, _ in T.flatten(st["params"])]
+    for e, p in zip(T.leaves(st["err"]), T.leaves(st["params"])):
+        assert e.dtype == torch.float32 and e.shape == p.shape and not e.any()
+    assert init_state(cfg, get_preset("w4a4"), TrainConfig(), gen, "cpu")["err"] == ()
     assert init_state(cfg, get_preset("w2a2"), TrainConfig(), gen, "cpu")["osc"] == ()
     qcfg = get_preset("w4a4").replace(track_oscillation=True)
     st = init_state(cfg, qcfg, TrainConfig(), gen, "cpu")
