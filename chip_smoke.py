@@ -222,6 +222,37 @@ Phases (any failure exits non-zero before the final line is printed):
                after every step; compress_leaf on the card bit-equal to the
                CPU at the tied head's (152064, 1024); s/step, tokens/s and
                peak memory beside phase 6's.
+  23. sharded, one rank (cell R) — a process group of one over NCCL: phase
+               6's run through `launch.train --model-parallel 1` (the world
+               of one holds the whole state), 3 steps, losses bit-equal to
+               phase 6's, launches equal the formula; phase 3's full-width
+               granite-8b served with --model-parallel 1, streams equal
+               phase 3's.
+  24. sharded, four ranks (cell S) — four processes share the card on a
+               (2 data, 2 model) mesh over gloo (NCCL refuses two ranks on
+               one device; gloo moves each CUDA payload through a host
+               copy, the compute stays on the card): (a) phase 6's
+               full-width qwen1.5-0.5b QAT, 3 steps, each data rank taking
+               4 of the 8 rows: losses against phase 23's (step 0 within
+               1e-6 relative, the CPU harness's bar; steps 1-2 within
+               1e-3) and the gradient norm of steps 0-1 (the same
+               weights) within 1e-4 relative of phase 23's (a gradient
+               scaled by a factor fails it; the losses cannot show that,
+               Adam's step being nearly blind to a gradient's scale),
+               each rank's resident state bytes
+               (about a quarter of cell C's params and moments) and peak;
+               (b) full-width granite-8b cut to 4 layers, w4a4, int8 KV,
+               4 slots, 8 x 128 prompt + 32 new tokens, one-chunk
+               prefill, the KV sequence axis over the 2 model ranks (160
+               rows rounded up to 256 by launch.serve: 128 a rank, two
+               whole 64-key splits of kernel 9): the sharded logits (prefill + 4
+               teacher-forced decode steps) bit-equal to the one-process
+               model's and all 8 streams equal its greedy_generate;
+               kernel 9's launches per rank. Then kernel 9 over 128 keys
+               against two 64-key halves merged by
+               `attention.merge_partials` (bit-equal) and over 160 keys
+               against two 80-key halves (not whole splits: the gap
+               printed).
   Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
   serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
   C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
@@ -804,7 +835,346 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
         check_against_cpu(torch, M, run, run.qcfg)
         check_against_cpu(torch, M, run, run.qcfg.replace(kv_cache_bits=0))
     return {"counts": counts, "summary": run.summary, "peak": run.peak_bytes,
-            "wall": wall, "extra": extra(run) if extra else None}
+            "wall": wall, "extra": extra(run) if extra else None, "argv": argv,
+            "streams": {k: v.tokens for k, v in run.engine.results.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phases 23-24: sharding (cells R and S)
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN = ["--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd",
+                 "--batch", "8", "--seq", "512", "--steps", "3",
+                 "--save-every", str(10 ** 6)]
+SHARDED_SERVE = ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
+                 "--layers", "4", "--batch", "8", "--slots", "4",
+                 "--prompt-len", "128", "--new-tokens", "32", "--chunk", "128"]
+# the sharded run's cache rows: 128 + 32 rounded up to 2 x 64 (launch.serve):
+# 128 a model rank, two whole 64-key splits of kernel 9
+SHARDED_CACHE = 256
+# cell S against cell R, relative: step 0's loss to the CPU harness's bar;
+# the later losses, which the half batches' bf16 sums move by about 1e-4 on
+# the card, to 1e-3; the gradient norm of steps 0 and 1 (the same weights)
+# to 1e-4, where the sums leave about 1e-6 and a gradient scaled by a
+# factor gives at least its factor less one (see cell_s_phase)
+LOSS0_BAR, LOSS_BAR, GNORM_BAR = 1e-6, 1e-3, 1e-4
+SHARDED_RANKS = 4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun_env(rank: int, world: int, port: int) -> dict:
+    return {"WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def cell_r_phase(torch, ops, train, serve, cell_c: dict, cell_a: dict) -> dict:
+    """Phase 23: a process group of one over NCCL; phase 6's training and
+    phase 3's serving through --model-parallel 1."""
+    import os
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    env = _torchrun_env(0, 1, _free_port())
+    os.environ.update(env)
+    try:
+        cdir = ROOT / "build" / "chip_smoke_cell_r"
+        shutil.rmtree(cdir, ignore_errors=True)
+        run = train_phase(torch, ops, train, SHARDED_TRAIN + [
+            "--ckpt", str(cdir), "--model-parallel", "1"], 0, 3)
+        shutil.rmtree(cdir, ignore_errors=True)
+        rep = run["report"]
+        if rep.mesh is None or rep.mesh.backend != "nccl":
+            fail(f"cell R did not run on an NCCL group: {rep.mesh}")
+        run.update(cfg=get_config("qwen1.5-0.5b"), qcfg=get_preset("w4a4"))
+        per_step = check_launches(run, 3, 8 * 512)
+        base = cell_c["report"].losses[:3]
+        same = rep.losses == base
+        log(f"  cell R (one NCCL rank, --model-parallel 1): losses {rep.losses} vs "
+            f"phase 6's {base}: bit-equal {same}; s/step {run['s_step']:.3f} vs "
+            f"{cell_c['s_step']:.3f}; state {rep.state_bytes / 2**30:.3f} GiB")
+        if not same:
+            fail(f"cell R losses {rep.losses} != phase 6's {base}")
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        srun = serve.main(cell_a["argv"] + ["--model-parallel", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams = {k: v.tokens for k, v in srun.engine.results.items()}
+        equal = streams == cell_a["streams"]
+        log(f"  cell R serving (phase 3's argv + --model-parallel 1): {wall:.1f} s, "
+            f"streams equal phase 3's {equal}; launches {ops.launch_counts()}")
+        if not equal:
+            fail("cell R serving streams differ from phase 3's")
+        del srun
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        torch.cuda.empty_cache()
+    return {"losses": rep.losses, "grad_norms": rep.grad_norms,
+            "s_per_step": run["s_step"],
+            "tokens_per_s": run["tokens_s"], "launches_per_step": per_step,
+            "state_gib": rep.state_bytes / 2**30,
+            "peak_gib": (rep.peak_bytes or 0) / 2**30, "serve_wall_s": wall,
+            "streams_equal_phase_3": equal}
+
+
+def sharded_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 24 (`chip_smoke.py --sharded-rank R PORT DIR`):
+    the sharded QAT run, then the sharded serving run; writes its numbers
+    to DIR/rank{R}.json."""
+    import os
+    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    ckpt_dir = Path(out_dir) / "ckpt"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train.main(SHARDED_TRAIN + ["--ckpt", str(ckpt_dir), "--model-parallel", "2"])
+    torch.cuda.synchronize()
+    res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
+                     "grad_norms": rep.grad_norms, "healths": rep.healths, "step_seconds": rep.step_seconds,
+                     "state_bytes": rep.state_bytes, "peak_bytes": rep.peak_bytes,
+                     "launches": ops.launch_counts(), "backend": rep.mesh.backend,
+                     "staged": rep.mesh.staged, "coords": rep.mesh.coords}}
+    del rep
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve.main(SHARDED_SERVE + ["--model-parallel", "2"])
+    torch.cuda.synchronize()
+    kv = run.engine.executor.pool["layers"][0]["kv"]
+    # the sharded decode's logits on fixed inputs, for the parent to hold
+    # against the one-process model's
+    forced = torch.tensor([run.engine.results[f"req-{i}"].tokens[:4]
+                           for i in range(len(run.prompts))], dtype=torch.int32)
+    lg = teacher_forced(torch, run.params, run.cfg, run.qcfg, run.prompts, forced,
+                        run.spmd)
+    if rank == 0:
+        import numpy as np
+        np.save(Path(out_dir) / "sharded_logits.npy", lg.cpu().numpy())
+    res["serve"] = {"wall_s": time.perf_counter() - t0,
+                    "streams": {k: v.tokens for k, v in run.engine.results.items()},
+                    "launches": ops.launch_counts(), "kv_rows": int(kv.k.shape[1]),
+                    "throughput": run.summary["throughput"],
+                    "faults": {k: v for k, v in run.summary["faults"].items() if v},
+                    "peak_bytes": run.peak_bytes,
+                    "param_bytes": sum(t.numel() * t.element_size() for t in
+                                       _leaves(run.params))}
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def teacher_forced(torch, params, cfg, qcfg, prompts, forced, spmd):
+    """Logits (B, 1 + F, vocab) f32 of a one-chunk prefill of `prompts`
+    (numpy) and F decode steps fed `forced` (B, F), in a cache of the
+    serving run's length (sequence-sharded on spmd's mesh)."""
+    from repro_torch.models import model as M
+    dev = M.params_device(params)
+    prompts = torch.from_numpy(prompts).to(dev)
+    forced = forced.to(dev)
+    b, plen = prompts.shape
+    cache = M.init_cache(cfg, qcfg, b, SHARDED_CACHE, dev, spmd=spmd)
+    pos = torch.arange(plen, dtype=torch.int32, device=dev)[None].expand(b, plen)
+    lg, cache = M.prefill_step(params, cache, {"tokens": prompts, "pos": pos},
+                               cfg, qcfg, spmd=spmd)
+    outs = [lg[:, -1]]
+    for j in range(forced.shape[1]):
+        p = torch.full((b,), plen + j, dtype=torch.int32, device=dev)
+        lg, cache = M.decode_step(params, cache, {"tokens": forced[:, j:j + 1],
+                                                  "pos": p}, cfg, qcfg, spmd=spmd)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1)[..., :cfg.vocab_size].float()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for c in tree for x in _leaves(c)]
+    return [tree] if tree is not None else []
+
+
+def seq_merge_check(torch, da, gen) -> dict:
+    """Kernel 9 over a cache against its halves merged in rank order by
+    `attention.merge_partials` (the sequence-sharded decode's merge): at
+    128 keys (one 64-key split a half: bit-equal) and at 160 (80 a half)."""
+    from repro_torch.models.attention import merge_partials
+    out = {}
+    for t in (128, 160):
+        b, c, hkv, qpk, d = 4, 1, 8, 4, 128
+        q = torch.randn((b, c, hkv * qpk, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randint(-127, 128, (b, t, hkv, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, t, hkv, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand((b, t, hkv, 1), generator=gen, device="cuda") * 0.02 + 1e-3
+        vs = torch.rand((b, t, hkv, 1), generator=gen, device="cuda") * 0.02 + 1e-3
+        pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].expand(b, t).contiguous()
+        pos[1, t - 9:] = -1  # a slot with idle rows in the second half
+        qp = torch.full((b, c), t - 1, dtype=torch.int32, device="cuda")
+        kw = dict(q_per_kv=qpk, window=0, softcap=0.0)
+        acc, m, l = da.pooled_decode_attention(q, k, v, ks, vs, pos, qp, **kw)
+        h = t // 2
+        parts = [da.pooled_decode_attention(
+            q, k[:, s:s + h].contiguous(), v[:, s:s + h].contiguous(),
+            ks[:, s:s + h].contiguous(), vs[:, s:s + h].contiguous(),
+            pos[:, s:s + h].contiguous(), qp, **kw) for s in (0, h)]
+        acc2, m2, l2 = merge_partials(*(torch.stack([p[i] for p in parts])
+                                        for i in range(3)))
+        same = bool(torch.equal(acc, acc2) and torch.equal(m, m2) and torch.equal(l, l2))
+        gap = float(((acc / l[..., None]) - (acc2 / l2[..., None])).abs().max())
+        out[t] = {"splits_per_rank": h / da.KV_SPLIT, "bit_equal": same,
+                  "max_abs_out_gap": gap}
+        log(f"  kernel 9 over {t} keys vs two {h}-key halves merged in rank "
+            f"order: bit-equal {same}, max |out gap| {gap:.3e}")
+    if not out[128]["bit_equal"]:
+        fail("kernel 9's halves of one split each, merged, differ from the whole")
+    return out
+
+
+def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
+    """Phase 24: four ranks share the card over gloo (see the docstring)."""
+    import shutil
+    out_dir = ROOT / "build" / "chip_smoke_cell_s"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(SHARDED_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--sharded-rank", str(r), str(port), str(out_dir)],
+                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(SHARDED_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        for r in range(SHARDED_RANKS):
+            log(f"--- rank {r} (exit {rcs[r]}):\n"
+                + (out_dir / f"rank{r}.log").read_text()[-3000:])
+        fail(f"cell S ranks exited {rcs}")
+    log("  rank 0's log: " + " | ".join(
+        (out_dir / "rank0.log").read_text().splitlines()[:6]))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_RANKS)]
+    # (a) training: the losses against cell R's, and the gradient's norm at
+    # steps 0 and 1, which run on the same weights (lr is 0 at step 0).
+    # Adam's step barely moves when a gradient is scaled, so the losses
+    # cannot witness a model-axis gradient summed once per model rank or a
+    # data mean left undivided; the norm does, by its factor. From step 2
+    # the weights differ by the first update, so its norm is printed only.
+    base, gbase = cell_r["losses"], cell_r["grad_norms"]
+    losses, gnorms = ranks[0]["train"]["losses"], ranks[0]["train"]["grad_norms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+    grel = [abs(a - b) / abs(b) for a, b in zip(gnorms, gbase)]
+    full_state = cell_c["state_bytes"]
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        log(f"  rank {r} {tr['coords']} ({tr['backend']}, staged {tr['staged']}): "
+            f"train {tr['wall_s']:.1f} s, s/step {[round(x, 2) for x in tr['step_seconds']]}, "
+            f"losses {tr['losses']}, state {tr['state_bytes'] / 2**30:.3f} GiB "
+            f"({tr['state_bytes'] / full_state:.3f} of cell C's), peak "
+            f"{tr['peak_bytes'] / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in tr['launches'].items() if v} }")
+        if (tr["losses"] != losses or tr["grad_norms"] != gnorms
+                or any(tr["healths"])):
+            fail(f"rank {r}'s losses / norms / health differ: {tr['losses']} "
+                 f"{tr['grad_norms']} {tr['healths']}")
+    log(f"  cell S losses {losses} vs cell R's {base}: rel {rel} (bars: step 0 "
+        f"{LOSS0_BAR}, later {LOSS_BAR}); gradient norms {gnorms} vs {gbase}: "
+        f"rel {grel} (bar {GNORM_BAR} at steps 0-1)")
+    if (not all(x == x for x in losses + gnorms) or rel[0] > LOSS0_BAR
+            or max(rel[1:]) > LOSS_BAR or max(grel[:2]) > GNORM_BAR):
+        fail(f"cell S losses {losses} / norms {gnorms} vs {base} / {gbase}")
+    # (b) serving: the one-process engine and model on the same inputs
+    sv = [res["serve"] for res in ranks]
+    streams = sv[0]["streams"]
+    for r, s in enumerate(sv):
+        log(f"  rank {r}: serve {s['wall_s']:.1f} s, {s['kv_rows']} KV rows, "
+            f"pooled_decode_attention launches {s['launches']['pooled_decode_attention']}, "
+            f"params {s['param_bytes'] / 2**30:.3f} GiB, peak "
+            f"{s['peak_bytes'] / 2**30:.2f} GiB, decode "
+            f"{s['throughput']['decode_tok_s']:.1f} tok/s; faults {s['faults']}")
+        if s["streams"] != streams or s["faults"]:
+            fail(f"rank {r}'s streams differ or faulted")
+        if (s["launches"]["pooled_decode_attention"] <= 0
+                or s["kv_rows"] != SHARDED_CACHE // 2):
+            fail(f"rank {r}: kernel 9 launches {s['launches']} over {s['kv_rows']} rows")
+    run = serve.main(SHARDED_SERVE)  # the one-process engine (a world of one)
+    params, cfg, qcfg = run.params, run.cfg, run.qcfg
+    one_engine = {k: v.tokens for k, v in run.engine.results.items()}
+    sharded = [streams[f"req-{i}"] for i in range(8)]
+    # each rank holds two whole key splits of kernel 9, so the sharded
+    # decode merges the same split triples in the same order as the
+    # one-process kernel call: its logits must be the same bits
+    import numpy as np
+    a = torch.from_numpy(np.load(out_dir / "sharded_logits.npy"))
+    b = teacher_forced(torch, params, cfg, qcfg, run.prompts,
+                       torch.tensor([s[:4] for s in sharded], dtype=torch.int32),
+                       run.spmd).cpu()
+    same_logits = bool(torch.equal(a, b))
+    prompts = torch.from_numpy(run.prompts).cuda()
+    step = lambda p, c, x: M.prefill_step(p, c, x, cfg, qcfg)
+    toks, _ = serve.greedy_generate(
+        step, params, M.init_cache(cfg, qcfg, 8, SHARDED_CACHE), prompts, 32)
+    greedy = toks.tolist()
+    equal = sum(x == y for x, y in zip(sharded, greedy))
+    log(f"  cell S logits (prefill + 4 forced decode steps, 8 rows) bit-equal to "
+        f"the one-process model's: {same_logits} (max |dlogit| "
+        f"{float((a - b).abs().max()):.3e}); streams: {equal}/8 equal the "
+        f"one-process greedy_generate (first differences "
+        f"{[_first_difference(x, y) for x, y in zip(sharded, greedy)]}); "
+        f"one-process engine == greedy "
+        f"{one_engine == {f'req-{i}': g for i, g in enumerate(greedy)}}")
+    if not same_logits or equal != 8:
+        fail(f"cell S serving: logits bit-equal {same_logits}, {equal}/8 streams equal")
+    del run, params
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import decode_attention as da
+    merge = seq_merge_check(torch, da, torch.Generator(device="cuda").manual_seed(
+        100 * SEED + 24))
+    log(f"  cell S wall {wall:.1f} s (4 processes, their start and builds included)")
+    return {"wall_s": wall, "train": {
+        "losses": losses, "rel_vs_cell_r": rel, "grad_norms": gnorms,
+        "grad_norm_rel_vs_cell_r": grel,
+        "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
+        "state_share_of_cell_c": [r["train"]["state_bytes"] / full_state for r in ranks],
+        "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
+        "step_seconds": [r["train"]["step_seconds"] for r in ranks],
+        "launches": [r["train"]["launches"] for r in ranks]},
+        "serve": {"streams_equal": equal, "logits_bit_equal": same_logits,
+                  "decode_launches": [s["launches"]["pooled_decode_attention"] for s in sv],
+                  "kv_rows_per_rank": sv[0]["kv_rows"],
+                  "decode_tok_s": [s["throughput"]["decode_tok_s"] for s in sv],
+                  "wall_s": [s["wall_s"] for s in sv],
+                  "peak_gib": [s["peak_bytes"] / 2**30 for s in sv]},
+        "seq_merge": merge}
 
 
 # ---------------------------------------------------------------------------
@@ -2694,8 +3064,8 @@ def compression_phase(torch, ops, train, cell_c: dict, argv: list) -> dict:
     tokens = int(argv[argv.index("--batch") + 1]) * int(argv[argv.index("--seq") + 1])
     ratios, real = [], TS.compress_tree
 
-    def recorded(grads, err):  # max|err| / (max|deq| / 127) over the leaves
-        deq, new_err = real(grads, err)
+    def recorded(grads, err, **kw):  # max|err| / (max|deq| / 127)
+        deq, new_err = real(grads, err, **kw)
         inf = float("inf")
         top = torch.stack(torch._foreach_norm(T.leaves(deq), inf))
         ratios.append((torch.stack(torch._foreach_norm(T.leaves(new_err), inf))
@@ -2778,8 +3148,22 @@ def _kernel_name(sym: str) -> str:
     return name
 
 
+def cell_c_state_bytes(torch, cfg, qcfg) -> int:
+    """Bytes of cell C's params and AdamW moments (shapes only)."""
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, qcfg, torch.Generator(), "meta")
+    return 3 * sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
 def main() -> None:
+    if len(sys.argv) > 1 and sys.argv[1] == "--sharded-rank":
+        sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     t_start = time.perf_counter()
+
+    def mark(label: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s into the run] {label}")
+
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -2815,6 +3199,7 @@ def main() -> None:
             elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 log(f"    {entry}{line.strip()}")
 
+    mark("phase 2")
     # 2. kernels
     def phase_gen(phase: int):
         return torch.Generator(device="cuda").manual_seed(100 * SEED + phase)
@@ -2834,6 +3219,7 @@ def main() -> None:
     log("serving kernels with a NaN column scale (against their plain versions):")
     nan_rows = {"serving": nan_serving_rows(torch, qmm, ref, nan_gen)}
 
+    mark("phase 5")
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
     #    M = 8 x 512 tokens)
     log("qat kernels (each against its plain version on the card):")
@@ -2978,6 +3364,7 @@ def main() -> None:
     nan_rows["qat"] = nan_qat_rows(torch, qmm, ref, nan_gen)
     torch.cuda.empty_cache()
 
+    mark("phase 10")
     # 10. the quantizer kernels (10-12) against their plain versions
     q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, phase_gen(10))
     log("quantizer kernels with NaN / ±Inf inputs (against their plain versions):")
@@ -2988,6 +3375,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    mark("phase 3")
     # 3. the main path: full-width granite-8b, all 36 layers
     main_run = serve_phase(
         torch, ops, serve, M,
@@ -3005,6 +3393,7 @@ def main() -> None:
          "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
         ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
 
+    mark("phase 12")
     # 12. MoE serving: full-width granite-moe-1b-a400m, all 24 layers
     moe_serve = serve_phase(
         torch, ops, serve, M,
@@ -3015,6 +3404,7 @@ def main() -> None:
         extra=moe_serve_checks(torch, M))
     torch.cuda.empty_cache()
 
+    mark("phase 13")
     # 13. learned positions and layernorm on the serving path: full-width
     #     musicgen-medium, all 48 layers
     music_serve = serve_phase(
@@ -3026,6 +3416,7 @@ def main() -> None:
         cpu_reference=False, extra=dense_serve_checks(torch, M))
     torch.cuda.empty_cache()
 
+    mark("phase 6")
     # 6. QAT training, the main path of the training slice: full-width
     #    qwen1.5-0.5b, 3 steps saving at step 2, then a restored 4th step
     from repro_torch.launch import train
@@ -3047,6 +3438,7 @@ def main() -> None:
     # 7. the kernel route against the unfused composition, on the card
     route = route_check(torch)
     torch.cuda.empty_cache()
+    mark("phase 8")
     # 8. MoE QAT training with OBR and oscillation tracking, full width
     moe_run = moe_train_phase(torch, ops)
     moe_step = check_launches(moe_run, 3, 8 * 512, every_kernel=True)
@@ -3054,6 +3446,7 @@ def main() -> None:
     # 9. the MoE kernel route against the unfused composition, at init
     moe_route = route_check(torch, "granite-moe-1b-a400m", "w3a3")
     torch.cuda.empty_cache()
+    mark("phase 14")
     # 14. training the learned-position models at full width: musicgen-medium
     #     through the CLI, the paper's BERT-base (w2a2, OBR, oscillation
     #     tracked) and DeiT-T (w3a3, 197 patches) through run_training; then
@@ -3080,16 +3473,20 @@ def main() -> None:
         torch.cuda.empty_cache()
     store = mckd_store_phase(torch)
     torch.cuda.empty_cache()
+    mark("phase 15")
     # 15. the paper-table twins, steps cut
     tables = tables_phase(torch)
     torch.cuda.empty_cache()
+    mark("phase 16-20")
     # 16-20. the recurrent families and cross-attention (cells K-O)
     recurrent = recurrent_phases(torch, ops, train)
     torch.cuda.empty_cache()
+    mark("phase 21")
     # 21. the training half of the fault contract: NaN rollback and SIGTERM
     #     on full-width paper-bert-base
     faults = fault_contract_phase(torch, ops)
     torch.cuda.empty_cache()
+    mark("phase 22")
     # 22. gradient compression on cell C's configuration, beside phase 6
     cdir = ROOT / "build" / "chip_smoke_compress_ckpt"
     shutil.rmtree(cdir, ignore_errors=True)
@@ -3100,6 +3497,17 @@ def main() -> None:
          "--steps", "3"])
     shutil.rmtree(cdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    mark("phase 23-24")
+    # 23-24. sharding: one NCCL rank (cell R), four ranks sharing the card
+    #        over gloo (cell S)
+    log("sharded, one rank (cell R):")
+    first["state_bytes"] = cell_c_state_bytes(torch, get_config("qwen1.5-0.5b"),
+                                              get_preset("w4a4"))
+    cell_r = cell_r_phase(torch, ops, train, serve, first, main_run)
+    log("sharded, four ranks sharing the card (cell S):")
+    cell_s = cell_s_phase(torch, M, serve, cell_r, first)
+    torch.cuda.empty_cache()
+    mark("phase 11")
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
     bench_counts, bench = kernel_bench_phase(torch, ops)
     counts.update(first["counts"])
@@ -3158,6 +3566,8 @@ def main() -> None:
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1]["launches_recurrent_serve"] = {
                 cell: recurrent[cell]["launches"][name] for cell in "LM"}
+        if name == "pooled_decode_attention":
+            kernels[-1]["launches_sharded_serve_per_rank"] = cell_s["serve"]["decode_launches"]
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
@@ -3223,6 +3633,7 @@ def main() -> None:
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
         "nan_rows": nan_rows, "fault_contract": faults, "compression": compressed,
+        "sharded": {"R": cell_r, "S": cell_s},
         "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
                       for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}

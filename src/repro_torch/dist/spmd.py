@@ -1,0 +1,440 @@
+"""The sharded runtime: state held as shards, gathered on use.
+
+PyTorch counterpart of what `jax.jit` with NamedShardings does for the JAX
+package's train step and decode (tests/test_spmd.py is its oracle). Every
+rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
+
+* State at rest. params, mu, nu, osc and err are this rank's slices by
+  `sharding.state_pspecs`; the step and the sentinel's scalars are
+  replicated (`init_sharded_state`).
+* Batch. Every rank draws the global batch and keeps its rows by
+  `sharding.batch_pspecs` (`Spmd.rows`): over the data axes, and over the
+  model axis too with no_tp (the weights then whole on every model rank).
+* Gather on use. `Spmd.gather` all-gathers a layer's leaves just before
+  the layer runs (`models.model.forward(spmd=...)`, inside the block's
+  checkpoint, so a remat backward gathers again) through `_GatherMany`,
+  whose backward turns the full gradients back into this rank's slices
+  (a layer's collectives are launched together, `collect`): the model
+  axis keeps its own slice (the ranks of a data group hold the same rows
+  and the same gradient: it is summed once, not once per model rank), the
+  data axes are reduce-scattered where the leaf splits over them and
+  all-reduced where it does not, and the sum is divided by the number of
+  data ranks (each local loss is a mean over local rows).
+* Global decisions come out of all-reduces: the loss and metrics (means
+  over the data ranks), the gradient norm (each element counted once),
+  OBR's Eq. 10 (on the gathered leaf), the oscillation fraction (on the
+  gathered EMA), compression's per-leaf amax, and the sentinel's
+  non-finite and scale flags, so every rank takes the same skip or
+  rollback.
+* Decode. A KV cache whose sequence axis `sharding.cache_pspecs` splits
+  over the model axis holds rows [k T/M, (k+1) T/M) on model rank k
+  (`SeqSplit`): `models.attention.attend_chunk` runs the decode-attention
+  kernel over those rows and merges the ranks' (acc, m, l) triples in rank
+  order; a row is written only on the rank that holds it.
+
+The kernels run unchanged on gathered weights. Tensor-parallel compute
+(column- and row-parallel tiles on weight shards) is not part of this
+module. One process is a world of one: it holds every tensor whole, so
+nothing is gathered, cut or reduced, and its arithmetic is the
+single-process arithmetic exactly. `WHOLE` is its runtime, the default of
+every function that takes an `spmd`.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as T
+from repro_torch.dist import sharding as shard
+from repro_torch.launch.mesh import HostMesh
+from repro_torch.optim.adamw import global_norm
+
+
+# ---------------------------------------------------------------------------
+# collectives (a gloo group moves a CUDA payload through a host copy)
+# ---------------------------------------------------------------------------
+
+# the newer names where this torch has them (the older ones warn there)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_REDUCE_SCATTER = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def collect(jobs: list) -> list:
+    """Run collectives together and return their results in order. A job
+    is (kind, tensor, group, dim): "gather" concatenates the group's
+    tensors along dim in group rank order, "scatter" sums them and keeps
+    this rank's 1/n along dim, "sum" / "max" all-reduce. Every job is
+    launched before any is waited on, so gloo's threads move several at
+    once (about twice the rate of one at a time on 4 CPU ranks); a job
+    without a group returns its tensor."""
+    pend = []
+    for kind, t, group, dim in jobs:
+        if group is None:
+            pend.append((None, t, kind, dim, t.device))
+            continue
+        x = t.detach()
+        if kind in ("gather", "scatter"):
+            x = x.movedim(dim, 0)
+        if _staged(group, t):
+            x = x.contiguous().to("cpu")
+        elif kind in _REDUCE_OPS:  # reduced in place: never the caller's tensor
+            x = x.clone(memory_format=torch.contiguous_format)
+        else:
+            x = x.contiguous()
+        n = dist.get_world_size(group)
+        if kind == "gather":
+            out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+            work = _ALL_GATHER(out, x, group=group, async_op=True)
+        elif kind == "scatter":
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            work = _REDUCE_SCATTER(out, x, group=group, async_op=True)
+        else:
+            out = x
+            work = dist.all_reduce(out, op=_REDUCE_OPS[kind], group=group,
+                                   async_op=True)
+        pend.append((work, out, kind, dim, t.device))
+    results = []
+    for work, out, kind, dim, device in pend:
+        if work is not None:
+            work.wait()
+            out = out.to(device)
+            if kind in ("gather", "scatter"):
+                out = out.movedim(0, dim)  # a view: callers make it contiguous
+        results.append(out)
+    return results
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: t reduced over `group` (t itself for no group)."""
+    return collect([(op, t, group, None)])[0]
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group rank order."""
+    return collect([("gather", t, group, dim)])[0].contiguous()
+
+
+def gather_many(leaves: list, specs: list, mesh) -> list:
+    """The full tensors of this rank's slices: all-gathers over the axes
+    each spec splits, the leaves' collectives launched together."""
+    outs = list(leaves)
+    plans = [shard.split_dims(spec, mesh) for spec in specs]
+    for step in range(max((len(p) for p in plans), default=0)):
+        todo = [(j, p[step]) for j, p in enumerate(plans) if step < len(p)]
+        for _, (_, axes, _) in todo:
+            if tuple(axes) != mesh.axes(axes):
+                raise ValueError(f"spec entry {axes} is not in mesh order")
+        done = collect([("gather", outs[j], mesh.group(axes), dim)
+                        for j, (dim, axes, _) in todo])
+        for (j, _), out in zip(todo, done):
+            outs[j] = out
+    return [o.contiguous() for o in outs]
+
+
+def gather(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full tensor from this rank's slice `t`."""
+    return gather_many([t], [spec], mesh)[0]
+
+
+def reduce_many(grads: list, specs: list, mesh, data_axes: tuple) -> list:
+    """Full gradients of a local loss -> this rank's slices of the
+    data-mean gradients (see the module docstring), the leaves'
+    collectives launched together."""
+    outs, scatters = [], []
+    for g, spec in zip(grads, specs):
+        scatter = []
+        for dim, axes, parts in shard.split_dims(spec, mesh):
+            if any(a in data_axes for a in axes):
+                if not all(a in data_axes for a in axes):
+                    raise ValueError(f"spec entry {axes} mixes data and model axes")
+                scatter.append((dim, axes))
+            else:  # the same gradient on every rank of these axes: a slice
+                n = g.shape[dim] // parts
+                g = g.narrow(dim, shard.axes_index(axes, mesh, mesh.coords) * n, n)
+        outs.append(g)
+        scatters.append(scatter)
+    for step in range(max((len(sc) for sc in scatters), default=0)):
+        todo = [(j, sc[step]) for j, sc in enumerate(scatters) if step < len(sc)]
+        done = collect([("scatter", outs[j], mesh.group(axes), dim)
+                        for j, (dim, axes) in todo])
+        for (j, _), out in zip(todo, done):
+            outs[j] = out
+    rest = [mesh.group([a for a in data_axes
+                        if not any(a in ax for _, ax in sc)]) for sc in scatters]
+    outs = collect([("sum", g, group, None) for g, group in zip(outs, rest)])
+    n = mesh.size(data_axes)
+    return [(g * (1.0 / n) if n > 1 else g).contiguous() for g in outs]
+
+
+class _GatherMany(torch.autograd.Function):
+    """Full leaves from this rank's slices; the backward turns their full
+    gradients back into this rank's slices (`reduce_many`)."""
+
+    @staticmethod
+    def forward(ctx, mesh, data_axes, specs, *leaves):
+        ctx.mesh, ctx.data_axes, ctx.specs = mesh, data_axes, specs
+        ctx.set_materialize_grads(False)
+        outs = gather_many(list(leaves), specs, mesh)
+        return tuple(o.view_as(o) if o is t else o for o, t in zip(outs, leaves))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [j for j, g in enumerate(grads) if g is not None]
+        red = reduce_many([grads[j] for j in live], [ctx.specs[j] for j in live],
+                          ctx.mesh, ctx.data_axes)
+        out = [None] * len(grads)
+        for j, r in zip(live, red):
+            out[j] = r
+        return (None, None, None, *out)
+
+
+def spec_at(specs: Any, path: tuple) -> Any:
+    for key in path:
+        specs = specs[key]
+    return specs
+
+
+class SeqSplit(NamedTuple):
+    """A KV cache's sequence axis split over `parts` model ranks; this rank
+    holds rows [index * T_local, (index + 1) * T_local)."""
+    group: Any
+    index: int
+    parts: int
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return all_gather(t, self.group, dim)
+
+
+def _owner(spec: tuple, mesh) -> bool:
+    """True on the one rank of each replica set of a leaf: coordinate 0 on
+    every mesh axis its spec does not split."""
+    split = {a for _, axes, _ in shard.split_dims(spec, mesh) for a in axes}
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in split)
+
+
+class Spmd:
+    """The sharded step's view of the mesh: the params' spec tree, the axes
+    the batch rows split over, and (serving) each layer's cache split.
+    `make_train_step(spmd=...)`, `forward(spmd=...)`, `init_cache(spmd=...)`
+    and `prefill_step(spmd=...)` call into it. On a world of one (`whole`)
+    every tensor is whole: its methods return their inputs, and `pspecs`
+    may be None."""
+
+    def __init__(self, mesh, pspecs: Any = None, *, osc_specs: tuple = (),
+                 no_tp: bool = False):
+        self.mesh = mesh
+        self.whole = mesh.world == 1
+        self.pspecs = pspecs
+        self.osc_specs = osc_specs
+        # no_tp: the model axis is more data parallelism (the specs were
+        # made with no_tp, so no weight splits over it)
+        self.no_tp = no_tp
+        self.data_axes = tuple(shard.batch_axes(mesh)) + (("model",) if no_tp else ())
+        self.seq_parts: Optional[list] = None  # set by local_cache
+        self._owners = None  # per leaf of pspecs: counted in the norm here
+
+    # -- batch ---------------------------------------------------------------
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows of a global numpy batch (every entry's leading
+        axis must split over the data axes)."""
+        if self.whole:
+            return batch
+        specs = shard.batch_pspecs(batch, self.mesh, extra_model_dp=self.no_tp)
+        out = {}
+        for k, v in batch.items():
+            split = shard.split_dims(specs[k], self.mesh)
+            if self.mesh.size(self.data_axes) > 1 and not split:
+                raise ValueError(f"batch entry {k} {v.shape} does not split "
+                                 f"over {self.data_axes}")
+            out[k] = np.ascontiguousarray(shard.local_shard(
+                torch.from_numpy(np.ascontiguousarray(v)), specs[k], self.mesh,
+                self.mesh.coords).numpy())
+        return out
+
+    # -- params --------------------------------------------------------------
+    def gather(self, path: tuple, sub: Any) -> Any:
+        """The full leaves of the subtree at `path`, gathered together
+        (autograd carries the gradients of leaves that need one back to
+        their slices)."""
+        if self.whole:
+            return sub
+        items = [(leaf, spec) for _, leaf, spec
+                 in shard.with_specs(sub, spec_at(self.pspecs, path))]
+        reduce = self.mesh.size(self.data_axes) > 1
+        todo = [j for j, (leaf, spec) in enumerate(items) if leaf is not None and (
+            shard.split_dims(spec, self.mesh) or (reduce and leaf.requires_grad))]
+        if not todo:
+            return sub
+        leaves = [items[j][0] for j in todo]
+        specs = [items[j][1] for j in todo]
+        if any(t.requires_grad for t in leaves):
+            full = _GatherMany.apply(self.mesh, self.data_axes, specs, *leaves)
+        else:
+            full = gather_many(leaves, specs, self.mesh)
+        out = [leaf for leaf, _ in items]
+        for j, t in zip(todo, full):
+            out[j] = t
+        return T.unflatten(sub, out)
+
+    def full_leaf(self, path: tuple, w: torch.Tensor, s: torch.Tensor):
+        if self.whole:
+            return w, s
+        sp = spec_at(self.pspecs, path)
+        return tuple(gather_many([w, s], [sp["w"], sp["w_scale"]], self.mesh))
+
+    def local_leaf(self, path: tuple, g: torch.Tensor) -> torch.Tensor:
+        if self.whole:
+            return g
+        return shard.local_shard(g, spec_at(self.pspecs, path)["w"], self.mesh,
+                                 self.mesh.coords)
+
+    # -- reductions ------------------------------------------------------------
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the data ranks (a loss or metric of local rows)."""
+        n = self.mesh.size(self.data_axes)
+        if n == 1:
+            return x
+        return all_reduce(x.to(torch.float32), self.mesh.group(self.data_axes)) / n
+
+    def any(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0-d bool true on every rank where it is true on one."""
+        if self.whole:
+            return flag
+        v = all_reduce(flag.to(torch.int32), self.mesh.group(self.mesh.axis_names),
+                       "max")
+        return v > 0
+
+    def amax(self, x: torch.Tensor) -> torch.Tensor:
+        if self.whole:
+            return x
+        return all_reduce(x, self.mesh.group(self.mesh.axis_names), "max")
+
+    def norm(self, grads: Any) -> torch.Tensor:
+        """The global norm of a sharded gradient tree, each element counted
+        once (the slice of one rank per replica set), leaves in walk order."""
+        if self.whole:
+            return global_norm(grads)
+        if self._owners is None:
+            self._owners = [_owner(spec, self.mesh) for _, _, spec
+                            in shard.with_specs(grads, self.pspecs)]
+        leaves = T.leaves(grads)
+        sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for g, owner in zip(leaves, self._owners):
+            if owner:
+                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(all_reduce(sq, self.mesh.group(self.mesh.axis_names)))
+
+    def full_osc(self, osc: tuple) -> tuple:
+        """The oscillation states with their EMA gathered (the fraction reads
+        only that)."""
+        if self.whole:
+            return osc
+        freqs = gather_many([st.freq for st in osc], [sp.freq for sp in self.osc_specs],
+                            self.mesh)
+        return tuple(st._replace(freq=f) for st, f in zip(osc, freqs))
+
+    def osc_view(self, index: int, path: tuple, w: torch.Tensor,
+                 s: torch.Tensor):
+        """(w, s) sliced as oscillation state `index` is: the rules give an
+        embedding's state an FSDP split its weight does not have."""
+        if self.whole:
+            return w, s
+        wspec = spec_at(self.pspecs, path)["w"]
+        ospec = self.osc_specs[index].prev_int
+        if ospec == wspec:
+            return w, s
+        wf, sf = self.full_leaf(path, w, s)
+        return (shard.local_shard(wf, ospec, self.mesh, self.mesh.coords),
+                shard.local_shard(sf, shard._scale_pspec(sf.shape, wf.shape, ospec),
+                                  self.mesh, self.mesh.coords))
+
+    # -- decode ----------------------------------------------------------------
+    def local_cache(self, cache: dict, *, shard_batch: bool = False) -> dict:
+        """This rank's slice of a full decode cache by `cache_pspecs`; the
+        layers' sequence splits are kept for `seq` (every cache of a run
+        has the same lengths, so the same splits)."""
+        if self.whole:
+            return cache
+        specs = shard.cache_pspecs(cache, self.mesh, shard_batch=shard_batch)
+        self.seq_parts = seq_parts_of(specs, self.mesh)
+        return shard.shard_tree(cache, specs, self.mesh, self.mesh.coords)
+
+    def seq(self, layer: int) -> Optional[SeqSplit]:
+        """Layer `layer`'s KV sequence split, None where it is not split."""
+        if not self.seq_parts or self.seq_parts[layer] == 1:
+            return None
+        return SeqSplit(self.mesh.group(("model",)), self.mesh.coords["model"],
+                        self.seq_parts[layer])
+
+
+WHOLE = Spmd(HostMesh(("data", "model"), (1, 1), None, None))
+
+
+# ---------------------------------------------------------------------------
+# state placement
+# ---------------------------------------------------------------------------
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf gathered to its full shape (on every rank)."""
+    items = list(shard.with_specs(tree, specs))
+    todo = [j for j, (_, t, _) in enumerate(items) if t is not None]
+    full = gather_many([items[j][1] for j in todo], [items[j][2] for j in todo], mesh)
+    out = [t for _, t, _ in items]
+    for j, t in zip(todo, full):
+        out[j] = t
+    return T.unflatten(tree, out)
+
+
+def state_specs(cfg, qcfg, tcfg, mesh, no_tp: bool = False) -> dict:
+    """`sharding.state_pspecs` of the full-width state, from a shape-only
+    (meta device) state: no memory."""
+    from repro_torch.train.state import init_state
+    like = init_state(cfg, qcfg, tcfg, torch.Generator(), "meta")
+    return shard.state_pspecs(like, mesh, qcfg, no_tp)
+
+
+def init_sharded_state(cfg, qcfg, tcfg, generator: torch.Generator, mesh,
+                       specs: dict) -> dict:
+    """This rank's slice of `train.state.init_state` with the same draws:
+    the full params are built on the device and cut to this rank's slices
+    (the oscillation state, made from the full weights, by its own specs);
+    the moments and error tree are made from the slices."""
+    from repro_torch.core.oscillation import init_osc_state
+    from repro_torch.models.model import init_params, quant_leaves
+    from repro_torch.train.state import state_from_params
+    full = init_params(cfg, qcfg, generator, mesh.device)
+    osc = ()
+    if qcfg.track_oscillation:
+        osc = shard.shard_tree(tuple(init_osc_state(w, s, sp) for w, s, sp
+                                     in quant_leaves(full, qcfg)),
+                               specs["osc"], mesh, mesh.coords)
+    params = shard.shard_tree(full, specs["params"], mesh, mesh.coords)
+    del full
+    return state_from_params(params, qcfg, tcfg, osc=osc)
+
+
+def tree_bytes(tree: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def seq_parts_of(cache_specs: dict, mesh) -> list:
+    """Per layer, the parts its KV cache's sequence axis is split in."""
+    out = []
+    for lay in cache_specs["layers"]:
+        kv = lay.get("kv") if isinstance(lay, dict) else None
+        parts = 1
+        if kv is not None:
+            entry = kv.k[1] if len(kv.k) > 1 else None
+            parts = mesh.size(shard.spec_axes(entry)) if entry else 1
+        out.append(parts)
+    return out

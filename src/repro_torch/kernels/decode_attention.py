@@ -88,7 +88,7 @@ def _plan(lib, t: int, g: int, d: int, q_bf16: bool) -> dict:
 
 def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
                             q_pos, *, q_per_kv: int, window: int,
-                            softcap: float):
+                            softcap: float, parts: bool = False):
     """Flash-decode over the pooled cache; returns partial reductions.
 
     q:        (B, C, H, D) bf16 or f32 queries, the compute dtype. Scaled
@@ -100,12 +100,22 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
     kv_pos:   (B, T) int32 absolute positions, -1 = idle/unwritten row.
     q_pos:    (B, C) int32 query positions, -1 = padding query.
 
-    Returns (acc (B, C, H, D), m (B, C, H), l (B, C, H)), all f32.
+    Returns (acc (B, C, H, D), m (B, C, H), l (B, C, H)), all f32. With
+    `parts`, each KV_SPLIT-key split's own triple before the kernel's merge,
+    stacked in split order on a leading axis (S, ...): a sequence-sharded
+    cache merges every rank's splits in one pass, as the kernel merges its
+    own (`models.attention.merge_partials`).
     """
     if q.device.type == "cpu":
-        return ref.pooled_decode_attention(
-            q, k_store, v_store, k_scale, v_scale, kv_pos, q_pos,
-            q_per_kv=q_per_kv, window=window, softcap=softcap)
+        kw = dict(q_per_kv=q_per_kv, window=window, softcap=softcap)
+        if not parts:
+            return ref.pooled_decode_attention(
+                q, k_store, v_store, k_scale, v_scale, kv_pos, q_pos, **kw)
+        cut = lambda x, s: None if x is None else x[:, s:s + KV_SPLIT]
+        outs = [ref.pooled_decode_attention(
+            q, cut(k_store, s), cut(v_store, s), cut(k_scale, s), cut(v_scale, s),
+            cut(kv_pos, s), q_pos, **kw) for s in range(0, k_store.shape[1], KV_SPLIT)]
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
     b, c, h, d = q.shape
     _require_cuda(q.device)
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -174,7 +184,17 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
         raise RuntimeError(f"decode_attention_launch failed: cudaError {rc} "
                            f"(B={b}, T={t}, Hkv={hkv}, G={g}, D={d})")
     pooled_decode_attention.launches += 1
-    return acc, m, l
+    if not parts:
+        return acc, m, l
+    if part_acc is None:  # one split: the outputs are its triple
+        return acc[None], m[None], l[None]
+    # (B Hkv, S, G = C qpk, ...) -> (S, B, C, H, ...): row g of kv head j is
+    # chunk token g // qpk, head j qpk + g % qpk
+    ns = plan["splits"]
+    pa = part_acc.view(b, hkv, ns, c, q_per_kv, d).permute(2, 0, 3, 1, 4, 5)
+    pm = part_ml.view(b, hkv, ns, c, q_per_kv, 2).permute(2, 0, 3, 1, 4, 5)
+    pm = pm.reshape(ns, b, c, h, 2)
+    return pa.reshape(ns, b, c, h, d), pm[..., 0], pm[..., 1]
 
 
 pooled_decode_attention.launches = 0

@@ -56,12 +56,14 @@ KERNEL_WRAPPERS = {
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU. Raises when CUDA is asked for (or left to default) and absent;
-    there is no silent fallback to the CPU."""
+    there is no silent fallback to the CPU. "meta" builds shape-only trees
+    (init_params / init_serving_params / init_cache), for the sharding
+    rules; nothing computes on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

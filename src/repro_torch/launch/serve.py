@@ -3,13 +3,28 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --quant w4a4 --kv-bits 8 --batch 8 --prompt-len 128 --new-tokens 32
 
-PyTorch counterpart of `repro.launch.serve`, same flags (without
---model-parallel: sharding is not ported yet) plus --device (cuda unless
-"cpu" is asked for; no silent fallback) and --layers (cut the depth of the
-model, 0 = the config's). Params are random (torch generator seeded with
-0), built directly as serving int codes (nibble-packed at <= 4 bits); one
-pooled (optionally int8/int4) KV cache multiplexes all requests through
-slot recycling. Prefill and decode tokens/sec are reported separately.
+PyTorch counterpart of `repro.launch.serve`, same flags plus --device
+(cuda unless "cpu" is asked for; no silent fallback) and --layers (cut the
+depth of the model, 0 = the config's). Params are random (torch generator
+seeded with 0), built directly as serving int codes (nibble-packed at <= 4
+bits); one pooled (optionally int8/int4) KV cache multiplexes all requests
+through slot recycling. Prefill and decode tokens/sec are reported
+separately.
+
+The engine serves on a (world // M, M) `launch.mesh.make_host_mesh` mesh,
+M = --model-parallel, over torchrun's process group (WORLD_SIZE): each rank
+holds its slices of the codes by `dist.sharding.param_pspecs` and gathers
+them layer by layer; the caches go through `cache_pspecs(shard_batch=
+False)`, so the KV sequence axis splits over the model ranks (each runs the
+decode kernel over its rows and the ranks' partial softmax triples are
+merged) and the slot axis does not. Every rank runs the same engine loop on
+the same prompts; the logits come out whole on every rank, so the greedy
+picks agree. The executor's rebuild path makes its caches sharded again.
+A slot's cache holds prompt + new tokens rows, rounded up on a model axis
+M > 1 to a multiple of M x the decode kernel's key split, so each rank
+holds whole splits and the ranks' split triples merge as the kernel merges
+its own: the one-process bits. One process is a world of one, which holds
+everything whole.
 
 The serving sentinel is armed as in the JAX launcher: non-finite logits rows
 fault only their request, a persistent executor failure rebuilds from params
@@ -32,7 +47,9 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 from repro_torch.core.policy import get_preset
 from repro_torch.data.synthetic import DataConfig, sample_batch
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.dist import sharding, spmd
+from repro_torch.kernels.decode_attention import KV_SPLIT
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.serve import (FaultPolicy, ModelExecutor, SamplingParams,
                                Scheduler, ServeEngine)
@@ -81,6 +98,7 @@ class ServeRun:
     prompts: np.ndarray
     device: torch.device
     peak_bytes: Optional[int]
+    spmd: Optional[object] = None  # the run's dist.spmd.Spmd
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -104,12 +122,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; no silent fallback")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers (0 = all)")
+    ap.add_argument("--model-parallel", type=int, default=1, dest="mp",
+                    help="model axis of the (data, model) mesh over the "
+                    "process group (must divide the world size)")
     return ap
 
 
 def main(argv=None) -> ServeRun:
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = make_host_mesh(args.mp, args.device)
+    device = mesh.device
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)
@@ -119,15 +141,21 @@ def main(argv=None) -> ServeRun:
                                           a_bits=32)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_serving_params(cfg, qcfg, gen, device)
+    pspecs = sharding.param_pspecs(params, mesh)  # this rank's slices
+    params = sharding.shard_tree(params, pspecs, mesh, mesh.coords)
+    sp = spmd.Spmd(mesh, pspecs)
 
     max_len = args.prompt_len + args.new_tokens
+    if mesh.shape["model"] > 1:  # whole key splits a model rank
+        unit = KV_SPLIT * mesh.shape["model"]
+        max_len = -(-max_len // unit) * unit
     n_slots = args.slots or min(args.batch, 4)
 
     def make_executor():
         # sentinel rebuild path: params/cfg stay valid, only the executor
-        # (its caches) is rebuilt; in-flight work is replayed
+        # (its caches, sharded again) is rebuilt; in-flight work is replayed
         return ModelExecutor(params, cfg, qcfg, n_slots=n_slots,
-                             max_len=max_len, chunk=args.chunk)
+                             max_len=max_len, chunk=args.chunk, spmd=sp)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -164,7 +192,8 @@ def main(argv=None) -> ServeRun:
     if any(faults.values()):
         print("faults:", {k: v for k, v in faults.items() if v})
     print("sample:", engine.results["req-0"].tokens)
-    return ServeRun(cfg, qcfg, params, engine, summary, prompts, device, peak)
+    return ServeRun(cfg, qcfg, params, engine, summary, prompts, device, peak,
+                    sp)
 
 
 if __name__ == "__main__":

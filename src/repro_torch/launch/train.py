@@ -1,17 +1,27 @@
-"""Training launcher: the QAT loop on one device.
+"""Training launcher: the QAT loop, on one device or sharded over a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --quant w4a4 --steps 3 --batch 8 --seq 512 --ckpt build/ckpt-run1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train ... \
+        --model-parallel 2
 
-PyTorch counterpart of `repro.launch.train`, same flags without
---model-parallel and --tpu-flags (sharding is not ported; TPU flags have no
-counterpart), plus --device (cuda unless "cpu" is asked for; no silent
-fallback) and --layers (cut the depth, 0 = the config's). Params are random (a torch generator seeded with
---seed), data comes from `sample_batch` with synthetic MCKD labels. The
-loop restores the newest verified checkpoint, steps, checks the sentinel's
-health bits (rolling back to the newest verified checkpoint with an LR
-backoff after `k_consecutive` fatal steps), saves asynchronously every
---save-every steps, and exits cleanly on SIGTERM/SIGINT.
+PyTorch counterpart of `repro.launch.train`, same flags without --tpu-flags
+(TPU flags have no counterpart), plus --device (cuda unless "cpu" is asked
+for; no silent fallback) and --layers (cut the depth, 0 = the config's).
+Params are random (a torch generator seeded with --seed), data comes from
+`sample_batch` with synthetic MCKD labels. The loop restores the newest
+verified checkpoint, steps, checks the sentinel's health bits (rolling back
+to the newest verified checkpoint with an LR backoff after `k_consecutive`
+fatal steps), saves asynchronously every --save-every steps, and exits
+cleanly on SIGTERM/SIGINT.
+
+The loop runs the step of `dist.spmd` on a (world // M, M)
+`launch.mesh.make_host_mesh` mesh, M = --model-parallel, over torchrun's
+process group (WORLD_SIZE): the state held as this rank's slices by
+`dist.sharding.state_pspecs`, every rank drawing the global batch and
+keeping its rows, checkpoints written as full arrays by rank 0 and restored
+as each rank's slices (so a run may resume on another mesh). One process is
+a world of one, which holds the whole state.
 """
 from __future__ import annotations
 
@@ -28,12 +38,14 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 from repro_torch.core.policy import get_preset
 from repro_torch.data.mckd_store import synthetic_kd_labels
 from repro_torch.data.synthetic import DataConfig, sample_batch
+from repro_torch.dist import sharding, spmd
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import CheckpointManager
 from repro_torch.train.sentinel import SentinelConfig, SentinelRunner, describe
-from repro_torch.train.state import TrainConfig, init_state
+from repro_torch.train.state import TrainConfig
 from repro_torch.train.train_step import make_train_step
 
 
@@ -56,7 +68,11 @@ class RunReport:
     step_seconds: list = dataclasses.field(default_factory=list)
     # per step run: the step's REPORTED metrics that it has, as floats
     metrics: list = dataclasses.field(default_factory=list)
+    # per step run: the gradient's global norm before the clip
+    grad_norms: list = dataclasses.field(default_factory=list)
     peak_bytes: Optional[int] = None  # max device memory allocated (CUDA)
+    mesh: Optional[object] = None     # the run's HostMesh
+    state_bytes: Optional[int] = None  # this rank's resident state
 
 
 REPORTED = ("loss_main", "loss_obr", "obr_lambda", "osc_frac", "lb_loss",
@@ -74,7 +90,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
                  extra_loss: Optional[Callable] = None,
                  on_step: Optional[Callable] = None,
                  mgr: Optional[CheckpointManager] = None,
-                 seed: int = 0, device=None) -> RunReport:
+                 seed: int = 0, device=None, model_parallel: int = 1
+                 ) -> RunReport:
     """The QAT loop: restore -> step -> health -> save, with sentinel
     rollback recovery (`tcfg.sentinel`; None runs the bare loop).
 
@@ -82,19 +99,24 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
     on_step(i, state) -> state | None: a host hook before each step;
     mgr: a preconfigured CheckpointManager (tests use async_io=False); by
     default one over `ckpt_dir` stamped with an (arch, quant) fingerprint.
+    model_parallel: the mesh's model axis (see the module docstring).
     """
-    device = resolve_device(device)
+    mesh = make_host_mesh(model_parallel, device)
+    device = mesh.device
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     if mgr is None:
         mgr = CheckpointManager(ckpt_dir, save_every=save_every,
                                 expect_fingerprint=ckpt.fingerprint(cfg, qcfg))
+    specs = spmd.state_specs(cfg, qcfg, tcfg, mesh)
+    mgr.layout = sharding.Layout(mesh, specs)
     state, start = mgr.restore_or_init(
-        lambda: init_state(cfg, qcfg, tcfg, gen, device))
+        lambda: spmd.init_sharded_state(cfg, qcfg, tcfg, gen, mesh, specs))
+    sp = spmd.Spmd(mesh, specs["params"], osc_specs=specs["osc"])
     if start:
-        print(f"restored from step {start}", flush=True)
-    step_fn = make_train_step(cfg, qcfg, tcfg, extra_loss=extra_loss)
+        print(f"restored from step {start} onto {mesh.world} rank(s)", flush=True)
+    step_fn = make_train_step(cfg, qcfg, tcfg, extra_loss=extra_loss, spmd=sp)
     runner = (SentinelRunner(tcfg.sentinel, mgr, state)
               if tcfg.sentinel is not None else None)
 
@@ -118,6 +140,7 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
             idx, p = synthetic_kd_labels(batch["labels"], cfg.vocab_size,
                                          tcfg.kd_topk, seed=i)
             batch.update(kd_idx=idx, kd_p=p)
+        batch = sp.rows(batch)  # every rank drew the global batch
         state, m = step_fn(state, _to_device(batch, device))
         loss = float(m["loss"])
         if device.type == "cuda":
@@ -125,6 +148,7 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
         report.step_seconds.append(time.perf_counter() - t0)
         report.losses.append(loss)
         report.metrics.append({k: float(m[k]) for k in REPORTED if k in m})
+        report.grad_norms.append(float(m["grad_norm"]))
         report.steps_run += 1
         slow = mgr.straggler.tick()
         if runner is not None:
@@ -164,6 +188,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
     report.straggler_flags = mgr.straggler.flags
     if device.type == "cuda":
         report.peak_bytes = torch.cuda.max_memory_allocated(device)
+    report.mesh = mesh
+    report.state_bytes = spmd.tree_bytes(state)
     return report
 
 
@@ -195,6 +221,9 @@ def main(argv=None) -> RunReport:
                     help="int8 gradient compression with error feedback")
     ap.add_argument("--no-sentinel", action="store_true", dest="no_sentinel",
                     help="disable in-step health checks + rollback recovery")
+    ap.add_argument("--model-parallel", type=int, default=1, dest="mp",
+                    help="model axis of the (data, model) mesh over the "
+                    "process group (must divide the world size)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -218,7 +247,8 @@ def main(argv=None) -> RunReport:
     report = run_training(
         cfg, qcfg, tcfg, dcfg, steps=args.steps, batch_size=args.batch,
         seq_len=args.seq, ckpt_dir=args.ckpt or default_ckpt_dir(cfg.name),
-        save_every=args.save_every, seed=args.seed, device=device)
+        save_every=args.save_every, seed=args.seed, device=args.device,
+        model_parallel=args.mp)
     print(f"done. final_step={report.final_step} "
           f"loss={report.final_loss:.4f} rollbacks={report.rollbacks} "
           f"skipped={report.skipped} preempted={report.preempted}", flush=True)

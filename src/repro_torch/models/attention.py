@@ -18,6 +18,15 @@ PyTorch counterpart of `repro.models.attention`:
     kernel call and the chunk's keys are merged with one more online-softmax
     step. Masked scores use the finite NEG_INF, so fully masked rows stay
     NaN-free.
+  * A sequence-sharded cache (`seq`, a `dist.spmd.SeqSplit`: this rank
+    holds rows [index T, (index + 1) T) of a cache of parts x T rows):
+    `attend_chunk` runs the kernel over this rank's rows, all-gathers each
+    key split's (acc, m, l) triple over the model ranks and merges them all
+    in one pass in rank order, as the kernel merges its key splits
+    (`merge_partials`: bit-equal to the whole cache's kernel call where each
+    rank holds whole splits), then merges the chunk keys as before; the
+    unfused route all-gathers the slices first.
+    `local_rows` keeps the appended rows this rank holds.
 """
 from __future__ import annotations
 
@@ -80,20 +89,29 @@ def _grouped_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, c, h, v.shape[3])
 
 
+def _chunk_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A training-attention product, f32: on the CPU summed in f64 and
+    rounded once (`_einsum_f64`), because torch's CPU f32 kernels sum in an
+    order that depends on the batching (a GQA group's g query rows against
+    one kv head, or one row each against repeated heads); on the card
+    summed in f32, as JAX sums it."""
+    if a.device.type == "cpu":
+        return _einsum_f64(eq, a, b, torch.float32)
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
 def _chunk_attend(qi, kt, vt, mask, softcap: float):
     """One query chunk: qi (B, Hkv, g, nq, D) against kt (B, Hkv, D, Sk) and
-    vt (B, Hkv, Sk, D) under mask (nq, Sk). Scores are summed in f32 from
-    queries pre-scaled by D**-0.5 in f32 and cast back; P is cast to V's
-    dtype and the PV product rounded once to it."""
+    vt (B, Hkv, Sk, D) under mask (nq, Sk). Scores are f32 from queries
+    pre-scaled by D**-0.5 in f32 and cast back; P is cast to V's dtype and
+    the PV product rounded to f32, then to V's dtype (`_chunk_product`)."""
     d = qi.shape[-1]
     qs = (qi.to(torch.float32) * d ** -0.5).to(qi.dtype)
-    s = torch.einsum("bhgqd,bhdk->bhgqk", qs.to(torch.float32),
-                     kt.to(torch.float32))
+    s = _chunk_product("bhgqd,bhdk->bhgqk", qs, kt)
     s = _softcap(s, softcap)
     s = torch.where(mask[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vt.dtype).to(torch.float32),
-                     vt.to(torch.float32))
+    o = _chunk_product("bhgqk,bhkd->bhgqd", p.to(vt.dtype), vt)
     return o.to(vt.dtype)
 
 
@@ -251,6 +269,14 @@ def append_rows(pos: torch.Tensor, t: int, ring: bool):
     return bi, ci, torch.remainder(kept, t) if ring else kept
 
 
+def local_rows(rows, lo: int, t: int):
+    """The `append_rows` entries whose cache row lies in [lo, lo + t), with
+    the row made local (a sequence-sharded cache's own rows)."""
+    bi, ci, si = rows
+    mine = ((si >= lo) & (si < lo + t)).nonzero(as_tuple=True)[0]
+    return bi[mine], ci[mine], si[mine] - lo
+
+
 def cache_write_rows(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                      pos: torch.Tensor, rows, qcfg: QuantConfig) -> KVCache:
     """Write the chunk's kept tokens (rows from `append_rows`) in place."""
@@ -315,17 +341,50 @@ def storage_roundtrip(x: torch.Tensor, qcfg: QuantConfig, store_dtype,
 
 
 def _fused_cache_attention(q, cache: KVCache, *, q_per_kv: int, q_pos,
-                           window: int, softcap: float):
+                           window: int, softcap: float, parts: bool = False):
     """Cache side via the flash-decode kernel: returns the unnormalized
-    (acc, m, l) online-softmax triple, each (B, C, H[, D]) f32."""
+    (acc, m, l) online-softmax triple, each (B, C, H[, D]) f32 (with
+    `parts`, each key split's triple on a leading axis)."""
     return pooled_decode_attention(
         q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.pos, q_pos,
-        q_per_kv=q_per_kv, window=window, softcap=softcap)
+        q_per_kv=q_per_kv, window=window, softcap=softcap, parts=parts)
+
+
+def merge_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """Online-softmax merge of P partial (acc, m, l) triples stacked on a
+    leading axis, in order, with the decode kernel's arithmetic for its key
+    splits (csrc/decode_attention.cu merge_rows): m the max over the parts;
+    a part whose m is NEG_INF adds nothing, the others add acc exp(m_p - m)
+    and l exp(m_p - m), each product rounded and then added; where every
+    part is masked the row keeps part 0's triple."""
+    mx = torch.amax(m, dim=0)
+    acc_o = torch.zeros_like(acc[0])
+    l_o = torch.zeros_like(l[0])
+    for i in range(m.shape[0]):
+        live = m[i] != NEG_INF
+        f = torch.exp(m[i] - mx)
+        l_o = l_o + torch.where(live, l[i] * f, 0.0)
+        acc_o = acc_o + torch.where(live[..., None], acc[i] * f[..., None], 0.0)
+    none = mx == NEG_INF
+    return (torch.where(none[..., None], acc[0], acc_o), mx,
+            torch.where(none, l[0], l_o))
+
+
+def _seq_merge(seq, acc, m, l):
+    """The key splits' triples (S, ...) of every model rank (one
+    all-gather), merged in one pass in rank order: where each rank holds a
+    whole number of the kernel's key splits, exactly the kernel's merge over
+    the whole cache."""
+    d = acc.shape[-1]
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+    parts = seq.all_gather(packed, 0)
+    return merge_partials(parts[..., :d], parts[..., d], parts[..., d + 1])
 
 
 def attend_chunk(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache: KVCache, qcfg: QuantConfig, *, q_per_kv: int,
-                 pos: torch.Tensor, window: int, softcap: float) -> torch.Tensor:
+                 pos: torch.Tensor, window: int, softcap: float,
+                 seq=None) -> torch.Tensor:
     """Chunk attention against cache ∪ current chunk (pre-append).
 
     q: (B, C, H, D); k_new/v_new: (B, C, Hkv, D) un-repeated, un-cached;
@@ -336,6 +395,7 @@ def attend_chunk(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     for in-chunk keys. With the kernel route on, the cached side is one
     flash-decode call and the in-chunk keys merge with one more
     online-softmax step; the concatenated dequantized cache never exists.
+    seq: this rank's part of a sequence-sharded cache (module docstring).
     """
     b, c, h, d = q.shape
     k_c = storage_roundtrip(k_new, qcfg, cache.k.dtype, q.dtype)
@@ -343,7 +403,9 @@ def attend_chunk(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if _use_fused_attention(qcfg, q):
         acc, m_k, l_k = _fused_cache_attention(
             q, cache, q_per_kv=q_per_kv, q_pos=pos, window=window,
-            softcap=softcap)
+            softcap=softcap, parts=seq is not None)
+        if seq is not None:
+            acc, m_k, l_k = _seq_merge(seq, acc, m_k, l_k)
         qs = (q.to(torch.float32) * d ** -0.5).to(q.dtype)
         s_c = _grouped_scores(qs, k_c, q_per_kv)  # (B, H, C, C)
         s_c = _softcap(s_c, softcap)
@@ -362,9 +424,12 @@ def attend_chunk(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         acc = acc * alpha.permute(0, 2, 1)[..., None] + pv
         return (acc / l_t.permute(0, 2, 1)[..., None]).to(q.dtype)
     k_old, v_old = cache_kv(cache, qcfg, q.dtype, d)
+    cpos = cache.pos
+    if seq is not None:  # every rank's rows, in order
+        k_old, v_old, cpos = (seq.all_gather(t, 1) for t in (k_old, v_old, cpos))
     k_all = torch.cat([k_old, k_c], dim=1)
     v_all = torch.cat([v_old, v_c], dim=1)
-    kpos = torch.cat([cache.pos, pos.to(cache.pos.dtype)], dim=1)  # (B, T + C)
+    kpos = torch.cat([cpos, pos.to(cpos.dtype)], dim=1)  # (B, T + C)
     s = _grouped_scores((q.to(torch.float32) * d ** -0.5).to(q.dtype),
                         k_all, q_per_kv)
     s = _softcap(s, softcap)

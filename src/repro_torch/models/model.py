@@ -40,6 +40,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig, BlockDef
 from repro_torch.core.policy import QuantConfig, weight_spec
 from repro_torch.core.sdam import sdam as sdam_metric
+from repro_torch.dist.spmd import WHOLE, Spmd
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -245,8 +246,14 @@ def _token_inputs(params, tokens, fe, cfg: ArchConfig, qcfg: QuantConfig,
     return x
 
 
+def _gathered_block(spmd: Spmd, i: int, p: dict, *args):
+    """block_apply on layer i's full leaves (`spmd.gather`), inside the
+    block's checkpoint, so a remat backward gathers again."""
+    return block_apply(spmd.gather(("layers", i), p), *args)
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
-            remat: bool = False):
+            remat: bool = False, spmd: Spmd = WHOLE):
     """Full-sequence forward. batch: tokens (B, S) [+ frontend_embeds]:
     audio frames (B, S, d) are added to the scaled token embeddings;
     vision patches (B, P, d) replace them where no block has cross
@@ -260,8 +267,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     remat=True recomputes each block in the backward pass
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
     jax.checkpoint does: the block's kernels then run twice.
+
+    spmd: the mesh's runtime (`dist.spmd`); where params are one rank's
+    slices, the top-level leaves are gathered once and each layer's just
+    before it runs.
     """
     cdtype = _cdtype(cfg)
+    params = {k: v if k == "layers" else spmd.gather((k,), v)
+              for k, v in params.items()}
     fe = batch.get("frontend_embeds")
     cross_embeds = None
     if (cfg.frontend == "vision_patches"
@@ -278,14 +291,13 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     sdam_sum = lb_sum = drop_sum = zero
     for i, p in enumerate(params["layers"]):
-        bd = cfg.block_at(i)
+        args = (spmd, i, p, x, cfg.block_at(i), cfg, qcfg, positions,
+                cross_embeds, cdtype)
         if remat:
             x, sdam, lb, drop = torch.utils.checkpoint.checkpoint(
-                block_apply, p, x, bd, cfg, qcfg, positions, cross_embeds,
-                cdtype, use_reentrant=False)
+                _gathered_block, *args, use_reentrant=False)
         else:
-            x, sdam, lb, drop = block_apply(p, x, bd, cfg, qcfg, positions,
-                                            cross_embeds, cdtype)
+            x, sdam, lb, drop = _gathered_block(*args)
         sdam_sum = sdam_sum + sdam
         lb_sum = lb_sum + lb
         drop_sum = drop_sum + drop
@@ -419,14 +431,18 @@ def _layer_cache_init(cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
 
 
 def init_cache(cfg: ArchConfig, qcfg: QuantConfig, batch: int, cache_len: int,
-               device=None) -> dict:
+               device=None, *, spmd: Spmd = WHOLE, shard_batch: bool = False
+               ) -> dict:
     """Fresh decode cache (pre-prefill), one dict per layer
-    (`_layer_cache_init`)."""
+    (`_layer_cache_init`): this rank's slice of it on spmd's mesh, by
+    `dist.sharding.cache_pspecs(shard_batch=...)` (the KV sequence axis
+    over the model ranks; `Spmd.local_cache`)."""
     device = resolve_device(device)
     cdtype = _cdtype(cfg)
-    return {"layers": [_layer_cache_init(cfg, qcfg, cfg.block_at(i), batch,
-                                         cache_len, cdtype, device)
-                       for i in range(cfg.n_layers)]}
+    cache = {"layers": [_layer_cache_init(cfg, qcfg, cfg.block_at(i), batch,
+                                          cache_len, cdtype, device)
+                        for i in range(cfg.n_layers)]}
+    return spmd.local_cache(cache, shard_batch=shard_batch)
 
 
 def _map_node(fn, nodes):
@@ -489,7 +505,8 @@ def _ffn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
 
 
 def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
-                 qcfg: QuantConfig, cache: dict, pos: torch.Tensor, cdtype):
+                 qcfg: QuantConfig, cache: dict, pos: torch.Tensor, cdtype,
+                 seq=None):
     """Chunk step against one layer's cache. x: (B,C,d); pos: (B,C).
 
     Returns (x, pending): {"kv": (k, v)}, the chunk's roped K/V, or
@@ -498,7 +515,8 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     prefill chunks / idle serving slots): their K/V never reach the cache
     and they attend to nothing. Recurrent blocks consume every chunk token
     unconditionally, so padded chunks are only valid for attention blocks
-    (the serving engine refuses recurrent and cross patterns).
+    (the serving engine refuses recurrent and cross patterns). seq: the KV
+    cache's sequence split (`attention.attend_chunk`).
     """
     if bd.attn in RECURRENT:
         block = {"mlstm": rec.mlstm_block, "slstm": rec.slstm_block,
@@ -517,7 +535,7 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
         o = attn.attend_chunk(q, k, v, cache["kv"], qcfg, q_per_kv=cfg.q_per_kv,
                               pos=pos,
                               window=cfg.window if bd.attn == "local" else 0,
-                              softcap=cfg.attn_softcap)
+                              softcap=cfg.attn_softcap, seq=seq)
         out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
         if cfg.sandwich_norm:
             out = apply_norm(p["ln1_post"], out, cfg.norm)
@@ -536,7 +554,7 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
 
 @torch.no_grad()
 def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
-                 qcfg: QuantConfig):
+                 qcfg: QuantConfig, spmd: Spmd = WHOLE):
     """Multi-token step against the cache (chunked prefill / decode).
 
     batch: tokens (B,C) int, pos (B,C) int (-1 = padding) [+ audio
@@ -544,17 +562,26 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
     chunk appended to `cache` in place and the recurrent states advanced.
     C=1 is the classic decode step; C=prompt_len against a fresh cache is a
     full prefill whose [:, -1] logits seed generation.
+
+    spmd: the mesh's runtime (`dist.spmd`), where params hold this rank's
+    slices (gathered layer by layer) and the cache is this rank's slice
+    (`init_cache(spmd=...)`): a sequence-sharded KV cache attends over
+    every rank's rows and takes the rows it holds; the logits come out
+    whole on every rank.
     """
     cdtype = _cdtype(cfg)
+    params = {k: v if k == "layers" else spmd.gather((k,), v)
+              for k, v in params.items()}
     tokens, pos = batch["tokens"], batch["pos"]
     x = _token_inputs(params, tokens, batch.get("frontend_embeds"), cfg, qcfg,
                       cdtype)
     if cfg.pos == "learned":  # padding rows (pos -1) read row 0
         x = x + params["pos_embed"][pos.clamp(min=0).long()].to(cdtype)
     pending = []
+    seqs = [spmd.seq(i) for i in range(cfg.n_layers)]
     for i, p in enumerate(params["layers"]):
-        x, pend = block_decode(p, x, cfg.block_at(i), cfg, qcfg,
-                               cache["layers"][i], pos, cdtype)
+        x, pend = block_decode(spmd.gather(("layers", i), p), x, cfg.block_at(i), cfg, qcfg,
+                               cache["layers"][i], pos, cdtype, seq=seqs[i])
         pending.append(pend)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_apply(
@@ -565,10 +592,16 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
     for i, pend in enumerate(pending):
         lay = cache["layers"][i]
         if "kv" in pend:
-            kv = lay["kv"]
-            key = (kv.k.shape[1], cfg.block_at(i).attn == "local")
+            kv, seq = lay["kv"], seqs[i]
+            t = kv.k.shape[1]
+            key = (t, cfg.block_at(i).attn == "local", seq)
             if key not in rows:
-                rows[key] = attn.append_rows(pos, *key)
+                if seq is None:
+                    rows[key] = attn.append_rows(pos, t, key[1])
+                else:  # the rows of a cache of parts x t, kept where held
+                    rows[key] = attn.local_rows(
+                        attn.append_rows(pos, t * seq.parts, key[1]),
+                        seq.index * t, t)
             attn.cache_write_rows(kv, *pend["kv"], pos, rows[key], qcfg)
         for name in RECURRENT:
             if name in pend:
@@ -578,10 +611,10 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
-                qcfg: QuantConfig):
+                qcfg: QuantConfig, spmd: Spmd = WHOLE):
     """One new token per sequence: tokens (B,1), pos (B,) or (B,1).
     Returns (logits (B,1,V), cache). Thin C=1 wrapper of prefill_step."""
     b2 = dict(batch)
     if b2["pos"].dim() == 1:
         b2["pos"] = b2["pos"][:, None]
-    return prefill_step(params, cache, b2, cfg, qcfg)
+    return prefill_step(params, cache, b2, cfg, qcfg, spmd=spmd)

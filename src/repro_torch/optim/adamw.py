@@ -71,11 +71,12 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update_(grads, state: AdamWState, params, step, lr, cfg: AdamWConfig) -> dict:
+def update_(grads, state: AdamWState, params, step, lr, cfg: AdamWConfig,
+            gnorm: torch.Tensor) -> dict:
     """One AdamW step, in place on `params`, `state.mu`, `state.nu`.
-    step: the 0-based step count; lr: the learning rate (0-d f32).
-    Returns {"grad_norm"}."""
-    gnorm = global_norm(grads)
+    step: the 0-based step count; lr: the learning rate (0-d f32); gnorm:
+    the gradient norm the clip reads (`global_norm(grads)`, or a sharded
+    tree's global norm, `dist.spmd.Spmd.norm`). Returns {"grad_norm"}."""
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     t = torch.as_tensor(step, dtype=torch.float32) + 1.0
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), t)

@@ -61,6 +61,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.dist.spmd import WHOLE
 from repro_torch.serve.metrics import MetricsCollector
 from repro_torch.serve.sampling import SamplingParams, is_finished, sample_token
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -138,7 +139,7 @@ class ModelExecutor:
     """
 
     def __init__(self, params, cfg, qcfg, *, n_slots: int, max_len: int,
-                 chunk: int = 16):
+                 chunk: int = 16, spmd=WHOLE):
         from repro_torch.models import model as M
         bad = [bd.attn for bd in cfg.pattern
                if bd.attn not in ("global", "local")]
@@ -156,9 +157,13 @@ class ModelExecutor:
         self.vocab = cfg.vocab_size
         self.eos_id = None
         self.device = M.params_device(params)
-        self.template = M.init_cache(cfg, qcfg, 1, max_len, self.device)
+        # spmd: params are one rank's slices and every cache this rank's
+        # part of a sequence-sharded one (launch.serve --model-parallel)
+        self.spmd = spmd
+        self.template = M.init_cache(cfg, qcfg, 1, max_len, self.device, spmd=spmd)
         self.scratch = M.cache_clone(self.template)
-        self.pool = M.init_cache(cfg, qcfg, n_slots, max_len, self.device)
+        self.pool = M.init_cache(cfg, qcfg, n_slots, max_len, self.device,
+                                 spmd=spmd)
 
     def scratch_reset(self) -> None:
         self.scratch = self._M.cache_clone(self.template)
@@ -181,7 +186,7 @@ class ModelExecutor:
         logits, self.scratch = self._M.prefill_step(
             self.params, self.scratch,
             {"tokens": self._tensor(tk), "pos": self._tensor(ps)},
-            self.cfg, self.qcfg)
+            self.cfg, self.qcfg, spmd=self.spmd)
         return logits[0, n - 1].float().cpu().numpy()
 
     def commit_prefill(self, slot: int) -> None:
@@ -195,7 +200,7 @@ class ModelExecutor:
             self.params, self.pool,
             {"tokens": self._tensor(tokens[:, None].astype(np.int32)),
              "pos": self._tensor(pos.astype(np.int32))},
-            self.cfg, self.qcfg)
+            self.cfg, self.qcfg, spmd=self.spmd)
         return logits[:, 0].float().cpu().numpy()
 
     def reset_slot(self, slot: int) -> None:

@@ -19,6 +19,13 @@ Integrity contract, as in the JAX package:
     terminal failure at the next `raise_if_failed()`.
 Restore places each tensor on the device and in the dtype of the
 corresponding leaf of `like` (a tree of tensors, e.g. a freshly built state).
+
+Elastic reshard, as in the JAX package: a checkpoint always holds full
+arrays. `restore(..., shardings=layout)` (a `dist.sharding.Layout` of this
+rank's mesh and the state's specs) keeps each rank's slice of every leaf;
+`CheckpointManager(layout=...)` gathers a sharded state to full arrays,
+which rank 0 alone writes. So a state saved by one process restores on a
+mesh and the reverse.
 """
 from __future__ import annotations
 
@@ -194,12 +201,14 @@ def latest_step(path_dir: str, *, verified: bool = False) -> Optional[int]:
 
 
 def restore(path_dir: str, like: Any, *, step: Optional[int] = None,
-            verify_crc: bool = True,
+            shardings: Any = None, verify_crc: bool = True,
             expect_fingerprint: Optional[str] = None) -> Any:
     """Load into the structure, devices and dtypes of `like`.
 
-    With ``step=None`` the newest checkpoint that verifies is used; an
-    explicit ``step`` that fails verification raises CheckpointCorrupt.
+    shardings: a `dist.sharding.Layout` whose specs mirror `like`; each
+    leaf is then this rank's slice of the stored full array (`like` holds
+    slices). With ``step=None`` the newest checkpoint that verifies is used;
+    an explicit ``step`` that fails verification raises CheckpointCorrupt.
     ``expect_fingerprint`` rejects checkpoints of another config."""
     if step is None:
         step = latest_step(path_dir, verified=verify_crc)
@@ -215,19 +224,30 @@ def restore(path_dir: str, like: Any, *, step: Optional[int] = None,
             raise CheckpointError(
                 f"config fingerprint mismatch at step {step}: checkpoint "
                 f"{got} vs expected {expect_fingerprint}")
+    if shardings is not None:
+        from repro_torch.dist.sharding import local_shape, local_shard, with_specs
+        mesh = shardings.mesh
+        leaves = list(with_specs(like, shardings.specs))
+    else:
+        leaves = [(path, ref, ()) for path, ref in T.flatten(like)]
     out = []
     with np.load(os.path.join(path_dir, _ckpt_name(step))) as data:
-        for path, ref in T.flatten(like):
+        for path, ref, spec in leaves:
             key = T.path_str(path)
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key!r} "
                                f"(config mismatch? step {step})")
             arr = data[key]
-            if arr.shape != tuple(ref.shape):
+            full = torch.from_numpy(arr)
+            if spec:
+                if local_shape(arr.shape, spec, mesh) != tuple(ref.shape):
+                    raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
+                                     f"split by {spec} vs model {tuple(ref.shape)}")
+                full = local_shard(full, spec, mesh, mesh.coords)
+            elif arr.shape != tuple(ref.shape):
                 raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                                  f"vs model {tuple(ref.shape)}")
-            out.append(torch.from_numpy(arr).to(device=ref.device,
-                                                dtype=ref.dtype))
+            out.append(full.to(device=ref.device, dtype=ref.dtype))
     return T.unflatten(like, out)
 
 

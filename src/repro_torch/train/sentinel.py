@@ -18,7 +18,7 @@ gradient, a loss spike, or a collapsed / exploded LSQ scale. Two layers:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -100,7 +100,8 @@ def _flag(cond: torch.Tensor, bit: int) -> torch.Tensor:
 
 
 def health_check(loss, grads, leaves, osc_frac: Optional[torch.Tensor],
-                 st: SentinelState, scfg: SentinelConfig):
+                 st: SentinelState, scfg: SentinelConfig,
+                 reduce_any: Callable = lambda flag: flag):
     """Returns ``(bits, fatal, new_state)``: bits an int32 0-d tensor, fatal
     a bool 0-d tensor, on loss's device.
 
@@ -108,12 +109,16 @@ def health_check(loss, grads, leaves, osc_frac: Optional[torch.Tensor],
     leaves: `quant_leaves(params, qcfg)` triples (their scales are checked);
     osc_frac: the previous step's mean oscillation fraction, or None.
     Only healthy, finite losses are folded into the EMA statistics.
+    reduce_any: a 0-d bool flag of this rank's slices -> true on every rank
+    where it is true on one (`dist.spmd.Spmd.any`; the loss and osc_frac
+    are global already).
     """
     loss = torch.as_tensor(loss, dtype=torch.float32)
     dev = loss.device
     loss_ok = torch.isfinite(loss)
     bits = _flag(~loss_ok, NONFINITE_LOSS)
-    bits = bits | _flag(~_tree_all_finite(grads).to(dev), NONFINITE_GRAD)
+    bits = bits | _flag(reduce_any(~_tree_all_finite(grads).to(dev)),
+                        NONFINITE_GRAD)
 
     # loss-spike guard: z-score against the EMA of healthy losses, armed
     # after `spike_warmup` healthy observations
@@ -126,8 +131,8 @@ def health_check(loss, grads, leaves, osc_frac: Optional[torch.Tensor],
         flat = torch.cat([torch.abs(s.to(torch.float32).reshape(-1).to(dev))
                           for _, s, _ in leaves])
         finite = torch.isfinite(flat)
-        collapsed = torch.any(~finite | (flat < scfg.scale_min))
-        exploded = torch.any(finite & (flat > scfg.scale_max))
+        collapsed = reduce_any(torch.any(~finite | (flat < scfg.scale_min)))
+        exploded = reduce_any(torch.any(finite & (flat > scfg.scale_max)))
         bits = bits | _flag(collapsed, SCALE_COLLAPSE)
         bits = bits | _flag(exploded, SCALE_EXPLODE)
 

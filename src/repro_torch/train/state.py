@@ -46,13 +46,21 @@ class TrainConfig:
 
 def init_state(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig,
                generator: torch.Generator, device=None) -> dict:
-    params = init_params(cfg, qcfg, generator, device)
+    return state_from_params(init_params(cfg, qcfg, generator, device), qcfg,
+                             tcfg)
+
+
+def state_from_params(params: dict, qcfg: QuantConfig, tcfg: TrainConfig, *,
+                      osc: Optional[tuple] = None) -> dict:
+    """The train state around `params` (full tensors, or one rank's slices:
+    the moments and error tree are element-wise in the weights); `osc`
+    replaces the oscillation state made from `params`."""
     opt = adamw.init(params, tcfg.adamw)
     dev = next(iter(params["embed"].values())).device
-    osc = ()
-    if qcfg.track_oscillation:
-        osc = tuple(init_osc_state(w, s, spec)
-                    for w, s, spec in quant_leaves(params, qcfg))
+    if osc is None:
+        osc = (tuple(init_osc_state(w, s, spec)
+                     for w, s, spec in quant_leaves(params, qcfg))
+               if qcfg.track_oscillation else ())
     return {"params": params, "mu": opt.mu, "nu": opt.nu,
             "step": torch.zeros((), dtype=torch.int32),
             "osc": osc,

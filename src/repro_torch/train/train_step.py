@@ -33,6 +33,7 @@ from repro_torch.core.kd import hard_ce, kd_from_teacher_logits, sparse_soft_ce
 from repro_torch.core.obr import obr_lambda_schedule, obr_loss
 from repro_torch.core.oscillation import oscillation_fraction, update_osc_state
 from repro_torch.core.policy import QuantConfig
+from repro_torch.dist.spmd import WHOLE, Spmd
 from repro_torch.models.model import (forward, jax_leaf_groups,
                                      quant_leaf_paths, quant_leaves)
 from repro_torch.optim import adamw, schedule
@@ -45,10 +46,11 @@ METRIC_KEYS = ("loss_main", "lb_loss", "drop_frac", "act_sdam")
 
 def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                  teacher_forward: Optional[Callable] = None,
-                 extra_loss: Optional[Callable] = None):
-    """loss_fn(params, batch, step) -> (loss, metrics)."""
+                 extra_loss: Optional[Callable] = None, spmd: Spmd = WHOLE):
+    """loss_fn(params, batch, step) -> (loss, metrics); `spmd` as in
+    `models.model.forward`."""
     def loss_fn(params, batch, step):
-        logits, aux = forward(params, batch, cfg, qcfg, remat=True)
+        logits, aux = forward(params, batch, cfg, qcfg, remat=True, spmd=spmd)
         if tcfg.kd == "mckd":
             main = sparse_soft_ce(logits, batch["kd_idx"], batch["kd_p"])
         elif tcfg.kd == "teacher":
@@ -67,11 +69,11 @@ def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
 
 def make_grad_fn(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                  teacher_forward: Optional[Callable] = None,
-                 extra_loss: Optional[Callable] = None):
+                 extra_loss: Optional[Callable] = None, spmd: Spmd = WHOLE):
     """grad_fn(params, batch, step) -> (loss, metrics, grads): f32 grads
     shaped like params, averaged over `tcfg.grad_accum` microbatches."""
     loss_fn = make_loss_fn(cfg, qcfg, tcfg, teacher_forward=teacher_forward,
-                           extra_loss=extra_loss)
+                           extra_loss=extra_loss, spmd=spmd)
 
     def one(params, batch, step):
         flat = T.leaves(params)
@@ -120,18 +122,22 @@ def _sub(tree, path: tuple):
     return tree
 
 
-def obr_(params: dict, grads: dict, qcfg: QuantConfig, lam: torch.Tensor
-         ) -> torch.Tensor:
+def obr_(params: dict, grads: dict, qcfg: QuantConfig, lam: torch.Tensor,
+         spmd: Spmd = WHOLE) -> torch.Tensor:
     """Eq. 10 summed over every quantized weight (the reference's
     total_obr_loss at lambda 1), returned as a 0-d f32; each weight's
     gradient in `grads` becomes g + lam * dL_OBR/dw, IN PLACE of its leaf.
-    One leaf at a time, so only one leaf's graph is alive."""
+    One leaf at a time, so only one leaf's graph is alive. Each leaf is
+    taken whole (`spmd.full_leaf`) and its gradient cut back to this rank's
+    slice."""
     total = None
     for path, w, s, spec in quant_leaf_paths(params, qcfg):
+        w, s = spmd.full_leaf(path, w, s)
         wl = w.detach().requires_grad_(True)
         with torch.enable_grad():
             v = obr_loss(wl, s, spec)
             (og,) = torch.autograd.grad(v, wl)
+        og = spmd.local_leaf(path, og)
         v = v.detach()
         total = v if total is None else total + v
         sub = _sub(grads, path)
@@ -152,7 +158,8 @@ def osc_fraction_mean(osc: tuple, groups: list, threshold: float) -> torch.Tenso
 
 def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                     teacher_forward: Optional[Callable] = None,
-                    extra_loss: Optional[Callable] = None):
+                    extra_loss: Optional[Callable] = None,
+                    spmd: Spmd = WHOLE):
     """train_step(state, batch) -> (state, metrics).
 
     The params and moments are updated IN PLACE (the returned state holds
@@ -160,19 +167,26 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
     the sentinel on, the health verdict is read on the host before the
     optimizer runs; a fatal step skips the update, so params, moments,
     `osc` and `err` stay as they were.
+
+    spmd: the mesh's runtime (`dist.spmd`); where the state holds this
+    rank's slices and the batch its rows, the loss, metrics, gradient norm,
+    OBR, the oscillation fraction, compression's amax and the sentinel's
+    flags come out of all-reduces, so every rank takes the same decisions.
     """
     grad_fn = make_grad_fn(cfg, qcfg, tcfg, teacher_forward=teacher_forward,
-                           extra_loss=extra_loss)
+                           extra_loss=extra_loss, spmd=spmd)
     osc_groups = None
 
     def train_step(state: dict, batch: dict):
         nonlocal osc_groups
         params, step = state["params"], state["step"]
         loss, metrics, grads = grad_fn(params, batch, step)
+        loss = spmd.mean(loss)
+        metrics = {k: spmd.mean(v) for k, v in metrics.items()}
         if qcfg.obr_lambda > 0.0:
             lam = obr_lambda_schedule(step, tcfg.total_steps,
                                       qcfg.obr_lambda).to(loss.device)
-            obr_val = obr_(params, grads, qcfg, lam).to(loss.device)
+            obr_val = obr_(params, grads, qcfg, lam, spmd).to(loss.device)
             loss = loss + lam * obr_val
             metrics["loss_obr"] = obr_val
             metrics["obr_lambda"] = lam
@@ -181,7 +195,7 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
             metrics["obr_lambda"] = torch.zeros_like(loss)
         new_err = state["err"]
         if tcfg.compress_grads:
-            grads, new_err = compress_tree(grads, state["err"])
+            grads, new_err = compress_tree(grads, state["err"], amax=spmd.amax)
         if qcfg.track_oscillation and osc_groups is None:
             osc_groups = jax_leaf_groups(
                 [p for p, _, _, _ in quant_leaf_paths(params, qcfg)], cfg)
@@ -191,11 +205,11 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
         if tcfg.sentinel is not None:
             osc_prev = None
             if qcfg.track_oscillation and state["osc"]:
-                osc_prev = osc_fraction_mean(state["osc"], osc_groups,
+                osc_prev = osc_fraction_mean(spmd.full_osc(state["osc"]), osc_groups,
                                              qcfg.osc_threshold)
             health, fatal_t, new_sent = sent.health_check(
                 loss, grads, quant_leaves(params, qcfg), osc_prev,
-                state["sent"], tcfg.sentinel)
+                state["sent"], tcfg.sentinel, reduce_any=spmd.any)
             lr = lr.to(loss.device) * state["sent"].lr_scale
             fatal = bool(fatal_t)  # the one host sync of the step
             metrics["health"] = health
@@ -203,18 +217,20 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
             metrics["sentinel_skipped"] = new_sent.skipped
         opt = adamw.AdamWState(state["mu"], state["nu"])
         if fatal:
-            opt_metrics = {"grad_norm": adamw.global_norm(grads)}
+            opt_metrics = {"grad_norm": spmd.norm(grads)}
             new_err = state["err"]
         else:
-            opt_metrics = adamw.update_(grads, opt, params, step, lr, tcfg.adamw)
+            opt_metrics = adamw.update_(grads, opt, params, step, lr, tcfg.adamw,
+                                        spmd.norm(grads))
         new_osc = state["osc"]
         if qcfg.track_oscillation:
             if not fatal:  # Eq. 12 on the post-update weights
                 new_osc = tuple(
-                    update_osc_state(st, w, s, spec, momentum=qcfg.osc_momentum)
-                    for st, (w, s, spec) in zip(state["osc"],
-                                                quant_leaves(params, qcfg)))
-            metrics["osc_frac"] = osc_fraction_mean(new_osc, osc_groups,
+                    update_osc_state(st, *spmd.osc_view(j, path, w, s), spec,
+                                     momentum=qcfg.osc_momentum)
+                    for j, (st, (path, w, s, spec)) in enumerate(
+                        zip(state["osc"], quant_leaf_paths(params, qcfg))))
+            metrics["osc_frac"] = osc_fraction_mean(spmd.full_osc(new_osc), osc_groups,
                                                     qcfg.osc_threshold)
         metrics.update({"loss": loss, "lr": lr, **opt_metrics})
         new_state = dict(state, step=step + 1, sent=new_sent, osc=new_osc,

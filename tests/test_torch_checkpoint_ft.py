@@ -3,12 +3,16 @@ test mirrors, on `repro_torch.train.checkpoint` and `CheckpointManager`
 with the reference's state (reduced 2-layer qwen1.5-0.5b, 4-bit MDQ):
 keep-last garbage collection, the shape-mismatch refusal, orphaned
 manifests (payload deleted) and orphaned temp files, and the manager's
-restore-or-init and save cadence. (The round trip, the manifest GC, the
-fingerprint and CRC checks and the async writer are in
-test_torch_train_cli.py; restoring onto new shardings waits for the
-port's sharding, ROADMAP.md Queue 1.)
+restore-or-init and save cadence, restoring with explicit shardings, and
+the elastic round trip between one process and a (2, 2) mesh of 4 gloo
+ranks (tests/_torch_elastic_ranks.py). (The round trip, the manifest GC,
+the fingerprint and CRC checks and the async writer are in
+test_torch_train_cli.py.)
 """
+import json
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -87,3 +91,40 @@ def test_gc_removes_orphaned_tmp_files(tmp_path):
     ckpt.save(str(tmp_path), _state(), 1)
     assert [f for f in os.listdir(tmp_path) if f.endswith(".tmp")] == []
     assert ckpt.latest_step(str(tmp_path)) == 1
+
+
+def test_restore_with_shardings(tmp_path):
+    """Elastic path: restore with explicit shardings of a world of one."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    state = _state()
+    ckpt.save(str(tmp_path), state, 1)
+    mesh = make_host_mesh(1, "cpu")
+    specs = sharding.state_pspecs(state, mesh, QCFG)
+    like = _state(seed=1)
+    restored = ckpt.restore(str(tmp_path), like, shardings=sharding.Layout(mesh, specs))
+    for a, b in zip(T.leaves(state), T.leaves(restored)):
+        assert torch.equal(a, b) and a.device == b.device
+
+
+def test_elastic_round_trip_between_one_process_and_a_mesh(tmp_path):
+    """A checkpoint saved by one process restores on a (2, 2) gloo mesh as
+    each rank's slices bit for bit; slices saved on the mesh (gathered,
+    rank 0 writing) restore in one process bit for bit."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_elastic_ranks as E
+    full = E.full_state()
+    ckpt.save(str(tmp_path / "single"), full, 1)
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    proc = subprocess.run([sys.executable, E.__file__, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(4)]
+    assert all(r["restored_bit_equal"] for r in ranks), ranks
+    assert all(r["split_leaves"] > 0 for r in ranks)
+    assert ckpt.latest_step(str(tmp_path / "mesh"), verified=True) == 2
+    back = ckpt.restore(str(tmp_path / "mesh"), E.full_state(), step=2)
+    for (path, a), b in zip(T.flatten(full), T.leaves(back)):
+        assert torch.equal(a, b) and a.dtype == b.dtype, path

@@ -30,7 +30,8 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.optim.adamw", "repro_torch.core.kd",
               "repro_torch.serve.simulate", "repro_torch.testing.faultinject",
               "repro_torch.launch.serving_bench", "repro_torch.models.recurrent",
-              "repro_torch.optim.grad_compress"):
+              "repro_torch.optim.grad_compress", "repro_torch.dist.sharding",
+              "repro_torch.dist.spmd", "repro_torch.launch.mesh"):
         assert m in mods, m
     assert len(mods) > 30
     code = ("import importlib, sys\n"
