@@ -253,6 +253,23 @@ Phases (any failure exits non-zero before the final line is printed):
                `attention.merge_partials` (bit-equal) and over 160 keys
                against two 80-key halves (not whole splits: the gap
                printed).
+  25. dry run — `launch.dryrun.lower_cell` on cell C (qwen1.5-0.5b, w4a4,
+               MCKD, 8 x 512, one rank): (a) its step counted by
+               `launch.cost` on the card must equal the same cell on the
+               meta device exactly (FLOPs, bytes, every kernel's record);
+               (b) the model-FLOPs share of phase 6's s/step (mfu against
+               989 TFLOP/s), the counted FLOPs over the same time and the
+               useful-FLOPs ratio; (c) the dry run's per_device_bytes
+               over phase 6's torch.cuda.max_memory_allocated, held to
+               MEM_BAR; (d) one decode step of cell A (granite-8b, w4a4,
+               int8 KV, 4 slots x 160 rows) counted on the card and on
+               meta, beside the weight bytes a step must read, and the
+               roofline's memory term beside the busy ms a decode step
+               measured by `launch.profile_decode`; (e) the dry-run CLI
+               for qwen1.5-0.5b x train_4k and x decode_32k on the 16 x 16
+               mesh, run in processes of their own (no card, lowest
+               priority) from the end of the build on: each record's
+               status must be "ok".
   Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
   serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
   C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
@@ -288,9 +305,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM
-F32_OPS_PER_S = 67e12         # f32 outside the tensor cores, H100 SXM
+sys.path.insert(0, str(ROOT / "src"))
+try:  # the H100 SXM data sheet's rates, from the port's roofline
+    from repro_torch.launch.roofline import (F32_FLOPS as F32_OPS_PER_S,
+                                             HBM_BW as HBM_BYTES_PER_S,
+                                             PEAK_FLOPS as BF16_OPS_PER_S)
+except ImportError:  # not a checkout: main() says so and exits
+    F32_OPS_PER_S = HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 NEG_INF = -2.0e9
 SEED = 0
 
@@ -328,8 +349,8 @@ class Timer:
         return self._device_ms(fn, self.device, self.flush, self.iters)
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
-          ) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = None) -> tuple[float, str]:
+    ops_per_s = ops_per_s or BF16_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3148,6 +3169,176 @@ def _kernel_name(sym: str) -> str:
     return name
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the dry run and the H100 roofline
+# ---------------------------------------------------------------------------
+
+# (arch, shape) cells of the dry-run CLI on the 16 x 16 mesh (phase 25e)
+DRYRUN_CLI = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"))
+# the dry run's per_device_bytes of cell C over phase 6's measured peak
+# (torch.cuda.max_memory_allocated): the bar written in PERF.md before
+# phase 25 first ran on the card
+MEM_BAR = (0.8, 1.2)
+
+
+def start_dryrun_cli() -> list:
+    """Phase 25(e)'s CLI cells, each in a process of its own at the lowest
+    priority, started after the build: host work on the meta device (no
+    card: CUDA_VISIBLE_DEVICES is empty), beside the card's phases. Any
+    still running when the script exits are stopped."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CLI:
+        out = ROOT / "build" / f"chip_smoke_dryrun_{shape}.jsonl"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.unlink(missing_ok=True)
+        with open(out.with_suffix(".log"), "w") as logf:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--out", str(out)],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19))
+        procs.append({"arch": arch, "shape": shape, "out": out, "proc": p,
+                      "t0": time.perf_counter()})
+
+    def stop():
+        for c in procs:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
+    atexit.register(stop)
+    return procs
+
+
+def _cost_diff(a: dict, b: dict, top: int = 20) -> list:
+    """The per-op rows in which two counts differ."""
+    rows = []
+    for op in sorted(set(a["by_op"]) | set(b["by_op"])):
+        x, y = a["by_op"].get(op), b["by_op"].get(op)
+        if x != y:
+            rows.append((op, x, y))
+    return rows[:top]
+
+
+def dryrun_phase(torch, cell_c: dict, cli: list) -> dict:
+    """Phase 25: (a) cell C's QAT step counted by `launch.cost` on the card
+    equals `dryrun.lower_cell` of the same cell on meta, exactly; (b) the
+    model-FLOPs share of phase 6's s/step; (c) the dry run's per-rank bytes
+    against phase 6's measured peak, held to MEM_BAR; (d) one decode step
+    of cell A counted, beside the weight bytes it must read and the
+    measured busy ms of a decode step; (e) the dry-run CLI's records."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import profile_decode
+    from repro_torch.launch import roofline as rl
+    out = {}
+    # (a) the counter on the card against the meta dry run, cell C at one rank
+    cell = dict(multi_pod=False, preset="w4a4", grad_accum=8, serve_kv_bits=8,
+                mesh_sizes=(1, 1), shape=shp.ShapeSpec("cell_c", 512, 8, "train"))
+    t0 = time.perf_counter()
+    card = D.lower_cell("qwen1.5-0.5b", "train_4k", device="cuda", **cell)
+    t_card = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta = D.lower_cell("qwen1.5-0.5b", "train_4k", device="meta", **cell)
+    t_meta = time.perf_counter() - t0
+    same = all(card["cost"][k] == meta["cost"][k] for k in ("flops", "bytes", "kernels"))
+    log(f"  (a) cell C's step counted on the card ({t_card:.1f} s) and on meta "
+        f"({t_meta:.1f} s): flops {card['cost']['flops']:.6e} / {meta['cost']['flops']:.6e}, "
+        f"bytes {card['cost']['bytes']:.6e} / {meta['cost']['bytes']:.6e}, kernels "
+        f"{ {k: v['calls'] for k, v in card['cost']['kernels'].items()} }, equal {same}")
+    if not same:
+        for row in _cost_diff(card["cost"], meta["cost"]):
+            log(f"      {row}")
+        fail("the counter's count of cell C on the card differs from the meta dry run")
+    # (b) the model-FLOPs share of phase 6's step
+    cfg = get_config("qwen1.5-0.5b")
+    s_step = cell_c["s_step"]
+    model_flops = rl.model_flops_per_step(cfg, 8 * 512, train=True)
+    out.update(mfu=model_flops / (s_step * rl.PEAK_FLOPS), s_per_step=s_step,
+               model_flops=model_flops, counted_flops=card["cost"]["flops"],
+               counted_tflops_per_s=card["cost"]["flops"] / s_step / 1e12,
+               useful_flops_ratio=card["roofline"]["useful_flops_ratio"],
+               counted_bytes=card["cost"]["bytes"], roofline=card["roofline"])
+    log(f"  (b) mfu {out['mfu']:.5f} (model FLOPs {model_flops:.4e} over phase 6's "
+        f"{s_step:.4f} s/step x {rl.PEAK_FLOPS:.3e}); counted FLOPs "
+        f"{out['counted_tflops_per_s']:.3f} TFLOP/s over the same time; useful FLOPs "
+        f"ratio {out['useful_flops_ratio']:.4f}; roofline terms compute "
+        f"{card['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+        f"{card['roofline']['memory_s'] * 1e3:.2f} ms ({card['roofline']['dominant']})")
+    # (c) the dry run's per-rank bytes against phase 6's measured peak
+    peak = cell_c["report"].peak_bytes
+    ratio = meta["per_device_bytes"] / peak
+    out.update(per_device_bytes=meta["per_device_bytes"], memory=meta["memory"],
+               phase6_peak_bytes=peak, memory_ratio=ratio,
+               counted_step_device_peak_bytes=card["memory"]["device_peak_bytes"],
+               card_per_device_bytes=card["per_device_bytes"])
+    log(f"  (c) dry-run per_device_bytes {meta['per_device_bytes'] / 2**30:.3f} GiB "
+        f"(argument {meta['memory']['argument_size_in_bytes'] / 2**30:.3f}, temp "
+        f"{meta['memory']['temp_size_in_bytes'] / 2**30:.3f}) against phase 6's peak "
+        f"{peak / 2**30:.3f} GiB: ratio {ratio:.4f}, bar {MEM_BAR}; the counted step's "
+        f"own peak on the card {card['memory']['device_peak_bytes'] / 2**30:.3f} GiB "
+        f"(its counted per_device_bytes {card['per_device_bytes'] / 2**30:.3f} GiB)")
+    if not MEM_BAR[0] <= ratio <= MEM_BAR[1]:
+        fail(f"dry-run memory ratio {ratio:.4f} outside {MEM_BAR}")
+    # (d) one decode step of cell A (granite-8b, w4a4, int8 KV, 4 slots x 160)
+    torch.cuda.empty_cache()
+    qa = get_preset("w4a4").replace(kv_cache_bits=8, a_bits=32)
+    cell_a = dict(multi_pod=False, preset="w4a4", grad_accum=8, serve_kv_bits=8,
+                  mesh_sizes=(1, 1), shape=shp.ShapeSpec("cell_a", 160, 4, "decode"),
+                  qcfg=qa)
+    dec = D.lower_cell("granite-8b", "decode_32k", device="cuda", **cell_a)
+    torch.cuda.empty_cache()
+    dec_meta = D.lower_cell("granite-8b", "decode_32k", device="meta", **cell_a)
+    prof = profile_decode.main([])
+    torch.cuda.empty_cache()
+    weights = dec["memory"]["argument_parts"]["params"]
+    out["decode"] = {
+        "counted_bytes": dec["cost"]["bytes"], "meta_counted_bytes": dec_meta["cost"]["bytes"],
+        "counted_flops": dec["cost"]["flops"], "weight_bytes": weights,
+        "cache_bytes": dec["memory"]["argument_parts"]["cache"],
+        "memory_term_ms": dec["roofline"]["memory_s"] * 1e3,
+        "weight_bound_ms": weights / rl.HBM_BW * 1e3,
+        "busy_ms": prof["device_busy_ms_per_step"],
+        "busy_cache_rows": prof["cache_len"], "kernels": dec["cost"]["kernels"]}
+    d = out["decode"]
+    log(f"  (d) cell A's decode step counted: {d['counted_bytes']:.6e} bytes (meta "
+        f"{d['meta_counted_bytes']:.6e}, equal {d['counted_bytes'] == d['meta_counted_bytes']}), "
+        f"{d['counted_flops']:.4e} FLOPs, beside the weight bytes a step must read "
+        f"{weights:.6e} ({d['counted_bytes'] / weights:.3f}x) and the cache's "
+        f"{d['cache_bytes']:.4e}; roofline memory term {d['memory_term_ms']:.3f} ms "
+        f"(weights alone {d['weight_bound_ms']:.3f} ms) against a measured busy "
+        f"{d['busy_ms']:.3f} ms a step (profile_decode.py, cache rows {d['busy_cache_rows']})")
+    if not all(v == v and v > 0 for v in (d["counted_bytes"], d["busy_ms"])):
+        fail("cell A's decode count or busy time is not a positive number")
+    # (e) the dry-run CLI's cells, started after the build
+    out["cli"] = []
+    for c in cli:
+        rc = c["proc"].wait(timeout=900)
+        recs = [json.loads(line) for line in c["out"].read_text().splitlines()] \
+            if c["out"].exists() else []
+        rec = recs[-1] if recs else {"status": "missing"}
+        row = {"arch": c["arch"], "shape": c["shape"], "rc": rc,
+               "status": rec.get("status"), "wall_s": rec.get("wall_s"),
+               "trace_s": rec.get("trace_s"), "per_device_bytes": rec.get("per_device_bytes"),
+               "fits_80g": rec.get("fits_80g"), "roofline": rec.get("roofline"),
+               "collectives": rec.get("collectives")}
+        out["cli"].append(row)
+        roof = row["roofline"] or {}
+        log(f"  (e) dryrun --arch {c['arch']} --shape {c['shape']} --mesh single: rc {rc}, "
+            f"status {row['status']}, {row['wall_s']} s, per-rank "
+            f"{(row['per_device_bytes'] or 0) / 2**30:.2f} GiB, {roof.get('dominant')}, "
+            f"useful FLOPs ratio {roof.get('useful_flops_ratio')}")
+        if rc != 0 or row["status"] != "ok":
+            fail(f"dry-run CLI cell {c['arch']} x {c['shape']}: rc {rc}, status "
+                 f"{row['status']} ({rec.get('error')})")
+    return out
+
+
 def cell_c_state_bytes(torch, cfg, qcfg) -> int:
     """Bytes of cell C's params and AdamW moments (shapes only)."""
     from repro_torch.models.model import init_params
@@ -3198,6 +3389,9 @@ def main() -> None:
                          + ": ")
             elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 log(f"    {entry}{line.strip()}")
+
+    # 25(e)'s dry-run CLI cells: host work on the meta device, from here on
+    dryrun_cli = start_dryrun_cli()
 
     mark("phase 2")
     # 2. kernels
@@ -3510,6 +3704,13 @@ def main() -> None:
     mark("phase 11")
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
     bench_counts, bench = kernel_bench_phase(torch, ops)
+    torch.cuda.empty_cache()
+    mark("phase 25")
+    # 25. the dry run and the H100 roofline: cell C's counted step on the
+    #     card against the meta dry run, its model-FLOPs share and memory,
+    #     cell A's decode count, the dry-run CLI
+    log("dry run and roofline (cells C and A):")
+    dry = dryrun_phase(torch, first, dryrun_cli)
     counts.update(first["counts"])
     for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
         counts[name] = moe_run["counts"][name]
@@ -3633,7 +3834,7 @@ def main() -> None:
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
         "nan_rows": nan_rows, "fault_contract": faults, "compression": compressed,
-        "sharded": {"R": cell_r, "S": cell_s},
+        "sharded": {"R": cell_r, "S": cell_s}, "dryrun": dry,
         "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
                       for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}

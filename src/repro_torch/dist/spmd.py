@@ -49,6 +49,7 @@ import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.dist import sharding as shard
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import HostMesh
 from repro_torch.optim.adamw import global_norm
 
@@ -101,6 +102,7 @@ def collect(jobs: list) -> list:
             out = x
             work = dist.all_reduce(out, op=_REDUCE_OPS[kind], group=group,
                                    async_op=True)
+        cost.record_collective(kind, out)
         pend.append((work, out, kind, dim, t.device))
     results = []
     for work, out, kind, dim, device in pend:

@@ -16,8 +16,11 @@ one-hot's 0), as `ref.bin_stats_2d` spells out: a block whose bin sums show
 such a value counts them again in a rare second pass.
 
 A CPU tensor takes the plain version in `kernels/ref.py` (index_add_ in f64,
-rounded once); a CUDA tensor launches the kernel, and a build or launch
-failure raises. Launches are counted in `bin_stats_2d.launches`.
+rounded once), and so does a meta tensor (shapes only; its masks take a
+`nonzero`, which meta answers under the dry run's `rows_all_live`); a CUDA tensor
+launches the kernel, and a build or launch failure raises. Launches are
+counted in `bin_stats_2d.launches`; `launch.cost` counts a call as one op
+of about 8 f32 operations an element and no dot FLOPs.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.launch import cost
 
 TILE = 4096              # elements of a block step (csrc/bin_stats.cu)
 THREADS = 256            # threads a block, each taking 4 float4s of a tile
@@ -58,12 +62,20 @@ def grid(n: int) -> tuple[int, int]:
     return -(-n_tiles // tiles), tiles
 
 
+def _figures(w, scale, *, q_n: int, q_p: int) -> dict:
+    """`launch.cost` figures: elementwise work on the f32 units, and the
+    blocks' f64 partial bins."""
+    return {"flops": 0.0, "ops": 8.0 * w.numel(), "f32": True,
+            "scratch": 8 * grid(w.numel())[0] * 3 * (q_n + q_p + 1)}
+
+
+@cost.counted("bin_stats_2d", _figures)
 def bin_stats_2d(w: torch.Tensor, scale, *, q_n: int, q_p: int) -> torch.Tensor:
     """w (M, N) with a per-tensor scale (0-d tensor or number) ->
     (3, q_n + q_p + 1) f32 [count, sum, sum of squares]. Replaces the TPU
     kernel `bin_stats_2d` (src/repro/kernels/bin_stats.py:48); bound by
     HBM bytes (w read once)."""
-    if w.device.type == "cpu":
+    if ref.takes_plain(w):
         return ref.bin_stats_2d(w, scale, q_n=q_n, q_p=q_p)
     if w.device.type != "cuda":
         raise ValueError(f"bin_stats_2d kernel needs CUDA tensors, got {w.device}")

@@ -15,9 +15,11 @@ its own keys, not on the pool's size or its other slots), merged in split
 order by the last block of each (slot, kv head, row tile) to finish. bf16
 queries run QK^T and P.V on the tensor cores; f32 queries on f32 FMAs.
 
-A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
-launches the kernel, and a build or launch failure raises. Launches are
-counted in `pooled_decode_attention.launches`.
+A CPU tensor takes the plain version in `kernels/ref.py`, and so does a
+meta tensor (shapes only); a CUDA tensor launches the kernel, and a build or
+launch failure raises. Launches are counted in
+`pooled_decode_attention.launches`; `launch.cost` counts a call as one op
+of 4 B C H T D dot FLOPs (QK^T and P.V over every cache row).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.launch import cost
 
 NEG_INF = ref.NEG_INF
 KV_SPLIT = 64  # keys of a split (csrc/decode_attention.cu KS, checked at load)
@@ -86,6 +89,17 @@ def _plan(lib, t: int, g: int, d: int, q_bf16: bool) -> dict:
     return plan
 
 
+def _figures(q, k_store, *_, q_per_kv: int, **__) -> dict:
+    """`launch.cost` figures: QK^T and P.V over the T cache rows, and the
+    splits' f32 partial triples where T spans more than one split."""
+    b, c, h, d = q.shape
+    t = k_store.shape[1]
+    splits = -(-t // KV_SPLIT)
+    scratch = 4 * b * (h // q_per_kv) * splits * c * q_per_kv * (d + 2)
+    return {"flops": 4.0 * b * c * h * t * d, "scratch": scratch if splits > 1 else 0}
+
+
+@cost.counted("pooled_decode_attention", _figures)
 def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
                             q_pos, *, q_per_kv: int, window: int,
                             softcap: float, parts: bool = False):
@@ -106,7 +120,7 @@ def pooled_decode_attention(q, k_store, v_store, k_scale, v_scale, kv_pos,
     cache merges every rank's splits in one pass, as the kernel merges its
     own (`models.attention.merge_partials`).
     """
-    if q.device.type == "cpu":
+    if ref.takes_plain(q):
         kw = dict(q_per_kv=q_per_kv, window=window, softcap=softcap)
         if not parts:
             return ref.pooled_decode_attention(

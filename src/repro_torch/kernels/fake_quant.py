@@ -9,8 +9,10 @@ call does not wait on the host; edges are masked where the reference pads
 to its (256, 512) tiles.
 
 A CPU tensor takes the plain version in `kernels/ref.py`, which the kernel
-equals bit for bit; a CUDA tensor launches the kernel, and a build or
-launch failure raises. Launches are counted in each wrapper's `launches`.
+equals bit for bit, and so does a meta tensor (shapes only); a CUDA tensor
+launches the kernel, and a build or launch failure raises. Launches are
+counted in each wrapper's `launches`; `launch.cost` counts a call as one op
+of about 5 f32 operations an element and no dot FLOPs.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.launch import cost
 
 _SIGNED = False
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -59,13 +62,19 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+def _figures(x, *_, **__) -> dict:
+    """`launch.cost` figures: elementwise work on the f32 units."""
+    return {"flops": 0.0, "ops": 5.0 * x.numel(), "f32": True}
+
+
+@cost.counted("fake_quant_2d", _figures)
 def fake_quant_2d(x: torch.Tensor, scale, offset=None, *, q_n: int,
                   q_p: int) -> torch.Tensor:
     """Per-tensor fake-quant of x (M, N) f32 or bf16 -> x's dtype; scale
     and offset are scalars (0-d tensors or numbers), offset None for none.
     Replaces the TPU kernel `fake_quant_2d` (src/repro/kernels/
     fake_quant.py:48); bound by HBM bytes (x read once, y written once)."""
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.fake_quant_2d(x, scale, offset, q_n=q_n, q_p=q_p)
     _check(x, "fake_quant_2d")
     x = x.contiguous()
@@ -84,13 +93,14 @@ def fake_quant_2d(x: torch.Tensor, scale, offset=None, *, q_n: int,
     return y
 
 
+@cost.counted("fake_quant_rows", _figures)
 def fake_quant_rows(x: torch.Tensor, row_scale: torch.Tensor, *, q_n: int,
                     q_p: int) -> torch.Tensor:
     """Row-grouped fake-quant: x (M, N) f32 or bf16, row_scale (M, 1) — the
     group axis (heads, experts) on rows — -> x's dtype. Replaces the TPU
     kernel `fake_quant_rows` (src/repro/kernels/fake_quant.py:73); bound
     by HBM bytes (x read once, y written once)."""
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.fake_quant_rows(x, row_scale, q_n=q_n, q_p=q_p)
     _check(x, "fake_quant_rows")
     m, n = x.shape

@@ -57,8 +57,11 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU. Raises when CUDA is asked for (or left to default) and absent;
     there is no silent fallback to the CPU. "meta" builds shape-only trees
-    (init_params / init_serving_params / init_cache), for the sharding
-    rules; nothing computes on it."""
+    (init_params / init_serving_params / init_cache) for the sharding rules,
+    and runs whole steps for the dry run (`launch.dryrun`): every kernel
+    wrapper takes its plain version there, which gives its outputs' shapes
+    and dtypes, and nothing computes. Only the dry run and the sharding
+    rules ask for meta; the card's main path never takes that route."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "

@@ -37,9 +37,13 @@ tile adds in order.
 for checks.
 
 Dispatch is by the device of `x` alone: a CPU tensor takes the plain
-version in `kernels/ref.py`; a CUDA tensor launches the kernel, and any
-build or launch failure raises. Each wrapper counts its launches in its
-`launches` attribute (a plain int, reset with `ops.reset_launch_counts`).
+version in `kernels/ref.py`, and so does a meta tensor (the dry run's:
+outputs of the right shape and dtype, nothing computed, no launch); a CUDA
+tensor launches the kernel, and any build or launch failure raises. Each
+wrapper counts its launches in its `launches` attribute (a plain int, reset
+with `ops.reset_launch_counts`), and reports its dot FLOPs, bound
+operations and scratch to `launch.cost` (`cost.counted`), from its
+arguments' shapes alone, so a call costs the same on every device.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.launch import cost
 
 _SIGNED = False
 _QAT_SIGNED = False
@@ -163,11 +168,21 @@ def _operands(x, codes, scale):
             scale.to(torch.float32).contiguous(), out)
 
 
+def _int_figures(x, w_codes, w_col_scale) -> dict:
+    """`launch.cost` figures of int_matmul / int4_matmul: 2 M K N dot FLOPs
+    and the split plan's f32 partial sums."""
+    (m, k), n = x.shape, w_codes.shape[1]
+    splits = int4_plan(k, n)["splits"]
+    return {"flops": 2.0 * m * k * n,
+            "scratch": 4 * splits * m * n if splits > 1 else 0}
+
+
+@cost.counted("int_matmul", _int_figures)
 def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
                w_col_scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ dequant(codes (K, N) int8, col_scale (N,)) -> (M, N) f32,
     on the tensor cores by `int4_plan`'s split of the contraction."""
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.int_matmul(x, w_codes, w_col_scale)
     _check(x, w_codes, w_col_scale, x.shape[1])
     xb, codes, scale, out = _operands(x, w_codes, w_col_scale)
@@ -187,11 +202,12 @@ def int_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     return out
 
 
+@cost.counted("int4_matmul", _int_figures)
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                 w_col_scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ dequant(packed (K/2, N) int8 nibble pairs, col_scale (N,)),
     on the tensor cores by `int4_plan`'s split of the contraction."""
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.int4_matmul(x, w_packed, w_col_scale)
     if x.shape[-1] % 2:
         raise ValueError(f"int4_matmul needs an even K, got {x.shape[-1]}")
@@ -356,11 +372,53 @@ def _fwd_tc(x, w, a_s, a_b, ws, k_side: bool, qs: dict, out=None):
     return xd, wd
 
 
+# ---------------------------------------------------------------------------
+# `launch.cost` figures of the QAT kernels, from the arguments' shapes: the
+# dot FLOPs of the math (2 M K N a product), the tensor-core operations that
+# bound the call (x the cotangent's planes) and the bf16 scratch it holds
+# ---------------------------------------------------------------------------
+
+def _emkn(x, w) -> tuple:
+    """(E, M, K, N) of a 2D (E = 1) or per-expert call."""
+    return (x.shape[0] if x.dim() == 3 else 1), x.shape[-2], x.shape[-1], w.shape[-1]
+
+
+def _fwd_figures(x, w, *_, **__) -> dict:
+    e, m, k, n = _emkn(x, w)
+    return {"flops": 2.0 * e * m * k * n, "scratch": sum(_fwd_tc_scratch(m, k, n, e)[1])}
+
+
+def _bwd_figures(dy, x, w, *_, round_cot: bool = True, scratch_budget=None,
+                 **__) -> dict:
+    e, m, k, n = _emkn(x, w)
+    planes = plane_count(round_cot)
+    flops = 4.0 * e * m * k * n
+    if bwd_route(m, k, n, scratch_budget) == "split":  # expert by expert
+        return {"flops": flops, "ops": flops * planes,
+                "scratch": sum(_bwd_tc_scratch(m, k, n, 1, planes)[1])}
+    splits, _ = dw_splits(m, k, n, planes)
+    return {"flops": flops, "ops": flops * planes,
+            "scratch": sum(_bwd_tc_scratch(m, k, n, e, planes)[1])
+            + (4 * e * splits * k * n if splits > 1 else 0)}
+
+
+def _split_figures(dx: bool):
+    def figures(dy, x, w, *_, round_cot: bool = True, **__) -> dict:
+        _, m, k, n = _emkn(x, w)
+        planes = plane_count(round_cot)
+        xd, wd, planes_bytes = _bwd_tc_scratch(m, k, n, 1, planes)[1]
+        flops = 2.0 * m * k * n
+        return {"flops": flops, "ops": flops * planes,
+                "scratch": planes_bytes + (wd if dx else xd)}
+    return figures
+
+
+@cost.counted("quant_matmul", _fwd_figures)
 def quant_matmul(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
                  q_n_w: int, q_p_w: int) -> torch.Tensor:
     """q_a(x) @ q_w(w) -> (M, N) f32 (the reference's quant_matmul)."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul(x, w, a_scale, a_offset, w_scale, **qs)
     x, w, a_s, a_b, ws, k_side, _ = _qat_operands(x, w, a_scale, a_offset,
                                                   w_scale)
@@ -379,7 +437,7 @@ def fwd_prologue(x, w, a_scale, a_offset, w_scale, *, q_n_a: int, q_p_a: int,
     reaches the prologue only inside the forwards, whose counts it adds to."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
     lds, _ = _fwd_tc_scratch(*x.shape[-2:], w.shape[-1])
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.fwd_prologue(x, w, a_scale, a_offset, w_scale, lds=lds, **qs)
     if x.dim() == 3:
         x, w, a_s, a_b, ws, _ = _batched_operands(x, w, a_scale, a_offset,
@@ -550,11 +608,12 @@ def _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool,
     return outs
 
 
+@cost.counted("quant_matmul_dx", _split_figures(dx=True))
 def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                     q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
     """(dX (M, K), dsa, dba): the backward wrt x, raw scale sums."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale,
                                    round_cot=round_cot, **qs)
     out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
@@ -563,11 +622,12 @@ def quant_matmul_dx(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     return out
 
 
+@cost.counted("quant_matmul_dw", _split_figures(dx=False))
 def quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                     q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True):
     """(dW (K, N), dws (1, N) or (K, 1)): the backward wrt w."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_dw(dy, x, w, a_scale, a_offset, w_scale,
                                    round_cot=round_cot, **qs)
     out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
@@ -580,7 +640,7 @@ def _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool):
     """(dX, dsa, dba, dW, dws) on the split route: the plain dx / dw for a
     CPU tensor; on the card one prologue and both grids, counted as one
     quant_matmul_dx and one quant_matmul_dw launch."""
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
                                     round_cot=round_cot, **qs)
     out = _split_tc(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot,
@@ -590,6 +650,7 @@ def _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs: dict, round_cot: bool):
     return out
 
 
+@cost.counted("quant_matmul_bwd", _bwd_figures)
 def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                      q_p_a: int, q_n_w: int, q_p_w: int, round_cot: bool = True,
                      scratch_budget=None):
@@ -601,7 +662,7 @@ def quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     m, k = x.shape
     if bwd_route(m, k, w.shape[1], scratch_budget) == "split":
         return _split_bwd(dy, x, w, a_scale, a_offset, w_scale, qs, round_cot)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_bwd(dy, x, w, a_scale, a_offset, w_scale,
                                     round_cot=round_cot, **qs)
     x, w, a_s, a_b, ws, k_side, dy = _qat_operands(x, w, a_scale, a_offset,
@@ -627,7 +688,7 @@ def bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     m, k = x.shape[-2:]
     n = w.shape[-1]
     lds, _ = _bwd_tc_scratch(m, k, n)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.bwd_prologue(dy, x, w, a_scale, a_offset, w_scale, lds=lds,
                                 planes=planes, **qs)
     if x.dim() == 3:
@@ -684,13 +745,14 @@ def _batched_operands(x, w, a_scale, a_offset, w_scale, dy=None):
             None if dy is None else f32(dy))
 
 
+@cost.counted("quant_matmul_batched", _fwd_figures)
 def quant_matmul_batched(x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
                          q_p_a: int, q_n_w: int, q_p_w: int) -> torch.Tensor:
     """Per expert q_a(x[e]) @ q_w(w[e]) -> (E, M, N) f32 (the reference's
     quant_matmul_batched): x (E, M, K), w (E, K, N), a_scale / a_offset
     (E, 1), w_scale (E, N) per-expert column scales."""
     qs = dict(q_n_a=q_n_a, q_p_a=q_p_a, q_n_w=q_n_w, q_p_w=q_p_w)
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_batched(x, w, a_scale, a_offset, w_scale, **qs)
     x, w, a_s, a_b, ws, _ = _batched_operands(x, w, a_scale, a_offset, w_scale)
     out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=torch.float32,
@@ -700,6 +762,7 @@ def quant_matmul_batched(x, w, a_scale, a_offset, w_scale, *, q_n_a: int,
     return out
 
 
+@cost.counted("quant_matmul_bwd_batched", _bwd_figures)
 def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
                              q_n_a: int, q_p_a: int, q_n_w: int, q_p_w: int,
                              round_cot: bool = True, scratch_budget=None):
@@ -722,7 +785,7 @@ def quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset, w_scale, *,
             outs.append((dx_e, dsa_e, dba_e, dw_e, dws_e[0]))
         dx, dsa, dba, dw, dws = (torch.stack(t) for t in zip(*outs))
         return dx, dsa.reshape(e, 1), dba.reshape(e, 1), dw, dws
-    if x.device.type == "cpu":
+    if ref.takes_plain(x):
         return ref.quant_matmul_bwd_batched(dy, x, w, a_scale, a_offset,
                                             w_scale, round_cot=round_cot, **qs)
     x, w, a_s, a_b, ws, dy = _batched_operands(x, w, a_scale, a_offset,

@@ -24,6 +24,14 @@ NEG_INF = -2.0e9  # finite: a fully masked row keeps m = NEG_INF, l > 0
 EPS = 1e-9        # both quantizer scales are floored here, as in the kernels
 
 
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper takes the plain version for a tensor: on
+    the CPU (which has no kernel) and on the meta device (shapes only: the
+    plain version gives the outputs' shapes and dtypes, nothing computes);
+    a CUDA tensor launches the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     """Round an f32 tensor to bf16 and back (the values a bf16 tile holds)."""
     return t.to(torch.bfloat16).to(torch.float32)

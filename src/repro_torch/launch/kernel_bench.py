@@ -27,9 +27,9 @@ bin-stats kernels on a (4096, 1024) f32 tensor.
 
 Bytes. A kernel's bytes are its boundary: every input read once and every
 output written once (the reference's `hlo_cost.entry_boundary_bytes`). The
-unfused side's bytes are counted by `ByteCounter`, a TorchDispatchMode that
-adds up the input and output bytes of every aten op it runs (views move
-none). It is the eager counterpart of the reference's `hlo_cost.analyze`,
+unfused side's bytes are counted by `launch.cost.ByteCounter`, a
+TorchDispatchMode that adds up the input and output bytes of every aten op
+it runs (views move none). It is the eager counterpart of the reference's `hlo_cost.analyze`,
 and reads higher than XLA's count: eager PyTorch fuses nothing.
 
 Times are medians of single-call CUDA-event times on the card, each call
@@ -49,8 +49,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro_torch.core.policy import QuantConfig
 from repro_torch.core.quantizer import (QuantSpec, fake_quant, grad_scale,
@@ -58,6 +56,7 @@ from repro_torch.core.quantizer import (QuantSpec, fake_quant, grad_scale,
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels.decode_attention import pooled_decode_attention
+from repro_torch.launch.cost import ByteCounter, boundary_bytes, counted_bytes  # noqa: F401 (ByteCounter: re-exported)
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
 
@@ -85,55 +84,6 @@ _PARITY_CASES = {
 # ---------------------------------------------------------------------------
 # bytes and times
 # ---------------------------------------------------------------------------
-
-def _tensor_bytes(t: torch.Tensor) -> int:
-    """Bytes a tensor's elements occupy; a broadcast (stride-0) axis holds
-    one element."""
-    n = 1
-    for size, stride in zip(t.shape, t.stride()):
-        if stride != 0:
-            n *= size
-    return n * t.element_size()
-
-
-def boundary_bytes(*trees) -> int:
-    """Every tensor in the inputs / outputs given, read or written once."""
-    return sum(_tensor_bytes(t) for t in tree_flatten(trees)[0]
-               if isinstance(t, torch.Tensor))
-
-
-# ops that return a view of their input without saying so in their schema
-_UNANNOTATED_VIEWS = ("aten::_unsafe_view",)
-
-
-def _is_view(func) -> bool:
-    return (func._schema.name in _UNANNOTATED_VIEWS
-            or any(r.alias_info is not None and not r.alias_info.is_write
-                   for r in func._schema.returns))
-
-
-class ByteCounter(TorchDispatchMode):
-    """Adds up the bytes of every aten op's tensor inputs and outputs that
-    runs under it (forward and backward); view ops move nothing."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not _is_view(func):
-            self.ops += 1
-            self.bytes += boundary_bytes(args, kwargs or {}, out)
-        return out
-
-
-def counted_bytes(fn) -> int:
-    with ByteCounter() as bc:
-        fn()
-    return bc.bytes
-
 
 class Flush:
     """A 2 GB buffer read before each timed call: the read evicts the 50 MB

@@ -102,6 +102,9 @@ def fake_lib(monkeypatch):
                      for t, v in zip(real, (0x4000, 0x5000)))
 
     monkeypatch.setattr(qmm, "_qat_lib", lambda: lib)
+    # meta tensors take the plain versions now (the dry run's route): send
+    # them down the launch path, as CUDA tensors go, to reach the fake library
+    monkeypatch.setattr(ref, "takes_plain", lambda t: t.device.type == "cpu")
     monkeypatch.setattr(qmm, "_dw_split_scratch", sums)
     monkeypatch.setattr(qmm, "_qat_operands", operands)
     monkeypatch.setattr(qmm, "_batched_operands", batched)

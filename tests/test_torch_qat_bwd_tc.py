@@ -164,6 +164,9 @@ def fake_qat_lib(monkeypatch):
         return (x, w, a_scale, a_offset, w_scale.reshape(-1), k_side, dy)
 
     monkeypatch.setattr(qmm, "_qat_lib", lambda: lib)
+    # meta tensors take the plain versions now (the dry run's route): send
+    # them down the launch path, as CUDA tensors go, to reach the fake library
+    monkeypatch.setattr(ref, "takes_plain", lambda t: t.device.type == "cpu")
     monkeypatch.setattr(qmm, "_qat_operands", operands)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))

@@ -257,6 +257,9 @@ def fake_lib(monkeypatch):
                      for i, t in enumerate(real))
 
     monkeypatch.setattr(qmm, "_qat_lib", lambda: lib)
+    # meta tensors take the plain versions now (the dry run's route): send
+    # them down the launch path, as CUDA tensors go, to reach the fake library
+    monkeypatch.setattr(ref, "takes_plain", lambda t: t.device.type == "cpu")
     monkeypatch.setattr(qmm, "_qat_operands", operands)
     monkeypatch.setattr(qmm, "_bwd_tc_scratch_tensors", tensors)
     monkeypatch.setattr(torch.cuda, "current_stream",

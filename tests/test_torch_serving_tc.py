@@ -71,6 +71,9 @@ def fake_serving_lib(monkeypatch):
         decode_attention_smem_bytes=lambda rows, d, q_bf16: 0)
     monkeypatch.setattr(qmm, "_lib", lambda: lib)
     monkeypatch.setattr(da, "_lib", lambda: lib)
+    # meta tensors take the plain versions now (the dry run's route): send
+    # them down the launch path, as CUDA tensors go, to reach the fake library
+    monkeypatch.setattr(ref, "takes_plain", lambda t: t.device.type == "cpu")
     monkeypatch.setattr(qmm, "_check", lambda *a: None)
     monkeypatch.setattr(da, "_require_cuda", lambda device: None)
     monkeypatch.setattr(build, "_TICKETS", {})
