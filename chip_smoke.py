@@ -231,7 +231,9 @@ Phases (any failure exits non-zero before the final line is printed):
   24. sharded, four ranks (cell S) — four processes share the card on a
                (2 data, 2 model) mesh over gloo (NCCL refuses two ranks on
                one device; gloo moves each CUDA payload through a host
-               copy, the compute stays on the card): (a) phase 6's
+               copy, the compute stays on the card), on the gathered
+               runtime (`tp_compute=False`: every layer gathered whole,
+               each model rank computing every linear whole): (a) phase 6's
                full-width qwen1.5-0.5b QAT, 3 steps, each data rank taking
                4 of the 8 rows: losses against phase 23's (step 0 within
                1e-6 relative, the CPU harness's bar; steps 1-2 within
@@ -270,6 +272,43 @@ Phases (any failure exits non-zero before the final line is printed):
                mesh, run in processes of their own (no card, lowest
                priority) from the end of the build on: each record's
                status must be "ok".
+  26. tensor-parallel compute (cell T) — four processes share the card
+               over gloo as in phase 24, on the launchers' default
+               tensor-parallel runtime (`models.model.layer_tp` /
+               `vocab_tp`: attention on heads, the dense FFN on d_ff, the
+               embedding and the head on vocab, each rank's kernels on its
+               weight slices): (a) phase
+               6's full-width qwen1.5-0.5b QAT, 3 steps, on a (2 data, 2
+               model) mesh: losses against phase 23's (step 0 within
+               1e-3 relative, steps 1-2 within 5 %), the gradient norm of
+               steps 0-1 (gap printed, held to 1e-2), every rank's
+               kernel 1 and 5 launches equal to the formula on the
+               slices' shapes, s/step, peak memory and collective bytes a
+               rank beside phase 24's (the logits gather's share of them),
+               rank 0's last step traced by torch.profiler (the spans of
+               its kernels and copies on the card, the host's seconds
+               inside `spmd.collect`); (b) full-width granite-8b cut to 4
+               layers (w4a4, int8 KV, 4 slots, 8 x 128 + 32, one-chunk
+               prefill) on a (1, 4) mesh, heads, d_ff and vocab split
+               four ways, the KV sequence too (64 rows a rank, one whole
+               key split of kernel 9): the logits of the prefill and 4
+               teacher-forced decode steps against the one-process model
+               on the card, and both against the one-process model on the
+               CPU at the same inputs (the bf16 model-logits bar of
+               tests/test_fused_qat_matmul.py printed; held to phase 4's
+               bar for two summation orders: 90th percentile |dlogit|
+               <= 2**-7 max|logit|, argmax equal at all positions but one
+               and wherever decided beyond the gap, and the largest
+               |dlogit| within 4 x the one-process model's own
+               card-vs-CPU gap), 8 / 8 streams equal the
+               tensor-parallel greedy_generate and equal on every rank,
+               the first token where a stream leaves the one-process
+               stream (printed), kernels 7-9 launched on every rank,
+               decode tok/s a rank beside phase 24's; (c) kernel 8's
+               rows M-independent at the slices (4, 4096, 3584) and
+               (4, 3584, 4096), kernels 1 and 5 against their plain
+               versions at the column slice (4096, 1024, 1408) and the
+               row slice (4096, 1408, 1024).
   Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
   serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
   C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
@@ -951,8 +990,9 @@ def cell_r_phase(torch, ops, train, serve, cell_c: dict, cell_a: dict) -> dict:
 
 def sharded_rank(rank: int, port: int, out_dir: str) -> None:
     """One rank of phase 24 (`chip_smoke.py --sharded-rank R PORT DIR`):
-    the sharded QAT run, then the sharded serving run; writes its numbers
-    to DIR/rank{R}.json."""
+    the sharded QAT run, then the sharded serving run, both on the gathered
+    runtime (`tp_compute=False`: every layer gathered whole); writes its
+    numbers to DIR/rank{R}.json."""
     import os
     os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
     sys.path.insert(0, str(ROOT / "src"))
@@ -961,14 +1001,18 @@ def sharded_rank(rank: int, port: int, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.dist import spmd
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
     ckpt_dir = Path(out_dir) / "ckpt"
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = train.main(SHARDED_TRAIN + ["--ckpt", str(ckpt_dir), "--model-parallel", "2"])
+    spmd.reset_moved_bytes()
+    rep = train.main(SHARDED_TRAIN + ["--ckpt", str(ckpt_dir), "--model-parallel", "2"],
+                     tp_compute=False)
     torch.cuda.synchronize()
     res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
+                     "moved_bytes": spmd.moved_bytes(),
                      "grad_norms": rep.grad_norms, "healths": rep.healths, "step_seconds": rep.step_seconds,
                      "state_bytes": rep.state_bytes, "peak_bytes": rep.peak_bytes,
                      "launches": ops.launch_counts(), "backend": rep.mesh.backend,
@@ -977,8 +1021,9 @@ def sharded_rank(rank: int, port: int, out_dir: str) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
     t0 = time.perf_counter()
-    run = serve.main(SHARDED_SERVE + ["--model-parallel", "2"])
+    run = serve.main(SHARDED_SERVE + ["--model-parallel", "2"], tp_compute=False)
     torch.cuda.synchronize()
     kv = run.engine.executor.pool["layers"][0]["kv"]
     # the sharded decode's logits on fixed inputs, for the parent to hold
@@ -995,7 +1040,7 @@ def sharded_rank(rank: int, port: int, out_dir: str) -> None:
                     "launches": ops.launch_counts(), "kv_rows": int(kv.k.shape[1]),
                     "throughput": run.summary["throughput"],
                     "faults": {k: v for k, v in run.summary["faults"].items() if v},
-                    "peak_bytes": run.peak_bytes,
+                    "peak_bytes": run.peak_bytes, "moved_bytes": spmd.moved_bytes(),
                     "param_bytes": sum(t.numel() * t.element_size() for t in
                                        _leaves(run.params))}
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
@@ -1187,6 +1232,7 @@ def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
         "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
         "state_share_of_cell_c": [r["train"]["state_bytes"] / full_state for r in ranks],
         "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
+        "moved_gib": [sum(r["train"]["moved_bytes"].values()) / 2**30 for r in ranks],
         "step_seconds": [r["train"]["step_seconds"] for r in ranks],
         "launches": [r["train"]["launches"] for r in ranks]},
         "serve": {"streams_equal": equal, "logits_bit_equal": same_logits,
@@ -1194,8 +1240,359 @@ def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
                   "kv_rows_per_rank": sv[0]["kv_rows"],
                   "decode_tok_s": [s["throughput"]["decode_tok_s"] for s in sv],
                   "wall_s": [s["wall_s"] for s in sv],
+                  "moved_gib": [sum(s["moved_bytes"].values()) / 2**30 for s in sv],
                   "peak_gib": [s["peak_bytes"] / 2**30 for s in sv]},
         "seq_merge": merge}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: tensor-parallel compute (cell T)
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_MODEL, TP_SERVE_MODEL = 2, 4
+# cell T against cell R, relative: step 0's loss (the row-parallel sums
+# and the column-parallel dX partials only reorder and re-round f32 / bf16
+# sums); the later losses to the reference's 5 % (tests/test_spmd.py); the
+# gradient norm of steps 0 and 1, a factor's witness (a gradient scaled
+# by a factor gives at least its factor less one; tests/test_torch_tp.py
+# holds the same at 2e-3 on the CPU)
+TP_LOSS0_BAR, TP_LOSS_BAR, TP_GNORM_BAR = 1e-3, 0.05, 1e-2
+# rank 0 traces its last training step with torch.profiler (s/step is
+# read from the step before it)
+TP_PROFILED_STEP = 2
+# cell T's serving logits against the one-process model's on the card:
+# the largest |dlogit| within this multiple of the one-process model's own
+# largest gap between the card and the CPU at the same inputs (both are
+# one more order of the same sums; a rank's partial lost or doubled moves
+# logits by their own size, two orders beyond)
+TP_CPU_GAP_FACTOR = 4.0
+
+
+def tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 26 (`chip_smoke.py --tp-rank R PORT DIR`): cell
+    C's QAT on a (2, 2) mesh, then cell S's serving on a (1, 4) mesh, both
+    tensor-parallel (the launchers' default); writes its numbers to
+    DIR/rank{R}.json and rank 0 its teacher-forced logits."""
+    import os
+    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model as M
+    ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
+    prof = {}
+
+    def on_step(i, state):
+        if rank == 0 and i == TP_PROFILED_STEP:
+            torch.cuda.synchronize()
+            prof["p"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+            prof["collect0"] = spmd.collect_seconds()
+
+    t0 = time.perf_counter()
+    rep = train.main(SHARDED_TRAIN + ["--ckpt", str(Path(out_dir) / "ckpt"),
+                                      "--model-parallel", str(TP_TRAIN_MODEL)],
+                     on_step=on_step)
+    torch.cuda.synchronize()
+    step_prof = None
+    if prof:
+        window = time.perf_counter() - prof["t0"]
+        collect_s = spmd.collect_seconds() - prof["collect0"]
+        prof["p"].stop()
+        step_prof = step_profile(torch, prof["p"], window, collect_s)
+    res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
+                     "profile": step_prof,
+                     "grad_norms": rep.grad_norms, "healths": rep.healths,
+                     "step_seconds": rep.step_seconds, "state_bytes": rep.state_bytes,
+                     "peak_bytes": rep.peak_bytes, "moved_bytes": spmd.moved_bytes(),
+                     "launches": ops.launch_counts(), "coords": rep.mesh.coords,
+                     "mesh": rep.mesh.shape}}
+    del rep
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
+    t0 = time.perf_counter()
+    run = serve.main(SHARDED_SERVE + ["--model-parallel", str(TP_SERVE_MODEL)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, moved = ops.launch_counts(), spmd.moved_bytes()
+    sp, cfg, qcfg = run.spmd, run.cfg, run.qcfg
+    streams = {k: v.tokens for k, v in run.engine.results.items()}
+    n = len(run.prompts)
+    forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
+    lg = teacher_forced(torch, run.params, cfg, qcfg, run.prompts, forced, sp)
+    dev = M.params_device(run.params)
+    step = lambda p, c, x: M.prefill_step(p, c, x, cfg, qcfg, spmd=sp)  # noqa: E731
+    toks, _ = serve.greedy_generate(
+        step, run.params, M.init_cache(cfg, qcfg, n, SHARDED_CACHE, dev, spmd=sp),
+        torch.from_numpy(run.prompts).to(dev), 32)
+    if rank == 0:
+        import numpy as np
+        np.save(Path(out_dir) / "tp_logits.npy", lg.cpu().numpy())
+    kv = run.engine.executor.pool["layers"][0]["kv"]
+    res["serve"] = {"wall_s": wall, "streams": streams, "greedy": toks.tolist(),
+                    "launches": launches, "moved_bytes": moved,
+                    "kv_rows": int(kv.k.shape[1]), "mesh": sp.mesh.shape,
+                    "tp": [[t is not None for t in M.layer_tp(sp, cfg, i)[:2]]
+                           for i in range(cfg.n_layers)],
+                    "embed_tp": M.vocab_tp(sp, cfg)[0] is not None,
+                    "head_tp": M.vocab_tp(sp, cfg)[1] is not None,
+                    "throughput": run.summary["throughput"],
+                    "faults": {k: v for k, v in run.summary["faults"].items() if v},
+                    "peak_bytes": run.peak_bytes,
+                    "param_bytes": sum(t.numel() * t.element_size() for t in
+                                       _leaves(run.params))}
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
+    """What torch.profiler (device activity) saw on this rank over a window
+    of `window_s` host seconds (one training step): the spans of its
+    kernels and of its copies (gloo's staging between the card and the
+    host among them), their share of the window, and `collect_s`, the host
+    seconds inside `spmd.collect` (staging, the wire and the wait for the
+    other ranks). Where processes share the card, a span includes the
+    other contexts' time slices."""
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    copy = sum(e.self_device_time_total for e in dev
+               if e.key.startswith(("Memcpy", "Memset"))) / 1e6
+    kernel = sum(e.self_device_time_total for e in dev) / 1e6 - copy
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return {"window_s": window_s, "kernel_s": kernel, "copy_s": copy,
+            "device_busy_share": (kernel + copy) / window_s,
+            "kernel_share": kernel / window_s,
+            "collect_host_s": collect_s, "collect_share": collect_s / window_s,
+            "kernels": sum(e.count for e in dev),
+            "top": [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                    for e in top]}
+
+
+def _spawn_ranks(flag: str, out_dir: Path, timeout: int = 600) -> list:
+    """SHARDED_RANKS processes of this script (`flag R PORT DIR`), their
+    logs in DIR; their JSON results, or a failure with each log's tail."""
+    port = _free_port()
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(SHARDED_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               flag, str(r), str(port), str(out_dir)],
+                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(SHARDED_RANKS)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        for r in range(SHARDED_RANKS):
+            log(f"--- rank {r} (exit {rcs[r]}):\n"
+                + (out_dir / f"rank{r}.log").read_text()[-3000:])
+        fail(f"{flag} ranks exited {rcs}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(SHARDED_RANKS)]
+
+
+def _gap(torch, a, b) -> dict:
+    """|a - b| of logits (..., vocab) against the reference b: its 90th
+    percentile, mean and max, the largest |dp|, the argmax agreement, and
+    the positions whose top-2 gap in b exceeds twice their largest
+    |dlogit| (decided), all of which must agree."""
+    import numpy as np
+    d = (a - b).abs()
+    dn = d.numpy()
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    same = a2.argmax(-1) == b2.argmax(-1)
+    top2 = torch.topk(b2, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * d.reshape(a2.shape).max(-1).values
+    return {"q90": float(np.quantile(dn, 0.9)), "mean": float(dn.mean()),
+            "max": float(dn.max()), "max_logit": float(b.abs().max()),
+            "bit_equal_share": float((dn == 0).mean()),
+            "prob_gap": float((a.softmax(-1) - b.softmax(-1)).abs().max()),
+            "argmax_equal": int(same.sum()), "positions": same.numel(),
+            "decided": int(decided.sum()),
+            "decided_equal": bool(same[decided].all())}
+
+
+def logits_bar(torch, a, b, cpu) -> dict:
+    """Tensor-parallel logits `a` against the one-process model's `b` on
+    the card, and both against the one-process model on the CPU (`cpu`,
+    every kernel's plain version) at the same inputs (..., vocab).
+    Printed: tests/test_fused_qat_matmul.py's bf16 model-logits bar (90 %
+    of the logits within 1e-3, the mean gap under 0.05, probabilities
+    within 0.02, the argmax unchanged), which the CPU test holds (bit-equal
+    there). Held: phase 4's bar for two summation orders (90th percentile
+    |dlogit| <= 2**-7 max|logit|, the argmax equal at all positions but
+    one and at every decided one), and the largest |dlogit| within
+    TP_CPU_GAP_FACTOR x the one-process model's own card-vs-CPU largest
+    gap. The witness of the cause (each slice's split-K plan and the
+    ranks' f32 sum order the row-parallel products otherwise than the
+    whole weight's one call): the tensor-parallel logits are as far from
+    the CPU's as the one-process card logits are."""
+    out = _gap(torch, a, b)
+    out["vs_cpu"] = {"tp": _gap(torch, a, cpu), "one_process": _gap(torch, b, cpu)}
+    n = out["positions"]
+    out["bf16_bar"] = (out["q90"] < 1e-3 and out["mean"] < 0.05
+                       and out["prob_gap"] < 0.02 and out["argmax_equal"] == n)
+    out["ok"] = (out["q90"] <= 2 ** -7 * out["max_logit"]
+                 and out["argmax_equal"] >= n - 1 and out["decided_equal"]
+                 and out["max"] <= TP_CPU_GAP_FACTOR * out["vs_cpu"]["one_process"]["max"])
+    return out
+
+
+def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
+                 cell_c: dict) -> dict:
+    """Phase 26: tensor-parallel compute (see the docstring)."""
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    out_dir = ROOT / "build" / "chip_smoke_cell_t"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("--tp-rank", out_dir)
+    wall = time.perf_counter() - t0
+    log("  rank 0's log: " + " | ".join(
+        (out_dir / "rank0.log").read_text().splitlines()[:4]))
+    # (a) training on (2 data, 2 model): losses and gradient norms against
+    # cell R's one-process bits, launches against the formula on the slices
+    base, gbase = cell_r["losses"], cell_r["grad_norms"]
+    tr0 = ranks[0]["train"]
+    losses, gnorms = tr0["losses"], tr0["grad_norms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+    grel = [abs(a - b) / abs(b) for a, b in zip(gnorms, gbase)]
+    cfg, qcfg = get_config("qwen1.5-0.5b"), get_preset("w4a4")
+    tokens = 8 * 512 // (SHARDED_RANKS // TP_TRAIN_MODEL)
+    per_step = None
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        steady = tr["step_seconds"][1:] or tr["step_seconds"]
+        log(f"  rank {r} {tr['coords']}: train {tr['wall_s']:.1f} s, s/step "
+            f"{[round(x, 3) for x in tr['step_seconds']]} (median after the first "
+            f"{statistics.median(steady):.3f}), state {tr['state_bytes'] / 2**30:.3f} GiB, "
+            f"peak {tr['peak_bytes'] / 2**30:.2f} GiB, collectives "
+            f"{sum(tr['moved_bytes'].values()) / 2**30:.3f} GiB {tr['moved_bytes']}")
+        if (tr["losses"] != losses or tr["grad_norms"] != gnorms
+                or any(tr["healths"])):
+            fail(f"cell T rank {r}'s losses / norms / health differ: {tr['losses']} "
+                 f"{tr['grad_norms']} {tr['healths']}")
+        per_step = check_launches({"cfg": cfg, "qcfg": qcfg, "counts": {
+            k: tr["launches"][k] for k in QAT_KERNELS}}, len(losses), tokens,
+            tp_parts=TP_TRAIN_MODEL)
+    log(f"  cell T losses {losses} vs cell R's {base}: rel {rel} (bars: step 0 "
+        f"{TP_LOSS0_BAR}, later {TP_LOSS_BAR}); gradient norms {gnorms} vs {gbase}: "
+        f"gap {grel[:2]} at steps 0-1 (bar {TP_GNORM_BAR})")
+    if (not all(x == x for x in losses + gnorms) or rel[0] > TP_LOSS0_BAR
+            or max(rel[1:]) > TP_LOSS_BAR or max(grel[:2]) > TP_GNORM_BAR):
+        fail(f"cell T losses {losses} / norms {gnorms} vs {base} / {gbase}")
+    # s/step: the step before the traced one
+    s_train = [r["train"]["step_seconds"][TP_PROFILED_STEP - 1] for r in ranks]
+    moved = [sum(r["train"]["moved_bytes"].values()) for r in ranks]
+    # the whole f32 logits each rank gathers a step, over its data rows
+    logits_gather = tokens * cfg.padded_vocab * 4 * len(losses)
+    prof = tr0["profile"]
+    log(f"  cell T s/step (step {TP_PROFILED_STEP - 1}) {s_train} vs cell S's (gathered) "
+        f"{[statistics.median(x[1:]) for x in cell_s['train']['step_seconds']]}; "
+        f"collectives a rank {[m / 2**30 for m in moved]} GiB vs "
+        f"{cell_s['train']['moved_gib']}, the logits gather "
+        f"{logits_gather / 2**30:.3f} GiB of them ({logits_gather / moved[0]:.3f}); "
+        f"rank 0's traced step {TP_PROFILED_STEP}: {prof}")
+    # (b) serving on (1, 4): heads, d_ff and vocab over the 4 ranks, the KV
+    # sequence over the same 4
+    sv = [res["serve"] for res in ranks]
+    streams = sv[0]["streams"]
+    n = len(streams)
+    for r, s in enumerate(sv):
+        log(f"  rank {r}: serve {s['wall_s']:.1f} s, {s['kv_rows']} KV rows, launches "
+            f"{ {k: s['launches'][k] for k in ('int_matmul', 'int4_matmul', 'pooled_decode_attention')} }, "
+            f"params {s['param_bytes'] / 2**30:.3f} GiB, peak {s['peak_bytes'] / 2**30:.2f} GiB, "
+            f"decode {s['throughput']['decode_tok_s']:.1f} tok/s, collectives "
+            f"{sum(s['moved_bytes'].values()) / 2**30:.3f} GiB; faults {s['faults']}")
+        if s["streams"] != streams or s["faults"]:
+            fail(f"cell T rank {r}'s streams differ or faulted")
+        if s["greedy"] != [streams[f"req-{i}"] for i in range(n)]:
+            fail(f"cell T rank {r}: the engine's streams differ from the "
+                 "tensor-parallel greedy_generate")
+        if (not all(a and f for a, f in s["tp"]) or not s["embed_tp"] or not s["head_tp"]
+                or s["kv_rows"] != SHARDED_CACHE // TP_SERVE_MODEL
+                or min(s["launches"][k] for k in ("int_matmul", "int4_matmul",
+                                                  "pooled_decode_attention")) <= 0):
+            fail(f"cell T rank {r}: not tensor-parallel throughout, or kernels 7-9 "
+                 f"not launched: {s['tp']} {s['launches']} {s['kv_rows']}")
+    run = serve.main(SHARDED_SERVE)  # the one-process engine and model
+    one_streams = {k: v.tokens for k, v in run.engine.results.items()}
+    import numpy as np
+    a = torch.from_numpy(np.load(out_dir / "tp_logits.npy"))
+    forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
+    b = teacher_forced(torch, run.params, run.cfg, run.qcfg, run.prompts, forced,
+                       run.spmd).cpu()
+    t_cpu = time.perf_counter()
+    with torch.no_grad():  # the one-process model on the CPU: the plain versions
+        cpu = teacher_forced(torch, _to(run.params, "cpu"), run.cfg, run.qcfg,
+                             run.prompts, forced, run.spmd)
+    t_cpu = time.perf_counter() - t_cpu
+    bar = logits_bar(torch, a, b, cpu)
+    firsts = [_first_difference(streams[f"req-{i}"], one_streams[f"req-{i}"])
+              for i in range(n)]
+    log(f"  cell T logits (prefill + 4 forced decode steps, {n} rows) against the "
+        f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
+        f"there): {bar}; streams {n}/{n} equal the tensor-parallel "
+        f"greedy_generate on every rank; first token leaving the one-process stream "
+        f"{firsts}; decode tok/s a rank "
+        f"{[s['throughput']['decode_tok_s'] for s in sv]} vs cell S's "
+        f"{cell_s['serve']['decode_tok_s']}")
+    if not bar["ok"]:
+        fail(f"cell T serving logits depart from the one-process model's: {bar}")
+    del run
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # (c) the kernels at the slices' shapes
+    gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 26)
+    timer = Timer(torch)
+    indep = [check_m_independence(torch, qmm, k, nn, gen) for k, nn in
+             ((4096, 14336 // TP_SERVE_MODEL), (14336 // TP_SERVE_MODEL, 4096))]
+    m = 8 * 512
+    qat = {"quant_matmul": [], "quant_matmul_bwd": []}
+    for k, nn in ((1024, 2816 // TP_TRAIN_MODEL), (2816 // TP_TRAIN_MODEL, 1024)):
+        qat["quant_matmul"].append(check_qat_fwd(torch, timer, qmm, ref, m, k, nn, False,
+                                                 gen, QAT_QS))
+        qat["quant_matmul_bwd"].append(check_qat_bwd(
+            torch, timer, qmm, ref, "quant_matmul_bwd", m, k, nn, False, True, gen, QAT_QS))
+    torch.cuda.empty_cache()
+    log(f"  cell T wall {wall:.1f} s (4 processes, their start included)")
+    return {"wall_s": wall, "train": {
+        "losses": losses, "rel_vs_cell_r": rel, "grad_norms": gnorms,
+        "grad_norm_rel_vs_cell_r": grel, "launches_per_step": per_step,
+        "s_per_step": s_train, "profile": prof,
+        "logits_gather_share": logits_gather / moved[0],
+        "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
+        "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
+        "moved_gib": [sum(r["train"]["moved_bytes"].values()) / 2**30 for r in ranks],
+        "step_seconds": [r["train"]["step_seconds"] for r in ranks]},
+        "serve": {"logits": bar, "first_difference": firsts,
+                  "launches": [{k: s["launches"][k] for k in (
+                      "int_matmul", "int4_matmul", "pooled_decode_attention")} for s in sv],
+                  "decode_tok_s": [s["throughput"]["decode_tok_s"] for s in sv],
+                  "wall_s": [s["wall_s"] for s in sv],
+                  "moved_gib": [sum(s["moved_bytes"].values()) / 2**30 for s in sv],
+                  "peak_gib": [s["peak_bytes"] / 2**30 for s in sv],
+                  "param_gib": [s["param_bytes"] / 2**30 for s in sv]},
+        "slices": {"m_independence": indep, "qat": qat}}
 
 
 # ---------------------------------------------------------------------------
@@ -1922,7 +2319,8 @@ QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
                "quant_matmul_bwd_batched")
 
 
-def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
+def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
+                tp_parts: int = 1) -> list:
     """Every linear of a train step that takes the QAT kernels, as
     (name, count in the model, M, K, N, f32 cotangent, batched, remat):
     a block linear whose kind quantizes both its input and its weight (not
@@ -1936,7 +2334,10 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
     linear); an RG-LRU block's g_gate / g_in, g_a / g_x, g_out; and the
     head (untied, or tied as the transposed per-tensor embedding). Block
     linears run their forward twice (remat recomputes the block in the
-    backward); the head once."""
+    backward); the head once. tp_parts: one rank's slices of a
+    tensor-parallel run (`dist.spmd.Spmd.tp`): the attention's and the
+    dense FFN's linears and the head cut over that many model ranks, on N
+    for the column-parallel ones and on K for wo and w_out."""
     from repro_torch.core.policy import act_spec, weight_spec
     from repro_torch.models.common import NAME2KIND
     from repro_torch.models.moe import capacity
@@ -1961,8 +2362,9 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
         if count and fused(name):
             out.append((label or name, count, m, k, n, False, False, True))
 
-    for name, k, n in (("wq", d, h * hd), ("wk", d, hkv * hd), ("wv", d, hkv * hd),
-                       ("wo", h * hd, d)):
+    p = tp_parts
+    for name, k, n in (("wq", d, h * hd // p), ("wk", d, hkv * hd // p),
+                       ("wv", d, hkv * hd // p), ("wo", h * hd // p, d)):
         add(name, attn, tokens, k, n)
     for name, m, k, n in (("xq", tokens, d, h * hd), ("xk", frontend_rows, d, hkv * hd),
                           ("xv", frontend_rows, d, hkv * hd), ("xo", tokens, h * hd, d)):
@@ -1970,7 +2372,7 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
     ffn = (("w_gate", d, f),) if cfg.ffn_gated else ()
     ffn += (("w_in", d, f), ("w_out", f, d))
     for name, k, n in ffn:
-        add(name, dense, tokens, k, n)
+        add(name, dense, tokens, *((k // p, n) if name == "w_out" else (k, n // p)))
         moe_name = {"w_gate": "moe_gate", "w_in": "moe_in", "w_out": "moe_out"}[name]
         if moe and fused(moe_name):
             groups = cfg.moe_dispatch_groups
@@ -1992,11 +2394,12 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> list:
     tied_ok = (cfg.tie_embeddings and fused("lm_head", "embed")
                and weight_spec(qcfg, "embed").granularity == "per_tensor")
     if tied_ok or (not cfg.tie_embeddings and fused("lm_head")):
-        out.append(("lm_head", 1, tokens, d, cfg.padded_vocab, True, False, False))
+        out.append(("lm_head", 1, tokens, d, cfg.padded_vocab // p, True, False, False))
     return out
 
 
-def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> dict:
+def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0,
+                          tp_parts: int = 1) -> dict:
     """Launches a train step makes, from `qat_linears`: each linear's
     forward (twice for a block linear), and its backward on the route the
     dispatcher takes (`quant_matmul.bwd_route` on the padded shape, the
@@ -2006,8 +2409,8 @@ def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> dic
     (expert by expert for the batched kernels)."""
     from repro_torch.kernels.quant_matmul import bwd_route
     c = dict.fromkeys(QAT_KERNELS, 0)
-    for _, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens,
-                                                                  frontend_rows):
+    for _, count, m, k, n, f32_cot, batched, remat in qat_linears(
+            cfg, qcfg, tokens, frontend_rows, tp_parts):
         e = cfg.n_experts if batched else 1
         c["quant_matmul_batched" if batched else "quant_matmul"] += count * (2 if remat else 1)
         if bwd_route(m, k, n) == "split":
@@ -2018,13 +2421,13 @@ def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> dic
     return c
 
 
-def formula(cfg, qcfg, tokens: int, frontend_rows: int = 0) -> str:
+def formula(cfg, qcfg, tokens: int, frontend_rows: int = 0, tp_parts: int = 1) -> str:
     """`qat_launches_per_step`'s terms: each linear, its count, its
     forwards and its backward route."""
     from repro_torch.kernels.quant_matmul import bwd_route
     parts = []
-    for name, count, m, k, n, f32_cot, batched, remat in qat_linears(cfg, qcfg, tokens,
-                                                                     frontend_rows):
+    for name, count, m, k, n, f32_cot, batched, remat in qat_linears(
+            cfg, qcfg, tokens, frontend_rows, tp_parts):
         route = bwd_route(m, k, n)
         route += " (3 planes)" if f32_cot else (" (1 plane)" if route == "split" else "")
         each = f" x {cfg.n_experts} experts" if batched and route.startswith("split") else ""
@@ -2242,13 +2645,16 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
 
 
 def check_launches(run: dict, steps: int, tokens: int,
-                   every_kernel: bool = False, frontend_rows: int = 0) -> dict:
+                   every_kernel: bool = False, frontend_rows: int = 0,
+                   tp_parts: int = 1) -> dict:
     """A run's QAT launches equal `qat_launches_per_step` x steps (and,
     with every_kernel, each QAT kernel was launched)."""
-    per_step = qat_launches_per_step(run["cfg"], run["qcfg"], tokens, frontend_rows)
+    per_step = qat_launches_per_step(run["cfg"], run["qcfg"], tokens, frontend_rows,
+                                     tp_parts)
     want = {k: v * steps for k, v in per_step.items()}
     log(f"  launches {run['counts']}; per step {per_step} "
-        f"({formula(run['cfg'], run['qcfg'], tokens, frontend_rows)}) x {steps} steps = {want}")
+        f"({formula(run['cfg'], run['qcfg'], tokens, frontend_rows, tp_parts)}) x "
+        f"{steps} steps = {want}")
     if (run["counts"] != want or not any(want.values())
             or (every_kernel and not all(want.values()))):
         fail(f"{run['cfg'].name} QAT launches {run['counts']} != {per_step} "
@@ -3350,6 +3756,9 @@ def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--sharded-rank":
         sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-rank":
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -3711,6 +4120,16 @@ def main() -> None:
     #     cell A's decode count, the dry-run CLI
     log("dry run and roofline (cells C and A):")
     dry = dryrun_phase(torch, first, dryrun_cli)
+    torch.cuda.empty_cache()
+    mark("phase 26")
+    # 26. tensor-parallel compute: cell C's QAT and cell S's serving on
+    #     weight slices (four ranks sharing the card over gloo), the
+    #     kernels at the slices' shapes
+    log("tensor-parallel compute, four ranks sharing the card (cell T):")
+    cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, first)
+    for name, rs in cell_t["slices"]["qat"].items():
+        qat_rows[name].extend(rs)
+    mark("phase 26 done")
     counts.update(first["counts"])
     for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
         counts[name] = moe_run["counts"][name]
@@ -3769,6 +4188,12 @@ def main() -> None:
                 cell: recurrent[cell]["launches"][name] for cell in "LM"}
         if name == "pooled_decode_attention":
             kernels[-1]["launches_sharded_serve_per_rank"] = cell_s["serve"]["decode_launches"]
+        if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
+            kernels[-1]["launches_tp_serve_per_rank"] = [
+                x[name] for x in cell_t["serve"]["launches"]]
+        if name in ("quant_matmul", "quant_matmul_bwd"):
+            kernels[-1]["launches_tp_train_per_rank_step"] = cell_t["train"][
+                "launches_per_step"][name]
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
@@ -3834,7 +4259,7 @@ def main() -> None:
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
         "nan_rows": nan_rows, "fault_contract": faults, "compression": compressed,
-        "sharded": {"R": cell_r, "S": cell_s}, "dryrun": dry,
+        "sharded": {"R": cell_r, "S": cell_s, "T": cell_t}, "dryrun": dry,
         "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
                       for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}

@@ -90,17 +90,26 @@ def _group_reduce_dims(scale_shape: tuple[int, ...], x_shape: tuple[int, ...]):
 
 
 def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
-                      scale_shape: tuple[int, ...]) -> torch.Tensor:
+                      scale_shape: tuple[int, ...], tp=None) -> torch.Tensor:
     """Gradient scale g for the learnable scale factor, shaped like the scale.
 
     module_l1 (paper, Sec 4.4.1): g = 1 / sqrt(Q_P * ||w||_1) per scale
     group; lsq: g = 1 / sqrt(N * Q_P); none: g = 1.
+
+    tp: `w` is this rank's slice of a weight split over `tp.parts` model
+    ranks (`dist.spmd.TPSplit`). A 0-d scale (per-tensor, or an activation
+    scale keyed on the weight) is replicated and its group is the whole
+    weight: g is the whole weight's, from the slices' l1 all-reduced over
+    the model ranks, or from the whole element count. A scale with axes is
+    split with its weight's groups (`sharding._scale_pspec`: a per-head
+    scale with its heads), so each of its groups is whole on its rank.
     """
     if spec.grad_scale_mode == "none":
         return torch.ones(scale_shape, dtype=torch.float32, device=w.device)
     dims = _group_reduce_dims(scale_shape, tuple(w.shape))
+    spans = tp is not None and not scale_shape
     if spec.grad_scale_mode == "lsq":
-        n = 1.0
+        n = float(tp.parts) if spans else 1.0
         for a in dims:
             n *= w.shape[a]
         val = 1.0 / torch.sqrt(torch.tensor(n * spec.q_p, dtype=torch.float32))
@@ -108,6 +117,10 @@ def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
                           device=w.device)
     l1 = torch.sum(torch.abs(w.to(torch.float32)), dim=dims,
                    keepdim=bool(len(scale_shape)))
+    if spans:
+        from repro_torch.dist.spmd import all_reduce
+        with torch.no_grad():
+            l1 = all_reduce(l1, tp.group)
     return 1.0 / torch.sqrt(spec.q_p * torch.clamp(l1, min=EPS_SCALE))
 
 
@@ -140,22 +153,24 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def fake_quant(x: torch.Tensor, scale: torch.Tensor, spec: QuantSpec,
                offset: Optional[torch.Tensor] = None,
-               grad_scale_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+               grad_scale_ref: Optional[torch.Tensor] = None,
+               tp=None) -> torch.Tensor:
     """Quantize-dequantize ``x`` with learnable ``scale`` (and LSQ+
     ``offset``), with the STE gradients of Eq. 6-7 for x, scale and offset.
 
     Same operation order and dtypes as `repro.core.quantizer.fake_quant`:
     the scale passes through grad_scale (the module-wise g factor from
     ``grad_scale_ref``, default x itself), is floored at EPS_SCALE and cast
-    to x's dtype before the division.
+    to x's dtype before the division. tp: the reference is this rank's
+    tensor-parallel slice (`scale_grad_factor`).
     """
     ref = (x if grad_scale_ref is None else grad_scale_ref).detach()
     sshape = tuple(scale.shape)
     if grad_scale_ref is None or len(sshape) == 0 or ref.dim() == len(sshape):
-        g = scale_grad_factor(spec, ref, sshape)
+        g = scale_grad_factor(spec, ref, sshape, tp)
     else:
         # activation scale keyed on module weights of another rank
-        g = scale_grad_factor(spec, ref, ()).expand(sshape)
+        g = scale_grad_factor(spec, ref, (), tp).expand(sshape)
     s = grad_scale(scale, g)
     s = torch.maximum(s, torch.tensor(EPS_SCALE, dtype=s.dtype,
                                       device=s.device)).to(x.dtype)

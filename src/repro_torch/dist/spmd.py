@@ -14,12 +14,37 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   the layer runs (`models.model.forward(spmd=...)`, inside the block's
   checkpoint, so a remat backward gathers again) through `_GatherMany`,
   whose backward turns the full gradients back into this rank's slices
-  (a layer's collectives are launched together, `collect`): the model
-  axis keeps its own slice (the ranks of a data group hold the same rows
-  and the same gradient: it is summed once, not once per model rank), the
-  data axes are reduce-scattered where the leaf splits over them and
+  (a layer's collectives are launched together, `collect`): the data
+  axes are reduce-scattered where the leaf splits over them and
   all-reduced where it does not, and the sum is divided by the number of
-  data ranks (each local loss is a mean over local rows).
+  data ranks (each local loss is a mean over local rows). A leaf gathered
+  whole over the model axis keeps its own model slice of the full
+  gradient (the ranks of a data group hold the same rows and the same
+  gradient: it is summed once, not once per model rank).
+* Tensor-parallel compute (`tp_compute=True`, the default). Where the
+  model names a sublayer that may run so (`models.model.layer_tp`: a
+  block's attention, wq / wk / wv / wo on heads, and its dense FFN,
+  w_in / w_gate / w_out on d_ff; the embedding and the head on vocab) and the
+  rules split every weight of it over `model` (`Spmd.tp`), its leaves
+  are gathered over the data axes only and each rank runs the kernels on
+  its own slices, as GSPMD partitions the reference's einsums: a
+  column-parallel linear (q / k / v, w_in / w_gate, the head) takes its
+  input through `to_model` (identity forward, all-reduce backward) and
+  gives this rank's output columns; a row-parallel one (wo, w_out) takes
+  this rank's input columns and its partial output goes through
+  `from_model` (a sum forward, identity backward: an all-reduce, or with
+  `ordered_sums`, which the serving runtime asks for, the partials
+  gathered and added in rank order); the logits come out whole through
+  `gather_model` (all-gather forward; the backward keeps this rank's
+  slice, every model rank holding the same loss). Replicated leaves that
+  model-split work reads (activation scales and offsets, per-tensor
+  weight scales, biases) go through `to_model`, so their partial
+  gradients are summed over the model ranks, and the module-wise g
+  factor is the whole weight's (`core.quantizer.scale_grad_factor`).
+  Everything else (MoE experts, the
+  recurrent blocks, cross-attention, a weight that does not divide,
+  no_tp, `tp_compute=False`) keeps the gathered path above, so every
+  model rank computes it whole.
 * Global decisions come out of all-reduces: the loss and metrics (means
   over the data ranks), the gradient norm (each element counted once),
   OBR's Eq. 10 (on the gathered leaf), the oscillation fraction (on the
@@ -30,17 +55,24 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   over the model axis holds rows [k T/M, (k+1) T/M) on model rank k
   (`SeqSplit`): `models.attention.attend_chunk` runs the decode-attention
   kernel over those rows and merges the ranks' (acc, m, l) triples in rank
-  order; a row is written only on the rank that holds it.
+  order; a row is written only on the rank that holds it. With a
+  tensor-parallel attention, q, k and v leave their column-parallel
+  slices through `gather_model` over heads before that attention (the
+  cache holds every head of its rows), and each rank passes its own heads
+  of the merged output to the row-parallel wo.
 
-The kernels run unchanged on gathered weights. Tensor-parallel compute
-(column- and row-parallel tiles on weight shards) is not part of this
-module. One process is a world of one: it holds every tensor whole, so
-nothing is gathered, cut or reduced, and its arithmetic is the
-single-process arithmetic exactly. `WHOLE` is its runtime, the default of
-every function that takes an `spmd`.
+The kernels run unchanged, on gathered weights or on this rank's slices.
+Tensor parallelism sums row-parallel partials and column-parallel input
+gradients over the model ranks, so it is not bit-equal to one process
+(the gathered runtime is, up to the data ranks' sums). One process is a
+world of one: it holds every tensor whole, so nothing is gathered, cut or
+reduced, and its arithmetic is the single-process arithmetic exactly.
+`WHOLE` is its runtime, the default of every function that takes an
+`spmd`.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -65,6 +97,26 @@ _REDUCE_SCATTER = (getattr(dist, "reduce_scatter_single", None)
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+# bytes each kind of collective delivered to this rank since the last
+# reset (the outputs' bytes, `launch.cost`'s accounting), and the host
+# seconds spent inside `collect` (staging, the wire and the wait)
+_MOVED: dict = {}
+_SECONDS = [0.0]
+
+
+def moved_bytes() -> dict:
+    return dict(_MOVED)
+
+
+def collect_seconds() -> float:
+    return _SECONDS[0]
+
+
+def reset_moved_bytes() -> None:
+    _MOVED.clear()
+    _SECONDS[0] = 0.0
+
+
 def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
@@ -76,7 +128,16 @@ def collect(jobs: list) -> list:
     this rank's 1/n along dim, "sum" / "max" all-reduce. Every job is
     launched before any is waited on, so gloo's threads move several at
     once (about twice the rate of one at a time on 4 CPU ranks); a job
-    without a group returns its tensor."""
+    without a group returns its tensor. Its host seconds add up in
+    `collect_seconds`."""
+    t0 = time.perf_counter()
+    try:
+        return _collect(jobs)
+    finally:
+        _SECONDS[0] += time.perf_counter() - t0
+
+
+def _collect(jobs: list) -> list:
     pend = []
     for kind, t, group, dim in jobs:
         if group is None:
@@ -103,6 +164,7 @@ def collect(jobs: list) -> list:
             work = dist.all_reduce(out, op=_REDUCE_OPS[kind], group=group,
                                    async_op=True)
         cost.record_collective(kind, out)
+        _MOVED[kind] = _MOVED.get(kind, 0) + out.numel() * out.element_size()
         pend.append((work, out, kind, dim, t.device))
     results = []
     for work, out, kind, dim, device in pend:
@@ -199,6 +261,110 @@ class _GatherMany(torch.autograd.Function):
         return (None, None, None, *out)
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel operators over the model group
+# ---------------------------------------------------------------------------
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the model ranks' partial
+    gradients (in f32, cast back to the gradient's dtype)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, all_reduce(g.to(torch.float32), ctx.group).to(g.dtype)
+
+
+class _FromModel(torch.autograd.Function):
+    """Sum over the model ranks forward; identity backward. ordered: the
+    ranks' partials gathered and added in rank order (M x an all-reduce's
+    bytes), so a row's bits do not depend on the rows that share the call;
+    otherwise an all-reduce, whose order follows the backend's chunking of
+    the whole buffer."""
+
+    @staticmethod
+    def forward(ctx, group, ordered, x):
+        if not ordered:
+            return all_reduce(x, group)
+        parts = all_gather(x[None], group, 0)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather along `dim` in rank order; the backward returns this
+    rank's slice of the gradient, unsummed: every model rank holds the
+    same loss, so each holds the whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, group, index, dim, x):
+        ctx.index, ctx.dim, ctx.n = index, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+
+
+class TPSplit(NamedTuple):
+    """A sublayer's weights split over the `parts` model ranks of `group`;
+    this rank holds part `index`. ordered: `from_model` sums in rank order
+    (the serving runtime asks for it: its engine's streams then equal
+    `greedy_generate`'s whatever rows a call batches). `dim`: the weight
+    axis a linear's slice is cut along (set by `models.common` per
+    linear)."""
+    group: Any
+    index: int
+    parts: int
+    ordered: bool = False
+    dim: Optional[int] = None
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        return _ToModel.apply(self.group, x)
+
+    def from_model(self, x: torch.Tensor) -> torch.Tensor:
+        return _FromModel.apply(self.group, self.ordered, x)
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _GatherModel.apply(self.group, self.index, dim % x.dim(), x)
+
+    def local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part of a whole tensor along `dim`."""
+        n = x.shape[dim] // self.parts
+        return x.narrow(dim, self.index * n, n)
+
+
+def _strip_model(spec: tuple) -> tuple:
+    """`spec` without the model axis: the leaf gathered over the data axes
+    only."""
+    out = []
+    for entry in spec:
+        axes = tuple(a for a in shard.spec_axes(entry) if a != "model")
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(out)
+
+
+def _weight_spec(sub: Any) -> Optional[tuple]:
+    """The spec of a linear's weight (w, codes or codes4) in its spec
+    subtree; None where it has none."""
+    if not isinstance(sub, dict):
+        return None
+    for key in ("w", "codes", "codes4"):
+        if key in sub:
+            return sub[key]
+    return None
+
+
 def spec_at(specs: Any, path: tuple) -> Any:
     for key in path:
         specs = specs[key]
@@ -232,7 +398,8 @@ class Spmd:
     may be None."""
 
     def __init__(self, mesh, pspecs: Any = None, *, osc_specs: tuple = (),
-                 no_tp: bool = False):
+                 no_tp: bool = False, tp_compute: bool = True,
+                 ordered_sums: bool = False):
         self.mesh = mesh
         self.whole = mesh.world == 1
         self.pspecs = pspecs
@@ -243,6 +410,37 @@ class Spmd:
         self.data_axes = tuple(shard.batch_axes(mesh)) + (("model",) if no_tp else ())
         self.seq_parts: Optional[list] = None  # set by local_cache
         self._owners = None  # per leaf of pspecs: counted in the norm here
+        # tp_compute: model-split sublayers run on this rank's slices;
+        # False gathers every leaf whole (the gathered runtime).
+        # ordered_sums: `TPSplit.ordered`
+        self._split = None
+        if (tp_compute and not no_tp and not self.whole and pspecs is not None
+                and mesh.shape.get("model", 1) > 1):
+            self._split = TPSplit(mesh.group(("model",)), mesh.coords["model"],
+                                  mesh.shape["model"], ordered_sums)
+        self._tp: dict = {}
+
+    # -- tensor parallelism ----------------------------------------------------
+    def _model_split(self, spec: Optional[tuple]) -> bool:
+        return spec is not None and any(
+            "model" in shard.spec_axes(e) for e in spec)
+
+    def tp(self, path: tuple, names: tuple = ()) -> Optional[TPSplit]:
+        """This rank's split where tensor-parallel compute is on and the
+        weight of every linear `names` under `path` (of the linear at
+        `path` itself, names empty) splits over the model axis; else None
+        (the caller runs the sublayer whole, on gathered leaves). Which
+        sublayers may run so is the model's decision (`models.model.
+        layer_tp`)."""
+        if self._split is None:
+            return None
+        key = (path, names)
+        if key not in self._tp:
+            sub = spec_at(self.pspecs, path)
+            self._tp[key] = self._split if all(
+                self._model_split(_weight_spec(sub[n] if names else sub))
+                for n in names or (None,)) else None
+        return self._tp[key]
 
     # -- batch ---------------------------------------------------------------
     def rows(self, batch: dict) -> dict:
@@ -263,13 +461,17 @@ class Spmd:
         return out
 
     # -- params --------------------------------------------------------------
-    def gather(self, path: tuple, sub: Any) -> Any:
+    def gather(self, path: tuple, sub: Any, split: tuple = ()) -> Any:
         """The full leaves of the subtree at `path`, gathered together
         (autograd carries the gradients of leaves that need one back to
-        their slices)."""
+        their slices); the leaves under the keys `split` of `sub` (the
+        linears of a tensor-parallel sublayer, `tp`) are gathered over the
+        data axes only, and keep their model slices."""
         if self.whole:
             return sub
-        items = [(leaf, spec) for _, leaf, spec
+        items = [(leaf, _strip_model(spec) if spec is not None and sub_path
+                  and sub_path[0] in split else spec)
+                 for sub_path, leaf, spec
                  in shard.with_specs(sub, spec_at(self.pspecs, path))]
         reduce = self.mesh.size(self.data_axes) > 1
         todo = [j for j, (leaf, spec) in enumerate(items) if leaf is not None and (

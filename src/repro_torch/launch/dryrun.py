@@ -23,6 +23,18 @@ takes its plain version there, which computes nothing on meta, and counts
 as one op with its own figures. A world of one (the `mesh_sizes=(1, 1)`
 test seam) builds no process group.
 
+The step is the tensor-parallel one (`dist.spmd.Spmd(tp_compute=True)`,
+the default of the launchers), as the reference's GSPMD step partitions
+its einsums over `model`: rank 0 counts the dots of its own weight slices
+wherever the rules split a sublayer's weights over the model axis (the
+attention on heads, the dense FFN on d_ff, the embedding and the head on
+vocab), plus the all-reduces of row-parallel outputs and of
+column-parallel input gradients and the all-gather of the logits; a
+sublayer whose weights do not split (MoE experts, recurrent blocks,
+cross-attention, a weight that does not divide) is gathered whole and
+counted whole on every rank, as is a serving chunk's attention over its
+own keys (the cache's rows split over the model axis, its heads do not).
+
 Memory, per rank: `argument_size_in_bytes` is this rank's state (params,
 moments, telemetry) or serving params and cache, plus its batch rows, from
 the rules; `temp_size_in_bytes` is the CostMode's live-bytes peak (new

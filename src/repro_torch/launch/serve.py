@@ -13,17 +13,23 @@ separately.
 
 The engine serves on a (world // M, M) `launch.mesh.make_host_mesh` mesh,
 M = --model-parallel, over torchrun's process group (WORLD_SIZE): each rank
-holds its slices of the codes by `dist.sharding.param_pspecs` and gathers
-them layer by layer; the caches go through `cache_pspecs(shard_batch=
-False)`, so the KV sequence axis splits over the model ranks (each runs the
-decode kernel over its rows and the ranks' partial softmax triples are
-merged) and the slot axis does not. Every rank runs the same engine loop on
-the same prompts; the logits come out whole on every rank, so the greedy
-picks agree. The executor's rebuild path makes its caches sharded again.
+holds its slices of the codes by `dist.sharding.param_pspecs`; the
+attention, the dense FFN, the embedding and the head compute
+tensor-parallel on those slices where the rules split them over the model
+axis (`dist.spmd`; `main(tp_compute=False)`, no CLI flag, gathers every
+layer whole instead), and the rest is gathered layer by layer; the caches
+go through `cache_pspecs(shard_batch=False)`, so the KV sequence axis
+splits over the model ranks (each runs the decode kernel over its rows,
+every head, and the ranks' partial softmax triples are merged) and the
+slot axis does not. Every rank runs the same engine loop on the same
+prompts; the logits come out whole on every rank, so the greedy picks
+agree. The executor's rebuild path makes its caches sharded again.
 A slot's cache holds prompt + new tokens rows, rounded up on a model axis
 M > 1 to a multiple of M x the decode kernel's key split, so each rank
 holds whole splits and the ranks' split triples merge as the kernel merges
-its own: the one-process bits. One process is a world of one, which holds
+its own: the one-process bits where the layers are gathered whole
+(tensor-parallel linears sum their partial products over the ranks,
+which rounds otherwise). One process is a world of one, which holds
 everything whole.
 
 The serving sentinel is armed as in the JAX launcher: non-finite logits rows
@@ -128,7 +134,7 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> ServeRun:
+def main(argv=None, tp_compute: bool = True) -> ServeRun:
     args = _parser().parse_args(argv)
     mesh = make_host_mesh(args.mp, args.device)
     device = mesh.device
@@ -143,7 +149,9 @@ def main(argv=None) -> ServeRun:
     params = M.init_serving_params(cfg, qcfg, gen, device)
     pspecs = sharding.param_pspecs(params, mesh)  # this rank's slices
     params = sharding.shard_tree(params, pspecs, mesh, mesh.coords)
-    sp = spmd.Spmd(mesh, pspecs)
+    # ordered sums: a row's bits do not depend on the rows a call batches,
+    # so the engine's streams equal greedy_generate's
+    sp = spmd.Spmd(mesh, pspecs, tp_compute=tp_compute, ordered_sums=True)
 
     max_len = args.prompt_len + args.new_tokens
     if mesh.shape["model"] > 1:  # whole key splits a model rank

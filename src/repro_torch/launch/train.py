@@ -20,8 +20,12 @@ The loop runs the step of `dist.spmd` on a (world // M, M)
 process group (WORLD_SIZE): the state held as this rank's slices by
 `dist.sharding.state_pspecs`, every rank drawing the global batch and
 keeping its rows, checkpoints written as full arrays by rank 0 and restored
-as each rank's slices (so a run may resume on another mesh). One process is
-a world of one, which holds the whole state.
+as each rank's slices (so a run may resume on another mesh). On a model
+axis M > 1 the attention, the dense FFN, the embedding and the head compute
+tensor-parallel on each rank's weight slices wherever the rules split them
+(`dist.spmd`); `run_training(tp_compute=False)` (no CLI flag) gathers every
+layer whole instead. One process is a world of one, which holds the whole
+state.
 """
 from __future__ import annotations
 
@@ -90,8 +94,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
                  extra_loss: Optional[Callable] = None,
                  on_step: Optional[Callable] = None,
                  mgr: Optional[CheckpointManager] = None,
-                 seed: int = 0, device=None, model_parallel: int = 1
-                 ) -> RunReport:
+                 seed: int = 0, device=None, model_parallel: int = 1,
+                 tp_compute: bool = True) -> RunReport:
     """The QAT loop: restore -> step -> health -> save, with sentinel
     rollback recovery (`tcfg.sentinel`; None runs the bare loop).
 
@@ -99,7 +103,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
     on_step(i, state) -> state | None: a host hook before each step;
     mgr: a preconfigured CheckpointManager (tests use async_io=False); by
     default one over `ckpt_dir` stamped with an (arch, quant) fingerprint.
-    model_parallel: the mesh's model axis (see the module docstring).
+    model_parallel: the mesh's model axis (see the module docstring);
+    tp_compute: tensor-parallel sublayers (`dist.spmd.Spmd`).
     """
     mesh = make_host_mesh(model_parallel, device)
     device = mesh.device
@@ -113,7 +118,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
     mgr.layout = sharding.Layout(mesh, specs)
     state, start = mgr.restore_or_init(
         lambda: spmd.init_sharded_state(cfg, qcfg, tcfg, gen, mesh, specs))
-    sp = spmd.Spmd(mesh, specs["params"], osc_specs=specs["osc"])
+    sp = spmd.Spmd(mesh, specs["params"], osc_specs=specs["osc"],
+                   tp_compute=tp_compute)
     if start:
         print(f"restored from step {start} onto {mesh.world} rank(s)", flush=True)
     step_fn = make_train_step(cfg, qcfg, tcfg, extra_loss=extra_loss, spmd=sp)
@@ -198,7 +204,8 @@ def default_ckpt_dir(name: str) -> str:
     return str(Path(__file__).resolve().parents[3] / "build" / f"ckpt-{name}")
 
 
-def main(argv=None) -> RunReport:
+def main(argv=None, tp_compute: bool = True,
+         on_step: Optional[Callable] = None) -> RunReport:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b", choices=ARCH_IDS)
     ap.add_argument("--quant", default="w4a4")
@@ -248,7 +255,7 @@ def main(argv=None) -> RunReport:
         cfg, qcfg, tcfg, dcfg, steps=args.steps, batch_size=args.batch,
         seq_len=args.seq, ckpt_dir=args.ckpt or default_ckpt_dir(cfg.name),
         save_every=args.save_every, seed=args.seed, device=args.device,
-        model_parallel=args.mp)
+        model_parallel=args.mp, tp_compute=tp_compute, on_step=on_step)
     print(f"done. final_step={report.final_step} "
           f"loss={report.final_loss:.4f} rollbacks={report.rollbacks} "
           f"skipped={report.skipped} preempted={report.preempted}", flush=True)

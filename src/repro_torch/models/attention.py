@@ -26,7 +26,11 @@ PyTorch counterpart of `repro.models.attention`:
     (`merge_partials`: bit-equal to the whole cache's kernel call where each
     rank holds whole splits), then merges the chunk keys as before; the
     unfused route all-gathers the slices first.
-    `local_rows` keeps the appended rows this rank holds.
+    `local_rows` keeps the appended rows this rank holds. The cache holds
+    every head of its rows: a tensor-parallel attention (heads split over
+    the model ranks, `models.model.block_decode`) gathers its q, k and v
+    over heads before `attend_chunk` and keeps its own heads of the
+    output; the training path (`attend_full`) runs on the local heads.
 """
 from __future__ import annotations
 

@@ -113,10 +113,18 @@ def _use_fused(qcfg: QuantConfig, x: torch.Tensor) -> bool:
     return True
 
 
-def _w_scale_side(scale_shape, w_shape, n_k: int):
+def _w_scale_side(scale_shape, w_shape, n_k: int, tp=None):
     """Which side of the 2D reshape a weight scale's groups lie on: "n"
     (per-tensor, or 1s on every contracted axis), "k" (1s on every output
-    axis — per-head wo/xo under MDQ), or None (groups straddle both sides)."""
+    axis — per-head wo/xo under MDQ), or None (groups straddle both sides).
+    tp: the shapes are a tensor-parallel slice's; the side is the whole
+    weight's (a scale with axes splits with its weight along tp.dim, so a
+    slice of one head keeps its per-head scale's side)."""
+    if tp is not None and len(scale_shape) == len(w_shape):
+        scale_shape, w_shape = list(scale_shape), list(w_shape)
+        if scale_shape[tp.dim] == w_shape[tp.dim]:
+            scale_shape[tp.dim] *= tp.parts
+        w_shape[tp.dim] *= tp.parts
     if len(scale_shape) == 0:
         return "n"
     if len(scale_shape) != len(w_shape):
@@ -130,10 +138,10 @@ def _w_scale_side(scale_shape, w_shape, n_k: int):
     return None
 
 
-def _cols_shape_ok(scale_shape, w_shape, n_k: int) -> bool:
+def _cols_shape_ok(scale_shape, w_shape, n_k: int, tp=None) -> bool:
     """True when the scale's groups lie on the N side of the 2D reshape —
     the only scales the serving int(4)_matmul folds (one per column)."""
-    return _w_scale_side(scale_shape, w_shape, n_k) == "n"
+    return _w_scale_side(scale_shape, w_shape, n_k, tp) == "n"
 
 
 def _scale_cols(scale: torch.Tensor, w_shape, n_k: int) -> torch.Tensor:
@@ -155,42 +163,44 @@ def _scale_rows(scale: torch.Tensor, w_shape, n_k: int) -> torch.Tensor:
 
 
 def _fused_eligible(qcfg: QuantConfig, aspec, wspec, eq: str, p: dict,
-                    w: torch.Tensor, x: torch.Tensor) -> bool:
+                    w: torch.Tensor, x: torch.Tensor, tp=None) -> bool:
     """A latent linear takes the fused QAT route: a covered einsum, both
     quantizers present and not 1-bit (sign_ste differs from round/clip),
-    and a weight scale whose groups lie on one side of the 2D reshape."""
+    and a weight scale whose groups lie on one side of the 2D reshape (of
+    the whole weight, for a tensor-parallel slice)."""
     if eq not in FUSED_EQS or aspec is None or wspec is None:
         return False
     if "a_scale" not in p or aspec.bits == 1 or wspec.bits == 1:
         return False
     if _w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape),
-                     FUSED_EQS[eq]) is None:
+                     FUSED_EQS[eq], tp) is None:
         return False
     return _use_fused(qcfg, x)
 
 
 def _fused_qat_linear(p: dict, x: torch.Tensor, aspec, wspec, n_k: int, *,
-                      cotangent_rounding: bool = True) -> torch.Tensor:
+                      cotangent_rounding: bool = True, tp=None) -> torch.Tensor:
     """One QAT linear through `ops.fused_qat_matmul` -> f32.
 
     grad_scale (the module-wise g factor, Sec. 4.4.1) is applied here,
     outside the autograd Function, exactly as `fake_quant` does, so the five
     gradients match the unfused composition's autograd. N-side scales fold
     to a (N,) column vector, K-side per-head scales (wo/xo) to a (K,) row
-    vector.
+    vector. tp: `p` holds this rank's slice of a tensor-parallel linear
+    (`qlinear`); the g factors are the whole weight's.
     """
     w = p["w"]
     k = math.prod(w.shape[:n_k])
     n = w.numel() // k
     ref = w.detach()
-    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape))
+    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape), tp)
     s_w = grad_scale(p["w_scale"], g_w)
-    side = _w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape), n_k)
+    side = _w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape), n_k, tp)
     if side == "k":
         ws_vec = _scale_rows(s_w, w.shape, n_k)
     else:
         ws_vec = _scale_cols(s_w, w.shape, n_k)
-    g_a = scale_grad_factor(aspec, ref, ())
+    g_a = scale_grad_factor(aspec, ref, (), tp)
     s_a = grad_scale(p["a_scale"], g_a)
     if "a_offset" in p:
         b_a = grad_scale(p["a_offset"], g_a)
@@ -316,14 +326,17 @@ def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, out_dtype=None, *,
 
 
 def _serving_linear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig,
-                    eq: str, cdtype, out_dtype=None) -> torch.Tensor:
+                    eq: str, cdtype, out_dtype=None, tp=None) -> torch.Tensor:
     """Serving linear over int codes: the int(4)_matmul kernel route when
     the shape is covered, dequantize + einsum fallback otherwise.
 
     The two round differently, as in the JAX package: the kernel route
     dequantizes bf16(f32(code) * max(f32 scale, 1e-9)); the fallback
-    multiplies bf16(code) * bf16(scale) with no floor.
+    multiplies bf16(code) * bf16(scale) with no floor. tp: the codes are
+    this rank's slice (`_tp_inputs`); a row-parallel slice's partial
+    product is summed over the model ranks in f32, then rounded.
     """
+    row = tp is not None and tp.dim == 0
     kind = kind_of(name)
     wspec = weight_spec(qcfg, kind) or _SPEC8
     packed = "codes4" in p
@@ -336,7 +349,7 @@ def _serving_linear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig,
     orig_shape = tuple(orig_shape)
     fused = (n_k is not None and _use_fused(qcfg, x)
              and (not packed or ax < n_k)
-             and _cols_shape_ok(tuple(p["w_scale"].shape), orig_shape, n_k))
+             and _cols_shape_ok(tuple(p["w_scale"].shape), orig_shape, n_k, tp))
     if fused:
         k = math.prod(orig_shape[:n_k])
         n = codes.numel() // (k // 2 if packed else k)
@@ -347,11 +360,15 @@ def _serving_linear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig,
         y = ops.int_matmul(x2, codes2, cols, wspec, packed=packed,
                            out_dtype=torch.float32)
         y = y.reshape(lead + tuple(orig_shape[n_k:]))
+        if row:
+            y = tp.from_model(y)
         y = y.to(out_dtype or cdtype)
     else:
         full = unpack_int4(codes, ax) if packed else codes
         w = full.to(cdtype) * p["w_scale"].to(cdtype)
-        y = _einsum(eq, x.to(cdtype), w, out_dtype)
+        y = _einsum(eq, x.to(cdtype), w, torch.float32 if row else out_dtype)
+        if row:
+            y = tp.from_model(y).to(out_dtype or cdtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -385,8 +402,44 @@ def linear_init(gen: torch.Generator, name: str, qcfg: QuantConfig,
     return p
 
 
+# Row-parallel linears: their weight splits over the model axis on its
+# contracted (leading) axis (`dist.sharding`); every other linear that
+# splits is column-parallel, on its first output axis.
+ROW_PARALLEL = frozenset({"wo", "xo", "w_out", "m_down", "g_out"})
+
+
+def _tp_replicated(p: dict, tp) -> dict:
+    """`p` with its replicated leaves that model-split work reads (the
+    activation scale and offset, a per-tensor weight scale) through
+    `to_model`, so their partial gradients are summed over the model
+    ranks."""
+    q = dict(p)
+    for key in ("a_scale", "a_offset"):
+        if key in q:
+            q[key] = tp.to_model(q[key])
+    if "w_scale" in q and q["w_scale"].dim() == 0:
+        q["w_scale"] = tp.to_model(q["w_scale"])
+    return q
+
+
+def _tp_inputs(p: dict, x: torch.Tensor, name: str, tp):
+    """(p, x, tp) of a tensor-parallel linear on this rank's slice: tp
+    with the weight axis the slice is cut along (0 row-parallel, 1
+    column-parallel), the replicated leaves through `to_model`; a
+    column-parallel linear's input through `to_model` too and its
+    (replicated) bias cut to this rank's columns."""
+    row = name in ROW_PARALLEL
+    tp = tp._replace(dim=0 if row else 1)
+    q = _tp_replicated(p, tp)
+    if not row:
+        x = tp.to_model(x)
+        if "b" in q:
+            q["b"] = tp.local(tp.to_model(q["b"]), 0)
+    return q, x, tp
+
+
 def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
-            cdtype=torch.bfloat16) -> torch.Tensor:
+            cdtype=torch.bfloat16, tp=None) -> torch.Tensor:
     """Apply a quantized einsum-linear.
 
     Int codes (serving) go through `_serving_linear`. A latent QAT weight
@@ -395,32 +448,51 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
     (every 2D contraction of FUSED_EQS with N- or K-side scales), else the
     unfused composition: fake-quant the activations in f32 (g from the
     weight) and the weight, and contract in the compute dtype.
+
+    tp (a `dist.spmd.TPSplit`, None for a whole weight): `p` holds this
+    rank's slice. Column-parallel (ROW_PARALLEL's complement: wq / wk /
+    wv on heads, w_in / w_gate on d_ff) gives this rank's output columns;
+    row-parallel (wo on heads, its per-head K-side scale sliced with them;
+    w_out on d_ff) takes this rank's input columns and returns the whole
+    output, its partial products summed over the model ranks in f32. The
+    route follows the same rules as for the whole weight.
     """
+    if tp is not None:
+        p, x, tp = _tp_inputs(p, x, name, tp)
+    row = tp is not None and tp.dim == 0
     if "codes" in p or "codes4" in p:
-        return _serving_linear(p, x, name, qcfg, eq, cdtype)
+        return _serving_linear(p, x, name, qcfg, eq, cdtype, tp=tp)
     kind = kind_of(name)
     w = p["w"]
     aspec = act_spec(qcfg, kind)
     wspec = weight_spec(qcfg, kind)
     if _fused_eligible_batched(qcfg, aspec, wspec, eq, p, w, x):
         y = _fused_qat_linear_batched(p, x, aspec, wspec).to(cdtype)
-    elif _fused_eligible(qcfg, aspec, wspec, eq, p, w, x):
-        y = _fused_qat_linear(p, x, aspec, wspec, FUSED_EQS[eq]).to(cdtype)
+    elif _fused_eligible(qcfg, aspec, wspec, eq, p, w, x, tp):
+        y = _fused_qat_linear(p, x, aspec, wspec, FUSED_EQS[eq], tp=tp)
+        if row:
+            y = tp.from_model(y)
+        y = y.to(cdtype)
     else:
         latent = w.dtype == torch.float32  # serving keeps bf16 weights
         if aspec is not None:
             x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
-                           offset=p.get("a_offset"), grad_scale_ref=w)
+                           offset=p.get("a_offset"), grad_scale_ref=w, tp=tp)
         if wspec is not None:
-            w = fake_quant(w, p["w_scale"], wspec)
-        y = _einsum(eq, x.to(cdtype), w.to(cdtype), row_blocks=not latent)
+            w = fake_quant(w, p["w_scale"], wspec, tp=tp)
+        y = _einsum(eq, x.to(cdtype), w.to(cdtype),
+                    torch.float32 if row else None, row_blocks=not latent)
+        if row:
+            y = tp.from_model(y).to(cdtype)
     if "b" in p:
         y = y + p["b"].to(cdtype)
     return y
 
 
-def quantized_weight(p: dict, name: str, qcfg: QuantConfig) -> torch.Tensor:
-    """The dequantized (f32 for int codes) or fake-quantized latent weight."""
+def quantized_weight(p: dict, name: str, qcfg: QuantConfig,
+                     tp=None) -> torch.Tensor:
+    """The dequantized (f32 for int codes) or fake-quantized latent weight
+    (tp: a tensor-parallel slice, for the g factor)."""
     if "codes4" in p:
         codes = unpack_int4(p["codes4"], pack_axis_of(name))
         return codes.to(torch.float32) * p["w_scale"].to(torch.float32)
@@ -429,7 +501,7 @@ def quantized_weight(p: dict, name: str, qcfg: QuantConfig) -> torch.Tensor:
     wspec = weight_spec(qcfg, kind_of(name))
     if wspec is None:
         return p["w"]
-    return fake_quant(p["w"], p["w_scale"], wspec)
+    return fake_quant(p["w"], p["w_scale"], wspec, tp=tp)
 
 
 def convert_to_serving(params, qcfg: QuantConfig):
@@ -493,7 +565,28 @@ def embed_init(gen: torch.Generator, qcfg: QuantConfig, vocab_padded: int,
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor, qcfg: QuantConfig,
-                 cdtype=torch.bfloat16) -> torch.Tensor:
+                 cdtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """The (dequantized or fake-quantized) table's rows of `tokens`.
+
+    tp: vocab-parallel, `p` holds this rank's rows [index n, (index + 1)
+    n) of the table; each rank looks up the tokens it holds (zeros for the
+    others) and `from_model` sums the ranks' rows: one nonzero a token, so
+    the sum is the whole table's row exactly."""
+    if tp is not None:
+        p = _tp_replicated(p, tp)
+        key = "w" if "w" in p else ("codes4" if "codes4" in p else "codes")
+        n = p[key].shape[0]
+        local = tokens - tp.index * n
+        inside = (local >= 0) & (local < n)
+        rows = _embed_rows(p, torch.where(inside, local, 0), qcfg, cdtype, tp)
+        rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device))
+        return tp.from_model(rows)
+    return _embed_rows(p, tokens, qcfg, cdtype)
+
+
+def _embed_rows(p: dict, tokens: torch.Tensor, qcfg: QuantConfig, cdtype,
+                tp=None) -> torch.Tensor:
     if "codes4" in p:
         # gather the packed (V, d/2) byte rows, then unpack + dequantize the
         # gathered rows only: reads stay 0.5 byte/element
@@ -501,7 +594,7 @@ def embed_lookup(p: dict, tokens: torch.Tensor, qcfg: QuantConfig,
         return unpack_int4(rows, -1).to(cdtype) * p["w_scale"].to(cdtype)
     if "codes" in p:
         return p["codes"][tokens].to(cdtype) * p["w_scale"].to(cdtype)
-    w = quantized_weight(p, "embed", qcfg)
+    w = quantized_weight(p, "embed", qcfg, tp=tp)
     return w.to(cdtype)[tokens]
 
 
@@ -526,7 +619,7 @@ def tied_head_act_init(qcfg: QuantConfig, device=None,
 
 def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
                   vocab_padded: int, final_softcap: float = 0.0,
-                  tied_embed: Optional[dict] = None) -> torch.Tensor:
+                  tied_embed: Optional[dict] = None, tp=None) -> torch.Tensor:
     """Project to (padded) vocab logits in f32; mask padding columns.
 
     The untied latent head, and the tied latent head (the transposed
@@ -537,7 +630,18 @@ def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
     the activation quantizer with g from the latent weight (or, in
     serving, from the dequantized embedding), and a bf16 einsum summed in
     f32.
+
+    tp: vocab-parallel, the head's weight (or the tied table) holds this
+    rank's vocab columns: the rank computes its columns as a
+    column-parallel linear (the padding mask on their global indices) and
+    `gather_model` gives every rank the whole logits.
     """
+    if tp is not None:
+        tp = tp._replace(dim=1)
+        x = tp.to_model(x)
+        p = _tp_replicated(p, tp)
+        if tied_embed is not None:
+            tied_embed = _tp_replicated(tied_embed, tp)
     if tied_embed is not None:
         aspec = act_spec(qcfg, "lm_head")
         wspec = weight_spec(qcfg, "embed")
@@ -552,42 +656,48 @@ def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
             if "a_offset" in p:
                 pseudo["a_offset"] = p["a_offset"]
             logits = _fused_qat_linear(pseudo, x, aspec, wspec, 1,
-                                       cotangent_rounding=False)
+                                       cotangent_rounding=False, tp=tp)
         else:
             w_latent = tied_embed.get("w")
-            w = quantized_weight(tied_embed, "embed", qcfg).T  # (d, V)
+            w = quantized_weight(tied_embed, "embed", qcfg, tp=tp).T  # (d, V)
             if aspec is not None and "a_scale" in p:
                 ref = w_latent.T if w_latent is not None else w
                 x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
-                               offset=p.get("a_offset"), grad_scale_ref=ref)
+                               offset=p.get("a_offset"), grad_scale_ref=ref,
+                               tp=tp)
             logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
                              w.to(torch.bfloat16), torch.float32,
                              row_blocks=w_latent is None)
     elif "codes" in p or "codes4" in p:
         logits = _serving_linear(p, x, "lm_head", qcfg, "bsd,dv->bsv",
-                                 torch.bfloat16, out_dtype=torch.float32)
+                                 torch.bfloat16, out_dtype=torch.float32, tp=tp)
     else:
         w = p["w"]
         aspec = act_spec(qcfg, "lm_head")
         wspec = weight_spec(qcfg, "lm_head")
-        if _fused_eligible(qcfg, aspec, wspec, "bsd,dv->bsv", p, w, x):
+        if _fused_eligible(qcfg, aspec, wspec, "bsd,dv->bsv", p, w, x, tp):
             logits = _fused_qat_linear(p, x, aspec, wspec, 1,
-                                       cotangent_rounding=False)
+                                       cotangent_rounding=False, tp=tp)
         else:
             if aspec is not None:
                 x = fake_quant(x.to(torch.float32), p["a_scale"], aspec,
-                               offset=p.get("a_offset"), grad_scale_ref=w)
+                               offset=p.get("a_offset"), grad_scale_ref=w,
+                               tp=tp)
             latent = w.dtype == torch.float32  # serving keeps bf16 weights
             if wspec is not None:
-                w = fake_quant(w, p["w_scale"], wspec)
+                w = fake_quant(w, p["w_scale"], wspec, tp=tp)
             logits = _einsum("bsd,dv->bsv", x.to(torch.bfloat16),
                              w.to(torch.bfloat16), torch.float32,
                              row_blocks=not latent)
     if final_softcap > 0.0:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     if vocab_padded != vocab_size:
-        pad_mask = torch.arange(vocab_padded, device=logits.device) < vocab_size
+        n = logits.shape[-1]  # this rank's columns [col, col + n)
+        col = tp.index * n if tp is not None else 0
+        pad_mask = torch.arange(col, col + n, device=logits.device) < vocab_size
         logits = torch.where(pad_mask, logits, -1e9)
+    if tp is not None:
+        logits = tp.gather_model(logits, -1)
     return logits
 
 

@@ -160,11 +160,14 @@ def init_params(cfg: ArchConfig, qcfg: QuantConfig, generator: torch.Generator,
 # ===========================================================================
 
 def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
-                   positions, cdtype):
+                   positions, cdtype, tp=None):
+    """x + wo(attend(q, k, v)). tp: tensor-parallel on heads, each rank
+    attending over its own contiguous q heads and the kv heads they read
+    (both counts divide the model ranks), its wo row-parallel."""
     xn = apply_norm(p["ln1"], x, cfg.norm)
-    q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype)
-    k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype)
-    v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype)
+    q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype, tp)
+    k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype, tp)
+    v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype, tp)
     if cfg.pos == "rope":
         q = attn.rope_apply(q, positions, cfg.rope_theta)
         k = attn.rope_apply(k, positions, cfg.rope_theta)
@@ -177,7 +180,7 @@ def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
         o = attn.attend_full(q, k, v, causal=cfg.causal, window=window,
                              softcap=cfg.attn_softcap, q_positions=positions,
                              k_positions=positions, q_per_kv=cfg.q_per_kv)
-    out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
+    out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype, tp)
     if cfg.sandwich_norm:
         out = apply_norm(p["ln1_post"], out, cfg.norm)
     return x + out
@@ -206,11 +209,13 @@ def cross_kv(p, embeds, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
 
 def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                 qcfg: QuantConfig, positions: torch.Tensor, cross_embeds,
-                cdtype):
+                cdtype, tp_attn=None, tp_ffn=None):
     """One training block: (x, sdam, lb_loss, drop_frac) with sdam the
     block output's SDAM (a metric: no gradient flows through it) and the
     MoE FFN's load-balance loss and drop fraction (zeros otherwise).
-    cross_embeds: the vision patches (B, P, d) a cross layer attends to."""
+    cross_embeds: the vision patches (B, P, d) a cross layer attends to.
+    tp_attn / tp_ffn: the attention / dense FFN run tensor-parallel on
+    this rank's slices (`dist.spmd.Spmd.tp`)."""
     if bd.attn == "mlstm":
         x, _ = rec.mlstm_block(p, x, cfg, qcfg, cdtype)
     elif bd.attn == "slstm":
@@ -218,7 +223,7 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     elif bd.attn == "rglru":
         x, _ = rec.rglru_block(p["rg"], x, cfg, qcfg, cdtype)
     else:
-        x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype)
+        x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype, tp_attn)
     if bd.cross_attn:
         x = _cross_sublayer(p, x, cross_kv(p, cross_embeds, cfg, qcfg, cdtype),
                             cfg, qcfg, cdtype)
@@ -229,27 +234,66 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
         x = x + y
         lb, drop = maux["lb_loss"], maux["drop_frac"]
     elif bd.ffn == "dense":
-        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype, tp_ffn)
     with torch.no_grad():
         sdam = sdam_metric(x)
     return x, sdam, lb, drop
 
 
 def _token_inputs(params, tokens, fe, cfg: ArchConfig, qcfg: QuantConfig,
-                  cdtype) -> torch.Tensor:
-    """The sqrt(d)-scaled token embeddings, plus the audio frames (B, S, d)
-    where the config has that frontend and the batch carries them."""
-    x = embed_lookup(params["embed"], tokens, qcfg, cdtype)
+                  cdtype, tp=None) -> torch.Tensor:
+    """The sqrt(d)-scaled token embeddings (tp: vocab-parallel), plus the
+    audio frames (B, S, d) where the config has that frontend and the
+    batch carries them."""
+    x = embed_lookup(params["embed"], tokens, qcfg, cdtype, tp)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdtype, device=x.device)
     if cfg.frontend == "audio_frames" and fe is not None:
         x = x + fe.to(cdtype)
     return x
 
 
-def _gathered_block(spmd: Spmd, i: int, p: dict, *args):
-    """block_apply on layer i's full leaves (`spmd.gather`), inside the
-    block's checkpoint, so a remat backward gathers again."""
-    return block_apply(spmd.gather(("layers", i), p), *args)
+ATTN_LINEARS = ("wq", "wk", "wv", "wo")
+
+
+def layer_tp(spmd: Spmd, cfg: ArchConfig, i: int) -> tuple:
+    """(attention, dense FFN, split) of layer i: this rank's
+    `dist.spmd.TPSplit` for each sublayer the block has and whose weights
+    the rules split over the model axis, else None, and the names of the
+    linears that keep their model slices. Only a block's own attention and
+    its dense FFN run tensor-parallel; a recurrent block (an sLSTM's FFN
+    inside it), cross-attention and MoE experts run whole."""
+    bd = cfg.block_at(i)
+    ffn = ("w_in", "w_gate", "w_out") if cfg.ffn_gated else ("w_in", "w_out")
+    ta = (spmd.tp(("layers", i), ATTN_LINEARS)
+          if bd.attn in ("global", "local") else None)
+    tf = spmd.tp(("layers", i), ffn) if bd.ffn == "dense" else None
+    return ta, tf, (ATTN_LINEARS if ta else ()) + (ffn if tf else ())
+
+
+def vocab_tp(spmd: Spmd, cfg: ArchConfig) -> tuple:
+    """(embedding, head): their vocab-parallel splits, or None; a tied
+    head is the embedding's."""
+    embed = spmd.tp(("embed",))
+    return embed, embed if cfg.tie_embeddings else spmd.tp(("lm_head",))
+
+
+def _gather_top(params: dict, spmd: Spmd, vocab: tuple) -> dict:
+    """The leaves outside the layers, gathered; a vocab-parallel
+    embedding or head keeps its model slices."""
+    keep = {"embed": vocab[0], "lm_head": vocab[1]}
+    return {k: v if k == "layers" else spmd.gather(
+                (k,), v, tuple(v) if keep.get(k) is not None else ())
+            for k, v in params.items()}
+
+
+def _gathered_block(spmd: Spmd, i: int, p: dict, x, bd: BlockDef,
+                    cfg: ArchConfig, *args):
+    """block_apply on layer i's leaves (`spmd.gather`: whole, or over the
+    data axes only for its tensor-parallel sublayers), inside the block's
+    checkpoint, so a remat backward gathers again."""
+    ta, tf, split = layer_tp(spmd, cfg, i)
+    return block_apply(spmd.gather(("layers", i), p, split), x, bd, cfg, *args,
+                       tp_attn=ta, tp_ffn=tf)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
@@ -270,18 +314,20 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
 
     spmd: the mesh's runtime (`dist.spmd`); where params are one rank's
     slices, the top-level leaves are gathered once and each layer's just
-    before it runs.
+    before it runs; the sublayers that `layer_tp` and `vocab_tp` name run
+    tensor-parallel (the logits come out whole on every rank).
     """
     cdtype = _cdtype(cfg)
-    params = {k: v if k == "layers" else spmd.gather((k,), v)
-              for k, v in params.items()}
+    vocab = vocab_tp(spmd, cfg)
+    params = _gather_top(params, spmd, vocab)
     fe = batch.get("frontend_embeds")
     cross_embeds = None
     if (cfg.frontend == "vision_patches"
             and not any(b.cross_attn for b in cfg.pattern)):
         x = fe.to(cdtype)  # an encoder over the patches: no token embedding
     else:
-        x = _token_inputs(params, batch["tokens"], fe, cfg, qcfg, cdtype)
+        x = _token_inputs(params, batch["tokens"], fe, cfg, qcfg, cdtype,
+                          vocab[0])
         if cfg.frontend == "vision_patches":
             cross_embeds = fe
     s = x.shape[1]
@@ -305,7 +351,8 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     logits = lm_head_apply(
         params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
         final_softcap=cfg.final_softcap,
-        tied_embed=params["embed"] if cfg.tie_embeddings else None)
+        tied_embed=params["embed"] if cfg.tie_embeddings else None,
+        tp=vocab[1])
     aux = {"lb_loss": lb_sum, "drop_frac": drop_sum,
            "act_sdam": sdam_sum / max(cfg.n_layers, 1)}
     return logits, aux
@@ -489,16 +536,18 @@ def cache_slot_reset(pool: dict, template: dict, slot: int) -> dict:
 # Decode
 # ===========================================================================
 
-def _ffn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
+def _ffn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, cdtype, tp=None):
+    """x + w_out(act(w_gate(xn)) * w_in(xn)); tp: tensor-parallel on d_ff
+    (w_in / w_gate column-parallel, w_out row-parallel)."""
     xn = apply_norm(p["ln2"], x, cfg.norm)
     if cfg.ffn_gated:
-        g = qlinear(p["w_gate"], xn, "w_gate", qcfg, "bsd,df->bsf", cdtype)
-        u = qlinear(p["w_in"], xn, "w_in", qcfg, "bsd,df->bsf", cdtype)
+        g = qlinear(p["w_gate"], xn, "w_gate", qcfg, "bsd,df->bsf", cdtype, tp)
+        u = qlinear(p["w_in"], xn, "w_in", qcfg, "bsd,df->bsf", cdtype, tp)
         h = activation(g, cfg.act) * u
     else:
-        u = qlinear(p["w_in"], xn, "w_in", qcfg, "bsd,df->bsf", cdtype)
+        u = qlinear(p["w_in"], xn, "w_in", qcfg, "bsd,df->bsf", cdtype, tp)
         h = activation(u, cfg.act)
-    out = qlinear(p["w_out"], h, "w_out", qcfg, "bsf,fd->bsd", cdtype)
+    out = qlinear(p["w_out"], h, "w_out", qcfg, "bsf,fd->bsd", cdtype, tp)
     if cfg.sandwich_norm:
         out = apply_norm(p["ln2_post"], out, cfg.norm)
     return x + out
@@ -506,7 +555,7 @@ def _ffn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
 
 def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                  qcfg: QuantConfig, cache: dict, pos: torch.Tensor, cdtype,
-                 seq=None):
+                 seq=None, tp_attn=None, tp_ffn=None):
     """Chunk step against one layer's cache. x: (B,C,d); pos: (B,C).
 
     Returns (x, pending): {"kv": (k, v)}, the chunk's roped K/V, or
@@ -516,7 +565,10 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     and they attend to nothing. Recurrent blocks consume every chunk token
     unconditionally, so padded chunks are only valid for attention blocks
     (the serving engine refuses recurrent and cross patterns). seq: the KV
-    cache's sequence split (`attention.attend_chunk`).
+    cache's sequence split (`attention.attend_chunk`). tp_attn / tp_ffn:
+    tensor-parallel sublayers (`dist.spmd.Spmd.tp`); the cache holds every
+    head of its rows, so q, k and v are gathered over heads for the
+    attention and each rank's own heads of its output enter wo.
     """
     if bd.attn in RECURRENT:
         block = {"mlstm": rec.mlstm_block, "slstm": rec.slstm_block,
@@ -525,18 +577,23 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                       cdtype, state=cache[bd.attn])
         pending = {bd.attn: st}
     else:
+        tp = tp_attn
         xn = apply_norm(p["ln1"], x, cfg.norm)
-        q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype)
-        k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype)
-        v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype)
+        q = qlinear(p["wq"], xn, "wq", qcfg, "bsd,dhk->bshk", cdtype, tp)
+        k = qlinear(p["wk"], xn, "wk", qcfg, "bsd,dhk->bshk", cdtype, tp)
+        v = qlinear(p["wv"], xn, "wv", qcfg, "bsd,dhk->bshk", cdtype, tp)
         if cfg.pos == "rope":
             q = attn.rope_apply(q, pos, cfg.rope_theta)
             k = attn.rope_apply(k, pos, cfg.rope_theta)
+        if tp is not None:
+            q, k, v = (tp.gather_model(t, 2) for t in (q, k, v))
         o = attn.attend_chunk(q, k, v, cache["kv"], qcfg, q_per_kv=cfg.q_per_kv,
                               pos=pos,
                               window=cfg.window if bd.attn == "local" else 0,
                               softcap=cfg.attn_softcap, seq=seq)
-        out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype)
+        if tp is not None:
+            o = tp.local(o, 2)
+        out = qlinear(p["wo"], o, "wo", qcfg, "bshk,hkd->bsd", cdtype, tp)
         if cfg.sandwich_norm:
             out = apply_norm(p["ln1_post"], out, cfg.norm)
         x = x + out
@@ -548,7 +605,7 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                                cfg, qcfg, cdtype)
         x = x + y
     elif bd.ffn == "dense":
-        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype)
+        x = _ffn_sublayer(p, x, cfg, qcfg, cdtype, tp_ffn)
     return x, pending
 
 
@@ -566,28 +623,32 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
     spmd: the mesh's runtime (`dist.spmd`), where params hold this rank's
     slices (gathered layer by layer) and the cache is this rank's slice
     (`init_cache(spmd=...)`): a sequence-sharded KV cache attends over
-    every rank's rows and takes the rows it holds; the logits come out
+    every rank's rows and takes the rows it holds; the sublayers that
+    `layer_tp` and `vocab_tp` name run tensor-parallel; the logits come out
     whole on every rank.
     """
     cdtype = _cdtype(cfg)
-    params = {k: v if k == "layers" else spmd.gather((k,), v)
-              for k, v in params.items()}
+    vocab = vocab_tp(spmd, cfg)
+    params = _gather_top(params, spmd, vocab)
     tokens, pos = batch["tokens"], batch["pos"]
     x = _token_inputs(params, tokens, batch.get("frontend_embeds"), cfg, qcfg,
-                      cdtype)
+                      cdtype, vocab[0])
     if cfg.pos == "learned":  # padding rows (pos -1) read row 0
         x = x + params["pos_embed"][pos.clamp(min=0).long()].to(cdtype)
     pending = []
     seqs = [spmd.seq(i) for i in range(cfg.n_layers)]
     for i, p in enumerate(params["layers"]):
-        x, pend = block_decode(spmd.gather(("layers", i), p), x, cfg.block_at(i), cfg, qcfg,
-                               cache["layers"][i], pos, cdtype, seq=seqs[i])
+        ta, tf, split = layer_tp(spmd, cfg, i)
+        x, pend = block_decode(spmd.gather(("layers", i), p, split), x,
+                               cfg.block_at(i), cfg, qcfg, cache["layers"][i],
+                               pos, cdtype, seq=seqs[i], tp_attn=ta, tp_ffn=tf)
         pending.append(pend)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_apply(
         params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
         final_softcap=cfg.final_softcap,
-        tied_embed=params["embed"] if cfg.tie_embeddings else None)
+        tied_embed=params["embed"] if cfg.tie_embeddings else None,
+        tp=vocab[1])
     rows = {}  # one index computation per cache shape, not per layer
     for i, pend in enumerate(pending):
         lay = cache["layers"][i]

@@ -17,9 +17,10 @@ import json
 import os
 
 HINTS = {
-    "compute_s": "raise the useful-FLOPs ratio: tensor-parallel compute (each "
-                 "model rank now computes every linear whole), cut remat waste / "
-                 "MoE capacity slack",
+    "compute_s": "raise the useful-FLOPs ratio: expert-parallel MoE and "
+                 "tensor-parallel recurrent / cross-attention blocks (each model "
+                 "rank still computes those whole), cut remat waste / MoE "
+                 "capacity slack",
     "memory_s": "cut HBM traffic: eager PyTorch writes every op's result to HBM; "
                 "fuse the elementwise chains around the QAT kernels, bf16 "
                 "attention probabilities, flash-style attention in training",

@@ -172,6 +172,10 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
     rank's slices and the batch its rows, the loss, metrics, gradient norm,
     OBR, the oscillation fraction, compression's amax and the sentinel's
     flags come out of all-reduces, so every rank takes the same decisions.
+    With tensor-parallel compute the gradients still come back as this
+    rank's slices by the state's specs (a model-split leaf's gradient is
+    its own slice's, a replicated one's is summed over the model ranks),
+    so each of these reads them as on the gathered runtime.
     """
     grad_fn = make_grad_fn(cfg, qcfg, tcfg, teacher_forward=teacher_forward,
                            extra_loss=extra_loss, spmd=spmd)

@@ -27,6 +27,11 @@ expert weights), gradient compression and the sentinel on, 3 steps of
 parallelism (`state_specs(no_tp=True)`, `Spmd(no_tp=True)`): the weights
 replicated, each rank taking 2 of the 8 rows of a batch, 4 steps of
 `make_train_step(spmd=...)` on the setup above; rank 0 writes its losses.
+Every run here pins `tp_compute=False`, the gathered runtime (every layer
+gathered whole, so each model rank computes every linear whole): the
+bars of tests/test_torch_spmd.py (step 0 within 1e-6 of one process, MoE
+bit-equal) are properties of that runtime. Tensor-parallel compute, the
+default, has its own harness and bars (tests/_torch_tp_harness.py).
 Not a test module.
 """
 from __future__ import annotations
@@ -99,7 +104,7 @@ def rank_main(rank: int, port: int, run_dir: str, out: str) -> None:
     mgr = CheckpointManager(run_dir, save_every=7, async_io=False)
     rep = run_training(cfg, qcfg, tcfg, dcfg, steps=8, batch_size=8, seq_len=16,
                        ckpt_dir=run_dir, mgr=mgr, log_every=0, device="cpu",
-                       model_parallel=MODEL)
+                       model_parallel=MODEL, tp_compute=False)
     mesh = rep.mesh
     train_s = time.perf_counter() - t0
     dist.barrier()
@@ -117,7 +122,7 @@ def rank_main(rank: int, port: int, run_dir: str, out: str) -> None:
     got = compressed_psum(x, mesh.group(("data",)))
 
     # decode with a sequence-sharded cache, both attention routes
-    sp = spmd.Spmd(mesh, specs["params"])
+    sp = spmd.Spmd(mesh, specs["params"], tp_compute=False)
     full = spmd.gather_tree(params, specs["params"], mesh)
     prompts = torch.from_numpy(sample_batch(cfg, dcfg, 99, 8, 10)["tokens"])
     lo = mesh.coords["data"] * 4
@@ -173,7 +178,8 @@ def moe_run(ckpt_dir: str, model_parallel=None):
     from repro_torch.launch.train import run_training
     from repro_torch.train.fault_tolerance import CheckpointManager
     cfg, qcfg, tcfg, dcfg = moe_setup()
-    kw = {} if model_parallel is None else {"model_parallel": model_parallel}
+    kw = ({} if model_parallel is None
+          else {"model_parallel": model_parallel, "tp_compute": False})
     return run_training(cfg, qcfg, tcfg, dcfg, steps=3, batch_size=8, seq_len=16,
                         ckpt_dir=ckpt_dir, log_every=0, device="cpu",
                         mgr=CheckpointManager(ckpt_dir, save_every=10 ** 6,
@@ -251,7 +257,7 @@ def serve_rank(rank: int, port: int, out: str) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
     from repro_torch.launch import serve
-    run = serve.main(SERVE_ARGV + ["--model-parallel", "2"])
+    run = serve.main(SERVE_ARGV + ["--model-parallel", "2"], tp_compute=False)
     res = {"kv_rows": int(run.engine.executor.pool["layers"][0]["kv"].k.shape[1]),
            "streams": {k: v.tokens for k, v in run.engine.results.items()}}
     with open(f"{out}.{rank}", "w") as f:

@@ -1,0 +1,484 @@
+"""Subprocess harness for tests/test_torch_tp.py: the port's tensor-parallel
+compute on gloo ranks of the CPU.
+
+    PYTHONPATH=src python tests/_torch_tp_harness.py --linears OUT_DIR
+    PYTHONPATH=src python tests/_torch_tp_harness.py --train SRC_CKPT OUT_DIR
+    PYTHONPATH=src python tests/_torch_tp_harness.py --serve OUT_DIR
+
+--linears: every case of LINEAR_CASES on a (1, 2) and then a (1, 4) mesh:
+each rank cuts the case's whole parameters to its slices by the sharding
+rules (`dist.sharding.param_pspecs`), runs the linear tensor-parallel
+(`qlinear` / `lm_head_apply` / `embed_lookup` with a `TPSplit`) and
+saves its output and the gradients of its leaves and input, in f32, to
+OUT_DIR/m{M}_rank{R}.pt. The test runs the whole linear on the same numpy
+inputs (`run_case` without a split) and holds the slices against it.
+
+--train: 8 ranks on a (2, 4) mesh, the reduced granite-8b of
+tests/_torch_spmd_harness.py (2 layers, d_model 64, 4 heads, d_ff 96,
+w4a4 MDQ) restored from SRC_CKPT: the step-0 gradient of the
+tensor-parallel step (`make_grad_fn`, gathered leaf by leaf), then 8 steps
+of `run_training(model_parallel=4)` (tensor-parallel, the default). Rank
+0 writes OUT_DIR/train.pt.
+
+--archs: 2 ranks on a (1, 2) mesh: one reduced arch of each block family
+(MoE, local / global attention with softcaps, learned positions with
+audio frames, mLSTM / sLSTM, RG-LRU with local attention, cross-attention
+over vision patches), w4a4: which sublayers run tensor-parallel, a
+forward's logits and the step-0 gradient, gathered. Rank 0 writes
+OUT_DIR/archs.pt.
+
+--serve: 4 ranks on a (1, 4) mesh: the serving CLI (`launch.serve.main`,
+reduced granite-8b, w4a4, int8 KV) with heads, d_ff and vocab split four
+ways; each rank writes its engine streams and the tensor-parallel
+`greedy_generate` of the same prompts, and rank 0 the tensor-parallel
+logits of a prefill and 3 teacher-forced decode steps beside those of the
+one-process model on the gathered params.
+
+Not a test module.
+"""
+from __future__ import annotations
+
+import json
+import os
+import socket
+import sys
+
+import numpy as np
+import torch
+
+B, S, D, H, HD, F, V, VOCAB = 2, 3, 32, 4, 8, 48, 48, 45
+
+# name -> (linear, mode, fused route); "auto" is the kernel route (its
+# plain version on the CPU), "off" the unfused composition
+LINEAR_CASES = {
+    "wq_mdq": ("wq", "mdq", "auto"),
+    "wq_mdq_off": ("wq", "mdq", "off"),
+    "wo_mdq": ("wo", "mdq", "auto"),
+    "wo_mdq_off": ("wo", "mdq", "off"),
+    "w_in_l1": ("w_in", "mdq", "auto"),
+    "w_in_lsq": ("w_in", "lsq", "auto"),
+    "w_out_l1": ("w_out", "mdq", "auto"),
+    "w_out_lsq": ("w_out", "lsq", "auto"),
+    "head_untied": ("lm_head", "mdq", "auto"),
+    "head_tied": ("tied", "mdq", "auto"),
+    "embed": ("embed", "mdq", "auto"),
+}
+EQS = {"wq": "bsd,dhk->bshk", "wo": "bshk,hkd->bsd", "w_in": "bsd,df->bsf",
+       "w_out": "bsf,fd->bsd"}
+SHAPES = {"wq": ((D, H, HD), (1,)), "wo": ((H, HD, D), (0,)), "w_in": ((D, F), ()),
+          "w_out": ((F, D), ()), "lm_head": ((D, V), ())}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _linear(rng, name: str, qcfg, bias: bool = False) -> dict:
+    from repro_torch.core.policy import act_spec, weight_spec
+    from repro_torch.core.quantizer import init_scale
+    from repro_torch.models.common import kind_of
+    shape, groups = SHAPES[name]
+    w = _t(rng.standard_normal(shape) * shape[0] ** -0.5)
+    spec = weight_spec(qcfg, kind_of(name))
+    p = {"w": w, "w_scale": init_scale(w, spec, groups if spec.granularity != "per_tensor"
+                                       else ())}
+    if bias:
+        p["b"] = _t(rng.standard_normal(shape[1:]) * 0.1)
+    if act_spec(qcfg, kind_of(name)) is not None:
+        p["a_scale"] = _t(np.float32(0.3 + 0.1 * rng.random()))
+        p["a_offset"] = _t(np.float32(-0.2 * rng.random()))
+    return p
+
+
+def case_inputs(case: str) -> dict:
+    """The case's whole parameters (a tree the sharding rules walk), its
+    input and its output cotangent, from a numpy generator."""
+    from repro_torch.core.policy import QuantConfig
+    from repro_torch.core.quantizer import init_scale
+    from repro_torch.core.policy import weight_spec
+    name, mode, route = LINEAR_CASES[case]
+    qcfg = QuantConfig(w_bits=4, a_bits=4, mode=mode, fused_matmul=route)
+    rng = np.random.default_rng(list(LINEAR_CASES).index(case) + 11)
+    if name in EQS:
+        tree = {name: _linear(rng, name, qcfg, bias=name == "wq")}
+        x = _t(rng.standard_normal((B, S, H, HD) if name == "wo" else
+                                   (B, S, F) if name == "w_out" else (B, S, D)))
+        out = {"wq": (B, S, H, HD), "w_in": (B, S, F)}.get(name, (B, S, D))
+    elif name == "lm_head":
+        tree = {"lm_head": _linear(rng, "lm_head", qcfg)}
+        x, out = _t(rng.standard_normal((B, S, D))), (B, S, V)
+    else:  # the tied head and the embedding: the (V, d) table
+        w = _t(rng.standard_normal((V, D)) * 0.5)
+        tree = {"embed": {"w": w, "w_scale": init_scale(w, weight_spec(qcfg, "embed"))}}
+        if name == "tied":
+            tree["lm_head"] = {"a_scale": _t(np.float32(0.2)),
+                               "a_offset": _t(np.float32(-0.3))}
+            x, out = _t(rng.standard_normal((B, S, D))), (B, S, V)
+        else:
+            x = torch.from_numpy(rng.integers(0, VOCAB, (B, S)))
+            out = (B, S, D)
+    dy = _t(rng.standard_normal(out))
+    return {"name": name, "qcfg": qcfg, "tree": tree, "x": x, "dy": dy}
+
+
+def _walk(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def run_case(case: str, mesh=None) -> dict:
+    """Output and gradients of one case: the whole linear (mesh None), or
+    this rank's slices on `mesh` (a `launch.mesh.HostMesh`), tensor-parallel.
+    Returns {"y", "grads": {"x" | leaf path: tensor}, "specs"}."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.spmd import TPSplit
+    from repro_torch.models import common as C
+    c = case_inputs(case)
+    name, qcfg, tree, x, dy = c["name"], c["qcfg"], c["tree"], c["x"], c["dy"]
+    tp, specs = None, None
+    if mesh is not None:
+        specs = sharding.param_pspecs(tree, mesh)
+        tree = sharding.shard_tree(tree, specs, mesh, mesh.coords)
+        m = mesh.shape["model"]
+        tp = TPSplit(mesh.group(("model",)), mesh.coords["model"], m)
+        if name in ("wo", "w_out"):  # row-parallel: this rank's input columns
+            x = tp.local(x, 2)
+        if name in ("wq", "w_in"):  # column-parallel: this rank's output columns
+            dy = tp.local(dy, 2)
+    leaves = dict(_walk(tree))
+    live = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    p = {}
+    for k, v in live.items():
+        node = p
+        for key in k[:-1]:
+            node = node.setdefault(key, {})
+        node[k[-1]] = v
+    if name != "embed":
+        x = x.clone().requires_grad_(True)
+    f32 = torch.float32
+    if name in EQS:
+        y = C.qlinear(p[name], x, name, qcfg, EQS[name], f32, tp)
+    elif name == "lm_head":
+        y = C.lm_head_apply(p["lm_head"], x, qcfg, VOCAB, V, tp=tp)
+    elif name == "tied":
+        y = C.lm_head_apply(p["lm_head"], x, qcfg, VOCAB, V, tied_embed=p["embed"], tp=tp)
+    else:
+        y = C.embed_lookup(p["embed"], x, qcfg, f32, tp)
+    loss = torch.sum(y * dy)
+    wrt = list(live.values()) + ([x] if name != "embed" else [])
+    gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = {"/".join(k): g for k, g in zip(live, gs)}
+    if name != "embed":
+        grads["x"] = gs[-1]
+    return {"y": y.detach(), "grads": grads,
+            "specs": None if specs is None else {"/".join(k): s for k, s in _walk_specs(specs)}}
+
+
+def magnitudes(case: str) -> dict:
+    """The size of what each gradient sums, from the whole inputs and the
+    kernels' plain quantizers (`kernels.ref`): per element of x, the sum
+    over the contraction of |dY| x |Wd|; per 0-d scale, g times the sum
+    over its terms of |the cotangent of the dequantized operand| x |the
+    quantizer's derivative| (Eq. 7: |q - mf u| for a scale, 1 - mf for an
+    offset). A reordered or re-rounded sum is off by a fraction of these,
+    whatever the terms' signs cancel to."""
+    from repro_torch.core.policy import act_spec, weight_spec
+    from repro_torch.core.quantizer import scale_grad_factor
+    from repro_torch.kernels import ref
+    from repro_torch.models import common as C
+    c = case_inputs(case)
+    name, qcfg, tree, x, dy = c["name"], c["qcfg"], c["tree"], c["x"], c["dy"]
+    if name == "embed":
+        p = tree["embed"]
+        spec = weight_spec(qcfg, "embed")
+        g = scale_grad_factor(spec, p["w"], ())
+        return {"embed/w_scale": float(g * dy.abs().sum() * spec.q_p)}
+    if name in ("lm_head", "tied"):
+        kind, n_k = "lm_head", 1
+        if name == "tied":
+            p = {"w": tree["embed"]["w"].T, "w_scale": tree["embed"]["w_scale"],
+                 **tree["lm_head"]}
+            wkey, akey = "embed", "lm_head"
+            wspec = weight_spec(qcfg, "embed")
+        else:
+            p, wkey, akey = tree["lm_head"], "lm_head", "lm_head"
+            wspec = weight_spec(qcfg, "lm_head")
+        dy = torch.where(torch.arange(V) < VOCAB, dy, 0.0)  # the masked pad columns
+    else:
+        kind, n_k, p = C.kind_of(name), C.FUSED_EQS[EQS[name]], tree[name]
+        wkey = akey = name
+        wspec = weight_spec(qcfg, kind)
+    aspec = act_spec(qcfg, kind)
+    w = p["w"]
+    k = int(np.prod(w.shape[:n_k]))
+    w2, x2 = w.reshape(k, -1), x.reshape(-1, k)
+    dy2 = dy.reshape(x2.shape[0], -1).abs()
+    side = C._w_scale_side(tuple(p["w_scale"].shape), tuple(w.shape), n_k)
+    ws = (C._scale_rows(p["w_scale"], w.shape, n_k)[:, None] if side == "k" else
+          C._scale_cols(p["w_scale"], w.shape, n_k)[None])
+    ua, qa, xd = ref._act_codes(x2, p["a_scale"], p["a_offset"], aspec.q_n, aspec.q_p)
+    uw, qw, wd = ref._weight_codes(w2, ws, wspec.q_n, wspec.q_p)
+    mfa, mfw = ref._in_range(ua, aspec.q_n, aspec.q_p), ref._in_range(uw, wspec.q_n,
+                                                                        wspec.q_p)
+    dxd, dwd = dy2 @ wd.abs().T, xd.abs().T @ dy2
+    g_a = float(scale_grad_factor(aspec, w, ()))
+    out = {"x": dxd.reshape(x.shape),
+           f"{akey}/a_scale": g_a * float((dxd * (qa - mfa * ua).abs()).sum()),
+           f"{akey}/a_offset": g_a * float((dxd * (1 - mfa)).sum())}
+    if p["w_scale"].dim() == 0:
+        g_w = float(scale_grad_factor(wspec, w, ()))
+        out[f"{wkey}/w_scale"] = g_w * float((dwd * (qw - mfw * uw).abs()).sum())
+    return out
+
+
+def _walk_specs(specs, prefix=()):
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            yield from _walk_specs(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _env(rank: int, world: int, port: int) -> None:
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+
+
+def linears_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    _env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(world, "cpu")
+    res = {case: run_case(case, mesh) for case in LINEAR_CASES}
+    torch.save(res, os.path.join(out_dir, f"m{world}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# training: the reduced granite-8b of the sharded harness, tensor-parallel
+# ---------------------------------------------------------------------------
+
+TRAIN_RANKS, TRAIN_MODEL, TRAIN_STEPS = 8, 4, 8
+
+
+def train_batch(cfg, dcfg, step: int) -> dict:
+    from repro_torch.data.synthetic import sample_batch
+    return sample_batch(cfg, dcfg, step, 8, 16)
+
+
+def step0_grads(params, cfg, qcfg, tcfg, dcfg, sp) -> tuple:
+    """(loss, grads) of step 0's batch on `sp`'s mesh: this rank's rows,
+    the gradient of this rank's slices (`make_grad_fn`)."""
+    from repro_torch.train.train_step import make_grad_fn
+    batch = sp.rows(train_batch(cfg, dcfg, 0))
+    loss, _, grads = make_grad_fn(cfg, qcfg, tcfg, spmd=sp)(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.zeros((), dtype=torch.int32))
+    return sp.mean(loss), grads
+
+
+def train_rank(rank: int, port: int, src: str, out_dir: str) -> None:
+    _env(rank, TRAIN_RANKS, port)
+    import shutil
+    import time
+    import torch.distributed as dist
+    import _torch_spmd_harness as SH
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault_tolerance import CheckpointManager
+    cfg, qcfg, tcfg, dcfg = SH.setup()
+    mesh = make_host_mesh(TRAIN_MODEL, "cpu")
+    specs = spmd.state_specs(cfg, qcfg, tcfg, mesh)
+    like = spmd.init_sharded_state(cfg, qcfg, tcfg, torch.Generator(), mesh, specs)
+    state = ckpt.restore(src, like, step=0, shardings=sharding.Layout(mesh, specs))
+    sp = spmd.Spmd(mesh, specs["params"], osc_specs=specs["osc"])
+    tp = {i: tuple(t is not None for t in M.layer_tp(sp, cfg, i)[:2])
+          for i in range(cfg.n_layers)}
+    loss0, grads = step0_grads(state["params"], cfg, qcfg, tcfg, dcfg, sp)
+    full = spmd.gather_tree(grads, specs["params"], mesh)
+    run_dir = os.path.join(out_dir, "run")
+    if rank == 0:
+        shutil.copytree(src, run_dir)
+    dist.barrier()
+    t0 = time.perf_counter()
+    rep = run_training(cfg, qcfg, tcfg, dcfg, steps=TRAIN_STEPS, batch_size=8,
+                       seq_len=16, ckpt_dir=run_dir, log_every=0, device="cpu",
+                       model_parallel=TRAIN_MODEL,
+                       mgr=CheckpointManager(run_dir, save_every=10 ** 6,
+                                             async_io=False))
+    if rank == 0:
+        embed_tp, head_tp = M.vocab_tp(sp, cfg)
+        torch.save({"mesh": mesh.shape, "tp": tp, "embed_tp": embed_tp is not None,
+                    "head_tp": head_tp is not None,
+                    "loss0": float(loss0), "grads": full, "losses": rep.losses,
+                    "grad_norms": rep.grad_norms, "train_s": time.perf_counter() - t0},
+                   os.path.join(out_dir, "train.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# serving: the CLI on a (1, 4) mesh, tensor-parallel
+# ---------------------------------------------------------------------------
+
+SERVE_RANKS = 4
+SERVE_ARGV = ["--device", "cpu", "--smoke", "--quant", "w4a4", "--batch", "3",
+              "--slots", "2", "--prompt-len", "8", "--new-tokens", "4", "--chunk", "8"]
+
+
+def teacher_forced(params, cache, prompts, forced, cfg, qcfg, sp) -> torch.Tensor:
+    """f32 logits (B, 1 + F, V) of a one-chunk prefill of `prompts` and F
+    decode steps fed `forced`."""
+    from repro_torch.models import model as M
+    b, plen = prompts.shape
+    pos = torch.arange(plen, dtype=torch.int32)[None].expand(b, plen)
+    lg, cache = M.prefill_step(params, cache, {"tokens": prompts, "pos": pos},
+                               cfg, qcfg, spmd=sp)
+    outs = [lg[:, -1]]
+    for j in range(forced.shape[1]):
+        p = torch.full((b,), plen + j, dtype=torch.int32)
+        lg, cache = M.decode_step(params, cache, {"tokens": forced[:, j:j + 1],
+                                                  "pos": p}, cfg, qcfg, spmd=sp)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1).float()
+
+
+def serve_rank(rank: int, port: int, out_dir: str) -> None:
+    _env(rank, SERVE_RANKS, port)
+    import torch.distributed as dist
+    from repro_torch.dist import spmd
+    from repro_torch.dist.spmd import WHOLE
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    run = serve.main(SERVE_ARGV + ["--model-parallel", str(SERVE_RANKS)])
+    sp, cfg, qcfg = run.spmd, run.cfg, run.qcfg
+    rows = int(run.engine.executor.pool["layers"][0]["kv"].k.shape[1])
+    cache_len = rows * SERVE_RANKS
+    prompts = torch.from_numpy(run.prompts)
+    new = int(SERVE_ARGV[SERVE_ARGV.index("--new-tokens") + 1])
+    step = lambda p, c, x: M.prefill_step(p, c, x, cfg, qcfg, spmd=sp)  # noqa: E731
+    toks, _ = serve.greedy_generate(step, run.params,
+                                    M.init_cache(cfg, qcfg, len(prompts), cache_len,
+                                                 "cpu", spmd=sp), prompts, new)
+    streams = {k: v.tokens for k, v in run.engine.results.items()}
+    forced = torch.tensor([streams[f"req-{i}"][:3] for i in range(len(prompts))],
+                          dtype=torch.int32)
+    tp_logits = teacher_forced(run.params, M.init_cache(cfg, qcfg, len(prompts),
+                                                        cache_len, "cpu", spmd=sp),
+                               prompts, forced, cfg, qcfg, sp)
+    full = spmd.gather_tree(run.params, sp.pspecs, sp.mesh)
+    res = {"streams": streams, "greedy": toks.tolist(), "kv_rows": rows,
+           "tp": [tuple(t is not None for t in M.layer_tp(sp, cfg, i)[:2])
+                  for i in range(cfg.n_layers)],
+           "embed_tp": M.vocab_tp(sp, cfg)[0] is not None,
+           "head_tp": M.vocab_tp(sp, cfg)[1] is not None}
+    if rank == 0:
+        res["tp_logits"] = tp_logits
+        res["one_logits"] = teacher_forced(full, M.init_cache(cfg, qcfg, len(prompts),
+                                                              cache_len, "cpu"),
+                                           prompts, forced, cfg, qcfg, WHOLE)
+        res["vocab"] = cfg.vocab_size
+    torch.save(res, os.path.join(out_dir, f"serve{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# every block family on a (1, 2) mesh: what runs tensor-parallel, and the
+# forward and step-0 gradient against one process
+# ---------------------------------------------------------------------------
+
+ARCH_RANKS = 2
+ARCHS = ("granite-moe-1b-a400m", "gemma2-2b", "musicgen-medium", "xlstm-350m",
+         "recurrentgemma-9b", "llama-3.2-vision-11b")
+
+
+def arch_case(arch: str, sp=None, full=None, route: str = "auto") -> dict:
+    """The reduced `arch` (w4a4, `route` the fused_matmul setting): its
+    seed-0 params, a forward's logits and the step-0 gradient of a 2 x 16
+    batch (hard labels), on `sp`'s mesh (this rank's slices of `full`) or
+    whole (sp None)."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.models import model as M
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.train_step import make_grad_fn
+    cfg = reduced_config(get_config(arch))
+    qcfg = get_preset("w4a4").replace(fused_matmul=route)
+    if full is None:
+        full = M.init_params(cfg, qcfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             sample_batch(cfg, DataConfig(), 0, 2, 16).items()}
+    params, out = full, {}
+    if sp is not None:
+        params = sharding.shard_tree(full, sp.pspecs, sp.mesh, sp.mesh.coords)
+        out["tp"] = [[t is not None for t in M.layer_tp(sp, cfg, i)[:2]]
+                     for i in range(cfg.n_layers)]
+        out["head_tp"] = M.vocab_tp(sp, cfg)[1] is not None
+    kw = {} if sp is None else {"spmd": sp}
+    with torch.no_grad():
+        out["logits"] = M.forward(params, batch, cfg, qcfg, **kw)[0].float()
+    _, _, grads = make_grad_fn(cfg, qcfg, TrainConfig(), **kw)(
+        params, batch, torch.zeros((), dtype=torch.int32))
+    if sp is not None:
+        grads = spmd.gather_tree(grads, sp.pspecs, sp.mesh)
+    out["grads"] = grads
+    return out
+
+
+def archs_rank(rank: int, port: int, out_dir: str) -> None:
+    _env(rank, ARCH_RANKS, port)
+    import torch.distributed as dist
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.models import model as M
+    mesh = make_host_mesh(ARCH_RANKS, "cpu")
+    res = {}
+    for arch in ARCHS:
+        full = M.init_params(reduced_config(get_config(arch)), get_preset("w4a4"),
+                             torch.Generator().manual_seed(0), "cpu")
+        sp = spmd.Spmd(mesh, sharding.param_pspecs(full, mesh))
+        res[arch] = arch_case(arch, sp, full)
+    if rank == 0:
+        torch.save(res, os.path.join(out_dir, "archs.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+    if sys.argv[1] == "--linears":
+        for m in (2, 4):
+            mp.spawn(linears_rank, args=(m, free_port(), sys.argv[2]), nprocs=m,
+                     join=True)
+    elif sys.argv[1] == "--train":
+        mp.spawn(train_rank, args=(free_port(), sys.argv[2], sys.argv[3]),
+                 nprocs=TRAIN_RANKS, join=True)
+    elif sys.argv[1] == "--archs":
+        mp.spawn(archs_rank, args=(free_port(), sys.argv[2]), nprocs=ARCH_RANKS,
+                 join=True)
+    elif sys.argv[1] == "--serve":
+        mp.spawn(serve_rank, args=(free_port(), sys.argv[2]), nprocs=SERVE_RANKS,
+                 join=True)
+    else:
+        raise SystemExit(f"unknown mode {sys.argv[1]}")
