@@ -61,7 +61,9 @@ Phases (any failure exits non-zero before the final line is printed):
                quant_matmul (the tensor-core path) at both FFN shapes, a
                K-side-scaled wo and the tied head, granite-moe's attention
                shapes (w3a3) and head (8 bits), and odd, misaligned shapes
-               (one with f32 x), each row within 1e-5 x max|y| and every
+               (one with f32 x), each row within 1e-5 x max|y| (K / 2816
+               times that past K 2816, always below the error of a bf16
+               output: `fwd_bar`) and every
                element within the f32 order bound, run twice for identical
                bits, its prologue bit-equal to the plain dequantization;
                quant_matmul_bwd, the combined backward on the tensor cores,
@@ -176,8 +178,8 @@ Phases (any failure exits non-zero before the final line is printed):
                reference size, steps cut to TABLE_STEPS: their rows,
                every value finite.
   16. train  — `repro_torch.launch.train --arch xlstm-350m` at full width
-               and depth (24 layers: 21 mLSTM, 3 sLSTM; tied 50,304
-               head), w4a4, MCKD, batch 8 x 512, 3 steps saving at step 2,
+               cut to one period (`--layers 8`: 7 mLSTM, 1 sLSTM; 24
+               layers before PR 30; tied 50,304 head), w4a4, MCKD, batch 8 x 512, 3 steps saving at step 2,
                then a restored 4th step: phase 6's gates, launches equal
                `qat_launches_per_step` (the recurrent projections, the
                N = 4 gates and the sLSTM's FFN on kernels 1 and 5).
@@ -243,9 +245,10 @@ Phases (any failure exits non-zero before the final line is printed):
                Adam's step being nearly blind to a gradient's scale),
                each rank's resident state bytes
                (about a quarter of cell C's params and moments) and peak;
-               (b) full-width granite-8b cut to 4 layers, w4a4, int8 KV,
-               4 slots, 8 x 128 prompt + 32 new tokens, one-chunk
-               prefill, the KV sequence axis over the 2 model ranks (160
+               (b) full-width granite-8b cut to 2 layers, w4a4, int8
+               KV, 4 slots, 8 x 128 prompt + 8 new tokens (4 layers and
+               32 tokens before phase 27 came: `SHARDED_SERVE`), one-chunk
+               prefill, the KV sequence axis over the 2 model ranks (136
                rows rounded up to 256 by launch.serve: 128 a rank, two
                whole 64-key splits of kernel 9): the sharded logits (prefill + 4
                teacher-forced decode steps) bit-equal to the one-process
@@ -287,9 +290,10 @@ Phases (any failure exits non-zero before the final line is printed):
                rank beside phase 24's (the logits gather's share of them),
                rank 0's last step traced by torch.profiler (the spans of
                its kernels and copies on the card, the host's seconds
-               inside `spmd.collect`); (b) full-width granite-8b cut to 4
-               layers (w4a4, int8 KV, 4 slots, 8 x 128 + 32, one-chunk
-               prefill) on a (1, 4) mesh, heads, d_ff and vocab split
+               inside `spmd.collect`); (b) full-width granite-8b cut to 2
+               layers (phase 24's; w4a4, int8 KV, 4 slots, 8 x 128 prompt
+               + 32 new tokens where phases 24 and 27 stop at 8: `TP_NEW`,
+               one-chunk prefill) on a (1, 4) mesh, heads, d_ff and vocab split
                four ways, the KV sequence too (64 rows a rank, one whole
                key split of kernel 9): the logits of the prefill and 4
                teacher-forced decode steps against the one-process model
@@ -309,6 +313,49 @@ Phases (any failure exits non-zero before the final line is printed):
                (4, 3584, 4096), kernels 1 and 5 against their plain
                versions at the column slice (4096, 1024, 1408) and the
                row slice (4096, 1408, 1024).
+  27. expert-parallel MoE (cell U) — four more processes share the card
+               over gloo (`chip_smoke.py --ep-rank R PORT DIR`, logs in
+               `build/chip_smoke_cell_u/`), on the launchers' default
+               runtime, each MoE FFN's experts split over the model ranks
+               (`TPSplit.experts`: the capacity buffer cut to the rank's
+               experts, the output buffer all-gathered before the
+               combine): (a) phase 8's granite-moe QAT (w3a3, OBR 0.1,
+               oscillation tracked, MCKD, 8 x 512, 3 steps) cut to
+               EP_TRAIN_LAYERS layers on a (2 data, 2 model) mesh, 16
+               experts a rank, against one process of the same run with
+               `moe_dispatch_groups=2` made just before the ranks start
+               (its groups are the data ranks' rows): step 0's loss within
+               1e-3 relative, steps 1-2 within 5 %, the gradient norm of
+               steps 0-1 within 1e-2 (phase 26's bars), step 0's drop_frac
+               and lb_loss beside the one process's (printed), every
+               rank's QAT launches equal to `qat_launches_per_step` on its
+               experts (`tp_parts=2`), s/step, peak, collective bytes by
+               kind and by use (`spmd.moved_bytes_by_use`: the expert
+               compute's, OBR's and the oscillation tracker's), the
+               expert collectives' bytes held to the buffers' reckoned
+               bytes (`expert_buffer_bytes`) plus at most 1 MiB of f32
+               scalars; (b) granite-moe's serving
+               (phase 12's w3a3, int8 KV, 4 slots, 8 x 128 + 8,
+               one-chunk prefill) cut to 2 layers on a (1, 4) mesh, 8
+               experts a rank, heads and vocab split: 8 / 8 streams equal
+               the expert-parallel single-request greedy_generate on every
+               rank, the logits of the prefill and 4 teacher-forced decode
+               steps against the one-process model on the card and on the
+               CPU under phase 26's two-orders bar, kernels 8-9 launched,
+               decode tok/s a rank; (c) one full-width MoE layer (seeded,
+               w3a3, 8 x 512 tokens) with its 32 experts over the 4 ranks
+               (sliced by the sharding rules, `_expert_slice`)
+               against the whole layer in this process: the output, the
+               input's gradient, the expert weights' and the router's
+               gradients bit-equal, every scale's gradient within 1e-5
+               relative (sums over the ranks, and a per-expert scale's
+               column sum, whose reduction plan follows the experts in the
+               call); the same layer in serving form (the 8-row bmm
+               fallback) bit-equal at 4 and 128 tokens; then kernels 2 and
+               6 at mixtral-8x7b's d_ff slice on 16 ranks, (8, 1280, 4096,
+               896) and (8, 1280, 896, 4096), and at this cell's 16
+               experts a rank, (16, 640, 1024, 512) and (16, 640, 512,
+               1024), against their plain versions under phase 5's bars.
   Phase 2 also holds kernels 7-9 at recurrentgemma-9b's and xlstm-350m's
   serving shapes (the attention at D 256 with one kv head, q_per_kv 16,
   C 1 and 32; int_matmul at N = 4), and phase 5 kernels 1 and 5 at
@@ -906,11 +953,18 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
 SHARDED_TRAIN = ["--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd",
                  "--batch", "8", "--seq", "512", "--steps", "3",
                  "--save-every", str(10 ** 6)]
+# cut to 2 layers and 8 new tokens (4 and 32 before it) so that phase 27
+# fits the run's time limit: every call of this gloo serving gathers or sums
+# through host memory (phase 24's gathered runtime the whole head each
+# decode step: 99.7 s at 2 layers and 32 new tokens, 3.1 tok/s a rank)
+SHARDED_NEW = 8
 SHARDED_SERVE = ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
-                 "--layers", "4", "--batch", "8", "--slots", "4",
-                 "--prompt-len", "128", "--new-tokens", "32", "--chunk", "128"]
-# the sharded run's cache rows: 128 + 32 rounded up to 2 x 64 (launch.serve):
-# 128 a model rank, two whole 64-key splits of kernel 9
+                 "--layers", "2", "--batch", "8", "--slots", "4",
+                 "--prompt-len", "128", "--new-tokens", str(SHARDED_NEW),
+                 "--chunk", "128"]
+# the sharded run's cache rows: 128 + 8 rounded up to M x 64 (launch.serve)
+# for M 2 and 4: 128 a model rank on (2, 2) (two whole 64-key splits of
+# kernel 9), 64 on (1, 4)
 SHARDED_CACHE = 256
 # cell S against cell R, relative: step 0's loss to the CPU harness's bar;
 # the later losses, which the half batches' bf16 sums move by about 1e-4 on
@@ -1207,7 +1261,7 @@ def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
     prompts = torch.from_numpy(run.prompts).cuda()
     step = lambda p, c, x: M.prefill_step(p, c, x, cfg, qcfg)
     toks, _ = serve.greedy_generate(
-        step, params, M.init_cache(cfg, qcfg, 8, SHARDED_CACHE), prompts, 32)
+        step, params, M.init_cache(cfg, qcfg, 8, SHARDED_CACHE), prompts, SHARDED_NEW)
     greedy = toks.tolist()
     equal = sum(x == y for x, y in zip(sharded, greedy))
     log(f"  cell S logits (prefill + 4 forced decode steps, 8 rows) bit-equal to "
@@ -1250,6 +1304,12 @@ def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_TRAIN_MODEL, TP_SERVE_MODEL = 2, 4
+# (b) serves SHARDED_SERVE's 2 layers for 32 new tokens (phases 24 and 27
+# stop at 8), so that one engine-vs-greedy_generate stream check runs a
+# long decode; 128 + 32 rows still round up to SHARDED_CACHE on 4 ranks
+TP_NEW = 32
+TP_SERVE = list(SHARDED_SERVE)
+TP_SERVE[TP_SERVE.index("--new-tokens") + 1] = str(TP_NEW)
 # cell T against cell R, relative: step 0's loss (the row-parallel sums
 # and the column-parallel dX partials only reorder and re-round f32 / bf16
 # sums); the later losses to the reference's 5 % (tests/test_spmd.py); the
@@ -1322,7 +1382,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     ops.reset_launch_counts()
     spmd.reset_moved_bytes()
     t0 = time.perf_counter()
-    run = serve.main(SHARDED_SERVE + ["--model-parallel", str(TP_SERVE_MODEL)])
+    run = serve.main(TP_SERVE + ["--model-parallel", str(TP_SERVE_MODEL)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, moved = ops.launch_counts(), spmd.moved_bytes()
@@ -1335,7 +1395,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     step = lambda p, c, x: M.prefill_step(p, c, x, cfg, qcfg, spmd=sp)  # noqa: E731
     toks, _ = serve.greedy_generate(
         step, run.params, M.init_cache(cfg, qcfg, n, SHARDED_CACHE, dev, spmd=sp),
-        torch.from_numpy(run.prompts).to(dev), 32)
+        torch.from_numpy(run.prompts).to(dev), TP_NEW)
     if rank == 0:
         import numpy as np
         np.save(Path(out_dir) / "tp_logits.npy", lg.cpu().numpy())
@@ -1534,7 +1594,7 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
                                                   "pooled_decode_attention")) <= 0):
             fail(f"cell T rank {r}: not tensor-parallel throughout, or kernels 7-9 "
                  f"not launched: {s['tp']} {s['launches']} {s['kv_rows']}")
-    run = serve.main(SHARDED_SERVE)  # the one-process engine and model
+    run = serve.main(TP_SERVE)  # the one-process engine and model
     one_streams = {k: v.tokens for k, v in run.engine.results.items()}
     import numpy as np
     a = torch.from_numpy(np.load(out_dir / "tp_logits.npy"))
@@ -1593,6 +1653,399 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
                   "peak_gib": [s["peak_bytes"] / 2**30 for s in sv],
                   "param_gib": [s["param_bytes"] / 2**30 for s in sv]},
         "slices": {"m_independence": indep, "qat": qat}}
+
+
+# ---------------------------------------------------------------------------
+# phase 27: expert-parallel MoE (cell U)
+# ---------------------------------------------------------------------------
+
+EP_TRAIN_MODEL, EP_SERVE_MODEL = 2, 4
+# (a)'s depth: at all 24 layers each of the four ranks held 18.8 GiB when
+# the first step gathered the oscillation EMA (`Spmd.full_osc`, the whole
+# f32 EMA on every rank), and the card ran out at 79 GiB; at 12 layers a
+# step took 37 s a rank (every collective staged through host memory),
+# past the run's time limit with the phases before it (6 layers: 16-26 s)
+EP_TRAIN_LAYERS = 4
+# (b)'s depth and length: at 4 layers and 32 new tokens the serving run
+# took 24 s and the 8 single-request greedy_generate 58 s a rank (~0.3 s a
+# decode step of host-staged collectives)
+EP_SERVE = ["--arch", "granite-moe-1b-a400m", "--quant", "w3a3", "--kv-bits", "8",
+            "--layers", "2", "--batch", "8", "--slots", "4", "--prompt-len", "128",
+            "--new-tokens", str(SHARDED_NEW), "--chunk", "128"]
+# the expert layer of (c): seeded params and inputs, made alike in the
+# ranks and the parent (CUDA's generator gives the same bits for the same
+# seed and draws on one device)
+EP_LAYER_SEED = 100 * SEED + 27
+# the scale gradients of (c), relative to the whole layer's: the
+# replicated ones sum the ranks' partials in another order, and a
+# per-expert scale's sum over its columns is a reduction whose plan on the
+# card follows the number of experts in the call (bit-equal on the CPU)
+EP_SCALE_BAR = 1e-5
+
+
+def moe_qat_config():
+    """Phase 8's configuration: full-width granite-moe-1b-a400m, w3a3 (OBR
+    0.1), oscillation tracked."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    return get_config("granite-moe-1b-a400m"), get_preset("w3a3").replace(
+        track_oscillation=True)
+
+
+def smoke_tcfg(steps: int):
+    """`training_run`'s TrainConfig: MCKD top-16, the sentinel on, the
+    CLI's optimizer settings."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.sentinel import SentinelConfig
+    from repro_torch.train.state import TrainConfig
+    return TrainConfig(total_steps=steps, warmup_steps=2, kd="mckd", kd_topk=16,
+                       adamw=AdamWConfig(lr_peak=3e-3), sentinel=SentinelConfig())
+
+
+def moe_layer(torch, serving: bool = False):
+    """(cfg, qcfg, params, x, dy) of one full-width granite-moe MoE FFN
+    layer from EP_LAYER_SEED: latent (w3a3, the batched QAT kernels) or
+    converted to int codes (the expert fallback); x and dy (8, 512, d)
+    bf16."""
+    from repro_torch.models.common import convert_to_serving
+    from repro_torch.models.moe import moe_init
+    cfg, qcfg = moe_qat_config()
+    gen = torch.Generator(device="cuda").manual_seed(EP_LAYER_SEED)
+    p = moe_init(gen, cfg, qcfg, device="cuda")
+    x = torch.randn((8, 512, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((8, 512, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    if serving:
+        p = convert_to_serving(p, qcfg)
+    return cfg, qcfg, p, x, dy
+
+
+def _expert_slice(p: dict, mesh):
+    """(params, tp): this rank's slices of a layer's MoE params, cut by the
+    sharding rules (`dist.sharding.param_pspecs`) as the runtime holds
+    them, and its split as `models.model.layer_tp` makes it: the expert
+    linears' leaves on their model slices (`Spmd.gather` keeps them), the
+    router whole (`Spmd.gather` gathers it: top-k reads every expert's
+    logit)."""
+    from repro_torch.dist import sharding as shard
+    from repro_torch.dist.spmd import Spmd
+    specs = shard.param_pspecs({"moe": p}, mesh)
+    sp = Spmd(mesh, specs)
+    tp = sp.tp(("moe",), tuple(n for n in p if n != "router"))
+    tp = tp._replace(experts=sp.experts(("moe", "moe_in")))
+    return {name: sub if name == "router" else {
+        k: shard.local_shard(v, specs["moe"][name][k], mesh, mesh.coords).clone()
+        for k, v in sub.items()} for name, sub in p.items()}, tp
+
+
+def moe_layer_run(torch, mesh=None) -> dict:
+    """The layer of `moe_layer` (this rank's experts on `mesh`'s model
+    axis, split as the rules split them): its output, and the gradients of
+    its input and of every leaf for the cotangent dy; then the serving
+    form's outputs at 4 tokens (a decode step) and 128 (a prefill), all on
+    the host."""
+    from repro_torch.models.moe import moe_ffn
+    cfg, qcfg, p, x, dy = moe_layer(torch)
+    tp = None
+    if mesh is not None:
+        p, tp = _expert_slice(p, mesh)
+    leaves = [(f"{name}/{k}", v.requires_grad_(True)) for name, sub in sorted(p.items())
+              for k, v in sorted(sub.items())]
+    x = x.clone().requires_grad_(True)
+    y, aux = moe_ffn(p, x, cfg, qcfg, torch.bfloat16, tp)
+    gs = torch.autograd.grad(torch.sum(y.float() * dy.float()), [v for _, v in leaves] + [x])
+    out = {"y": y.detach().cpu(), "dx": gs[-1].cpu(),
+           "grads": {k: g.cpu() for (k, _), g in zip(leaves, gs)},
+           "drop_frac": float(aux["drop_frac"]), "experts": tp is not None and tp.experts}
+    del y, gs, leaves
+    _, _, sp, _, _ = moe_layer(torch, serving=True)
+    if mesh is not None:
+        sp, tp = _expert_slice(sp, mesh)
+    with torch.no_grad():
+        out["serve"] = [moe_ffn(sp, xs, cfg, qcfg, torch.bfloat16, tp)[0].cpu()
+                        for xs in (x.detach()[:4, :1], x.detach()[:1, :128])]
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 27 (`chip_smoke.py --ep-rank R PORT DIR`): phase
+    8's MoE QAT on a (2, 2) mesh, granite-moe's serving cut to 2 layers on
+    a (1, 4) mesh, and one MoE layer expert-parallel on the 4 ranks (the
+    launchers' default runtime: experts split on their expert axis);
+    writes its numbers to DIR/rank{R}.json, rank 0 its teacher-forced
+    logits and every rank its layer's results."""
+    import os
+    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    cfg, qcfg = moe_qat_config()
+    cfg = cfg.replace(n_layers=EP_TRAIN_LAYERS)
+    ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
+    t0 = time.perf_counter()
+    rep = train.run_training(cfg, qcfg, smoke_tcfg(3), DataConfig(seed=0), steps=3,
+                             batch_size=8, seq_len=512,
+                             ckpt_dir=str(Path(out_dir) / "ckpt"), save_every=10 ** 6,
+                             log_every=0, seed=0, device="cuda",
+                             model_parallel=EP_TRAIN_MODEL)
+    torch.cuda.synchronize()
+    res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
+                     "grad_norms": rep.grad_norms, "healths": rep.healths,
+                     "metrics": rep.metrics, "step_seconds": rep.step_seconds,
+                     "state_bytes": rep.state_bytes, "peak_bytes": rep.peak_bytes,
+                     "moved_bytes": spmd.moved_bytes(),
+                     "moved_by_use": spmd.moved_bytes_by_use(),
+                     "collect_s": spmd.collect_seconds(),
+                     "launches": ops.launch_counts(), "coords": rep.mesh.coords,
+                     "mesh": rep.mesh.shape}}
+    del rep
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
+    t0 = time.perf_counter()
+    run = serve.main(EP_SERVE + ["--model-parallel", str(EP_SERVE_MODEL)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, moved = ops.launch_counts(), spmd.moved_bytes()
+    sp, scfg, sqcfg = run.spmd, run.cfg, run.qcfg
+    streams = {k: v.tokens for k, v in run.engine.results.items()}
+    n = len(run.prompts)
+    forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
+    lg = teacher_forced(torch, run.params, scfg, sqcfg, run.prompts, forced, sp)
+    if rank == 0:
+        import numpy as np
+        np.save(Path(out_dir) / "ep_logits.npy", lg.cpu().numpy())
+    dev = M.params_device(run.params)
+    step = lambda p, c, x: M.prefill_step(p, c, x, scfg, sqcfg, spmd=sp)  # noqa: E731
+    t_greedy = time.perf_counter()
+    greedy = [serve.greedy_generate(
+        step, run.params, M.init_cache(scfg, sqcfg, 1, SHARDED_CACHE, dev, spmd=sp),
+        torch.from_numpy(run.prompts[i:i + 1]).to(dev), SHARDED_NEW)[0][0].tolist()
+        for i in range(n)]
+    ffn = [M.layer_tp(sp, scfg, i)[1] for i in range(scfg.n_layers)]
+    res["serve"] = {"wall_s": wall, "streams": streams, "greedy": greedy,
+                    "greedy_s": time.perf_counter() - t_greedy,
+                    "launches": launches, "moved_bytes": moved,
+                    "ep": [t is not None and t.experts for t in ffn],
+                    "attn_tp": [M.layer_tp(sp, scfg, i)[0] is not None
+                                for i in range(scfg.n_layers)],
+                    "local_experts": [int(lay["moe"]["moe_in"]["codes4"].shape[0])
+                                      for lay in run.params["layers"]],
+                    "throughput": run.summary["throughput"],
+                    "faults": {k: v for k, v in run.summary["faults"].items() if v},
+                    "peak_bytes": run.peak_bytes}
+    del run
+    torch.cuda.empty_cache()
+    # (c) one layer, its experts over the 4 ranks
+    mesh = make_host_mesh(EP_SERVE_MODEL, "cuda")
+    t0 = time.perf_counter()
+    torch.save(moe_layer_run(torch, mesh), Path(out_dir) / f"layer{rank}.pt")
+    res["layer_s"] = time.perf_counter() - t0
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def expert_buffer_bytes(cfg, tokens: int, passes: int) -> int:
+    """The bytes the expert buffers' collectives deliver to a rank a step:
+    each block's output buffer all-gathered along the experts (bf16, once
+    a forward: `passes` forwards) and its input buffer's gradient
+    all-gathered from the parts once in the backward."""
+    from repro_torch.models.moe import capacity
+    g = cfg.moe_dispatch_groups
+    rows = g * capacity(tokens // g, cfg)
+    moe = sum(1 for i in range(cfg.n_layers) if cfg.block_at(i).ffn == "moe")
+    return (passes + 1) * moe * cfg.n_experts * rows * cfg.d_model * 2
+
+
+def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
+    """Phase 27: expert-parallel MoE (see the docstring)."""
+    import shutil
+    import numpy as np
+    from repro_torch.train.sentinel import SentinelConfig
+    out_dir = ROOT / "build" / "chip_smoke_cell_u"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg, qcfg = moe_qat_config()
+    cfg = cfg.replace(n_layers=EP_TRAIN_LAYERS)
+    # (a)'s one process: its dispatch groups are the data ranks' rows
+    one = training_run(torch, ops, cfg.replace(moe_dispatch_groups=2), qcfg, batch=8,
+                       seq=512, steps=3, tag="cell_u_one", strict_health=False)
+    one_rep = one.pop("report")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("--ep-rank", out_dir, timeout=900)
+    wall = time.perf_counter() - t0
+    log("  rank 0's log: " + " | ".join(
+        (out_dir / "rank0.log").read_text().splitlines()[:4]))
+    # (a) training on (2 data, 2 model), 16 experts a rank
+    base, gbase = one_rep.losses, one_rep.grad_norms
+    tr0 = ranks[0]["train"]
+    losses, gnorms = tr0["losses"], tr0["grad_norms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+    grel = [abs(a - b) / abs(b) for a, b in zip(gnorms, gbase)]
+    tokens = 8 * 512 // (SHARDED_RANKS // EP_TRAIN_MODEL)
+    buf = expert_buffer_bytes(cfg, tokens, 2) * len(losses)
+    per_step = None
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        steady = tr["step_seconds"][1:] or tr["step_seconds"]
+        total, uses = sum(tr["moved_bytes"].values()), tr["moved_by_use"]
+        log(f"  rank {r} {tr['coords']}: train {tr['wall_s']:.1f} s, s/step "
+            f"{[round(x, 3) for x in tr['step_seconds']]} (median after the first "
+            f"{statistics.median(steady):.3f}), state {tr['state_bytes'] / 2**30:.3f} GiB, "
+            f"peak {tr['peak_bytes'] / 2**30:.2f} GiB, collectives "
+            f"{total / 2**30:.3f} GiB {tr['moved_bytes']}; by use (measured, "
+            f"`spmd.moved_bytes_by_use`) "
+            + ", ".join(f"{k} {v / 2**30:.3f} GiB ({v / total:.3f})" for k, v in uses.items())
+            + f", the rest {(total - sum(uses.values())) / 2**30:.3f} GiB; the expert "
+            f"buffers reckoned {buf / 2**30:.3f} GiB (`expert_buffer_bytes`); host in "
+            f"collectives {tr['collect_s']:.1f} s")
+        if not 0 <= uses.get("experts", 0) - buf <= 2**20:
+            fail(f"cell U rank {r}: the expert collectives counted {uses.get('experts')} "
+                 f"bytes against the buffers' {buf}")
+        if (tr["losses"] != losses or tr["grad_norms"] != gnorms
+                or any(h & SentinelConfig().fatal_bits for h in tr["healths"])):
+            fail(f"cell U rank {r}'s losses / norms / health differ: {tr['losses']} "
+                 f"{tr['grad_norms']} {tr['healths']}")
+        per_step = check_launches({"cfg": cfg, "qcfg": qcfg, "counts": {
+            k: tr["launches"][k] for k in QAT_KERNELS}}, len(losses), tokens,
+            every_kernel=True, tp_parts=EP_TRAIN_MODEL)
+    m0, b0 = tr0["metrics"][0], one_rep.metrics[0]
+    log(f"  cell U losses {losses} vs one process (2 dispatch groups) {base}: rel "
+        f"{rel} (bars: step 0 {TP_LOSS0_BAR}, later {TP_LOSS_BAR}); gradient norms "
+        f"{gnorms} vs {gbase}: gap {grel[:2]} at steps 0-1 (bar {TP_GNORM_BAR}); "
+        f"step 0 drop_frac {m0['drop_frac']} vs {b0['drop_frac']}, lb_loss "
+        f"{m0['lb_loss']} vs {b0['lb_loss']} (the ranks' mean of each data rank's "
+        f"Switch loss against one process's over both groups)")
+    if (not all(x == x for x in losses + gnorms) or rel[0] > TP_LOSS0_BAR
+            or max(rel[1:]) > TP_LOSS_BAR or max(grel[:2]) > TP_GNORM_BAR):
+        fail(f"cell U losses {losses} / norms {gnorms} vs {base} / {gbase}")
+    # (b) serving on (1, 4): 8 experts a rank, heads and vocab split
+    sv = [res["serve"] for res in ranks]
+    streams = sv[0]["streams"]
+    n = len(streams)
+    for r, s in enumerate(sv):
+        log(f"  rank {r}: serve {s['wall_s']:.1f} s (then 8 single-request greedy_generate "
+            f"{s['greedy_s']:.1f} s, the layer {ranks[r]['layer_s']:.1f} s), experts a "
+            f"layer {s['local_experts']}, "
+            f"launches { {k: s['launches'][k] for k in ('int_matmul', 'int4_matmul', 'pooled_decode_attention')} }, "
+            f"peak {s['peak_bytes'] / 2**30:.2f} GiB, decode "
+            f"{s['throughput']['decode_tok_s']:.1f} tok/s, collectives "
+            f"{sum(s['moved_bytes'].values()) / 2**30:.3f} GiB; faults {s['faults']}")
+        if s["streams"] != streams or s["faults"]:
+            fail(f"cell U rank {r}'s streams differ or faulted")
+        if s["greedy"] != [streams[f"req-{i}"] for i in range(n)]:
+            fail(f"cell U rank {r}: the engine's streams differ from the "
+                 "expert-parallel greedy_generate")
+        if (not all(s["ep"]) or not all(s["attn_tp"])
+                or set(s["local_experts"]) != {cfg.n_experts // EP_SERVE_MODEL}
+                or min(s["launches"][k] for k in ("int4_matmul",
+                                                  "pooled_decode_attention")) <= 0):
+            fail(f"cell U rank {r}: not expert-parallel throughout, or kernels 8-9 "
+                 f"not launched: {s['ep']} {s['attn_tp']} {s['launches']}")
+    run = serve.main(EP_SERVE)  # the one-process model
+    a = torch.from_numpy(np.load(out_dir / "ep_logits.npy"))
+    forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
+    b = teacher_forced(torch, run.params, run.cfg, run.qcfg, run.prompts, forced,
+                       run.spmd).cpu()
+    t_cpu = time.perf_counter()
+    with torch.no_grad():
+        cpu = teacher_forced(torch, _to(run.params, "cpu"), run.cfg, run.qcfg,
+                             run.prompts, forced, run.spmd)
+    t_cpu = time.perf_counter() - t_cpu
+    bar = logits_bar(torch, a, b, cpu)
+    log(f"  cell U logits (prefill + 4 forced decode steps, {n} rows) against the "
+        f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
+        f"there): {bar}; "
+        f"streams {n}/{n} equal the expert-parallel greedy_generate on every rank; "
+        f"decode tok/s a rank {[s['throughput']['decode_tok_s'] for s in sv]}")
+    if not bar["ok"]:
+        fail(f"cell U serving logits depart from the one-process model's: {bar}")
+    del run
+    torch.cuda.empty_cache()
+    # (c) the layer, whole in this process against its experts over the ranks
+    whole = moe_layer_run(torch)
+    parts = [torch.load(out_dir / f"layer{r}.pt") for r in range(SHARDED_RANKS)]
+    layer = {"ep": all(p["experts"] for p in parts),
+             "y": all(_same_bits(torch, p["y"], whole["y"]) for p in parts),
+             "dx": all(_same_bits(torch, p["dx"], whole["dx"]) for p in parts),
+             "serve": all(_same_bits(torch, u, v) for p in parts
+                          for u, v in zip(p["serve"], whole["serve"]))}
+    scale_gaps = {}
+    for key, want in whole["grads"].items():
+        got = [p["grads"][key] for p in parts]
+        if got[0].shape != want.shape:  # an expert leaf: the ranks' experts in order
+            got = [torch.cat(got, 0)]
+        lin, leaf = key.split("/")
+        if lin != "router" and leaf in ("w_scale", "a_scale", "a_offset"):
+            gap = max(float((g - want).abs().max()) for g in got) / max(
+                float(want.abs().max()), 1e-30)
+            scale_gaps[key] = gap
+            layer[key] = gap <= EP_SCALE_BAR
+        else:  # weights, the router (run whole)
+            layer[key] = all(_same_bits(torch, g, want) for g in got)
+    log(f"  cell U layer (granite-moe, 32 experts over 4 ranks, 8 x 512 tokens, "
+        f"drop_frac {whole['drop_frac']:.4f}) against the whole layer: bit-equal "
+        f"{ {k: v for k, v in layer.items() if k not in scale_gaps} }; scales' "
+        f"gaps (relative, bar {EP_SCALE_BAR}) {scale_gaps}")
+    if not all(layer.values()):
+        fail(f"cell U layer differs from the whole layer: {layer}")
+    del whole, parts
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # kernels 2 and 6 at the slices: mixtral-8x7b's expert d_ff over 16
+    # model ranks, and this cell's 16 experts a rank at 640 rows
+    gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 27)
+    timer = Timer(torch)
+    qat = {"quant_matmul_batched": [], "quant_matmul_bwd_batched": []}
+    for e, mm, k, nn in ((8, 1280, 4096, 896), (8, 1280, 896, 4096),
+                         (16, 640, 1024, 512), (16, 640, 512, 1024)):
+        qat["quant_matmul_batched"].append(check_batched_fwd(
+            torch, timer, qmm, ref, e, mm, k, nn, gen, MOE_QS))
+        qat["quant_matmul_bwd_batched"].append(check_batched_bwd(
+            torch, timer, qmm, ref, e, mm, k, nn, gen, MOE_QS))
+        torch.cuda.empty_cache()
+    del timer
+    torch.cuda.empty_cache()
+    log(f"  cell U wall {wall:.1f} s (4 processes, their start included)")
+    return {"wall_s": wall, "train": {
+        "losses": losses, "losses_one_process": base, "rel": rel,
+        "grad_norms": gnorms, "grad_norm_rel": grel, "launches_per_step": per_step,
+        "drop_frac0": [m0["drop_frac"], b0["drop_frac"]],
+        "lb_loss0": [m0["lb_loss"], b0["lb_loss"]],
+        "one_process_s_per_step": one["s_step"],
+        "one_process_peak_gib": (one_rep.peak_bytes or 0) / 2**30,
+        "step_seconds": [r["train"]["step_seconds"] for r in ranks],
+        "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
+        "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
+        "moved_gib": [{k: v / 2**30 for k, v in r["train"]["moved_bytes"].items()}
+                      for r in ranks],
+        "expert_buffer_gib": buf / 2**30,
+        "moved_by_use_gib": [{k: v / 2**30 for k, v in r["train"]["moved_by_use"].items()}
+                             for r in ranks],
+        "collect_s": [r["train"]["collect_s"] for r in ranks]},
+        "serve": {"logits": bar,
+                  "launches": [{k: s["launches"][k] for k in (
+                      "int_matmul", "int4_matmul", "pooled_decode_attention")} for s in sv],
+                  "decode_tok_s": [s["throughput"]["decode_tok_s"] for s in sv],
+                  "wall_s": [s["wall_s"] for s in sv],
+                  "moved_gib": [sum(s["moved_bytes"].values()) / 2**30 for s in sv],
+                  "peak_gib": [s["peak_bytes"] / 2**30 for s in sv]},
+        "layer": {"bit_equal": layer, "scale_gaps": scale_gaps},
+        "slices": qat}
 
 
 # ---------------------------------------------------------------------------
@@ -1778,11 +2231,30 @@ def _order_excess(torch, got, want, xd, wd, length) -> float:
     return excess
 
 
+# the QAT forwards' max|err| bar: 1e-5 x max|y| up to a contraction of
+# FWD_BAR_K (granite-8b's and qwen's FFN rows), growing in proportion to K
+# past it, as the f32 order bound 2 K 2^-24 (|xd| @ |wd|) does: two f32
+# sums of the same products drift apart with K (kernel 2 at (8, 1280,
+# 4096, 896): 7.87e-5 against 1e-5 x max|y| = 6.82e-5, every element inside
+# its order bound). Each row also holds the bar below the error of its
+# output rounded to bf16 (about 2^-9 x max|y|), so that a kernel that
+# rounded its output would fail it at every K.
+FWD_BAR_K = 2816
+
+
+def fwd_bar(torch, y_r, k: int):
+    """(tol, bf16_err): the forward's max|err| bar at contraction k, and the
+    largest error of the plain output rounded to bf16."""
+    tol = 1e-5 * y_r.abs().max().item() * max(1.0, k / FWD_BAR_K)
+    bf16_err = (y_r.to(torch.bfloat16).float() - y_r).abs().max().item()
+    return tol, bf16_err
+
+
 def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
                   x_dtype=None) -> dict:
     """quant_matmul (the tensor-core path) against its plain version: within
-    1e-5 x max|y| and, element by element, within the f32 order bound; a
-    second launch on the same inputs gives the same bits; the prologue alone
+    `fwd_bar` and, element by element, within the f32 order bound; a second
+    launch on the same inputs gives the same bits; the prologue alone
     bit-equal to the plain dequantization."""
     x, w, a_s, a_b, ws = qat_operands(torch, m, k, n, k_side, gen, qs, x_dtype)
     args = (x, w, a_s, a_b, ws)
@@ -1794,7 +2266,7 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
     repeat = _same_bits(torch, y_k, again)
     del again
     err = (y_k - y_r).abs().max().item()
-    tol = 1e-5 * y_r.abs().max().item()
+    tol, bf16_err = fwd_bar(torch, y_r, k)
     _, _, xd = ref._act_codes(x, a_s, a_b, qs["q_n_a"], qs["q_p_a"])
     _, _, wd = ref._weight_codes(w, ws, qs["q_n_w"], qs["q_p_w"])
     excess = _order_excess(torch, y_k, y_r, xd, wd, k)
@@ -1803,6 +2275,7 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
     xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
     lib = lambda: torch.matmul(xd, wd)
     checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
+              ("bar", tol < bf16_err, f"below a bf16 output's {bf16_err:.3e}"),
               ("order", excess <= 0, f"excess {excess:.2e}"),
               ("repeat", repeat, "same bits on a second launch"),
               ("prologue", same, "bit-equal to the plain dequantization")]
@@ -1810,7 +2283,7 @@ def check_qat_fwd(torch, timer, qmm, ref, m, k, n, k_side, gen, qs,
     b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
     row = {"shape": [m, k, n], "w_scale": "rows" if k_side else "cols",
            "x": str(x.dtype)[6:], "path": "tc", "max_abs_err": err, "tol": tol,
-           "order_excess": excess, "ms": timer.ms(kern),
+           "bf16_err": bf16_err, "order_excess": excess, "ms": timer.ms(kern),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
            "bound_ms": b_ms, "bound_by": b_by, "prologue_ms": prologue_ms}
     log(f"  quant_matmul [tc] M={m} K={k} N={n} ({row['w_scale']} scales, "
@@ -2139,7 +2612,7 @@ def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     as_2d = all(_same_bits(torch, y_k[i], y2) for i, y2 in zip(ends, per_expert))
     del again, per_expert
     err = (y_k - y_r).abs().max().item()
-    tol = 1e-5 * y_r.abs().max().item()
+    tol, bf16_err = fwd_bar(torch, y_r, k)
     s_a, b_a, s_w = ref._expert_scales(a_s, a_b, ws)
     xd = ref._act_codes(x, s_a, b_a, qs["q_n_a"], qs["q_p_a"])[2]
     wd = ref._weight_codes(w, s_w, qs["q_n_w"], qs["q_p_w"])[2]
@@ -2149,6 +2622,7 @@ def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     xd, wd = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
     lib = lambda: torch.bmm(xd, wd)
     checks = [("max|err|", err <= tol, f"{err:.3e}, tol {tol:.3e}"),
+              ("bar", tol < bf16_err, f"below a bf16 output's {bf16_err:.3e}"),
               ("order", excess <= 0, f"excess {excess:.2e}"),
               ("repeat", repeat, "same bits on a second launch"),
               ("prologue", same, "bit-equal to the plain dequantization"),
@@ -2156,7 +2630,7 @@ def check_batched_fwd(torch, timer, qmm, ref, e, m, k, n, gen, qs,
     nbytes = e * (m * k * x.element_size() + k * n * 4 + 8 + n * 4 + m * n * 4)
     b_ms, b_by = bound(nbytes, 2.0 * e * m * k * n)
     row = {"shape": [e, m, k, n], "x": str(x.dtype)[6:], "path": "tc",
-           "max_abs_err": err, "tol": tol, "order_excess": excess,
+           "max_abs_err": err, "tol": tol, "bf16_err": bf16_err, "order_excess": excess,
            "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by,
            "prologue_ms": prologue_ms}
@@ -2322,7 +2796,8 @@ QAT_KERNELS = ("quant_matmul", "quant_matmul_bwd", "quant_matmul_dx",
 def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
                 tp_parts: int = 1) -> list:
     """Every linear of a train step that takes the QAT kernels, as
-    (name, count in the model, M, K, N, f32 cotangent, batched, remat):
+    (name, count in the model, M, K, N, f32 cotangent, experts, remat),
+    experts the batched kernels' expert count (0 for a 2D linear):
     a block linear whose kind quantizes both its input and its weight (not
     at 1 bit), with its (K, N) from the config: an attention block's wq /
     wk / wv, wo; a cross layer's xq, xo and xk / xv (over the
@@ -2337,7 +2812,10 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
     backward); the head once. tp_parts: one rank's slices of a
     tensor-parallel run (`dist.spmd.Spmd.tp`): the attention's and the
     dense FFN's linears and the head cut over that many model ranks, on N
-    for the column-parallel ones and on K for wo and w_out."""
+    for the column-parallel ones and on K for wo and w_out; an MoE FFN's
+    experts over them where they divide (expert parallelism: the rank's
+    experts at the same shapes), else each expert's d_ff as the dense
+    FFN's."""
     from repro_torch.core.policy import act_spec, weight_spec
     from repro_torch.models.common import NAME2KIND
     from repro_torch.models.moe import capacity
@@ -2360,7 +2838,7 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
 
     def add(name, count, m, k, n, label=None):
         if count and fused(name):
-            out.append((label or name, count, m, k, n, False, False, True))
+            out.append((label or name, count, m, k, n, False, 0, True))
 
     p = tp_parts
     for name, k, n in (("wq", d, h * hd // p), ("wk", d, hkv * hd // p),
@@ -2377,7 +2855,12 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
         if moe and fused(moe_name):
             groups = cfg.moe_dispatch_groups
             rows = groups * capacity(tokens // groups, cfg)
-            out.append((moe_name, moe, rows, k, n, False, True, True))
+            e, ek, en = cfg.n_experts, k, n
+            if p > 1 and e % p == 0:
+                e //= p
+            elif p > 1 and f % p == 0:
+                ek, en = (k // p, n) if name == "w_out" else (k, n // p)
+            out.append((moe_name, moe, rows, ek, en, False, e, True))
     mlstm = n_of(lambda bd: bd.attn == "mlstm")
     for name, k, n in (("m_up_gate", d, du), ("m_up", d, du), ("mq", du, du),
                        ("mk", du, du), ("mv", du, du), ("m_i", du, h), ("m_f", du, h),
@@ -2394,7 +2877,7 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
     tied_ok = (cfg.tie_embeddings and fused("lm_head", "embed")
                and weight_spec(qcfg, "embed").granularity == "per_tensor")
     if tied_ok or (not cfg.tie_embeddings and fused("lm_head")):
-        out.append(("lm_head", 1, tokens, d, cfg.padded_vocab // p, True, False, False))
+        out.append(("lm_head", 1, tokens, d, cfg.padded_vocab // p, True, 0, False))
     return out
 
 
@@ -2411,7 +2894,7 @@ def qat_launches_per_step(cfg, qcfg, tokens: int, frontend_rows: int = 0,
     c = dict.fromkeys(QAT_KERNELS, 0)
     for _, count, m, k, n, f32_cot, batched, remat in qat_linears(
             cfg, qcfg, tokens, frontend_rows, tp_parts):
-        e = cfg.n_experts if batched else 1
+        e = batched or 1
         c["quant_matmul_batched" if batched else "quant_matmul"] += count * (2 if remat else 1)
         if bwd_route(m, k, n) == "split":
             c["quant_matmul_dx"] += count * e
@@ -2430,7 +2913,7 @@ def formula(cfg, qcfg, tokens: int, frontend_rows: int = 0, tp_parts: int = 1) -
             cfg, qcfg, tokens, frontend_rows, tp_parts):
         route = bwd_route(m, k, n)
         route += " (3 planes)" if f32_cot else (" (1 plane)" if route == "split" else "")
-        each = f" x {cfg.n_experts} experts" if batched and route.startswith("split") else ""
+        each = f" x {batched} experts" if batched and route.startswith("split") else ""
         parts.append(f"{name} ({m}, {k}, {n}) x {count}: fwd {2 if remat else 1}, "
                      f"bwd {route}{each}")
     return "; ".join(parts)
@@ -2578,12 +3061,9 @@ def training_run(torch, ops, cfg, qcfg, *, batch: int, seq: int, steps: int,
     with oscillation tracked, osc_frac every step."""
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.launch import train
-    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.sentinel import SentinelConfig
-    from repro_torch.train.state import TrainConfig
     import shutil
-    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, kd="mckd", kd_topk=16,
-                       adamw=AdamWConfig(lr_peak=3e-3), sentinel=SentinelConfig())
+    tcfg = smoke_tcfg(steps)
     ckpt_dir = ROOT / "build" / f"chip_smoke_{tag}_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     log(f"train: run_training({cfg.name}, {cfg.n_layers} layers, "
@@ -2636,12 +3116,9 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
     granite-moe-1b-a400m, w3a3 (OBR lambda 0.1 on a cosine ramp over the
     run), track_oscillation, batch 8 x 512 (`training_run`; no checkpoint:
     the full state with its oscillation state is ~24 GB)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.policy import get_preset
-    return training_run(torch, ops, get_config("granite-moe-1b-a400m"),
-                        get_preset("w3a3").replace(track_oscillation=True),
-                        batch=8, seq=512, steps=steps, tag="moe",
-                        strict_health=False)
+    cfg, qcfg = moe_qat_config()
+    return training_run(torch, ops, cfg, qcfg, batch=8, seq=512, steps=steps,
+                        tag="moe", strict_health=False)
 
 
 def check_launches(run: dict, steps: int, tokens: int,
@@ -2808,9 +3285,12 @@ def cross_decode_check(torch, cfg, qcfg) -> dict:
     return {"unfused_attention": res["off"], "kernel_route": res["auto"]}
 
 
+XLSTM_TRAIN_LAYERS = 8  # one period: 7 mLSTM blocks, then an sLSTM
+
+
 def recurrent_phases(torch, ops, train) -> dict:
-    """Phases 16-20 (cells K-O): QAT of full-depth xlstm-350m through the
-    CLI (3 steps saving at 2, then a restored 4th); serving full-depth
+    """Phases 16-20 (cells K-O): QAT of xlstm-350m one period deep through
+    the CLI (3 steps saving at 2, then a restored 4th); serving full-depth
     recurrentgemma-9b and xlstm-350m through greedy_generate; QAT of
     recurrentgemma-9b cut to one period (3 layers) and of
     llama-3.2-vision-11b cut to one period (5 layers, one cross layer)
@@ -2821,16 +3301,19 @@ def recurrent_phases(torch, ops, train) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     out = {}
-    # 16 (K). xlstm-350m QAT at full width and depth, through the CLI
+    # 16 (K). xlstm-350m QAT at full width, one period deep (8 layers: 24
+    # before PR 30, cut to fit the run's time limit), through the CLI
     ckpt_dir = ROOT / "build" / "chip_smoke_xlstm_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     xargv = ["--arch", "xlstm-350m", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
-             "--seq", "512", "--save-every", "2", "--ckpt", str(ckpt_dir)]
+             "--seq", "512", "--layers", str(XLSTM_TRAIN_LAYERS), "--save-every", "2",
+             "--ckpt", str(ckpt_dir)]
     first = train_phase(torch, ops, train, xargv + ["--steps", "3"], 0, 3)
     resumed = train_phase(torch, ops, train, xargv + ["--steps", "4"], 3, 1)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     for run, n in ((first, 3), (resumed, 1)):
-        run.update(cfg=get_config("xlstm-350m"), qcfg=get_preset("w4a4"))
+        run.update(cfg=get_config("xlstm-350m").replace(n_layers=XLSTM_TRAIN_LAYERS),
+                   qcfg=get_preset("w4a4"))
         per_step = check_launches(run, n, 8 * 512)
     out["K"] = {"s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],
                 "step_seconds": first["report"].step_seconds,
@@ -2945,7 +3428,8 @@ def mckd_store_phase(torch) -> dict:
 
 TABLES = ("table1_sensitivity", "table2_sdam", "table4_qat", "table5_kd",
           "table7_oscillation")
-TABLE_STEPS = 20
+# 10 steps a run (20 before PR 30) to fit the run's time limit
+TABLE_STEPS = 10
 
 
 def tables_phase(torch) -> dict:
@@ -3759,6 +4243,9 @@ def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--tp-rank":
         tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if len(sys.argv) > 1 and sys.argv[1] == "--ep-rank":
+        ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -4129,7 +4616,15 @@ def main() -> None:
     cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, first)
     for name, rs in cell_t["slices"]["qat"].items():
         qat_rows[name].extend(rs)
-    mark("phase 26 done")
+    mark("phase 27")
+    # 27. expert-parallel MoE: cell D's QAT on (2, 2) and cell F's serving
+    #     (2 layers) on (1, 4), each rank on its experts; one layer against
+    #     the whole layer; kernels 2 and 6 at the slices' shapes
+    log("expert-parallel MoE, four ranks sharing the card (cell U):")
+    cell_u = cell_u_phase(torch, ops, M, serve, qmm, ref)
+    for name, rs in cell_u["slices"].items():
+        qat_rows[name].extend(rs)
+    mark("phase 27 done")
     counts.update(first["counts"])
     for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
         counts[name] = moe_run["counts"][name]
@@ -4194,6 +4689,12 @@ def main() -> None:
         if name in ("quant_matmul", "quant_matmul_bwd"):
             kernels[-1]["launches_tp_train_per_rank_step"] = cell_t["train"][
                 "launches_per_step"][name]
+        if name in QAT_KERNELS:
+            kernels[-1]["launches_ep_train_per_rank_step"] = cell_u["train"][
+                "launches_per_step"][name]
+        if name in ("int4_matmul", "pooled_decode_attention"):
+            kernels[-1]["launches_ep_serve_per_rank"] = [
+                x[name] for x in cell_u["serve"]["launches"]]
         if name in ("int4_matmul", "int_matmul", "pooled_decode_attention"):
             kernels[-1].update(plan=r["plan"], independence=serving["independence"][name],
                                rows=[{k: v for k, v in row.items() if k in (
@@ -4259,7 +4760,7 @@ def main() -> None:
                              *((a, r, r["per_step"]) for a, r in paper_runs.items()))},
         "mckd_store": store,
         "nan_rows": nan_rows, "fault_contract": faults, "compression": compressed,
-        "sharded": {"R": cell_r, "S": cell_s, "T": cell_t}, "dryrun": dry,
+        "sharded": {"R": cell_r, "S": cell_s, "T": cell_t, "U": cell_u}, "dryrun": dry,
         "recurrent": {cell: {k: v for k, v in r.items() if k != "counts"}
                       for cell, r in recurrent.items()},
         "tables": {k: {"steps": v["steps"], "wall_s": v["wall_s"], "rows": v["rows"]}

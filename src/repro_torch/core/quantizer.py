@@ -89,6 +89,20 @@ def _group_reduce_dims(scale_shape: tuple[int, ...], x_shape: tuple[int, ...]):
     return tuple(i for i, s in enumerate(scale_shape) if s == 1)
 
 
+def scale_spans(scale_shape: tuple, w_shape: tuple, tp) -> bool:
+    """The groups of a scale of `w`'s slice span the model ranks of `tp`:
+    a 0-d scale (per-tensor, or an activation scale keyed on the weight),
+    or one replicated while its weight splits across its groups (a
+    per-expert (E, 1, 1) scale of an expert split on d_ff). A scale with
+    an axis along the cut (`sharding._scale_pspec`: a per-head scale with
+    its heads, a per-expert one with its experts) splits with its weight,
+    so each of its groups is whole on its rank."""
+    if tp is None:
+        return False
+    return not scale_shape or (tp.dim is not None
+                               and scale_shape[tp.dim] != w_shape[tp.dim])
+
+
 def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
                       scale_shape: tuple[int, ...], tp=None) -> torch.Tensor:
     """Gradient scale g for the learnable scale factor, shaped like the scale.
@@ -97,17 +111,15 @@ def scale_grad_factor(spec: QuantSpec, w: torch.Tensor,
     group; lsq: g = 1 / sqrt(N * Q_P); none: g = 1.
 
     tp: `w` is this rank's slice of a weight split over `tp.parts` model
-    ranks (`dist.spmd.TPSplit`). A 0-d scale (per-tensor, or an activation
-    scale keyed on the weight) is replicated and its group is the whole
-    weight: g is the whole weight's, from the slices' l1 all-reduced over
-    the model ranks, or from the whole element count. A scale with axes is
-    split with its weight's groups (`sharding._scale_pspec`: a per-head
-    scale with its heads), so each of its groups is whole on its rank.
+    ranks along `tp.dim` (`dist.spmd.TPSplit`). Where the scale's groups
+    span the ranks (`scale_spans`), g is the whole weight's, from the
+    slices' l1 all-reduced over the model ranks, or from the whole element
+    count; otherwise each group is whole on its rank.
     """
     if spec.grad_scale_mode == "none":
         return torch.ones(scale_shape, dtype=torch.float32, device=w.device)
     dims = _group_reduce_dims(scale_shape, tuple(w.shape))
-    spans = tp is not None and not scale_shape
+    spans = scale_spans(scale_shape, tuple(w.shape), tp)
     if spec.grad_scale_mode == "lsq":
         n = float(tp.parts) if spans else 1.0
         for a in dims:

@@ -24,10 +24,11 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
 * Tensor-parallel compute (`tp_compute=True`, the default). Where the
   model names a sublayer that may run so (`models.model.layer_tp`: a
   block's attention, wq / wk / wv / wo on heads, and its dense FFN,
-  w_in / w_gate / w_out on d_ff; the embedding and the head on vocab) and the
-  rules split every weight of it over `model` (`Spmd.tp`), its leaves
-  are gathered over the data axes only and each rank runs the kernels on
-  its own slices, as GSPMD partitions the reference's einsums: a
+  w_in / w_gate / w_out on d_ff, or its MoE FFN's experts; the embedding
+  and the head on vocab) and the rules split every weight of it over
+  `model` (`Spmd.tp`), its leaves are gathered over the data axes only
+  and each rank runs the kernels on its own slices, as GSPMD partitions
+  the reference's einsums: a
   column-parallel linear (q / k / v, w_in / w_gate, the head) takes its
   input through `to_model` (identity forward, all-reduce backward) and
   gives this rank's output columns; a row-parallel one (wo, w_out) takes
@@ -41,8 +42,17 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   weight scales, biases) go through `to_model`, so their partial
   gradients are summed over the model ranks, and the module-wise g
   factor is the whole weight's (`core.quantizer.scale_grad_factor`).
-  Everything else (MoE experts, the
-  recurrent blocks, cross-attention, a weight that does not divide,
+  MoE experts split one of two ways. Where the experts divide the model
+  axis (expert parallelism, `TPSplit.experts`), every model rank of a
+  data group routes the same rows to the same capacity buffer; each cuts
+  its experts from it (`split_model`: its part forward, the parts'
+  gradients all-gathered backward), runs them, and the output buffer is
+  all-gathered along the experts (`gather_model`) before the combine: a
+  gather, not a sum, so the expert products keep their bits. Where only
+  d_ff divides, each expert splits as the dense FFN does (moe_in /
+  moe_gate column-parallel, moe_out row-parallel). The router stays
+  gathered whole (top-k reads every expert's f32 logit). Everything else
+  (the recurrent blocks, cross-attention, a weight that does not divide,
   no_tp, `tp_compute=False`) keeps the gathered path above, so every
   model rank computes it whole.
 * Global decisions come out of all-reduces: the loss and metrics (means
@@ -72,6 +82,7 @@ reduced, and its arithmetic is the single-process arithmetic exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -98,14 +109,35 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 # bytes each kind of collective delivered to this rank since the last
-# reset (the outputs' bytes, `launch.cost`'s accounting), and the host
+# reset (the outputs' bytes, `launch.cost`'s accounting), the same bytes
+# of the collectives launched under a use (`counted_as`), and the host
 # seconds spent inside `collect` (staging, the wire and the wait)
 _MOVED: dict = {}
+_BY_USE: dict = {}
+_USE: list = [None]
 _SECONDS = [0.0]
 
 
 def moved_bytes() -> dict:
     return dict(_MOVED)
+
+
+def moved_bytes_by_use() -> dict:
+    """The bytes of `moved_bytes` that collectives launched under each use
+    (`counted_as`) delivered; the rest were launched under none."""
+    return dict(_BY_USE)
+
+
+@contextlib.contextmanager
+def counted_as(use: str):
+    """Count the collectives launched inside (and in the backward of the
+    model-axis operators applied inside: `TPSplit`) under `use` too."""
+    prev = _USE[0]
+    _USE[0] = use
+    try:
+        yield
+    finally:
+        _USE[0] = prev
 
 
 def collect_seconds() -> float:
@@ -114,6 +146,7 @@ def collect_seconds() -> float:
 
 def reset_moved_bytes() -> None:
     _MOVED.clear()
+    _BY_USE.clear()
     _SECONDS[0] = 0.0
 
 
@@ -164,7 +197,10 @@ def _collect(jobs: list) -> list:
             work = dist.all_reduce(out, op=_REDUCE_OPS[kind], group=group,
                                    async_op=True)
         cost.record_collective(kind, out)
-        _MOVED[kind] = _MOVED.get(kind, 0) + out.numel() * out.element_size()
+        nbytes = out.numel() * out.element_size()
+        _MOVED[kind] = _MOVED.get(kind, 0) + nbytes
+        if _USE[0] is not None:
+            _BY_USE[_USE[0]] = _BY_USE.get(_USE[0], 0) + nbytes
         pend.append((work, out, kind, dim, t.device))
     results = []
     for work, out, kind, dim, device in pend:
@@ -271,12 +307,13 @@ class _ToModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, group, x):
-        ctx.group = group
+        ctx.group, ctx.use = group, _USE[0]
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, all_reduce(g.to(torch.float32), ctx.group).to(g.dtype)
+        with counted_as(ctx.use):
+            return None, all_reduce(g.to(torch.float32), ctx.group).to(g.dtype)
 
 
 class _FromModel(torch.autograd.Function):
@@ -316,18 +353,37 @@ class _GatherModel(torch.autograd.Function):
         return None, None, None, g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
 
 
+class _SplitModel(torch.autograd.Function):
+    """This rank's part along `dim` forward; the backward all-gathers the
+    parts' gradients in rank order (every model rank holds the same whole
+    tensor and needs its whole gradient): `_GatherModel`'s dual."""
+
+    @staticmethod
+    def forward(ctx, group, index, parts, dim, x):
+        ctx.group, ctx.dim, ctx.use = group, dim, _USE[0]
+        n = x.shape[dim] // parts
+        return x.narrow(dim, index * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        with counted_as(ctx.use):
+            return None, None, None, None, all_gather(g, ctx.group, ctx.dim)
+
+
 class TPSplit(NamedTuple):
     """A sublayer's weights split over the `parts` model ranks of `group`;
     this rank holds part `index`. ordered: `from_model` sums in rank order
     (the serving runtime asks for it: its engine's streams then equal
     `greedy_generate`'s whatever rows a call batches). `dim`: the weight
     axis a linear's slice is cut along (set by `models.common` per
-    linear)."""
+    linear). experts: an MoE FFN split on its expert axis (expert
+    parallelism); otherwise its experts split on d_ff."""
     group: Any
     index: int
     parts: int
     ordered: bool = False
     dim: Optional[int] = None
+    experts: bool = False
 
     def to_model(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(self.group, x)
@@ -337,6 +393,13 @@ class TPSplit(NamedTuple):
 
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _GatherModel.apply(self.group, self.index, dim % x.dim(), x)
+
+    def split_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part of a whole tensor that every model rank holds,
+        along `dim`; its gradient is the parts' gradients all-gathered
+        (`local` gives the same through `to_model`'s all-reduce of
+        zero-padded parts, M x the bytes)."""
+        return _SplitModel.apply(self.group, self.index, self.parts, dim % x.dim(), x)
 
     def local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's part of a whole tensor along `dim`."""
@@ -442,6 +505,12 @@ class Spmd:
                 for n in names or (None,)) else None
         return self._tp[key]
 
+    def experts(self, path: tuple) -> bool:
+        """The rules split the leading (expert) axis of the linear at `path`
+        over the model axis: expert parallelism."""
+        spec = _weight_spec(spec_at(self.pspecs, path))
+        return bool(spec) and "model" in shard.spec_axes(spec[0])
+
     # -- batch ---------------------------------------------------------------
     def rows(self, batch: dict) -> dict:
         """This rank's rows of a global numpy batch (every entry's leading
@@ -464,13 +533,15 @@ class Spmd:
     def gather(self, path: tuple, sub: Any, split: tuple = ()) -> Any:
         """The full leaves of the subtree at `path`, gathered together
         (autograd carries the gradients of leaves that need one back to
-        their slices); the leaves under the keys `split` of `sub` (the
-        linears of a tensor-parallel sublayer, `tp`) are gathered over the
-        data axes only, and keep their model slices."""
+        their slices); the leaves under the entries of `split` (the
+        linears of a tensor-parallel sublayer, `tp`: a key of `sub`, or a
+        tuple of keys for a linear deeper down, ("moe", "moe_in")) are
+        gathered over the data axes only, and keep their model slices."""
         if self.whole:
             return sub
-        items = [(leaf, _strip_model(spec) if spec is not None and sub_path
-                  and sub_path[0] in split else spec)
+        keys = [k if isinstance(k, tuple) else (k,) for k in split]
+        items = [(leaf, _strip_model(spec) if spec is not None and any(
+                      tuple(sub_path[:len(k)]) == k for k in keys) else spec)
                  for sub_path, leaf, spec
                  in shard.with_specs(sub, spec_at(self.pspecs, path))]
         reduce = self.mesh.size(self.data_axes) > 1
@@ -542,8 +613,9 @@ class Spmd:
         only that)."""
         if self.whole:
             return osc
-        freqs = gather_many([st.freq for st in osc], [sp.freq for sp in self.osc_specs],
-                            self.mesh)
+        with counted_as("oscillation"):
+            freqs = gather_many([st.freq for st in osc],
+                                [sp.freq for sp in self.osc_specs], self.mesh)
         return tuple(st._replace(freq=f) for st, f in zip(osc, freqs))
 
     def osc_view(self, index: int, path: tuple, w: torch.Tensor,
@@ -556,7 +628,8 @@ class Spmd:
         ospec = self.osc_specs[index].prev_int
         if ospec == wspec:
             return w, s
-        wf, sf = self.full_leaf(path, w, s)
+        with counted_as("oscillation"):
+            wf, sf = self.full_leaf(path, w, s)
         return (shard.local_shard(wf, ospec, self.mesh, self.mesh.coords),
                 shard.local_shard(sf, shard._scale_pspec(sf.shape, wf.shape, ospec),
                                   self.mesh, self.mesh.coords))

@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.policy import QuantConfig, act_spec, weight_spec
 from repro_torch.core.quantizer import (QuantSpec, fake_quant, grad_scale,
                                         init_scale, pack_int4, quantize_int,
-                                        scale_grad_factor, unpack_int4)
+                                        scale_grad_factor, scale_spans,
+                                        unpack_int4)
 from repro_torch.kernels import ops
 
 _SPEC8 = QuantSpec(bits=8)  # spec placeholder for serving int matmuls
@@ -232,23 +233,26 @@ def _fused_eligible_batched(qcfg: QuantConfig, aspec, wspec, eq: str,
 
 
 def _fused_qat_linear_batched(p: dict, x: torch.Tensor, aspec, wspec, *,
-                              cotangent_rounding: bool = True) -> torch.Tensor:
+                              cotangent_rounding: bool = True,
+                              tp=None) -> torch.Tensor:
     """Batched per-expert QAT matmul (MoE): x (g, E, c, K) @ w (E, K, N)
     -> (g, E, c, N) f32 through `ops.fused_qat_matmul_batched`.
 
     The expert axis leads the kernels' grid; the per-expert weight scales
     expand to (E, N) columns and the scalar activation quantizer broadcasts
     to (E,), both by plain tensor ops, so autograd sums their cotangents
-    back to the stored shapes, as in the 2D path.
+    back to the stored shapes, as in the 2D path. tp: `p` holds this
+    rank's slice (its experts, or every expert's d_ff slice: `qlinear`);
+    the g factors are the whole weight's.
     """
     w = p["w"]
     e, k, n = w.shape
     ref = w.detach()
-    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape))
+    g_w = scale_grad_factor(wspec, ref, tuple(p["w_scale"].shape), tp)
     s_w = grad_scale(p["w_scale"], g_w)
     s_w3 = s_w.reshape(1, 1, 1) if s_w.dim() == 0 else s_w
     ws_en = torch.broadcast_to(s_w3, (e, 1, n)).reshape(e, n)
-    g_a = scale_grad_factor(aspec, ref, ())
+    g_a = scale_grad_factor(aspec, ref, (), tp)
     s_a = torch.broadcast_to(grad_scale(p["a_scale"], g_a), (e,))
     if "a_offset" in p:
         b_a = torch.broadcast_to(grad_scale(p["a_offset"], g_a), (e,))
@@ -336,7 +340,7 @@ def _serving_linear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig,
     this rank's slice (`_tp_inputs`); a row-parallel slice's partial
     product is summed over the model ranks in f32, then rounded.
     """
-    row = tp is not None and tp.dim == 0
+    row = _row_parallel(name, tp)
     kind = kind_of(name)
     wspec = weight_spec(qcfg, kind) or _SPEC8
     packed = "codes4" in p
@@ -403,35 +407,58 @@ def linear_init(gen: torch.Generator, name: str, qcfg: QuantConfig,
 
 
 # Row-parallel linears: their weight splits over the model axis on its
-# contracted (leading) axis (`dist.sharding`); every other linear that
-# splits is column-parallel, on its first output axis.
-ROW_PARALLEL = frozenset({"wo", "xo", "w_out", "m_down", "g_out"})
+# contracted axis (`dist.sharding`): the leading one of a 2D or head
+# linear, an expert's d_ff (axis 1 of moe_out's (E, f, d)); every other
+# linear that splits is column-parallel, on its first output axis (axis 2
+# of moe_in's / moe_gate's (E, d, f)). Expert parallelism cuts all three
+# expert linears on their expert axis (0) instead.
+ROW_PARALLEL = frozenset({"wo", "xo", "w_out", "m_down", "g_out", "moe_out"})
+EXPERT_LINEARS = frozenset({"moe_in", "moe_gate", "moe_out"})
+
+
+def _row_parallel(name: str, tp) -> bool:
+    """A tensor-parallel slice whose partial products are summed over the
+    model ranks."""
+    return tp is not None and not tp.experts and name in ROW_PARALLEL
+
+
+def _tp_dim(name: str, tp) -> int:
+    """The weight axis a linear's tensor-parallel slice is cut along."""
+    if tp.experts:
+        return 0
+    row = name in ROW_PARALLEL
+    if name in EXPERT_LINEARS:  # (E, din, dout)
+        return 1 if row else 2
+    return 0 if row else 1
 
 
 def _tp_replicated(p: dict, tp) -> dict:
     """`p` with its replicated leaves that model-split work reads (the
-    activation scale and offset, a per-tensor weight scale) through
+    activation scale and offset, a weight scale whose groups span the
+    ranks: per-tensor, or per-expert on an expert split on d_ff) through
     `to_model`, so their partial gradients are summed over the model
     ranks."""
     q = dict(p)
     for key in ("a_scale", "a_offset"):
         if key in q:
             q[key] = tp.to_model(q[key])
-    if "w_scale" in q and q["w_scale"].dim() == 0:
+    if "w_scale" in q and (q["w_scale"].dim() == 0 or "w" in q and scale_spans(
+            tuple(q["w_scale"].shape), tuple(q["w"].shape), tp)):
         q["w_scale"] = tp.to_model(q["w_scale"])
     return q
 
 
 def _tp_inputs(p: dict, x: torch.Tensor, name: str, tp):
     """(p, x, tp) of a tensor-parallel linear on this rank's slice: tp
-    with the weight axis the slice is cut along (0 row-parallel, 1
-    column-parallel), the replicated leaves through `to_model`; a
-    column-parallel linear's input through `to_model` too and its
-    (replicated) bias cut to this rank's columns."""
-    row = name in ROW_PARALLEL
-    tp = tp._replace(dim=0 if row else 1)
+    with the weight axis the slice is cut along (`_tp_dim`), the
+    replicated leaves through `to_model`; a column-parallel linear's input
+    through `to_model` too and its (replicated) bias cut to this rank's
+    columns. An expert-parallel linear takes this rank's experts' rows of
+    the capacity buffer (`models.moe.moe_ffn` cuts them) and gives their
+    outputs."""
+    tp = tp._replace(dim=_tp_dim(name, tp))
     q = _tp_replicated(p, tp)
-    if not row:
+    if not tp.experts and name not in ROW_PARALLEL:
         x = tp.to_model(x)
         if "b" in q:
             q["b"] = tp.local(tp.to_model(q["b"]), 0)
@@ -451,15 +478,17 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
 
     tp (a `dist.spmd.TPSplit`, None for a whole weight): `p` holds this
     rank's slice. Column-parallel (ROW_PARALLEL's complement: wq / wk /
-    wv on heads, w_in / w_gate on d_ff) gives this rank's output columns;
-    row-parallel (wo on heads, its per-head K-side scale sliced with them;
-    w_out on d_ff) takes this rank's input columns and returns the whole
-    output, its partial products summed over the model ranks in f32. The
-    route follows the same rules as for the whole weight.
+    wv on heads, w_in / w_gate and moe_in / moe_gate on d_ff) gives this
+    rank's output columns; row-parallel (wo on heads, its per-head K-side
+    scale sliced with them; w_out and moe_out on d_ff) takes this rank's
+    input columns and returns the whole output, its partial products
+    summed over the model ranks in f32; expert-parallel (`tp.experts`)
+    runs this rank's experts on their rows. The route follows the same
+    rules as for the whole weight.
     """
     if tp is not None:
         p, x, tp = _tp_inputs(p, x, name, tp)
-    row = tp is not None and tp.dim == 0
+    row = _row_parallel(name, tp)
     if "codes" in p or "codes4" in p:
         return _serving_linear(p, x, name, qcfg, eq, cdtype, tp=tp)
     kind = kind_of(name)
@@ -467,7 +496,10 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
     aspec = act_spec(qcfg, kind)
     wspec = weight_spec(qcfg, kind)
     if _fused_eligible_batched(qcfg, aspec, wspec, eq, p, w, x):
-        y = _fused_qat_linear_batched(p, x, aspec, wspec).to(cdtype)
+        y = _fused_qat_linear_batched(p, x, aspec, wspec, tp=tp)
+        if row:
+            y = tp.from_model(y)
+        y = y.to(cdtype)
     elif _fused_eligible(qcfg, aspec, wspec, eq, p, w, x, tp):
         y = _fused_qat_linear(p, x, aspec, wspec, FUSED_EQS[eq], tp=tp)
         if row:

@@ -214,8 +214,8 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     block output's SDAM (a metric: no gradient flows through it) and the
     MoE FFN's load-balance loss and drop fraction (zeros otherwise).
     cross_embeds: the vision patches (B, P, d) a cross layer attends to.
-    tp_attn / tp_ffn: the attention / dense FFN run tensor-parallel on
-    this rank's slices (`dist.spmd.Spmd.tp`)."""
+    tp_attn / tp_ffn: the attention / the FFN (dense or MoE) run
+    tensor-parallel on this rank's slices (`dist.spmd.Spmd.tp`)."""
     if bd.attn == "mlstm":
         x, _ = rec.mlstm_block(p, x, cfg, qcfg, cdtype)
     elif bd.attn == "slstm":
@@ -230,7 +230,7 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     if bd.ffn == "moe":
         xn = apply_norm(p["ln2"], x, cfg.norm)
-        y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype)
+        y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype, tp_ffn)
         x = x + y
         lb, drop = maux["lb_loss"], maux["drop_frac"]
     elif bd.ffn == "dense":
@@ -256,18 +256,30 @@ ATTN_LINEARS = ("wq", "wk", "wv", "wo")
 
 
 def layer_tp(spmd: Spmd, cfg: ArchConfig, i: int) -> tuple:
-    """(attention, dense FFN, split) of layer i: this rank's
-    `dist.spmd.TPSplit` for each sublayer the block has and whose weights
-    the rules split over the model axis, else None, and the names of the
-    linears that keep their model slices. Only a block's own attention and
-    its dense FFN run tensor-parallel; a recurrent block (an sLSTM's FFN
-    inside it), cross-attention and MoE experts run whole."""
+    """(attention, FFN, split) of layer i: this rank's `dist.spmd.TPSplit`
+    for each sublayer the block has and whose weights the rules split over
+    the model axis, else None, and the linears that keep their model
+    slices (`Spmd.gather`'s split). A block's own attention, its dense FFN
+    and its MoE FFN's experts run tensor-parallel (the experts split on
+    their expert axis where it divides, `TPSplit.experts`, else on d_ff;
+    the router stays whole); a recurrent block (an sLSTM's FFN inside it)
+    and cross-attention run whole."""
     bd = cfg.block_at(i)
     ffn = ("w_in", "w_gate", "w_out") if cfg.ffn_gated else ("w_in", "w_out")
     ta = (spmd.tp(("layers", i), ATTN_LINEARS)
           if bd.attn in ("global", "local") else None)
-    tf = spmd.tp(("layers", i), ffn) if bd.ffn == "dense" else None
-    return ta, tf, (ATTN_LINEARS if ta else ()) + (ffn if tf else ())
+    tf, split = None, ()
+    if bd.ffn == "dense":
+        tf = spmd.tp(("layers", i), ffn)
+        split = ffn
+    elif bd.ffn == "moe":
+        names = (("moe_in", "moe_gate", "moe_out") if cfg.ffn_gated
+                 else ("moe_in", "moe_out"))
+        tf = spmd.tp(("layers", i, "moe"), names)
+        if tf is not None:
+            tf = tf._replace(experts=spmd.experts(("layers", i, "moe", "moe_in")))
+        split = tuple(("moe", n) for n in names)
+    return ta, tf, (ATTN_LINEARS if ta else ()) + (split if tf else ())
 
 
 def vocab_tp(spmd: Spmd, cfg: ArchConfig) -> tuple:
@@ -602,7 +614,7 @@ def block_decode(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
         x = _cross_sublayer(p, x, cache["xkv"], cfg, qcfg, cdtype)
     if bd.ffn == "moe":  # the aux losses are training metrics: dropped
         y, _ = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, cfg.norm),
-                               cfg, qcfg, cdtype)
+                               cfg, qcfg, cdtype, tp_ffn)
         x = x + y
     elif bd.ffn == "dense":
         x = _ffn_sublayer(p, x, cfg, qcfg, cdtype, tp_ffn)

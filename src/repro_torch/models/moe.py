@@ -14,6 +14,15 @@ Serving routes padding and idle rows (pos = -1) too, and they take
 capacity, as in the reference: a step's drops depend on its other rows,
 so streams are bit-exact across pools only at a capacity without drops.
 
+On a model axis (`tp`, a `dist.spmd.TPSplit`) the model ranks of a data
+group hold the same rows, so the router, run whole, gives each the same
+capacity buffer. Expert parallelism (`tp.experts`) cuts the buffer to the
+rank's experts, runs them, and all-gathers the output buffer along the
+experts before the combine: each expert's rows meet the same arithmetic
+as in one process. Tensor parallelism within the experts feeds the whole
+buffer to the column-parallel moe_in / moe_gate slices and sums
+moe_out's row-parallel partials over the ranks (`qlinear`).
+
 The router's f32 sums are taken in another order than XLA's, so where the
 reference's logits tie exactly (at init the router's 8-bit activation
 quantizer, scale 1, turns its input into small integers) the port's may
@@ -29,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantConfig
+from repro_torch.dist.spmd import counted_as
 from repro_torch.models.common import activation, linear_init, qlinear
 
 
@@ -91,12 +101,14 @@ def _combine_group(out_buf: torch.Tensor, slot, keep, gate_vals, e: int,
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
-            cdtype=torch.bfloat16):
+            cdtype=torch.bfloat16, tp=None):
     """x (B, S, d) -> ((B, S, d), aux) with aux {"lb_loss": the
     Switch-style load-balance loss, "drop_frac": the share of (token, slot)
     pairs over capacity}. Routing and capacity apply within
     cfg.moe_dispatch_groups equal groups of tokens (1 unless it divides
-    the token count)."""
+    the token count). tp: `p`'s expert linears hold this rank's slices
+    (see the module docstring); the router and aux are whole, the same on
+    every model rank."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.moe_top_k
@@ -122,19 +134,27 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
     ei = exp_idx.reshape(grp, tl, k)
     routed = [_route_group(xg[i], ei[i], c, e, k, cdtype) for i in range(grp)]
     buf = torch.stack([r[0] for r in routed])             # (g, e, c, d)
+    ep = tp is not None and tp.experts
+    with counted_as("experts"):
+        if ep:  # this rank's experts
+            buf = tp.split_model(buf, 1)
 
-    # expert compute: the batched QAT kernels (latent weights) or the
-    # row-blocked fallback (int codes), per-expert scales
-    if cfg.ffn_gated:
-        gt = qlinear(p["moe_gate"], buf, "moe_gate", qcfg, "gecd,edf->gecf",
-                     cdtype)
-        u = qlinear(p["moe_in"], buf, "moe_in", qcfg, "gecd,edf->gecf", cdtype)
-        h = activation(gt, cfg.act) * u
-    else:
-        u = qlinear(p["moe_in"], buf, "moe_in", qcfg, "gecd,edf->gecf", cdtype)
-        h = activation(u, cfg.act)
-    out_buf = qlinear(p["moe_out"], h, "moe_out", qcfg, "gecf,efd->gecd",
-                      cdtype)
+        # expert compute: the batched QAT kernels (latent weights) or the
+        # row-blocked fallback (int codes), per-expert scales
+        if cfg.ffn_gated:
+            gt = qlinear(p["moe_gate"], buf, "moe_gate", qcfg, "gecd,edf->gecf",
+                         cdtype, tp)
+            u = qlinear(p["moe_in"], buf, "moe_in", qcfg, "gecd,edf->gecf", cdtype,
+                        tp)
+            h = activation(gt, cfg.act) * u
+        else:
+            u = qlinear(p["moe_in"], buf, "moe_in", qcfg, "gecd,edf->gecf", cdtype,
+                        tp)
+            h = activation(u, cfg.act)
+        out_buf = qlinear(p["moe_out"], h, "moe_out", qcfg, "gecf,efd->gecd",
+                          cdtype, tp)
+        if ep:  # every expert's outputs, on every model rank
+            out_buf = tp.gather_model(out_buf, 1)
 
     y = torch.stack([_combine_group(out_buf[i], routed[i][1], routed[i][2],
                                     gv[i], e, c, k, cdtype)

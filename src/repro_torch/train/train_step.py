@@ -33,7 +33,7 @@ from repro_torch.core.kd import hard_ce, kd_from_teacher_logits, sparse_soft_ce
 from repro_torch.core.obr import obr_lambda_schedule, obr_loss
 from repro_torch.core.oscillation import oscillation_fraction, update_osc_state
 from repro_torch.core.policy import QuantConfig
-from repro_torch.dist.spmd import WHOLE, Spmd
+from repro_torch.dist.spmd import WHOLE, Spmd, counted_as
 from repro_torch.models.model import (forward, jax_leaf_groups,
                                      quant_leaf_paths, quant_leaves)
 from repro_torch.optim import adamw, schedule
@@ -132,7 +132,8 @@ def obr_(params: dict, grads: dict, qcfg: QuantConfig, lam: torch.Tensor,
     slice."""
     total = None
     for path, w, s, spec in quant_leaf_paths(params, qcfg):
-        w, s = spmd.full_leaf(path, w, s)
+        with counted_as("obr"):
+            w, s = spmd.full_leaf(path, w, s)
         wl = w.detach().requires_grad_(True)
         with torch.enable_grad():
             v = obr_loss(wl, s, spec)

@@ -31,10 +31,10 @@ its own wall-time bar, as tests/_torch_spmd_harness.py does):
   leaves included; all 8 losses within the reference's 5 % bar
   (tests/test_spmd.py) of the one-process port's and of the reference's
   one-device run.
-* Every block family on a (1, 2) mesh (MoE, gemma2's local / global
-  attention, musicgen's learned positions and audio frames, xlstm's
-  mLSTM / sLSTM, recurrentgemma's RG-LRU with local attention,
-  llama-vision's cross-attention): which sublayers run tensor-parallel
+* Every block family on a (1, 2) mesh (MoE, its experts
+  expert-parallel, gemma2's local / global attention, musicgen's learned
+  positions and audio frames, xlstm's mLSTM / sLSTM, recurrentgemma's
+  RG-LRU with local attention, llama-vision's cross-attention): which sublayers run tensor-parallel
   and which stay gathered, the forward's logits, and every leaf's step-0
   gradient against one process: a tensor-parallel sublayer's leaves to
   2e-2 relative L2 and its scales to 0.2 of their kind's RMS; a gathered
@@ -287,11 +287,12 @@ def families(tmp_path_factory):
 
 # per family: the sublayers that must run tensor-parallel, (attention,
 # FFN) by layer, on 2 model ranks of the reduced configs (4 heads, d_ff 96,
-# padded vocab 272 split in 2): an MoE FFN, the mLSTM / sLSTM blocks (the
-# sLSTM's own FFN with them), an attention whose one kv head does not
-# split and the cross layer's xq / xk / xv / xo stay gathered
+# padded vocab 272 split in 2; an MoE FFN's 4 experts split 2 a rank,
+# expert-parallel): the mLSTM / sLSTM blocks (the sLSTM's own FFN with
+# them), an attention whose one kv head does not split and the cross
+# layer's xq / xk / xv / xo stay gathered
 FAMILY_TP = {
-    "granite-moe-1b-a400m": [(True, False)] * 2,
+    "granite-moe-1b-a400m": [(True, True)] * 2,
     "gemma2-2b": [(True, True)] * 2,
     "musicgen-medium": [(True, True)] * 2,
     "xlstm-350m": [(False, False)] * 8,
@@ -303,8 +304,7 @@ FAMILY_TP = {
 # the route-gap allowance's readings (the bf16 w4a4 reduced configs, seed
 # 0, 2 x 16 tokens): a gathered leaf's step-0 gap to one process, against
 # its kernel route's own gap to the unfused route. Every leaf of a gathered
-# sublayer past 2e-2: granite-moe's moe_in a_scale 0.244 (route 0.425) and
-# moe_out a_offset 0.043 (0.571); 19 of xlstm's, from 0.021 (mq a_offset,
+# sublayer past 2e-2: 19 of xlstm's, from 0.021 (mq a_offset,
 # route 0.017) to s_i's bias 1.392 (1.573: the stabilised input gate's
 # gradient cancels) and w_gate's a_scale 0.267 (5.554); 15 of
 # recurrentgemma's (the RG-LRU and its attention, whose one kv head does
@@ -316,15 +316,16 @@ _SCALES = ("w_scale", "a_scale", "a_offset")
 
 def _in_tp_sublayer(path: tuple, tp: list, head_tp: bool) -> bool:
     """The leaf at `path` belongs to a sublayer that ran tensor-parallel:
-    the embedding / head, or a split attention's (ln1, wq / wk / wv / wo)
-    or dense FFN's (ln2, w_in / w_gate / w_out) leaves."""
+    the embedding / head, or a split attention's (ln1, wq / wk / wv / wo),
+    dense FFN's (ln2, w_in / w_gate / w_out) or MoE FFN's (ln2, and the
+    router and experts under moe) leaves."""
     if path[0] in ("embed", "lm_head"):
         return head_tp
     if path[0] != "layers":
         return False
     attn, ffn = tp[path[1]]
     return ((attn and path[2] in ("ln1", "wq", "wk", "wv", "wo"))
-            or (ffn and path[2] in ("ln2", "w_in", "w_gate", "w_out")))
+            or (ffn and path[2] in ("ln2", "w_in", "w_gate", "w_out", "moe")))
 
 
 @pytest.mark.parametrize("arch", list(FAMILY_TP))
@@ -339,7 +340,7 @@ def test_every_block_family_tensor_parallel(families, arch):
     their own size, as in the training test) each element within 0.2 of
     the RMS of its kind over those sublayers, which a missing sum or a g
     factor from a slice breaks. A leaf of a gathered sublayer (recurrent,
-    cross-attention, MoE), where no tensor-parallel code runs and only
+    cross-attention), where no tensor-parallel code runs and only
     the reordered backward reaching it moves it: within 2e-2 or twice the
     gap the kernel route itself leaves against the unfused route on that
     leaf (`ROUTE_GAP_FACTOR`, readings above)."""
