@@ -230,6 +230,12 @@ Phases (any failure exits non-zero before the final line is printed):
                phase 6's, launches equal the formula; phase 3's full-width
                granite-8b served with --model-parallel 1, streams equal
                phase 3's.
+  Phases 24, 26 and 27 run after phase 25, in one spawn of four
+  processes (`chip_smoke.py --cells-rank R PORT DIR`, logs in
+  `build/chip_smoke_cells/`) that run cells S, T and U in turn: one
+  interpreter, CUDA context and process group each (rank 0's start and
+  its seconds a cell printed); phase 27's one-process run goes first, and
+  each cell's checks follow the ranks.
   24. sharded, four ranks (cell S) — four processes share the card on a
                (2 data, 2 model) mesh over gloo (NCCL refuses two ranks on
                one device; gloo moves each CUDA payload through a host
@@ -246,9 +252,9 @@ Phases (any failure exits non-zero before the final line is printed):
                each rank's resident state bytes
                (about a quarter of cell C's params and moments) and peak;
                (b) full-width granite-8b cut to 2 layers, w4a4, int8
-               KV, 4 slots, 8 x 128 prompt + 8 new tokens (4 layers and
-               32 tokens before phase 27 came: `SHARDED_SERVE`), one-chunk
-               prefill, the KV sequence axis over the 2 model ranks (136
+               KV, 4 slots, 8 x 128 prompt + 4 new tokens (4 layers and
+               32 tokens, then 8, before: `SHARDED_SERVE`), one-chunk
+               prefill, the KV sequence axis over the 2 model ranks (132
                rows rounded up to 256 by launch.serve: 128 a rank, two
                whole 64-key splits of kernel 9): the sharded logits (prefill + 4
                teacher-forced decode steps) bit-equal to the one-process
@@ -313,9 +319,8 @@ Phases (any failure exits non-zero before the final line is printed):
                (4, 3584, 4096), kernels 1 and 5 against their plain
                versions at the column slice (4096, 1024, 1408) and the
                row slice (4096, 1408, 1024).
-  27. expert-parallel MoE (cell U) — four more processes share the card
-               over gloo (`chip_smoke.py --ep-rank R PORT DIR`, logs in
-               `build/chip_smoke_cell_u/`), on the launchers' default
+  27. expert-parallel MoE (cell U) — the four processes share the card
+               over gloo, on the launchers' default
                runtime, each MoE FFN's experts split over the model ranks
                (`TPSplit.experts`: the capacity buffer cut to the rank's
                experts, the output buffer all-gathered before the
@@ -334,8 +339,14 @@ Phases (any failure exits non-zero before the final line is printed):
                compute's, OBR's and the oscillation tracker's), the
                expert collectives' bytes held to the buffers' reckoned
                bytes (`expert_buffer_bytes`) plus at most 1 MiB of f32
-               scalars; (b) granite-moe's serving
-               (phase 12's w3a3, int8 KV, 4 slots, 8 x 128 + 8,
+               scalars, OBR's and the tracker's to the leaves' sums
+               (`obr_osc_stats_bytes`: Eq. 10 and the oscillation
+               fraction taken on the rank's slices, no leaf or EMA
+               gathered; under 1 MiB a step), each rank's peak and the
+               four peaks' sum against the card's memory, and loss_obr
+               and osc_frac a step beside the one process's; (b)
+               granite-moe's serving
+               (phase 12's w3a3, int8 KV, 4 slots, 8 x 128 + 4,
                one-chunk prefill) cut to 2 layers on a (1, 4) mesh, 8
                experts a rank, heads and vocab split: 8 / 8 streams equal
                the expert-parallel single-request greedy_generate on every
@@ -953,16 +964,17 @@ def serve_phase(torch, ops, serve, M, argv: list, path_kernels: tuple,
 SHARDED_TRAIN = ["--arch", "qwen1.5-0.5b", "--quant", "w4a4", "--kd", "mckd",
                  "--batch", "8", "--seq", "512", "--steps", "3",
                  "--save-every", str(10 ** 6)]
-# cut to 2 layers and 8 new tokens (4 and 32 before it) so that phase 27
-# fits the run's time limit: every call of this gloo serving gathers or sums
-# through host memory (phase 24's gathered runtime the whole head each
-# decode step: 99.7 s at 2 layers and 32 new tokens, 3.1 tok/s a rank)
-SHARDED_NEW = 8
+# cut to 2 layers and 4 new tokens (4 layers and 32, then 8, before it) so
+# that phase 27 fits the run's time limit: every call of this gloo serving
+# gathers or sums through host memory (phase 24's gathered runtime the whole
+# head each decode step: 99.7 s at 2 layers and 32 new tokens, 3.1 tok/s a
+# rank; 46 s at 8)
+SHARDED_NEW = 4
 SHARDED_SERVE = ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
                  "--layers", "2", "--batch", "8", "--slots", "4",
                  "--prompt-len", "128", "--new-tokens", str(SHARDED_NEW),
                  "--chunk", "128"]
-# the sharded run's cache rows: 128 + 8 rounded up to M x 64 (launch.serve)
+# the sharded run's cache rows: 128 + SHARDED_NEW rounded up to M x 64 (launch.serve)
 # for M 2 and 4: 128 a model rank on (2, 2) (two whole 64-key splits of
 # kernel 9), 64 on (1, 4)
 SHARDED_CACHE = 256
@@ -1042,19 +1054,11 @@ def cell_r_phase(torch, ops, train, serve, cell_c: dict, cell_a: dict) -> dict:
             "streams_equal_phase_3": equal}
 
 
-def sharded_rank(rank: int, port: int, out_dir: str) -> None:
-    """One rank of phase 24 (`chip_smoke.py --sharded-rank R PORT DIR`):
-    the sharded QAT run, then the sharded serving run, both on the gathered
-    runtime (`tp_compute=False`: every layer gathered whole); writes its
-    numbers to DIR/rank{R}.json."""
-    import os
-    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+def sharded_rank(torch, rank: int, out_dir: str) -> None:
+    """Phase 24's part of a rank (`cells_rank`): the sharded QAT run, then
+    the sharded serving run, both on the gathered runtime (`tp_compute=
+    False`: every layer gathered whole); writes its numbers to
+    DIR/rank{R}.json."""
     from repro_torch.dist import spmd
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
@@ -1099,8 +1103,14 @@ def sharded_rank(rank: int, port: int, out_dir: str) -> None:
                                        _leaves(run.params))}
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
-    dist.barrier()
-    dist.destroy_process_group()
+
+
+def cpu_teacher_forced(torch, params, cfg, qcfg, prompts, forced, spmd) -> tuple:
+    """(`teacher_forced` on CPU params without autograd, its seconds)."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = teacher_forced(torch, params, cfg, qcfg, prompts, forced, spmd)
+    return lg, time.perf_counter() - t0
 
 
 def teacher_forced(torch, params, cfg, qcfg, prompts, forced, spmd):
@@ -1171,37 +1181,12 @@ def seq_merge_check(torch, da, gen) -> dict:
     return out
 
 
-def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
-    """Phase 24: four ranks share the card over gloo (see the docstring)."""
+def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict, ranks: list,
+                 out_dir: Path, wall: float) -> dict:
+    """Phase 24's checks: four ranks share the card over gloo (see the
+    docstring); `ranks` their results, `out_dir` their files, `wall` rank
+    0's seconds in the cell."""
     import shutil
-    out_dir = ROOT / "build" / "chip_smoke_cell_s"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    port = _free_port()
-    t0 = time.perf_counter()
-    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(SHARDED_RANKS)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--sharded-rank", str(r), str(port), str(out_dir)],
-                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(SHARDED_RANKS)]
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for f in logs:
-            f.close()
-    wall = time.perf_counter() - t0
-    if any(rcs):
-        for r in range(SHARDED_RANKS):
-            log(f"--- rank {r} (exit {rcs[r]}):\n"
-                + (out_dir / f"rank{r}.log").read_text()[-3000:])
-        fail(f"cell S ranks exited {rcs}")
-    log("  rank 0's log: " + " | ".join(
-        (out_dir / "rank0.log").read_text().splitlines()[:6]))
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(SHARDED_RANKS)]
     # (a) training: the losses against cell R's, and the gradient's norm at
     # steps 0 and 1, which run on the same weights (lr is 0 at step 0).
     # Adam's step barely moves when a gradient is scaled, so the losses
@@ -1279,7 +1264,7 @@ def cell_s_phase(torch, M, serve, cell_r: dict, cell_c: dict) -> dict:
     from repro_torch.kernels import decode_attention as da
     merge = seq_merge_check(torch, da, torch.Generator(device="cuda").manual_seed(
         100 * SEED + 24))
-    log(f"  cell S wall {wall:.1f} s (4 processes, their start and builds included)")
+    log(f"  cell S wall {wall:.1f} s (rank 0, after the ranks' start)")
     return {"wall_s": wall, "train": {
         "losses": losses, "rel_vs_cell_r": rel, "grad_norms": gnorms,
         "grad_norm_rel_vs_cell_r": grel,
@@ -1328,19 +1313,11 @@ TP_PROFILED_STEP = 2
 TP_CPU_GAP_FACTOR = 4.0
 
 
-def tp_rank(rank: int, port: int, out_dir: str) -> None:
-    """One rank of phase 26 (`chip_smoke.py --tp-rank R PORT DIR`): cell
-    C's QAT on a (2, 2) mesh, then cell S's serving on a (1, 4) mesh, both
-    tensor-parallel (the launchers' default); writes its numbers to
-    DIR/rank{R}.json and rank 0 its teacher-forced logits."""
-    import os
-    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+def tp_rank(torch, rank: int, out_dir: str) -> None:
+    """Phase 26's part of a rank (`cells_rank`): cell C's QAT on a (2, 2)
+    mesh, then cell S's serving on a (1, 4) mesh, both tensor-parallel
+    (the launchers' default); writes its numbers to DIR/rank{R}.json and
+    rank 0 its teacher-forced logits."""
     from repro_torch.dist import spmd
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
@@ -1414,8 +1391,6 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
                                        _leaves(run.params))}
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
-    dist.barrier()
-    dist.destroy_process_group()
 
 
 def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
@@ -1442,14 +1417,56 @@ def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
                     for e in top]}
 
 
-def _spawn_ranks(flag: str, out_dir: Path, timeout: int = 600) -> list:
-    """SHARDED_RANKS processes of this script (`flag R PORT DIR`), their
-    logs in DIR; their JSON results, or a failure with each log's tail."""
+# the four-process cells, in the order each rank runs them (`cells_rank`)
+CELLS = ("S", "T", "U")
+
+
+def cells_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of the SHARDED_RANKS processes of phases 24, 26 and 27
+    (`chip_smoke.py --cells-rank R PORT DIR`): one interpreter, CUDA
+    context and process group run cells S, T and U in turn, each writing
+    into DIR/<cell>/; DIR/start{R}.json holds the seconds from the spawn
+    (`_spawn_ranks` puts its clock in CHIP_SMOKE_SPAWNED) to this line and
+    to torch with a CUDA context, and each cell's wall seconds."""
+    import os
+    t_entry = time.time()
+    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.zeros(1, device="cuda")
+    spawned = float(os.environ["CHIP_SMOKE_SPAWNED"])
+    start = {"interpreter_s": round(t_entry - spawned, 3),
+             "torch_cuda_s": round(time.time() - spawned, 3), "cells_s": {}}
+    runs = {"S": sharded_rank, "T": tp_rank, "U": ep_rank}
+    for cell in CELLS:
+        t0 = time.perf_counter()
+        runs[cell](torch, rank, str(Path(out_dir) / cell))
+        torch.cuda.empty_cache()
+        start["cells_s"][cell] = round(time.perf_counter() - t0, 3)
+    with open(Path(out_dir) / f"start{rank}.json", "w") as f:
+        json.dump(start, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(out_dir: Path, timeout: int) -> dict:
+    """SHARDED_RANKS processes of this script (`--cells-rank R PORT DIR`),
+    their logs in DIR; {cell: the ranks' JSON results} and rank 0's start
+    (`cells_rank`), or a failure with each log's tail."""
+    import os
+    for cell in CELLS:
+        (out_dir / cell).mkdir(parents=True, exist_ok=True)
     port = _free_port()
     logs = [open(out_dir / f"rank{r}.log", "w") for r in range(SHARDED_RANKS)]
+    env = dict(os.environ, CHIP_SMOKE_SPAWNED=repr(time.time()))
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               flag, str(r), str(port), str(out_dir)],
-                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT)
+                               "--cells-rank", str(r), str(port), str(out_dir)],
+                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=env)
              for r in range(SHARDED_RANKS)]
     try:
         rcs = [p.wait(timeout=timeout) for p in procs]
@@ -1463,9 +1480,13 @@ def _spawn_ranks(flag: str, out_dir: Path, timeout: int = 600) -> list:
         for r in range(SHARDED_RANKS):
             log(f"--- rank {r} (exit {rcs[r]}):\n"
                 + (out_dir / f"rank{r}.log").read_text()[-3000:])
-        fail(f"{flag} ranks exited {rcs}")
-    return [json.loads((out_dir / f"rank{r}.json").read_text())
-            for r in range(SHARDED_RANKS)]
+        fail(f"--cells-rank ranks exited {rcs}")
+    start = json.loads((out_dir / "start0.json").read_text())
+    log(f"  rank 0's start (seconds from its spawn) and its cells' seconds: {start}")
+    log("  rank 0's log: " + " | ".join(
+        (out_dir / "rank0.log").read_text().splitlines()[:6]))
+    return {cell: [json.loads((out_dir / cell / f"rank{r}.json").read_text())
+                   for r in range(SHARDED_RANKS)] for cell in CELLS}, start
 
 
 def _gap(torch, a, b) -> dict:
@@ -1516,19 +1537,12 @@ def logits_bar(torch, a, b, cpu) -> dict:
 
 
 def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
-                 cell_c: dict) -> dict:
-    """Phase 26: tensor-parallel compute (see the docstring)."""
+                 cell_c: dict, ranks: list, out_dir: Path, wall: float) -> dict:
+    """Phase 26's checks: tensor-parallel compute (see the docstring);
+    `ranks`, `out_dir` and `wall` as for `cell_s_phase`."""
     import shutil
     from repro_torch.configs.registry import get_config
     from repro_torch.core.policy import get_preset
-    out_dir = ROOT / "build" / "chip_smoke_cell_t"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    t0 = time.perf_counter()
-    ranks = _spawn_ranks("--tp-rank", out_dir)
-    wall = time.perf_counter() - t0
-    log("  rank 0's log: " + " | ".join(
-        (out_dir / "rank0.log").read_text().splitlines()[:4]))
     # (a) training on (2 data, 2 model): losses and gradient norms against
     # cell R's one-process bits, launches against the formula on the slices
     base, gbase = cell_r["losses"], cell_r["grad_norms"]
@@ -1601,23 +1615,28 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
     forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
     b = teacher_forced(torch, run.params, run.cfg, run.qcfg, run.prompts, forced,
                        run.spmd).cpu()
-    t_cpu = time.perf_counter()
-    with torch.no_grad():  # the one-process model on the CPU: the plain versions
-        cpu = teacher_forced(torch, _to(run.params, "cpu"), run.cfg, run.qcfg,
-                             run.prompts, forced, run.spmd)
-    t_cpu = time.perf_counter() - t_cpu
-    bar = logits_bar(torch, a, b, cpu)
+    # the one-process model on the CPU (the plain versions), in the
+    # background of the card's work that follows (`finish`)
+    cpu = background(cpu_teacher_forced, torch, _to(run.params, "cpu"), run.cfg,
+                     run.qcfg, run.prompts, forced, run.spmd)
     firsts = [_first_difference(streams[f"req-{i}"], one_streams[f"req-{i}"])
               for i in range(n)]
-    log(f"  cell T logits (prefill + 4 forced decode steps, {n} rows) against the "
-        f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
-        f"there): {bar}; streams {n}/{n} equal the tensor-parallel "
-        f"greedy_generate on every rank; first token leaving the one-process stream "
-        f"{firsts}; decode tok/s a rank "
-        f"{[s['throughput']['decode_tok_s'] for s in sv]} vs cell S's "
-        f"{cell_s['serve']['decode_tok_s']}")
-    if not bar["ok"]:
-        fail(f"cell T serving logits depart from the one-process model's: {bar}")
+    out = {}
+
+    def finish() -> None:
+        lg, t_cpu = cpu.result()
+        bar = logits_bar(torch, a, b, lg)
+        log(f"  cell T logits (prefill + 4 forced decode steps, {n} rows) against the "
+            f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
+            f"there, in the background): {bar}; streams {n}/{n} equal the tensor-parallel "
+            f"greedy_generate on every rank; first token leaving the one-process stream "
+            f"{firsts}; decode tok/s a rank "
+            f"{[s['throughput']['decode_tok_s'] for s in sv]} vs cell S's "
+            f"{cell_s['serve']['decode_tok_s']}")
+        if not bar["ok"]:
+            fail(f"cell T serving logits depart from the one-process model's: {bar}")
+        out["serve"]["logits"] = bar
+
     del run
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1634,8 +1653,8 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
         qat["quant_matmul_bwd"].append(check_qat_bwd(
             torch, timer, qmm, ref, "quant_matmul_bwd", m, k, nn, False, True, gen, QAT_QS))
     torch.cuda.empty_cache()
-    log(f"  cell T wall {wall:.1f} s (4 processes, their start included)")
-    return {"wall_s": wall, "train": {
+    log(f"  cell T wall {wall:.1f} s (rank 0, after the ranks' start)")
+    out.update({"finish": finish, "wall_s": wall, "train": {
         "losses": losses, "rel_vs_cell_r": rel, "grad_norms": gnorms,
         "grad_norm_rel_vs_cell_r": grel, "launches_per_step": per_step,
         "s_per_step": s_train, "profile": prof,
@@ -1644,7 +1663,7 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
         "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
         "moved_gib": [sum(r["train"]["moved_bytes"].values()) / 2**30 for r in ranks],
         "step_seconds": [r["train"]["step_seconds"] for r in ranks]},
-        "serve": {"logits": bar, "first_difference": firsts,
+        "serve": {"first_difference": firsts,
                   "launches": [{k: s["launches"][k] for k in (
                       "int_matmul", "int4_matmul", "pooled_decode_attention")} for s in sv],
                   "decode_tok_s": [s["throughput"]["decode_tok_s"] for s in sv],
@@ -1652,7 +1671,8 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
                   "moved_gib": [sum(s["moved_bytes"].values()) / 2**30 for s in sv],
                   "peak_gib": [s["peak_bytes"] / 2**30 for s in sv],
                   "param_gib": [s["param_bytes"] / 2**30 for s in sv]},
-        "slices": {"m_independence": indep, "qat": qat}}
+        "slices": {"m_independence": indep, "qat": qat}})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1660,12 +1680,16 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
 # ---------------------------------------------------------------------------
 
 EP_TRAIN_MODEL, EP_SERVE_MODEL = 2, 4
-# (a)'s depth: at all 24 layers each of the four ranks held 18.8 GiB when
-# the first step gathered the oscillation EMA (`Spmd.full_osc`, the whole
-# f32 EMA on every rank), and the card ran out at 79 GiB; at 12 layers a
-# step took 37 s a rank (every collective staged through host memory),
-# past the run's time limit with the phases before it (6 layers: 16-26 s)
-EP_TRAIN_LAYERS = 4
+# (a)'s depth: 16 of phase 8's 24 layers (4 before, when the whole-EMA
+# gathers ran 24 out of memory). OBR and the oscillation fraction move only
+# each leaf's sums, so all 24 fit the card (14.30 GiB a rank at peak), but
+# a step there takes 30-50 s a rank (the layers' FSDP gathers and gradient
+# sums, staged through host memory), and step 0's gradient norm drifts
+# from one process's with 2 dispatch groups past TP_GNORM_BAR (2.1e-2 at
+# 24 layers): each data rank takes its own Switch loss (ROADMAP Queue 3),
+# which the check against one process on the data ranks' rows takes out
+# (`cell_u_one`'s "halves_norm0")
+EP_TRAIN_LAYERS = 16
 # (b)'s depth and length: at 4 layers and 32 new tokens the serving run
 # took 24 s and the 8 single-request greedy_generate 58 s a rank (~0.3 s a
 # decode step of host-staged collectives)
@@ -1767,21 +1791,13 @@ def moe_layer_run(torch, mesh=None) -> dict:
     return out
 
 
-def ep_rank(rank: int, port: int, out_dir: str) -> None:
-    """One rank of phase 27 (`chip_smoke.py --ep-rank R PORT DIR`): phase
-    8's MoE QAT on a (2, 2) mesh, granite-moe's serving cut to 2 layers on
-    a (1, 4) mesh, and one MoE layer expert-parallel on the 4 ranks (the
-    launchers' default runtime: experts split on their expert axis);
-    writes its numbers to DIR/rank{R}.json, rank 0 its teacher-forced
-    logits and every rank its layer's results."""
-    import os
-    os.environ.update(_torchrun_env(rank, SHARDED_RANKS, port))
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+def ep_rank(torch, rank: int, out_dir: str) -> None:
+    """Phase 27's part of a rank (`cells_rank`): phase 8's MoE QAT on a
+    (2, 2) mesh, granite-moe's serving cut to 2 layers on a (1, 4) mesh,
+    and one MoE layer expert-parallel on the 4 ranks (the launchers'
+    default runtime: experts split on their expert axis); writes its
+    numbers to DIR/rank{R}.json, rank 0 its teacher-forced logits and
+    every rank its layer's results."""
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.dist import spmd
     from repro_torch.kernels import ops
@@ -1854,8 +1870,6 @@ def ep_rank(rank: int, port: int, out_dir: str) -> None:
     res["layer_s"] = time.perf_counter() - t0
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
-    dist.barrier()
-    dist.destroy_process_group()
 
 
 def expert_buffer_bytes(cfg, tokens: int, passes: int) -> int:
@@ -1870,26 +1884,79 @@ def expert_buffer_bytes(cfg, tokens: int, passes: int) -> int:
     return (passes + 1) * moe * cfg.n_experts * rows * cfg.d_model * 2
 
 
-def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
-    """Phase 27: expert-parallel MoE (see the docstring)."""
+def obr_osc_stats_bytes(cfg, qcfg, tcfg, model: int) -> dict:
+    """The bytes OBR and the oscillation fraction deliver to a rank of a
+    (SHARDED_RANKS / model, model) mesh in a step: for each quantized leaf
+    its weight's spec splits, its Eq. 10 sums in f32 (the sum of squares,
+    and 3 x bins x the whole scale's groups); for each oscillation state
+    its spec splits, one int64 count each time the step reads the fraction
+    (before the update for the sentinel, and after it)."""
+    from repro_torch.dist import sharding as shard
+    from repro_torch.dist.spmd import spec_at, state_specs
+    from repro_torch.models.model import quant_leaf_paths
+    from repro_torch.train.state import init_state
+    import torch
+    mesh = shard.AxisSizes(("data", "model"), (SHARDED_RANKS // model, model))
+    like = init_state(cfg, qcfg, tcfg, torch.Generator(), "meta")
+    specs = state_specs(cfg, qcfg, tcfg, mesh)
+    reads = 1 + (tcfg.sentinel is not None)
+    obr = osc = 0
+    for j, (path, _, s, spec) in enumerate(quant_leaf_paths(like["params"], qcfg)):
+        if shard.split_dims(spec_at(specs["params"], path)["w"], mesh):
+            obr += 4 * (1 + 3 * spec.n_bins * s.numel())
+        if specs["osc"] and shard.split_dims(specs["osc"][j].freq, mesh):
+            osc += 8 * reads
+    return {"obr": obr, "oscillation": osc}
+
+
+def cell_u_one(torch, ops) -> dict:
+    """Phase 27 (a)'s one process, run before the ranks take the card: the
+    ranks' run with `moe_dispatch_groups=2` (its groups are the data
+    ranks' rows); and "halves_norm0", the norm of the mean of step 0's
+    gradients on each data rank's rows, where each half takes its own
+    Switch loss as the sharded run does (ROADMAP Queue 3), from the same
+    init state."""
+    from repro_torch import tree as T
+    from repro_torch.data.mckd_store import synthetic_kd_labels
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.state import init_state
+    from repro_torch.train.train_step import make_grad_fn
+    cfg, qcfg = moe_qat_config()
+    cfg = cfg.replace(n_layers=EP_TRAIN_LAYERS)
+    one = training_run(torch, ops, cfg.replace(moe_dispatch_groups=2), qcfg,
+                       batch=8, seq=512, steps=3, tag="cell_u_one", strict_health=False)
+    torch.cuda.empty_cache()
+    tcfg = smoke_tcfg(3)
+    params = init_state(cfg, qcfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")["params"]
+    batch = sample_batch(cfg, DataConfig(seed=0), 0, 8, 512)
+    batch["kd_idx"], batch["kd_p"] = synthetic_kd_labels(batch["labels"], cfg.vocab_size,
+                                                         tcfg.kd_topk, seed=0)
+    grad_fn, half = make_grad_fn(cfg, qcfg, tcfg), 8 // (SHARDED_RANKS // EP_TRAIN_MODEL)
+    mean = None
+    for lo in range(0, 8, half):
+        rows = {k: torch.from_numpy(v[lo:lo + half]).cuda() for k, v in batch.items()}
+        g = grad_fn(params, rows, torch.tensor(0))[2]
+        mean = g if mean is None else T.map_tree(lambda x, y: (x + y) * 0.5, mean, g)
+        del g
+    one["halves_norm0"] = float(global_norm(mean))
+    del params, mean
+    torch.cuda.empty_cache()
+    return one
+
+
+def cell_u_phase(torch, ops, M, serve, qmm, ref, one: dict, ranks: list,
+                 out_dir: Path, wall: float) -> dict:
+    """Phase 27's checks: expert-parallel MoE (see the docstring); `one`
+    (a)'s one-process run (`cell_u_one`), `ranks`, `out_dir` and `wall`
+    as for `cell_s_phase`."""
     import shutil
     import numpy as np
     from repro_torch.train.sentinel import SentinelConfig
-    out_dir = ROOT / "build" / "chip_smoke_cell_u"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
     cfg, qcfg = moe_qat_config()
     cfg = cfg.replace(n_layers=EP_TRAIN_LAYERS)
-    # (a)'s one process: its dispatch groups are the data ranks' rows
-    one = training_run(torch, ops, cfg.replace(moe_dispatch_groups=2), qcfg, batch=8,
-                       seq=512, steps=3, tag="cell_u_one", strict_health=False)
     one_rep = one.pop("report")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = _spawn_ranks("--ep-rank", out_dir, timeout=900)
-    wall = time.perf_counter() - t0
-    log("  rank 0's log: " + " | ".join(
-        (out_dir / "rank0.log").read_text().splitlines()[:4]))
     # (a) training on (2 data, 2 model), 16 experts a rank
     base, gbase = one_rep.losses, one_rep.grad_norms
     tr0 = ranks[0]["train"]
@@ -1898,6 +1965,7 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
     grel = [abs(a - b) / abs(b) for a, b in zip(gnorms, gbase)]
     tokens = 8 * 512 // (SHARDED_RANKS // EP_TRAIN_MODEL)
     buf = expert_buffer_bytes(cfg, tokens, 2) * len(losses)
+    stats = obr_osc_stats_bytes(cfg, qcfg, smoke_tcfg(3), EP_TRAIN_MODEL)
     per_step = None
     for r, res in enumerate(ranks):
         tr = res["train"]
@@ -1911,11 +1979,17 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
             f"`spmd.moved_bytes_by_use`) "
             + ", ".join(f"{k} {v / 2**30:.3f} GiB ({v / total:.3f})" for k, v in uses.items())
             + f", the rest {(total - sum(uses.values())) / 2**30:.3f} GiB; the expert "
-            f"buffers reckoned {buf / 2**30:.3f} GiB (`expert_buffer_bytes`); host in "
-            f"collectives {tr['collect_s']:.1f} s")
+            f"buffers reckoned {buf / 2**30:.3f} GiB (`expert_buffer_bytes`); OBR and "
+            f"the oscillation fraction {uses.get('obr', 0)} / {uses.get('oscillation', 0)} B "
+            f"against the leaves' sums {stats} B a step x {len(losses)} "
+            f"(`obr_osc_stats_bytes`); host in collectives {tr['collect_s']:.1f} s")
         if not 0 <= uses.get("experts", 0) - buf <= 2**20:
             fail(f"cell U rank {r}: the expert collectives counted {uses.get('experts')} "
                  f"bytes against the buffers' {buf}")
+        if (any(uses.get(k, 0) != v * len(losses) for k, v in stats.items())
+                or sum(stats.values()) >= 2**20):
+            fail(f"cell U rank {r}: OBR / oscillation moved {uses} against the leaves' "
+                 f"sums {stats} a step (under 1 MiB)")
         if (tr["losses"] != losses or tr["grad_norms"] != gnorms
                 or any(h & SentinelConfig().fatal_bits for h in tr["healths"])):
             fail(f"cell U rank {r}'s losses / norms / health differ: {tr['losses']} "
@@ -1933,6 +2007,21 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
     if (not all(x == x for x in losses + gnorms) or rel[0] > TP_LOSS0_BAR
             or max(rel[1:]) > TP_LOSS_BAR or max(grel[:2]) > TP_GNORM_BAR):
         fail(f"cell U losses {losses} / norms {gnorms} vs {base} / {gbase}")
+    hrel = abs(gnorms[0] - one["halves_norm0"]) / one["halves_norm0"]
+    log(f"  cell U step 0's gradient norm {gnorms[0]} vs one process's on each data "
+        f"rank's rows {one['halves_norm0']} (the sharded run's Switch loss): gap {hrel} "
+        f"(bar {TP_GNORM_BAR}); vs one process with 2 dispatch groups {grel[0]}")
+    if hrel > TP_GNORM_BAR:
+        fail(f"cell U step 0's norm {gnorms[0]} vs {one['halves_norm0']} on the halves")
+    peaks = [res["train"]["peak_bytes"] for res in ranks]
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"  cell U peaks a rank {[round(p / 2**30, 2) for p in peaks]} GiB, their sum "
+        f"{sum(peaks) / 2**30:.2f} of the card's {card / 2**30:.2f} GiB (one process "
+        f"{(one_rep.peak_bytes or 0) / 2**30:.2f}); loss_obr a step "
+        f"{[m['loss_obr'] for m in tr0['metrics']]} vs one process "
+        f"{[m['loss_obr'] for m in one_rep.metrics]}; osc_frac "
+        f"{[m['osc_frac'] for m in tr0['metrics']]} vs "
+        f"{[m['osc_frac'] for m in one_rep.metrics]}")
     # (b) serving on (1, 4): 8 experts a rank, heads and vocab split
     sv = [res["serve"] for res in ranks]
     streams = sv[0]["streams"]
@@ -1961,19 +2050,9 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
     forced = torch.tensor([streams[f"req-{i}"][:4] for i in range(n)], dtype=torch.int32)
     b = teacher_forced(torch, run.params, run.cfg, run.qcfg, run.prompts, forced,
                        run.spmd).cpu()
-    t_cpu = time.perf_counter()
-    with torch.no_grad():
-        cpu = teacher_forced(torch, _to(run.params, "cpu"), run.cfg, run.qcfg,
-                             run.prompts, forced, run.spmd)
-    t_cpu = time.perf_counter() - t_cpu
-    bar = logits_bar(torch, a, b, cpu)
-    log(f"  cell U logits (prefill + 4 forced decode steps, {n} rows) against the "
-        f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
-        f"there): {bar}; "
-        f"streams {n}/{n} equal the expert-parallel greedy_generate on every rank; "
-        f"decode tok/s a rank {[s['throughput']['decode_tok_s'] for s in sv]}")
-    if not bar["ok"]:
-        fail(f"cell U serving logits depart from the one-process model's: {bar}")
+    # the one-process model on the CPU, in the background of (c)
+    cpu = background(cpu_teacher_forced, torch, _to(run.params, "cpu"), run.cfg,
+                     run.qcfg, run.prompts, forced, run.spmd)
     del run
     torch.cuda.empty_cache()
     # (c) the layer, whole in this process against its experts over the ranks
@@ -2020,7 +2099,16 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
         torch.cuda.empty_cache()
     del timer
     torch.cuda.empty_cache()
-    log(f"  cell U wall {wall:.1f} s (4 processes, their start included)")
+    lg, t_cpu = cpu.result()
+    bar = logits_bar(torch, a, b, lg)
+    log(f"  cell U logits (prefill + 4 forced decode steps, {n} rows) against the "
+        f"one-process model's on the card, and both against the CPU's ({t_cpu:.1f} s "
+        f"there, in the background): {bar}; "
+        f"streams {n}/{n} equal the expert-parallel greedy_generate on every rank; "
+        f"decode tok/s a rank {[s['throughput']['decode_tok_s'] for s in sv]}")
+    if not bar["ok"]:
+        fail(f"cell U serving logits depart from the one-process model's: {bar}")
+    log(f"  cell U wall {wall:.1f} s (rank 0, after the ranks' start)")
     return {"wall_s": wall, "train": {
         "losses": losses, "losses_one_process": base, "rel": rel,
         "grad_norms": gnorms, "grad_norm_rel": grel, "launches_per_step": per_step,
@@ -2028,6 +2116,13 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref) -> dict:
         "lb_loss0": [m0["lb_loss"], b0["lb_loss"]],
         "one_process_s_per_step": one["s_step"],
         "one_process_peak_gib": (one_rep.peak_bytes or 0) / 2**30,
+        "loss_obr": [m["loss_obr"] for m in tr0["metrics"]],
+        "loss_obr_one_process": [m["loss_obr"] for m in one_rep.metrics],
+        "osc_frac": [m["osc_frac"] for m in tr0["metrics"]],
+        "osc_frac_one_process": [m["osc_frac"] for m in one_rep.metrics],
+        "halves_norm0": one["halves_norm0"], "halves_norm0_rel": hrel,
+        "stats_bytes_per_step": stats, "peaks_sum_gib": sum(peaks) / 2**30,
+        "card_gib": card / 2**30,
         "step_seconds": [r["train"]["step_seconds"] for r in ranks],
         "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
         "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
@@ -3121,6 +3216,36 @@ def moe_train_phase(torch, ops, steps: int = 3) -> dict:
                         tag="moe", strict_health=False)
 
 
+def obr_grad_bits(torch) -> dict:
+    """Eq. 10's value and gradient as the train step takes them (the leaf's
+    sums, then `core.obr.obr_grad`) against autograd through `obr_loss`, at
+    granite-moe-1b-a400m's leaf shapes on the card (seeded; w3a3's 3-bit
+    per-head wq and per-expert moe_in, the 8-bit router and tied
+    embedding, whose 256 levels take the level-by-level reductions):
+    {leaf: bit-equal}."""
+    from repro_torch.core.obr import obr_grad, obr_loss, obr_stats
+    from repro_torch.core.quantizer import QuantSpec
+    gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 8)
+    out = {}
+    for name, shape, groups, bits in (("wq", (1024, 16, 64), (1,), 3),
+                                      ("moe_in", (32, 1024, 512), (0,), 3),
+                                      ("router", (1024, 32), (), 8),
+                                      ("embed", (49408, 1024), (), 8)):
+        w = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        sshape = tuple(n if i in groups else 1 for i, n in enumerate(shape)) if groups else ()
+        s = 0.01 + 0.01 * torch.rand(sshape, generator=gen, device="cuda")
+        spec = QuantSpec(bits=bits, signed=True)
+        wl = w.clone().requires_grad_(True)
+        v = obr_loss(wl, s, spec)
+        (g,) = torch.autograd.grad(v, wl)
+        with torch.no_grad():
+            stats = obr_stats(w, s, spec)
+        v2, g2 = obr_grad(w, s, spec, stats)
+        out[name] = _same_bits(torch, v.detach(), v2) and _same_bits(torch, g, g2)
+        del w, wl, g, g2, stats
+    return out
+
+
 def check_launches(run: dict, steps: int, tokens: int,
                    every_kernel: bool = False, frontend_rows: int = 0,
                    tp_parts: int = 1) -> dict:
@@ -4049,6 +4174,37 @@ def kernel_bench_phase(torch, ops) -> tuple[dict, dict]:
     return counts, res
 
 
+QAT_SOURCE = "qat_matmul"  # the kernel library of kernels 1-6 (`build.SOURCES`)
+
+
+def background(fn, *args):
+    """fn(*args) in a thread of its own: a `concurrent.futures.Future`,
+    whose result() joins it and raises its exception."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(fn, *args)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def log_build(report: dict) -> None:
+    """Each source's build seconds and ptxas' register use and spills."""
+    for name, r in report.items():
+        log(f"  {name}: {r['seconds']:.1f} s")
+        entry = ""
+        for line in r["log"].splitlines():
+            if "Compiling entry function" in line:
+                sym = line.split("'")[1]
+                args = (["bf16"] if "bfloat16" in sym else []) + [
+                    ("false", "true")[int(v)] for v in re.findall(r"Lb([01])E", sym)] + \
+                    re.findall(r"Li(\d+)E", sym)
+                entry = (_kernel_name(sym) + (f"<{', '.join(args)}>" if args else "")
+                         + ": ")
+            elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
+                log(f"    {entry}{line.strip()}")
+
+
 def _kernel_name(sym: str) -> str:
     """The innermost name of a mangled kernel symbol: its length-prefixed
     components read in turn (the anonymous namespace's, then the kernel's)."""
@@ -4236,20 +4392,48 @@ def cell_c_state_bytes(torch, cfg, qcfg) -> int:
     return 3 * sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
+def sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r: dict,
+                        cell_c: dict) -> dict:
+    """Phases 24, 26 and 27: cell U's one process first (`cell_u_one`: the
+    card is the ranks' after it), then one spawn of the four ranks that
+    run cells S, T and U in turn (`cells_rank`), then each cell's checks
+    here."""
+    import shutil
+    out_dir = ROOT / "build" / "chip_smoke_cells"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    one = cell_u_one(torch, ops)
+    t0 = time.perf_counter()
+    ranks, start = _spawn_ranks(out_dir, timeout=1100)
+    log(f"  the four ranks ran {time.perf_counter() - t0:.1f} s, their start included")
+    walls = start["cells_s"]
+    log("sharded, four ranks sharing the card (cell S):")
+    cell_s = cell_s_phase(torch, M, serve, cell_r, cell_c, ranks["S"], out_dir / "S",
+                          walls["S"])
+    torch.cuda.empty_cache()
+    log("tensor-parallel compute, four ranks sharing the card (cell T):")
+    cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, cell_c, ranks["T"],
+                          out_dir / "T", walls["T"])
+    torch.cuda.empty_cache()
+    log("expert-parallel MoE, four ranks sharing the card (cell U):")
+    cell_u = cell_u_phase(torch, ops, M, serve, qmm, ref, one, ranks["U"], out_dir / "U",
+                          walls["U"])
+    cell_t.pop("finish")()  # cell T's CPU logits, computed meanwhile
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cell_u["rank_start"] = start
+    return {"S": cell_s, "T": cell_t, "U": cell_u}
+
+
 def main() -> None:
-    if len(sys.argv) > 1 and sys.argv[1] == "--sharded-rank":
-        sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-        return
-    if len(sys.argv) > 1 and sys.argv[1] == "--tp-rank":
-        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-        return
-    if len(sys.argv) > 1 and sys.argv[1] == "--ep-rank":
-        ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) > 1 and sys.argv[1] == "--cells-rank":
+        cells_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
     t_start = time.perf_counter()
 
+    marks = []
+
     def mark(label: str) -> None:
-        log(f"[{time.perf_counter() - t_start:.1f} s into the run] {label}")
+        marks.append((label, time.perf_counter() - t_start))
+        log(f"[{marks[-1][1]:.1f} s into the run] {label}")
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4268,23 +4452,14 @@ def main() -> None:
     dev_name = torch.cuda.get_device_name(0)
     log(f"device: {dev_name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together; the QAT kernels'
+    #    source, the longest, finishes in the background of phases 2-4,
+    #    which run the serving kernels only
     t0 = time.perf_counter()
-    report = build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall, all sources in parallel")
-    for name, r in report.items():
-        log(f"  {name}: {r['seconds']:.1f} s")
-        entry = ""
-        for line in r["log"].splitlines():
-            if "Compiling entry function" in line:
-                sym = line.split("'")[1]
-                args = (["bf16"] if "bfloat16" in sym else []) + [
-                    ("false", "true")[int(v)] for v in re.findall(r"Lb([01])E", sym)] + \
-                    re.findall(r"Li(\d+)E", sym)
-                entry = (_kernel_name(sym) + (f"<{', '.join(args)}>" if args else "")
-                         + ": ")
-            elif "Used" in line or "spill" in line.lower() and "0 bytes spill" not in line:
-                log(f"    {entry}{line.strip()}")
+    qat_build = background(build.build_all, [QAT_SOURCE])
+    report = build.build_all([n for n in build.SOURCES if n != QAT_SOURCE])
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for "
+        f"{', '.join(report)} (in parallel; {QAT_SOURCE} goes on in the background)")
 
     # 25(e)'s dry-run CLI cells: host work on the meta device, from here on
     dryrun_cli = start_dryrun_cli()
@@ -4308,6 +4483,34 @@ def main() -> None:
     nan_gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 26)
     log("serving kernels with a NaN column scale (against their plain versions):")
     nan_rows = {"serving": nan_serving_rows(torch, qmm, ref, nan_gen)}
+
+    del timer  # its 2 GB buffer would count in the serving runs' peak memory
+    torch.cuda.empty_cache()
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    mark("phase 3")
+    # 3. the main path: full-width granite-8b, all 36 layers
+    main_run = serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
+         "--batch", "8", "--slots", "4", "--prompt-len", "128",
+         "--new-tokens", "32", "--chunk", "32"],
+        ("int4_matmul", "int_matmul", "pooled_decode_attention"), 2,
+        cpu_reference=False)
+    counts = main_run["counts"]
+    # 4. second config: w8a8 weights, packed int4 KV, 4 layers
+    serve_phase(
+        torch, ops, serve, M,
+        ["--arch", "granite-8b", "--quant", "w8a8", "--kv-bits", "4",
+         "--layers", "4", "--batch", "8", "--slots", "4",
+         "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
+        ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
+
+    report.update(qat_build.result())
+    log(f"build: {QAT_SOURCE} {report[QAT_SOURCE]['seconds']:.1f} s, joined "
+        f"{time.perf_counter() - t0:.1f} s after the build began")
+    log_build(report)
+    timer = Timer(torch)
 
     mark("phase 5")
     # 5. the QAT kernels at the training path's shapes (qwen1.5-0.5b,
@@ -4459,29 +4662,8 @@ def main() -> None:
     q_rows, rows_launches = quantizer_kernel_checks(torch, timer, ops, ref, phase_gen(10))
     log("quantizer kernels with NaN / ±Inf inputs (against their plain versions):")
     nan_rows["quantizer"] = nan_quantizer_rows(torch, ref, nan_gen)
-    torch.cuda.empty_cache()
-
     del timer  # its 2 GB buffer would count in the serving runs' peak memory
     torch.cuda.empty_cache()
-    from repro_torch.launch import serve
-    from repro_torch.models import model as M
-    mark("phase 3")
-    # 3. the main path: full-width granite-8b, all 36 layers
-    main_run = serve_phase(
-        torch, ops, serve, M,
-        ["--arch", "granite-8b", "--quant", "w4a4", "--kv-bits", "8",
-         "--batch", "8", "--slots", "4", "--prompt-len", "128",
-         "--new-tokens", "32", "--chunk", "32"],
-        ("int4_matmul", "int_matmul", "pooled_decode_attention"), 2,
-        cpu_reference=False)
-    counts = main_run["counts"]
-    # 4. second config: w8a8 weights, packed int4 KV, 4 layers
-    serve_phase(
-        torch, ops, serve, M,
-        ["--arch", "granite-8b", "--quant", "w8a8", "--kv-bits", "4",
-         "--layers", "4", "--batch", "8", "--slots", "4",
-         "--prompt-len", "128", "--new-tokens", "32", "--chunk", "32"],
-        ("int_matmul", "pooled_decode_attention"), 0, cpu_reference=True)
 
     mark("phase 12")
     # 12. MoE serving: full-width granite-moe-1b-a400m, all 24 layers
@@ -4532,6 +4714,12 @@ def main() -> None:
     # 8. MoE QAT training with OBR and oscillation tracking, full width
     moe_run = moe_train_phase(torch, ops)
     moe_step = check_launches(moe_run, 3, 8 * 512, every_kernel=True)
+    torch.cuda.empty_cache()
+    obr_bits = obr_grad_bits(torch)
+    log(f"  OBR's value and gradient as the train step takes them (`obr_grad`) "
+        f"bit-equal to autograd through obr_loss at granite-moe's leaves: {obr_bits}")
+    if not all(obr_bits.values()):
+        fail(f"obr_grad departs from autograd through obr_loss: {obr_bits}")
     torch.cuda.empty_cache()
     # 9. the MoE kernel route against the unfused composition, at init
     moe_route = route_check(torch, "granite-moe-1b-a400m", "w3a3")
@@ -4587,15 +4775,12 @@ def main() -> None:
          "--steps", "3"])
     shutil.rmtree(cdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    mark("phase 23-24")
-    # 23-24. sharding: one NCCL rank (cell R), four ranks sharing the card
-    #        over gloo (cell S)
+    mark("phase 23")
+    # 23. sharding on one NCCL rank (cell R)
     log("sharded, one rank (cell R):")
     first["state_bytes"] = cell_c_state_bytes(torch, get_config("qwen1.5-0.5b"),
                                               get_preset("w4a4"))
     cell_r = cell_r_phase(torch, ops, train, serve, first, main_run)
-    log("sharded, four ranks sharing the card (cell S):")
-    cell_s = cell_s_phase(torch, M, serve, cell_r, first)
     torch.cuda.empty_cache()
     mark("phase 11")
     # 11. the kernel benchmark, the entry point of kernels 10 and 12
@@ -4608,23 +4793,18 @@ def main() -> None:
     log("dry run and roofline (cells C and A):")
     dry = dryrun_phase(torch, first, dryrun_cli)
     torch.cuda.empty_cache()
-    mark("phase 26")
-    # 26. tensor-parallel compute: cell C's QAT and cell S's serving on
-    #     weight slices (four ranks sharing the card over gloo), the
-    #     kernels at the slices' shapes
-    log("tensor-parallel compute, four ranks sharing the card (cell T):")
-    cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, first)
+    mark("phases 24, 26, 27")
+    # 24, 26, 27. four ranks sharing the card over gloo, one spawn: cell C's
+    #     QAT and cell A's serving on the gathered runtime (S), both
+    #     tensor-parallel (T), cell D's QAT and cell F's serving with the
+    #     experts split (U); then T's and U's kernels at the slices' shapes
+    cells = sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r, first)
+    cell_s, cell_t, cell_u = cells["S"], cells["T"], cells["U"]
     for name, rs in cell_t["slices"]["qat"].items():
         qat_rows[name].extend(rs)
-    mark("phase 27")
-    # 27. expert-parallel MoE: cell D's QAT on (2, 2) and cell F's serving
-    #     (2 layers) on (1, 4), each rank on its experts; one layer against
-    #     the whole layer; kernels 2 and 6 at the slices' shapes
-    log("expert-parallel MoE, four ranks sharing the card (cell U):")
-    cell_u = cell_u_phase(torch, ops, M, serve, qmm, ref)
     for name, rs in cell_u["slices"].items():
         qat_rows[name].extend(rs)
-    mark("phase 27 done")
+    mark("done")
     counts.update(first["counts"])
     for name in ("quant_matmul_batched", "quant_matmul_bwd_batched"):
         counts[name] = moe_run["counts"][name]
@@ -4729,6 +4909,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    log("seconds by phase (from phase 2 on; the build's above): " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
     log(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train": {
         "s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],

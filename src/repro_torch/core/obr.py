@@ -13,11 +13,20 @@ the STE. Bins are per scale group (a per-head or per-expert scale makes a
 bin a (group, level) pair); their statistics are masked reductions over the
 <= 2^b levels, as in the reference (no kernel).
 
+Eq. 10 is taken in two stages, so that a leaf held as slices on several
+ranks needs only its sums moved: `obr_stats` gives a slice's sums (the
+sum of squares of w - w_q, and each bin's count, sum and sum of squares,
+placed at the slice's groups in the leaf's whole group tensor), the ranks
+add them up, and `obr_finish` computes the value from the leaf's sums;
+`obr_grad` gives the slice's gradient from them. `obr_loss` is the two
+stages on one whole leaf.
+
 `kure_loss` is the KURE baseline of Tab. 7.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -63,14 +72,29 @@ class _Moments(torch.autograd.Function):
     def backward(ctx, g_count, g_s1, g_s2):
         del g_count  # the counts are constants
         wf, codes = ctx.saved_tensors
-        idx = (codes.to(torch.int64) + ctx.q_n)[None]
-        shape = (g_s1.shape[0],) + tuple(wf.shape)
-        if not ctx.keep:  # per tensor: (n_bins,)
-            g_s1 = g_s1.reshape((-1,) + (1,) * wf.dim())
-            g_s2 = g_s2.reshape((-1,) + (1,) * wf.dim())
-        t1 = torch.gather(g_s1.expand(shape), 0, idx)[0]
-        t2 = torch.gather(g_s2.expand(shape), 0, idx)[0]
-        return t1 + 2 * wf * t2, None, None, None, None, None
+        return (_moments_grad(wf, codes, g_s1, g_s2, ctx.q_n, ctx.keep),
+                None, None, None, None, None)
+
+
+def _moments_grad(wf, codes, g_s1, g_s2, q_n: int, keep: bool) -> torch.Tensor:
+    """The gradient in w of sum(g_s1 * s1 + g_s2 * s2) over the bins: an
+    element of level l in group g receives g_s1[l, g] + 2 w g_s2[l, g]."""
+    idx = (codes.to(torch.int64) + q_n)[None]
+    shape = (g_s1.shape[0],) + tuple(wf.shape)
+    if not keep:  # per tensor: (n_bins,)
+        g_s1 = g_s1.reshape((-1,) + (1,) * wf.dim())
+        g_s2 = g_s2.reshape((-1,) + (1,) * wf.dim())
+    t1 = torch.gather(g_s1.expand(shape), 0, idx)[0]
+    t2 = torch.gather(g_s2.expand(shape), 0, idx)[0]
+    return t1 + 2 * wf * t2
+
+
+def _moment_dims(scale_shape: tuple, ndim: int) -> tuple:
+    """(reduced axes, keepdim) of the bins' reductions: the axes on which
+    the scale broadcasts (its size-1 axes; all axes for a 0-d scale)."""
+    if len(scale_shape) == 0:
+        return tuple(range(ndim)), False
+    return tuple(i for i, s in enumerate(scale_shape) if s == 1), True
 
 
 def per_bin_moments(w: torch.Tensor, codes: torch.Tensor, scale_shape,
@@ -79,27 +103,96 @@ def per_bin_moments(w: torch.Tensor, codes: torch.Tensor, scale_shape,
     reductions over the axes on which the scale broadcasts (its size-1
     axes; all axes for a 0-d scale). Three tensors (n_bins, *group_shape),
     differentiable in w (`_Moments`)."""
-    if len(scale_shape) == 0:
-        dims, keep = tuple(range(w.dim())), False
-    else:
-        dims, keep = tuple(i for i, s in enumerate(scale_shape) if s == 1), True
+    dims, keep = _moment_dims(tuple(scale_shape), w.dim())
     return _Moments.apply(w.to(torch.float32), codes, spec.q_n, spec.q_p,
                           dims, keep)
 
 
-def obr_loss(w: torch.Tensor, scale: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """Eq. 10 for one module (scale broadcastable against w): a 0-d f32."""
+class ObrStats(NamedTuple):
+    """A leaf's (or a slice's) Eq. 10 sums: sq the 0-d sum of (w - w_q)^2;
+    count / s1 / s2 each bin's count, sum and sum of squares, (n_bins,
+    *group_shape) as `per_bin_moments` gives them. All f32; a leaf's are
+    the sums of its slices'."""
+    sq: torch.Tensor
+    count: torch.Tensor
+    s1: torch.Tensor
+    s2: torch.Tensor
+
+
+class Place(NamedTuple):
+    """Where a slice's scale groups sit in the whole leaf's: the whole
+    scale's shape and the slice's offset along each of its axes."""
+    shape: tuple
+    offsets: tuple
+
+    def index(self, local_shape) -> tuple:
+        return (slice(None),) + tuple(slice(o, o + n) for o, n
+                                      in zip(self.offsets, local_shape))
+
+
+def _quantized(w, scale, spec):
+    """(clamped scale, codes, w_q): the constants of Eq. 10."""
     scale = torch.clamp(scale, min=EPS_SCALE).detach()
     codes = quantize_int(w, scale, spec).detach()
-    w_q = (codes.to(w.dtype) * scale.to(w.dtype)).detach()
-    l2 = torch.sqrt(torch.sum((w.to(torch.float32) - w_q.to(torch.float32)) ** 2)
-                    + 1e-12)
+    return scale, codes, (codes.to(w.dtype) * scale.to(w.dtype)).detach()
+
+
+def obr_stats(w: torch.Tensor, scale: torch.Tensor, spec: QuantSpec,
+              place: Optional[Place] = None) -> ObrStats:
+    """The sums of w (a whole leaf, or a slice of one with its scale's
+    slice), differentiable in w. place: the bins' tensors are the whole
+    leaf's group tensor, this slice's groups at `place`'s offsets and
+    zeros elsewhere (None: the slice's own groups)."""
+    scale, codes, w_q = _quantized(w, scale, spec)
+    sq = torch.sum((w.to(torch.float32) - w_q.to(torch.float32)) ** 2)
     count, s1, s2 = per_bin_moments(w, codes, tuple(scale.shape), spec)
-    cnt = torch.clamp(count, min=1.0)
-    mean = s1 / cnt
-    var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
-    var = torch.where(count > 2.0, var, torch.zeros_like(var))
+    if place is not None:
+        def put(t):
+            out = t.new_zeros(t.shape[:1] + tuple(place.shape))
+            out[place.index(t.shape[1:])] = t
+            return out
+        count, s1, s2 = put(count), put(s1), put(s2)
+    return ObrStats(sq, count, s1, s2)
+
+
+def obr_finish(stats: ObrStats) -> torch.Tensor:
+    """Eq. 10 from a whole leaf's sums: the l2 term plus the variances of
+    the bins holding more than two elements. A 0-d f32."""
+    l2 = torch.sqrt(stats.sq + 1e-12)
+    cnt = torch.clamp(stats.count, min=1.0)
+    mean = stats.s1 / cnt
+    var = torch.clamp(stats.s2 / cnt - mean * mean, min=0.0)
+    var = torch.where(stats.count > 2.0, var, torch.zeros_like(var))
     return l2 + torch.sum(var)
+
+
+def obr_loss(w: torch.Tensor, scale: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Eq. 10 for one module (scale broadcastable against w): a 0-d f32."""
+    return obr_finish(obr_stats(w, scale, spec))
+
+
+def obr_grad(w: torch.Tensor, scale: torch.Tensor, spec: QuantSpec,
+             stats: ObrStats, place: Optional[Place] = None):
+    """(Eq. 10's value, its gradient in w) from the whole leaf's sums
+    `stats`, w being the leaf or a slice of it (its groups at `place`, as
+    in `obr_stats`). The gradient is autograd's through `obr_loss`,
+    written out: the finish's gradients in sq, s1 and s2, then the l2
+    term's g_sq * 2 (w - w_q) and the bins' `_moments_grad` on this
+    slice's groups, so that a whole leaf gets obr_loss's gradient bit for
+    bit."""
+    sq, s1, s2 = (t.detach().requires_grad_(True) for t in stats[:1] + stats[2:])
+    with torch.enable_grad():
+        v = obr_finish(ObrStats(sq, stats.count, s1, s2))
+        g_sq, g_s1, g_s2 = torch.autograd.grad(v, (sq, s1, s2))
+    scale, codes, w_q = _quantized(w, scale, spec)
+    _, keep = _moment_dims(tuple(scale.shape), w.dim())
+    if place is not None:
+        ix = place.index(tuple(scale.shape))
+        g_s1, g_s2 = g_s1[ix], g_s2[ix]
+    wf = w.detach().to(torch.float32)
+    g_l2 = g_sq * (2.0 * (wf - w_q.to(torch.float32)))
+    g_bins = _moments_grad(wf, codes, g_s1, g_s2, spec.q_n, keep)
+    return v.detach(), g_l2.to(w.dtype) + g_bins.to(w.dtype)
 
 
 def obr_lambda_schedule(step, total_steps: int, lam_max: float) -> torch.Tensor:

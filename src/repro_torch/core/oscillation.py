@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantizer import QuantSpec, quantize_int
@@ -47,9 +48,25 @@ def update_osc_state(state: OscState, w: torch.Tensor, scale: torch.Tensor,
     return OscState(prev_int=codes, prev_dir=prev_dir, freq=freq)
 
 
+def oscillation_count(state: OscState, threshold: float = 0.005) -> torch.Tensor:
+    """The number of weights with f > threshold: a 0-d int64 (a sharded
+    state's counts add up over its slices)."""
+    return torch.count_nonzero(state.freq > threshold)
+
+
+def count_fraction(count: torch.Tensor, numel: int) -> torch.Tensor:
+    """count x f32(1 / numel) rounded once to a 0-d f32: below 2^24
+    elements (the count exact in f32, the product exact in f64) this is
+    the f32 mean of a 0/1 mask as XLA (the reference) and CUDA's
+    `torch.mean` take it, the f32 sum times the f32 reciprocal; above 2^24
+    it is the exact count's, where an f32 sum of the mask rounds."""
+    inv = float(np.float32(1.0 / numel))
+    return (count.to(torch.float64) * inv).to(torch.float32)
+
+
 def oscillation_fraction(state: OscState, threshold: float = 0.005) -> torch.Tensor:
     """The Tab. 7/12/13 metric: the fraction of weights with f > threshold."""
-    return torch.mean((state.freq > threshold).to(torch.float32))
+    return count_fraction(oscillation_count(state, threshold), state.freq.numel())
 
 
 @torch.no_grad()

@@ -57,10 +57,14 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   model rank computes it whole.
 * Global decisions come out of all-reduces: the loss and metrics (means
   over the data ranks), the gradient norm (each element counted once),
-  OBR's Eq. 10 (on the gathered leaf), the oscillation fraction (on the
-  gathered EMA), compression's per-leaf amax, and the sentinel's
-  non-finite and scale flags, so every rank takes the same skip or
-  rollback.
+  compression's per-leaf amax, and the sentinel's non-finite and scale
+  flags, so every rank takes the same skip or rollback. OBR's Eq. 10 and
+  the oscillation fraction are taken on each rank's slices: a leaf's sums
+  (Eq. 10's sum of squares and bin moments, each slice's groups at their
+  place in the leaf's group tensor; the count of oscillating weights) are
+  summed over the mesh axes its spec splits (`leaf_sums`), and each rank
+  finishes the value from them and keeps its slice's gradient. No
+  quantized weight or EMA is gathered for either.
 * Decode. A KV cache whose sequence axis `sharding.cache_pspecs` splits
   over the model axis holds rows [k T/M, (k+1) T/M) on model rank k
   (`SeqSplit`): `models.attention.attend_chunk` runs the decode-attention
@@ -83,6 +87,7 @@ reduced, and its arithmetic is the single-process arithmetic exactly.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -91,6 +96,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as T
+from repro_torch.core.obr import Place
 from repro_torch.dist import sharding as shard
 from repro_torch.launch import cost
 from repro_torch.launch.mesh import HostMesh
@@ -560,18 +566,6 @@ class Spmd:
             out[j] = t
         return T.unflatten(sub, out)
 
-    def full_leaf(self, path: tuple, w: torch.Tensor, s: torch.Tensor):
-        if self.whole:
-            return w, s
-        sp = spec_at(self.pspecs, path)
-        return tuple(gather_many([w, s], [sp["w"], sp["w_scale"]], self.mesh))
-
-    def local_leaf(self, path: tuple, g: torch.Tensor) -> torch.Tensor:
-        if self.whole:
-            return g
-        return shard.local_shard(g, spec_at(self.pspecs, path)["w"], self.mesh,
-                                 self.mesh.coords)
-
     # -- reductions ------------------------------------------------------------
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the data ranks (a loss or metric of local rows)."""
@@ -608,31 +602,100 @@ class Spmd:
                 sq = sq + torch.sum(torch.square(g.to(torch.float32)))
         return torch.sqrt(all_reduce(sq, self.mesh.group(self.mesh.axis_names)))
 
-    def full_osc(self, osc: tuple) -> tuple:
-        """The oscillation states with their EMA gathered (the fraction reads
-        only that)."""
+    # -- OBR and the oscillation fraction on slices ----------------------------
+    def _split_axes(self, spec: tuple) -> tuple:
+        return self.mesh.axes({a for _, axes, _ in shard.split_dims(spec, self.mesh)
+                               for a in axes})
+
+    def leaf_sums(self, items: list) -> list:
+        """[(t, spec)] -> each t summed over the mesh axes its leaf's spec
+        splits: the slices' partial sums add up, slices' disjoint groups
+        (at their places, zeros elsewhere) fill the whole, and the replicas
+        along the axes the spec does not split already hold the same sums.
+        The tensors of one axis set go into one flat buffer (one dtype),
+        so a call launches one all-reduce per distinct axis set, all of
+        them together."""
         if self.whole:
-            return osc
-        with counted_as("oscillation"):
-            freqs = gather_many([st.freq for st in osc],
-                                [sp.freq for sp in self.osc_specs], self.mesh)
-        return tuple(st._replace(freq=f) for st, f in zip(osc, freqs))
+            return [t for t, _ in items]
+        sets: dict = {}
+        for j, (_, spec) in enumerate(items):
+            axes = self._split_axes(spec)
+            if axes:
+                sets.setdefault(axes, []).append(j)
+        out = [t for t, _ in items]
+        bufs = collect([("sum", torch.cat([items[j][0].reshape(-1) for j in js]),
+                         self.mesh.group(axes), None) for axes, js in sets.items()])
+        for js, buf in zip(sets.values(), bufs):
+            at = 0
+            for j in js:
+                n = items[j][0].numel()
+                out[j] = buf[at:at + n].view(items[j][0].shape)
+                at += n
+        return out
+
+    def obr_place(self, path: tuple, w: torch.Tensor, s: torch.Tensor):
+        """Where this rank's scale groups of the leaf at `path` sit in the
+        whole leaf's (`core.obr.Place`), None where its scale is whole."""
+        if self.whole:
+            return None
+        sp = spec_at(self.pspecs, path)
+        if not all(w.shape) or not all(s.shape):
+            raise ValueError(f"an empty slice {tuple(w.shape)} of {path} (spec {sp['w']})")
+        dims = shard.split_dims(sp["w_scale"], self.mesh)
+        if not dims:
+            return None
+        offsets = [0] * s.dim()
+        for dim, axes, _ in dims:
+            offsets[dim] = shard.axes_index(axes, self.mesh, self.mesh.coords) * s.shape[dim]
+        return Place(self._whole_shape(s, sp["w_scale"]), tuple(offsets))
+
+    def _whole_shape(self, t: torch.Tensor, spec: tuple) -> tuple:
+        """The shape of the whole leaf of which `t` is this rank's slice by
+        `spec`."""
+        shape = list(t.shape)
+        if not self.whole:
+            for dim, _, parts in shard.split_dims(spec, self.mesh):
+                shape[dim] *= parts
+        return tuple(shape)
+
+    def numel(self, t: torch.Tensor, spec: tuple) -> int:
+        return math.prod(self._whole_shape(t, spec))
+
+    def _refine(self, t: torch.Tensor, have: tuple, want: tuple) -> torch.Tensor:
+        """This rank's slice by spec `want` of the tensor whose slice by
+        `have` is `t`; each entry of `want` must extend `have`'s (its axes
+        first, more after them)."""
+        for dim in range(t.dim()):
+            h = shard.spec_axes(have[dim] if dim < len(have) else None)
+            w = shard.spec_axes(want[dim] if dim < len(want) else None)
+            if w[:len(h)] != h:
+                raise ValueError(f"spec {want} does not refine {have}")
+            extra = w[len(h):]
+            parts = self.mesh.size(extra)
+            if parts > 1:
+                n = t.shape[dim] // parts
+                if not n or t.shape[dim] % parts:
+                    raise ValueError(f"axis {dim} of {tuple(t.shape)} does not split "
+                                     f"in {parts}")
+                t = t.narrow(dim, shard.axes_index(extra, self.mesh, self.mesh.coords)
+                             * n, n)
+        return t
 
     def osc_view(self, index: int, path: tuple, w: torch.Tensor,
                  s: torch.Tensor):
         """(w, s) sliced as oscillation state `index` is: the rules give an
-        embedding's state an FSDP split its weight does not have."""
+        embedding's state an FSDP split its weight does not have, so its
+        slice is cut from this rank's weight slice (nothing gathered)."""
         if self.whole:
             return w, s
-        wspec = spec_at(self.pspecs, path)["w"]
-        ospec = self.osc_specs[index].prev_int
+        sp = spec_at(self.pspecs, path)
+        wspec, ospec = sp["w"], self.osc_specs[index].prev_int
         if ospec == wspec:
             return w, s
-        with counted_as("oscillation"):
-            wf, sf = self.full_leaf(path, w, s)
-        return (shard.local_shard(wf, ospec, self.mesh, self.mesh.coords),
-                shard.local_shard(sf, shard._scale_pspec(sf.shape, wf.shape, ospec),
-                                  self.mesh, self.mesh.coords))
+        return (self._refine(w, wspec, ospec),
+                self._refine(s, sp["w_scale"], shard._scale_pspec(
+                    self._whole_shape(s, sp["w_scale"]),
+                    self._whole_shape(w, wspec), ospec)))
 
     # -- decode ----------------------------------------------------------------
     def local_cache(self, cache: dict, *, shard_batch: bool = False) -> dict:

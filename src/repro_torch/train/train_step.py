@@ -11,10 +11,11 @@ PyTorch counterpart of `repro.train.train_step`:
 Gradient accumulation is a Python loop over microbatches whose f32
 gradients are summed from zeros and divided by the count. The forward
 checkpoints every block (remat), as the JAX step does. OBR is batch-
-independent and taken once a step, outside the microbatch loop, leaf by
-leaf: each quantized weight's Eq. 10 value and gradient come from their own
-small autograd graph (the sum over leaves is separable), and its gradient
-is added as g + lambda * g_obr, as the reference does. With
+independent and taken once a step, outside the microbatch loop: each
+quantized weight's Eq. 10 value and gradient come from its sums (the sum
+over leaves is separable; on a mesh each rank sums its slices and the
+ranks add the sums up), and its gradient is added as g + lambda * g_obr,
+as the reference does. With
 `qcfg.track_oscillation`, the Eq. 12 update runs on the post-update
 weights. With `tcfg.compress_grads`, the gradients (OBR's included) go
 through int8 compression with error feedback (`optim.grad_compress`)
@@ -30,10 +31,11 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.kd import hard_ce, kd_from_teacher_logits, sparse_soft_ce
-from repro_torch.core.obr import obr_lambda_schedule, obr_loss
-from repro_torch.core.oscillation import oscillation_fraction, update_osc_state
+from repro_torch.core.obr import ObrStats, obr_grad, obr_lambda_schedule, obr_stats
+from repro_torch.core.oscillation import (count_fraction, oscillation_count,
+                                          update_osc_state)
 from repro_torch.core.policy import QuantConfig
-from repro_torch.dist.spmd import WHOLE, Spmd, counted_as
+from repro_torch.dist.spmd import WHOLE, Spmd, counted_as, spec_at
 from repro_torch.models.model import (forward, jax_leaf_groups,
                                      quant_leaf_paths, quant_leaves)
 from repro_torch.optim import adamw, schedule
@@ -125,36 +127,53 @@ def _sub(tree, path: tuple):
 def obr_(params: dict, grads: dict, qcfg: QuantConfig, lam: torch.Tensor,
          spmd: Spmd = WHOLE) -> torch.Tensor:
     """Eq. 10 summed over every quantized weight (the reference's
-    total_obr_loss at lambda 1), returned as a 0-d f32; each weight's
-    gradient in `grads` becomes g + lam * dL_OBR/dw, IN PLACE of its leaf.
-    One leaf at a time, so only one leaf's graph is alive. Each leaf is
-    taken whole (`spmd.full_leaf`) and its gradient cut back to this rank's
-    slice."""
+    total_obr_loss at lambda 1, one l2 norm a layer's leaf), returned as a
+    0-d f32; each weight's gradient in `grads` becomes g + lam * dL_OBR/dw,
+    IN PLACE of its leaf. Two passes over this rank's slices: every leaf's
+    sums (`obr_stats`, no graph), summed over the ranks that split the leaf
+    (`spmd.leaf_sums`, one all-reduce per axis set), then leaf by leaf its
+    value and its slice's gradient from them (`obr_grad`)."""
+    leaves = quant_leaf_paths(params, qcfg)
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    places = [spmd.obr_place(path, w, s) for path, w, s, _ in leaves]
+    items = []
+    with torch.no_grad():
+        for (path, w, s, spec), place in zip(leaves, places):
+            wspec = None if spmd.whole else spec_at(spmd.pspecs, path)["w"]
+            items += [(t, wspec) for t in obr_stats(w, s, spec, place)]
+    with counted_as("obr"):
+        sums = spmd.leaf_sums(items)
     total = None
-    for path, w, s, spec in quant_leaf_paths(params, qcfg):
-        with counted_as("obr"):
-            w, s = spmd.full_leaf(path, w, s)
-        wl = w.detach().requires_grad_(True)
-        with torch.enable_grad():
-            v = obr_loss(wl, s, spec)
-            (og,) = torch.autograd.grad(v, wl)
-        og = spmd.local_leaf(path, og)
-        v = v.detach()
+    for j, ((path, w, s, spec), place) in enumerate(zip(leaves, places)):
+        v, og = obr_grad(w.detach(), s, spec, ObrStats(*sums[4 * j:4 * j + 4]), place)
         total = v if total is None else total + v
         sub = _sub(grads, path)
         sub["w"] = sub["w"] + lam.to(og.device) * og
-    if total is None:
-        return torch.zeros((), dtype=torch.float32)
     return total
 
 
-def osc_fraction_mean(osc: tuple, groups: list, threshold: float) -> torch.Tensor:
+def osc_fraction_mean(osc: tuple, groups: list, threshold: float,
+                      spmd: Spmd = WHOLE) -> torch.Tensor:
     """The reference's osc_frac: the mean over its quant leaves
     (`jax_leaf_groups`) of each leaf's oscillating fraction, a stacked
     leaf's fraction being the mean over its layers (all of one size)."""
-    fr = [oscillation_fraction(st, threshold) for st in osc]
+    fr = osc_fractions(osc, threshold, spmd)
     return torch.mean(torch.stack([torch.mean(torch.stack([fr[i] for i in g]))
                                    for _, g in groups]))
+
+
+def osc_fractions(osc: tuple, threshold: float, spmd: Spmd = WHOLE) -> list:
+    """Each oscillation state's fraction of weights with f > threshold:
+    this rank's counts summed over the ranks that split the state
+    (`spmd.leaf_sums`, one all-reduce per axis set), divided by the whole
+    leaf's size."""
+    counts = [oscillation_count(st, threshold) for st in osc]
+    specs = [None] * len(osc) if spmd.whole else [sp.freq for sp in spmd.osc_specs]
+    with counted_as("oscillation"):
+        counts = spmd.leaf_sums(list(zip(counts, specs)))
+    return [count_fraction(c, spmd.numel(st.freq, sp))
+            for c, st, sp in zip(counts, osc, specs)]
 
 
 def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
@@ -210,8 +229,8 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
         if tcfg.sentinel is not None:
             osc_prev = None
             if qcfg.track_oscillation and state["osc"]:
-                osc_prev = osc_fraction_mean(spmd.full_osc(state["osc"]), osc_groups,
-                                             qcfg.osc_threshold)
+                osc_prev = osc_fraction_mean(state["osc"], osc_groups,
+                                             qcfg.osc_threshold, spmd)
             health, fatal_t, new_sent = sent.health_check(
                 loss, grads, quant_leaves(params, qcfg), osc_prev,
                 state["sent"], tcfg.sentinel, reduce_any=spmd.any)
@@ -235,8 +254,8 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                                      momentum=qcfg.osc_momentum)
                     for j, (st, (path, w, s, spec)) in enumerate(
                         zip(state["osc"], quant_leaf_paths(params, qcfg))))
-            metrics["osc_frac"] = osc_fraction_mean(spmd.full_osc(new_osc), osc_groups,
-                                                    qcfg.osc_threshold)
+            metrics["osc_frac"] = osc_fraction_mean(new_osc, osc_groups,
+                                                    qcfg.osc_threshold, spmd)
         metrics.update({"loss": loss, "lr": lr, **opt_metrics})
         new_state = dict(state, step=step + 1, sent=new_sent, osc=new_osc,
                          err=new_err)

@@ -2,8 +2,9 @@
 experts on gloo ranks of the CPU.
 
     PYTHONPATH=src python tests/_torch_ep_harness.py OUT_DIR
+    PYTHONPATH=src python tests/_torch_ep_harness.py --obr OUT_DIR
 
-Two groups of ranks run at once:
+Without a mode, two groups of ranks run at once:
 
 * 2 ranks, a (1, 2) mesh: every case of EXPERT_CASES twice, on
   EP_EXPERTS experts (the rules split the expert axis: expert
@@ -20,6 +21,10 @@ Two groups of ranks run at once:
   package's init state, bridged); and the serving CLI on a (1, 4) mesh
   (each rank 1 expert) with the expert-parallel `greedy_generate` of the
   same prompts. Each rank writes OUT_DIR/m4_rank{R}.pt.
+
+--obr (tests/test_torch_obr_sharded.py): 4 ranks take OBR (Eq. 10) and
+the oscillation fraction on their slices of OBR_CASES' leaves, on a
+(2, 2) and a (1, 4) mesh (`obr_rank`), and write OUT_DIR/obr_rank{R}.pt.
 
 A case's rank cuts the case's whole parameters to its slices by the
 sharding rules (`dist.sharding.param_pspecs`), runs the expert linear on
@@ -381,11 +386,143 @@ def group_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# OBR (Eq. 10) and the oscillation fraction on slices (--obr)
+# ---------------------------------------------------------------------------
+
+# case -> (linear, whole shape, the scale's group axes)
+OBR_CASES = {
+    "w_in": ("w_in", (16, 24), ()),              # 0-d scale; FSDP + TP column
+    "wq": ("wq", (16, 4, 8), (1,)),              # per-head scale, heads on model
+    "moe_in_ep": ("moe_in", (4, 16, 24), (0,)),  # per-expert, experts on model (EP)
+    "moe_in_tp": ("moe_in", (3, 16, 24), (0,)),  # per-expert, d_ff on model
+    "embed": ("embed", (32, 16), ()),            # vocab on model; its state FSDP too
+    "router": ("router", (15, 3), ()),           # nothing divides: whole on every rank
+}
+OBR_MESHES = {"2x2": 2, "1x4": 4}  # mesh -> its model ranks of 4
+OSC_THRESHOLD = 0.005
+
+
+def obr_qcfg():
+    """w3a3 with the edges and the router at 4 bits (16 bins)."""
+    from repro_torch.core.policy import get_preset
+    return get_preset("w3a3").replace(track_oscillation=True, edge_bits=4,
+                                      router_bits=4)
+
+
+def obr_inputs() -> dict:
+    """case -> numpy arrays: the weight w, its scale s (one a group), the
+    weight after a step w2, and an oscillation state (prev_int, prev_dir,
+    freq) with about half its EMAs above OSC_THRESHOLD."""
+    rng = np.random.default_rng(31)
+    out = {}
+    for case, (_, shape, groups) in OBR_CASES.items():
+        sshape = tuple(n if i in groups else 1 for i, n in enumerate(shape)) if groups else ()
+        w = (rng.standard_normal(shape) * 0.05).astype(np.float32)
+        s = np.array(0.03 + 0.03 * rng.random(sshape), dtype=np.float32)
+        out[case] = {"w": w, "s": s,
+                     "w2": (w + 0.02 * rng.standard_normal(shape)).astype(np.float32),
+                     "prev_int": rng.integers(-4, 4, shape).astype(np.int8),
+                     "prev_dir": rng.integers(-1, 2, shape).astype(np.int8),
+                     "freq": (0.01 * rng.random(shape)).astype(np.float32)}
+    return out
+
+
+def obr_state(key: str = "w") -> tuple:
+    """(params, osc): the whole tree {case: {linear: {"w", "w_scale"}}}
+    (`key` the weight: "w" or "w2") and its oscillation states in
+    `quant_leaf_paths` order."""
+    from repro_torch.core.oscillation import OscState
+    from repro_torch.models.model import quant_leaf_paths
+    inp = obr_inputs()
+    params = {case: {name: {"w": torch.from_numpy(inp[case][key]),
+                            "w_scale": torch.from_numpy(inp[case]["s"])}}
+              for case, (name, _, _) in OBR_CASES.items()}
+    osc = tuple(OscState(*(torch.from_numpy(inp[path[0]][k])
+                           for k in ("prev_int", "prev_dir", "freq")))
+                for path, _, _, _ in quant_leaf_paths(params, obr_qcfg()))
+    return params, osc
+
+
+def stats_bytes(params, specs: dict, qcfg, mesh, osc_reads: int = 1) -> dict:
+    """The bytes OBR and the oscillation fraction move to a rank in a step
+    of the whole tree `params` (a meta tree will do) under the state specs
+    `specs`: for each quantized leaf its weight's spec splits, its Eq. 10
+    sums in f32 (the sum of squares, and 3 x bins x the whole scale's
+    groups); for each oscillation state its spec splits, one int64 count
+    each of the `osc_reads` times the step reads the fraction."""
+    from repro_torch.dist import sharding as shard
+    from repro_torch.dist.spmd import spec_at
+    from repro_torch.models.model import quant_leaf_paths
+    obr = osc = 0
+    for j, (path, _, s, spec) in enumerate(quant_leaf_paths(params, qcfg)):
+        if shard.split_dims(spec_at(specs["params"], path)["w"], mesh):
+            obr += 4 * (1 + 3 * spec.n_bins * s.numel())
+        if specs["osc"] and shard.split_dims(specs["osc"][j].freq, mesh):
+            osc += 8 * osc_reads
+    return {"obr": obr, "oscillation": osc}
+
+
+def obr_on(mesh) -> dict:
+    """This rank's OBR and oscillation results on `mesh`: Eq. 10 over every
+    case at once (its total, each leaf's gradient slice, the bytes moved by
+    use) and case by case (each value), each state's fraction, and each
+    state's Eq. 12 update on the stepped weights' oscillation view."""
+    from repro_torch import tree as T
+    from repro_torch.core.oscillation import update_osc_state
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.models.model import quant_leaf_paths
+    from repro_torch.train.train_step import obr_, osc_fractions
+    qcfg = obr_qcfg()
+    params, osc = obr_state()
+    specs = sharding.state_pspecs({"params": params, "mu": params, "nu": params,
+                                   "osc": osc, "err": ()}, mesh, qcfg)
+    sp = spmd.Spmd(mesh, specs["params"], osc_specs=specs["osc"])
+    local = sharding.shard_tree(params, specs["params"], mesh, mesh.coords)
+    local_osc = sharding.shard_tree(osc, specs["osc"], mesh, mesh.coords)
+    one = torch.ones(())
+    grads = T.map_tree(torch.zeros_like, local)
+    spmd.reset_moved_bytes()
+    total = obr_(local, grads, qcfg, one, sp)
+    fracs = osc_fractions(local_osc, OSC_THRESHOLD, sp)
+    moved = spmd.moved_bytes_by_use()
+    values = {case: float(obr_({case: local[case]}, T.map_tree(
+        torch.zeros_like, {case: local[case]}), qcfg, one, sp)) for case in OBR_CASES}
+    stepped = sharding.shard_tree(obr_state("w2")[0], specs["params"], mesh, mesh.coords)
+    paths = quant_leaf_paths(stepped, qcfg)
+    new = [update_osc_state(st, *sp.osc_view(j, path, w, s), spec,
+                            momentum=qcfg.osc_momentum)
+           for j, (st, (path, w, s, spec)) in enumerate(zip(local_osc, paths))]
+    cases = [path[0] for path, _, _, _ in paths]
+    return {"coords": dict(mesh.coords), "total": float(total), "values": values,
+            "moved": moved,
+            "grads": {case: grads[case][name]["w"] for case, (name, _, _)
+                      in OBR_CASES.items()},
+            "wspec": {case: specs["params"][case][name]["w"]
+                      for case, (name, _, _) in OBR_CASES.items()},
+            "ospec": {case: specs["osc"][j].freq for j, case in enumerate(cases)},
+            "fracs": {case: float(f) for case, f in zip(cases, fracs)},
+            "osc": {case: tuple(st) for case, st in zip(cases, new)}}
+
+
+def obr_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    _env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {name: obr_on(make_host_mesh(model, "cpu")) for name, model in OBR_MESHES.items()}
+    torch.save(res, os.path.join(out_dir, f"obr_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     import torch.multiprocessing as mp
-    out = sys.argv[1]
-    ctxs = [mp.spawn(group_rank, args=(w, free_port(), out), nprocs=w, join=False)
-            for w in (2, 4)]
-    for ctx in ctxs:
-        while not ctx.join():
-            pass
+    if sys.argv[1] == "--obr":
+        mp.spawn(obr_rank, args=(4, free_port(), sys.argv[2]), nprocs=4)
+    else:
+        out = sys.argv[1]
+        ctxs = [mp.spawn(group_rank, args=(w, free_port(), out), nprocs=w, join=False)
+                for w in (2, 4)]
+        for ctx in ctxs:
+            while not ctx.join():
+                pass

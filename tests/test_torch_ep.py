@@ -338,9 +338,20 @@ def test_training_counts_the_expert_buffers(ranks):
     experts in each of the step's 2 forwards (the block's checkpoint runs
     it again in the backward) and its input buffer's gradient all-gathered
     from the parts once; beyond those, only f32 scalars (the replicated
-    scales' partial gradients and the g factors' sums over the ranks)."""
+    scales' partial gradients and the g factors' sums over the ranks).
+    "obr" and "oscillation" count only the leaves' sums
+    (`_torch_ep_harness.stats_bytes`, one read of the fraction a step: no
+    sentinel), no gathered leaf or EMA."""
+    from repro_torch.dist import sharding as shard
+    from repro_torch.dist.spmd import state_specs
     from repro_torch.models.moe import capacity
+    from repro_torch.train.state import init_state
     cfg = H.moe_config()
+    _, qcfg, tcfg, _ = H.train_setup()
+    mesh = shard.AxisSizes(("data", "model"), (2, H.TRAIN_MODEL))
+    like = init_state(cfg, qcfg, tcfg, torch.Generator(), "meta")
+    stats = {k: v * H.TRAIN_STEPS for k, v in H.stats_bytes(
+        like["params"], state_specs(cfg, qcfg, tcfg, mesh), qcfg, mesh).items()}
     g = cfg.moe_dispatch_groups
     tokens = H.BATCH * H.SEQ // 2  # a data rank's rows
     rows = g * capacity(tokens // g, cfg)
@@ -352,6 +363,9 @@ def test_training_counts_the_expert_buffers(ranks):
         assert rest % 4 == 0
         assert sum(tr["moved_by_use"].values()) <= sum(tr["moved"].values())
         assert tr["moved_by_use"]["obr"] > 0 and tr["moved_by_use"]["oscillation"] > 0
+        assert (tr["moved_by_use"]["obr"] + tr["moved_by_use"]["oscillation"]
+                <= stats["obr"] + stats["oscillation"]), (tr["moved_by_use"], stats)
+        assert {k: tr["moved_by_use"][k] for k in stats} == stats
 
 
 def test_training_step0_matches_one_process(ranks, one_process):
