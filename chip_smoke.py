@@ -293,7 +293,10 @@ Phases (any failure exits non-zero before the final line is printed):
                steps 0-1 (gap printed, held to 1e-2), every rank's
                kernel 1 and 5 launches equal to the formula on the
                slices' shapes, s/step, peak memory and collective bytes a
-               rank beside phase 24's (the logits gather's share of them),
+               rank beside phase 24's, a step's beside the 4.40 GiB a
+               rank moved with the f32 logits gather; the MCKD loss on each rank's
+               logit columns: no all-gather of (rows, padded vocab) f32,
+               the bytes under "loss" rows x 3 f32 x 4 B a step,
                rank 0's last step traced by torch.profiler (the spans of
                its kernels and copies on the card, the host's seconds
                inside `spmd.collect`); (b) full-width granite-8b cut to 2
@@ -318,7 +321,15 @@ Phases (any failure exits non-zero before the final line is printed):
                rows M-independent at the slices (4, 4096, 3584) and
                (4, 3584, 4096), kernels 1 and 5 against their plain
                versions at the column slice (4096, 1024, 1408) and the
-               row slice (4096, 1408, 1024).
+               row slice (4096, 1408, 1024); (d) in the four ranks, the
+               vocab-parallel hard CE, MCKD's sparse soft-CE (K 16) and
+               teacher soft-CE (temperature 2) on each rank's quarter of
+               seeded f32 logits at (a)'s shape, 2,048 x 152,064 (the
+               four ranks as one (1, 4) group): each loss within 1e-6
+               relative of the same function on the whole logits and the
+               same bits on every rank, each rank's gradient columns
+               within 1e-6 of max|g|, the "loss" bytes 2,048 x (3, 3, 6)
+               x 4 B.
   27. expert-parallel MoE (cell U) — the four processes share the card
                over gloo, on the launchers' default
                runtime, each MoE FFN's experts split over the model ranks
@@ -336,7 +347,8 @@ Phases (any failure exits non-zero before the final line is printed):
                rank's QAT launches equal to `qat_launches_per_step` on its
                experts (`tp_parts=2`), s/step, peak, collective bytes by
                kind and by use (`spmd.moved_bytes_by_use`: the expert
-               compute's, OBR's and the oscillation tracker's), the
+               compute's, OBR's, the oscillation tracker's and the
+               loss's, held as phase 26's: no logits gathered), the
                expert collectives' bytes held to the buffers' reckoned
                bytes (`expert_buffer_bytes`) plus at most 1 MiB of f32
                scalars, OBR's and the tracker's to the leaves' sums
@@ -1336,9 +1348,11 @@ def tp_rank(torch, rank: int, out_dir: str) -> None:
             prof["collect0"] = spmd.collect_seconds()
 
     t0 = time.perf_counter()
-    rep = train.main(SHARDED_TRAIN + ["--ckpt", str(Path(out_dir) / "ckpt"),
-                                      "--model-parallel", str(TP_TRAIN_MODEL)],
-                     on_step=on_step)
+    from repro_torch.configs.registry import get_config
+    with logits_gathers(torch, VL_ROWS, get_config("qwen1.5-0.5b").padded_vocab) as gathers:
+        rep = train.main(SHARDED_TRAIN + ["--ckpt", str(Path(out_dir) / "ckpt"),
+                                          "--model-parallel", str(TP_TRAIN_MODEL)],
+                         on_step=on_step)
     torch.cuda.synchronize()
     step_prof = None
     if prof:
@@ -1351,6 +1365,8 @@ def tp_rank(torch, rank: int, out_dir: str) -> None:
                      "grad_norms": rep.grad_norms, "healths": rep.healths,
                      "step_seconds": rep.step_seconds, "state_bytes": rep.state_bytes,
                      "peak_bytes": rep.peak_bytes, "moved_bytes": spmd.moved_bytes(),
+                     "moved_by_use": spmd.moved_bytes_by_use(),
+                     "logits_gathers": gathers,
                      "launches": ops.launch_counts(), "coords": rep.mesh.coords,
                      "mesh": rep.mesh.shape}}
     del rep
@@ -1393,6 +1409,117 @@ def tp_rank(torch, rank: int, out_dir: str) -> None:
         json.dump(res, f)
 
 
+class logits_gathers:
+    """Inside, the shapes of the f32 all-gathers whose output holds `rows`
+    x `vocab` elements (a rank's whole logits) are listed in the value
+    `with` gives (`launch.cost.record_collective` sees every collective
+    `dist.spmd.collect` launches)."""
+
+    def __init__(self, torch, rows: int, vocab: int):
+        from repro_torch.launch import cost
+        self.cost, self.record, self.found = cost, cost.record_collective, []
+
+        def spy(kind, out):
+            if (kind == "gather" and out.dtype == torch.float32
+                    and out.numel() == rows * vocab):
+                self.found.append(list(out.shape))
+            self.record(kind, out)
+        self.spy = spy
+
+    def __enter__(self) -> list:
+        self.cost.record_collective = self.spy
+        return self.found
+
+    def __exit__(self, *exc) -> None:
+        self.cost.record_collective = self.record
+
+
+# (d) the vocab-parallel losses at cell T's shape, on the (1, 4) group of the
+# four ranks: rows, MCKD's top-K, the teacher's temperature; f32 values a row
+# all-reduces (the max, then the sum of exp and the target term; the teacher
+# first takes its own max and sum); the bars (the loss, relative; the
+# gradient, of max|g|)
+VL_ROWS, VL_K, VL_T = 8 * 512 // (SHARDED_RANKS // TP_TRAIN_MODEL), 16, 2.0
+VL_VALUES = {"hard": 3, "mckd": 3, "teacher": 6}
+VL_LOSS_BAR = VL_GRAD_BAR = 1e-6
+
+
+def vocab_loss_rank(torch, rank: int, out_dir: str) -> None:
+    """Phase 26 (d)'s part of a rank (`cells_rank`): `core.kd`'s hard CE,
+    MCKD's sparse soft-CE and the teacher soft-CE on this rank's quarter
+    of seeded f32 logits (VL_ROWS x qwen1.5-0.5b's padded vocab, its 128
+    padding columns -1e9, drawn alike on every rank), the split over the
+    four ranks' default group; each against the same function on the whole
+    logits in this process (value and this rank's columns of its gradient),
+    with the bytes launched under "loss" and the host ms of each (a card
+    shared by four processes); writes DIR/rank{R}.json."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import kd
+    from repro_torch.dist import spmd
+    cfg = get_config("qwen1.5-0.5b")
+    vp, v = cfg.padded_vocab, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(100 * SEED + 26)
+    x = torch.randn((VL_ROWS, vp), generator=gen, device="cuda") * 4.0
+    t = torch.randn((VL_ROWS, vp), generator=gen, device="cuda") * 3.0
+    x[:, v:] = -1e9
+    t[:, v:] = -1e9
+    labels = torch.randint(0, v, (VL_ROWS,), generator=gen, device="cuda")
+    ids = torch.randint(0, v, (VL_ROWS, VL_K), generator=gen, device="cuda")
+    ids[:, 0] = labels
+    p = torch.softmax(torch.randn((VL_ROWS, VL_K), generator=gen, device="cuda"), -1)
+    tp = spmd.TPSplit(dist.group.WORLD, rank, SHARDED_RANKS)
+    fns = {"hard": lambda z, s: kd.hard_ce(z, labels, tp=s),
+           "mckd": lambda z, s: kd.sparse_soft_ce(z, ids, p, tp=s),
+           "teacher": lambda z, s: kd.kd_from_teacher_logits(z, t, VL_T, tp=s)}
+    res = {}
+    for name, fn in fns.items():
+        out = {}
+        for split, z in ((tp, tp.local(x, -1)), (None, x)):
+            z = z.clone().requires_grad_(True)
+            spmd.reset_moved_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn(z, split)
+            (g,) = torch.autograd.grad(loss, z)
+            torch.cuda.synchronize()
+            out[split is None] = (float(loss.detach()), g, (time.perf_counter() - t0) * 1e3,
+                                  spmd.moved_bytes_by_use().get("loss", 0))
+            del z, loss
+        n = vp // SHARDED_RANKS
+        (lv, g, ms, nbytes), (lw, gw, whole_ms, _) = out[False], out[True]
+        res[name] = {"loss": lv, "whole": lw, "rel": abs(lv - lw) / abs(lw),
+                     "gap": float((g - gw[:, rank * n:(rank + 1) * n]).abs().max()),
+                     "gmax": float(gw.abs().max()), "bytes": nbytes, "ms": ms,
+                     "whole_ms": whole_ms}
+        del out, g, gw
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def vocab_loss_phase(ranks: list) -> dict:
+    """Phase 26 (d)'s checks (`vocab_loss_rank`): every rank's loss within
+    VL_LOSS_BAR relative of the whole logits' and the same bits on every
+    rank, its columns' gradient within VL_GRAD_BAR of max|g|, the "loss"
+    bytes VL_ROWS x VL_VALUES x 4."""
+    out = {}
+    for name, values in VL_VALUES.items():
+        rs = [r[name] for r in ranks]
+        want = VL_ROWS * values * 4
+        log(f"  (d) vocab-parallel {name} on {VL_ROWS} x 152064 f32 logits over 4 ranks: "
+            f"{rs[0]['loss']} vs the whole logits' {[r['whole'] for r in rs]} (rel "
+            f"{[r['rel'] for r in rs]}, bar {VL_LOSS_BAR}); gradient gap "
+            f"{[r['gap'] for r in rs]} of max|g| {rs[0]['gmax']} (bar {VL_GRAD_BAR}); "
+            f"'loss' bytes {[r['bytes'] for r in rs]} (formula {want}); host ms with the "
+            f"backward {[round(r['ms'], 3) for r in rs]} vs whole "
+            f"{[round(r['whole_ms'], 3) for r in rs]}")
+        if (any(r["rel"] > VL_LOSS_BAR or r["gap"] > VL_GRAD_BAR * r["gmax"]
+                or r["bytes"] != want or r["loss"] != rs[0]["loss"] for r in rs)):
+            fail(f"vocab-parallel {name} departs from the whole logits' loss: {rs}")
+        out[name] = rs
+    return out
+
+
 def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
     """What torch.profiler (device activity) saw on this rank over a window
     of `window_s` host seconds (one training step): the spans of its
@@ -1418,14 +1545,15 @@ def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
 
 
 # the four-process cells, in the order each rank runs them (`cells_rank`)
-CELLS = ("S", "T", "U")
+CELLS = ("S", "T", "U", "V")
 
 
 def cells_rank(rank: int, port: int, out_dir: str) -> None:
     """One of the SHARDED_RANKS processes of phases 24, 26 and 27
     (`chip_smoke.py --cells-rank R PORT DIR`): one interpreter, CUDA
-    context and process group run cells S, T and U in turn, each writing
-    into DIR/<cell>/; DIR/start{R}.json holds the seconds from the spawn
+    context and process group run cells S, T and U and phase 26 (d)'s
+    vocab-parallel losses ("V") in turn, each writing into DIR/<cell>/;
+    DIR/start{R}.json holds the seconds from the spawn
     (`_spawn_ranks` puts its clock in CHIP_SMOKE_SPAWNED) to this line and
     to torch with a CUDA context, and each cell's wall seconds."""
     import os
@@ -1441,7 +1569,7 @@ def cells_rank(rank: int, port: int, out_dir: str) -> None:
     spawned = float(os.environ["CHIP_SMOKE_SPAWNED"])
     start = {"interpreter_s": round(t_entry - spawned, 3),
              "torch_cuda_s": round(time.time() - spawned, 3), "cells_s": {}}
-    runs = {"S": sharded_rank, "T": tp_rank, "U": ep_rank}
+    runs = {"S": sharded_rank, "T": tp_rank, "U": ep_rank, "V": vocab_loss_rank}
     for cell in CELLS:
         t0 = time.perf_counter()
         runs[cell](torch, rank, str(Path(out_dir) / cell))
@@ -1536,6 +1664,20 @@ def logits_bar(torch, a, b, cpu) -> dict:
     return out
 
 
+def check_loss_bytes(cell: str, trains: list, tokens: int, steps: int) -> int:
+    """The training loss on the rank's logit columns (MCKD): each rank's
+    bytes under "loss" are tokens x 3 f32 x 4 B a step (a row's max, then
+    its sum of exp and its target term), and no all-gather delivered a
+    (tokens, padded vocab) f32 tensor (`logits_gathers`)."""
+    want = tokens * 3 * 4 * steps
+    for r, tr in enumerate(trains):
+        got = tr["moved_by_use"].get("loss", 0)
+        if got != want or tr["logits_gathers"]:
+            fail(f"cell {cell} rank {r}: 'loss' moved {got} B against {want}, logits "
+                 f"gathered {tr['logits_gathers']}")
+    return want
+
+
 def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
                  cell_c: dict, ranks: list, out_dir: Path, wall: float) -> dict:
     """Phase 26's checks: tensor-parallel compute (see the docstring);
@@ -1577,14 +1719,15 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
     # s/step: the step before the traced one
     s_train = [r["train"]["step_seconds"][TP_PROFILED_STEP - 1] for r in ranks]
     moved = [sum(r["train"]["moved_bytes"].values()) for r in ranks]
-    # the whole f32 logits each rank gathers a step, over its data rows
-    logits_gather = tokens * cfg.padded_vocab * 4 * len(losses)
+    loss_bytes = check_loss_bytes("T", [r["train"] for r in ranks], tokens, len(losses))
     prof = tr0["profile"]
     log(f"  cell T s/step (step {TP_PROFILED_STEP - 1}) {s_train} vs cell S's (gathered) "
         f"{[statistics.median(x[1:]) for x in cell_s['train']['step_seconds']]}; "
         f"collectives a rank {[m / 2**30 for m in moved]} GiB vs "
-        f"{cell_s['train']['moved_gib']}, the logits gather "
-        f"{logits_gather / 2**30:.3f} GiB of them ({logits_gather / moved[0]:.3f}); "
+        f"{cell_s['train']['moved_gib']}; a step {[m / len(losses) / 2**30 for m in moved]} "
+        f"GiB a rank (4.40 with the f32 logits gather), 'loss' "
+        f"{loss_bytes // len(losses)} B of them; peaks "
+        f"{[round(r['train']['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; "
         f"rank 0's traced step {TP_PROFILED_STEP}: {prof}")
     # (b) serving on (1, 4): heads, d_ff and vocab over the 4 ranks, the KV
     # sequence over the same 4
@@ -1658,7 +1801,8 @@ def cell_t_phase(torch, M, serve, qmm, ref, cell_r: dict, cell_s: dict,
         "losses": losses, "rel_vs_cell_r": rel, "grad_norms": gnorms,
         "grad_norm_rel_vs_cell_r": grel, "launches_per_step": per_step,
         "s_per_step": s_train, "profile": prof,
-        "logits_gather_share": logits_gather / moved[0],
+        "loss_bytes": loss_bytes,
+        "moved_gib_per_step": [m / len(losses) / 2**30 for m in moved],
         "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
         "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
         "moved_gib": [sum(r["train"]["moved_bytes"].values()) / 2**30 for r in ranks],
@@ -1809,11 +1953,13 @@ def ep_rank(torch, rank: int, out_dir: str) -> None:
     ops.reset_launch_counts()
     spmd.reset_moved_bytes()
     t0 = time.perf_counter()
-    rep = train.run_training(cfg, qcfg, smoke_tcfg(3), DataConfig(seed=0), steps=3,
-                             batch_size=8, seq_len=512,
-                             ckpt_dir=str(Path(out_dir) / "ckpt"), save_every=10 ** 6,
-                             log_every=0, seed=0, device="cuda",
-                             model_parallel=EP_TRAIN_MODEL)
+    rows = 8 * 512 // (SHARDED_RANKS // EP_TRAIN_MODEL)
+    with logits_gathers(torch, rows, cfg.padded_vocab) as gathers:
+        rep = train.run_training(cfg, qcfg, smoke_tcfg(3), DataConfig(seed=0), steps=3,
+                                 batch_size=8, seq_len=512,
+                                 ckpt_dir=str(Path(out_dir) / "ckpt"), save_every=10 ** 6,
+                                 log_every=0, seed=0, device="cuda",
+                                 model_parallel=EP_TRAIN_MODEL)
     torch.cuda.synchronize()
     res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
                      "grad_norms": rep.grad_norms, "healths": rep.healths,
@@ -1821,6 +1967,7 @@ def ep_rank(torch, rank: int, out_dir: str) -> None:
                      "state_bytes": rep.state_bytes, "peak_bytes": rep.peak_bytes,
                      "moved_bytes": spmd.moved_bytes(),
                      "moved_by_use": spmd.moved_bytes_by_use(),
+                     "logits_gathers": gathers,
                      "collect_s": spmd.collect_seconds(),
                      "launches": ops.launch_counts(), "coords": rep.mesh.coords,
                      "mesh": rep.mesh.shape}}
@@ -1997,6 +2144,11 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref, one: dict, ranks: list,
         per_step = check_launches({"cfg": cfg, "qcfg": qcfg, "counts": {
             k: tr["launches"][k] for k in QAT_KERNELS}}, len(losses), tokens,
             every_kernel=True, tp_parts=EP_TRAIN_MODEL)
+    loss_bytes = check_loss_bytes("U", [r["train"] for r in ranks], tokens, len(losses))
+    moved = [sum(r["train"]["moved_bytes"].values()) / len(losses) for r in ranks]
+    log(f"  cell U collectives a step {[m / 2**30 for m in moved]} GiB a rank (6.97 with the "
+        f"f32 logits gather), 'loss' {loss_bytes // len(losses)} B of them, no "
+        f"logits gathered")
     m0, b0 = tr0["metrics"][0], one_rep.metrics[0]
     log(f"  cell U losses {losses} vs one process (2 dispatch groups) {base}: rel "
         f"{rel} (bars: step 0 {TP_LOSS0_BAR}, later {TP_LOSS_BAR}); gradient norms "
@@ -2128,7 +2280,7 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref, one: dict, ranks: list,
         "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
         "moved_gib": [{k: v / 2**30 for k, v in r["train"]["moved_bytes"].items()}
                       for r in ranks],
-        "expert_buffer_gib": buf / 2**30,
+        "expert_buffer_gib": buf / 2**30, "loss_bytes": loss_bytes,
         "moved_by_use_gib": [{k: v / 2**30 for k, v in r["train"]["moved_by_use"].items()}
                              for r in ranks],
         "collect_s": [r["train"]["collect_s"] for r in ranks]},
@@ -4413,6 +4565,7 @@ def sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r: dict,
     log("tensor-parallel compute, four ranks sharing the card (cell T):")
     cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, cell_c, ranks["T"],
                           out_dir / "T", walls["T"])
+    cell_t["vocab_loss"] = vocab_loss_phase(ranks["V"])
     torch.cuda.empty_cache()
     log("expert-parallel MoE, four ranks sharing the card (cell U):")
     cell_u = cell_u_phase(torch, ops, M, serve, qmm, ref, one, ranks["U"], out_dir / "U",

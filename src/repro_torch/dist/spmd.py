@@ -35,9 +35,13 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   this rank's input columns and its partial output goes through
   `from_model` (a sum forward, identity backward: an all-reduce, or with
   `ordered_sums`, which the serving runtime asks for, the partials
-  gathered and added in rank order); the logits come out whole through
-  `gather_model` (all-gather forward; the backward keeps this rank's
-  slice, every model rank holding the same loss). Replicated leaves that
+  gathered and added in rank order). The training loss reads the head's
+  logits as this rank's columns (`core.kd` with `tp`: each row's max
+  over the model ranks through `max_model`, its sum of exp and target
+  terms through `from_model`, launched under the use "loss"); serving
+  and eval take them whole through `gather_model` (all-gather forward;
+  the backward keeps this rank's slice, every model rank holding the
+  same loss). Replicated leaves that
   model-split work reads (activation scales and offsets, per-tensor
   weight scales, biases) go through `to_model`, so their partial
   gradients are summed over the model ranks, and the module-wise g
@@ -406,6 +410,10 @@ class TPSplit(NamedTuple):
         (`local` gives the same through `to_model`'s all-reduce of
         zero-padded parts, M x the bytes)."""
         return _SplitModel.apply(self.group, self.index, self.parts, dim % x.dim(), x)
+
+    def max_model(self, x: torch.Tensor) -> torch.Tensor:
+        """x's elementwise max over the model ranks; no gradient."""
+        return all_reduce(x.detach(), self.group, "max")
 
     def local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's part of a whole tensor along `dim`."""

@@ -29,7 +29,10 @@ its einsums over `model`: rank 0 counts the dots of its own weight slices
 wherever the rules split a sublayer's weights over the model axis (the
 attention on heads, the dense FFN on d_ff, the embedding and the head on
 vocab), plus the all-reduces of row-parallel outputs and of
-column-parallel input gradients and the all-gather of the logits; a
+column-parallel input gradients, and the logits' all-gather where
+serving takes them whole (the training loss reads the rank's columns:
+its row max and sums are all-reduces, `collectives.bytes_by_use`'s
+"loss"); a
 sublayer whose weights do not split (MoE experts, recurrent blocks,
 cross-attention, a weight that does not divide) is gathered whole and
 counted whole on every rank, as is a serving chunk's attention over its
@@ -183,10 +186,14 @@ def _run_counted(fn, *args) -> tuple[dict, float]:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
+    before = S.moved_bytes_by_use()
     with cost.CostMode(track_live=True) as cm:
         out = fn(*args)
         del out
     res = cm.result()
+    res["collective_bytes_by_use"] = {
+        k: v - before.get(k, 0) for k, v in S.moved_bytes_by_use().items()
+        if v != before.get(k, 0)}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         res["device_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -336,6 +343,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, preset: str,
         "fits_80g": per_device_bytes < rl.HBM_BYTES,
         "collectives": {"bytes_by_op": res["collective_bytes_by_op"],
                         "count_by_op": res["collective_count_by_op"],
+                        "bytes_by_use": res["collective_bytes_by_use"],
                         "total_bytes": res["collective_bytes"],
                         "total_count": res["collective_count"]},
         "roofline": roof,

@@ -651,7 +651,8 @@ def tied_head_act_init(qcfg: QuantConfig, device=None,
 
 def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
                   vocab_padded: int, final_softcap: float = 0.0,
-                  tied_embed: Optional[dict] = None, tp=None) -> torch.Tensor:
+                  tied_embed: Optional[dict] = None, tp=None,
+                  gather: bool = True) -> torch.Tensor:
     """Project to (padded) vocab logits in f32; mask padding columns.
 
     The untied latent head, and the tied latent head (the transposed
@@ -665,8 +666,11 @@ def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
 
     tp: vocab-parallel, the head's weight (or the tied table) holds this
     rank's vocab columns: the rank computes its columns as a
-    column-parallel linear (the padding mask on their global indices) and
-    `gather_model` gives every rank the whole logits.
+    column-parallel linear (the padding mask on their global indices).
+    With `gather` (serving, eval) `gather_model` gives every rank the
+    whole logits; without it (the training loss, `core.kd` with `tp`)
+    the rank keeps its columns [index n, (index + 1) n), and n x the
+    model ranks must be the padded vocab.
     """
     if tp is not None:
         tp = tp._replace(dim=1)
@@ -728,8 +732,11 @@ def lm_head_apply(p: dict, x: torch.Tensor, qcfg: QuantConfig, vocab_size: int,
         col = tp.index * n if tp is not None else 0
         pad_mask = torch.arange(col, col + n, device=logits.device) < vocab_size
         logits = torch.where(pad_mask, logits, -1e9)
-    if tp is not None:
+    if tp is not None and gather:
         logits = tp.gather_model(logits, -1)
+    elif tp is not None and logits.shape[-1] * tp.parts != vocab_padded:
+        raise ValueError(f"{tp.parts} ranks of {logits.shape[-1]} logit columns "
+                         f"do not make the padded vocab {vocab_padded}")
     return logits
 
 

@@ -309,7 +309,7 @@ def _gathered_block(spmd: Spmd, i: int, p: dict, x, bd: BlockDef,
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
-            remat: bool = False, spmd: Spmd = WHOLE):
+            remat: bool = False, spmd: Spmd = WHOLE, whole_logits: bool = True):
     """Full-sequence forward. batch: tokens (B, S) [+ frontend_embeds]:
     audio frames (B, S, d) are added to the scaled token embeddings;
     vision patches (B, P, d) replace them where no block has cross
@@ -327,7 +327,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
     spmd: the mesh's runtime (`dist.spmd`); where params are one rank's
     slices, the top-level leaves are gathered once and each layer's just
     before it runs; the sublayers that `layer_tp` and `vocab_tp` name run
-    tensor-parallel (the logits come out whole on every rank).
+    tensor-parallel. The logits come out whole on every rank, unless
+    `whole_logits` is False and the head is vocab-parallel (`vocab_tp(spmd,
+    cfg)[1]`): then they are this rank's columns of the padded vocab, for
+    `core.kd`'s losses with that split (the training step).
     """
     cdtype = _cdtype(cfg)
     vocab = vocab_tp(spmd, cfg)
@@ -364,7 +367,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
         params["lm_head"], x, qcfg, cfg.vocab_size, cfg.padded_vocab,
         final_softcap=cfg.final_softcap,
         tied_embed=params["embed"] if cfg.tie_embeddings else None,
-        tp=vocab[1])
+        tp=vocab[1], gather=whole_logits)
     aux = {"lb_loss": lb_sum, "drop_frac": drop_sum,
            "act_sdam": sdam_sum / max(cfg.n_layers, 1)}
     return logits, aux

@@ -37,7 +37,7 @@ from repro_torch.core.oscillation import (count_fraction, oscillation_count,
 from repro_torch.core.policy import QuantConfig
 from repro_torch.dist.spmd import WHOLE, Spmd, counted_as, spec_at
 from repro_torch.models.model import (forward, jax_leaf_groups,
-                                     quant_leaf_paths, quant_leaves)
+                                     quant_leaf_paths, quant_leaves, vocab_tp)
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.grad_compress import compress_tree
 from repro_torch.train import sentinel as sent
@@ -50,16 +50,22 @@ def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, tcfg: TrainConfig, *,
                  teacher_forward: Optional[Callable] = None,
                  extra_loss: Optional[Callable] = None, spmd: Spmd = WHOLE):
     """loss_fn(params, batch, step) -> (loss, metrics); `spmd` as in
-    `models.model.forward`."""
+    `models.model.forward`. Where the head is vocab-parallel, the loss
+    reads this rank's logit columns (`core.kd` with the head's split): no
+    rank holds the whole logits; `loss_main` is the whole loss on every
+    rank."""
+    head = vocab_tp(spmd, cfg)[1]
+
     def loss_fn(params, batch, step):
-        logits, aux = forward(params, batch, cfg, qcfg, remat=True, spmd=spmd)
+        logits, aux = forward(params, batch, cfg, qcfg, remat=True, spmd=spmd,
+                              whole_logits=False)
         if tcfg.kd == "mckd":
-            main = sparse_soft_ce(logits, batch["kd_idx"], batch["kd_p"])
+            main = sparse_soft_ce(logits, batch["kd_idx"], batch["kd_p"], tp=head)
         elif tcfg.kd == "teacher":
             main = kd_from_teacher_logits(logits, teacher_forward(batch),
-                                          temperature=tcfg.kd_temperature)
+                                          temperature=tcfg.kd_temperature, tp=head)
         else:
-            main = hard_ce(logits, batch["labels"])
+            main = hard_ce(logits, batch["labels"], tp=head)
         loss = main + tcfg.lb_coef * aux["lb_loss"]
         if extra_loss is not None:
             loss = loss + extra_loss(params, step)

@@ -4,6 +4,7 @@ compute on gloo ranks of the CPU.
     PYTHONPATH=src python tests/_torch_tp_harness.py --linears OUT_DIR
     PYTHONPATH=src python tests/_torch_tp_harness.py --train SRC_CKPT OUT_DIR
     PYTHONPATH=src python tests/_torch_tp_harness.py --serve OUT_DIR
+    PYTHONPATH=src python tests/_torch_tp_harness.py --vocab OUT_DIR
 
 --linears: every case of LINEAR_CASES on a (1, 2) and then a (1, 4) mesh:
 each rank cuts the case's whole parameters to its slices by the sharding
@@ -26,6 +27,17 @@ audio frames, mLSTM / sLSTM, RG-LRU with local attention, cross-attention
 over vision patches), w4a4: which sublayers run tensor-parallel, a
 forward's logits and the step-0 gradient, gathered. Rank 0 writes
 OUT_DIR/archs.pt.
+
+--vocab: 4 ranks, on a (2, 2) and then a (1, 4) mesh: `core.kd`'s losses
+with the head's split (`tp`) on each rank's columns of seeded logits
+(`loss_inputs`: hard CE, MCKD's sparse soft-CE, `mckd_loss` over 2 views,
+the soft CE and the teacher soft-CE, with and without a mask), each
+loss's value, its gradient on the rank's columns and the bytes launched
+under the use "loss"; then a step-0 `make_grad_fn` of the reduced
+qwen1.5-0.5b (`VOCAB_STEP`) with kd "mckd" and "none", tensor-parallel,
+against one process: loss_main, the tied head's gradient, the "loss"
+bytes and every all-gather's shape. Each rank writes
+OUT_DIR/vocab{R}.pt.
 
 --serve: 4 ranks on a (1, 4) mesh: the serving CLI (`launch.serve.main`,
 reduced granite-8b, w4a4, int8 KV) with heads, d_ff and vocab split four
@@ -459,6 +471,163 @@ def archs_rank(rank: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# vocab-parallel losses on (2, 2) and (1, 4)
+# ---------------------------------------------------------------------------
+
+VOCAB_RANKS, VOCAB_MODELS = 4, (2, 4)
+# name -> (vocab, final softcap), over a padded vocab of LOSS_VP: 16
+# columns a rank at M 4 (32 at M 2); "pad_rank" leaves M 4's last rank
+# nothing but padding
+LOSS_CASES = {"plain": (62, 0.0), "softcap": (62, 30.0), "pad_rank": (45, 0.0)}
+LOSS_VP, LOSS_B, LOSS_S, LOSS_K, LOSS_T = 64, 2, 6, 4, 2.0
+LOSSES = ("hard", "hard_mask", "sparse", "sparse_mask", "mckd", "soft",
+          "teacher", "teacher_mask")
+# the reduced qwen1.5-0.5b step: batch, sequence
+VOCAB_STEP = (4, 16)
+
+
+def loss_inputs(case: str) -> dict:
+    """Seeded numpy inputs of a loss case over the whole padded vocab: two
+    views of logits (the first the single-view losses'), labels and top-K
+    ids on rank boundaries and at the last id, a row of spikes on the
+    other half of the vocab from its label (so its max lies on another
+    rank at M 2 and 4), a mask, teacher logits and their probabilities."""
+    vocab, cap = LOSS_CASES[case]
+    rng = np.random.default_rng(sorted(LOSS_CASES).index(case))
+    shape = (LOSS_B, LOSS_S)
+    x = rng.normal(size=(2,) + shape + (LOSS_VP,)) * 3.0
+    labels = rng.integers(0, vocab, size=shape)
+    labels[0] = [0, 15, 16, 31, 32, vocab - 1]
+    for s_ in range(LOSS_S):
+        lab = labels[1, s_]
+        x[:, 1, s_, lab + 32 if lab < 32 else lab - 32] += 12.0
+    if cap > 0.0:
+        x = cap * np.tanh(x / cap)
+    x[..., vocab:] = -1e9
+    ids = rng.integers(0, vocab, size=(2,) + shape + (LOSS_K,))
+    ids[..., 0] = labels
+    ids[:, 0, 0] = [0, 15, 16, 31]
+    ids[:, 0, 1] = [32, min(47, vocab - 1), min(48, vocab - 1), vocab - 1]
+    p = rng.dirichlet(np.ones(LOSS_K), size=(2,) + shape)
+    t = rng.normal(size=shape + (LOSS_VP,)) * 2.0
+    t[..., vocab:] = -1e9
+    e = np.exp(t - t.max(-1, keepdims=True))
+    return {"x": x.astype(np.float32), "labels": labels.astype(np.int32),
+            "ids": ids.astype(np.int32), "p": p.astype(np.float32),
+            "mask": (rng.random(shape) < 0.7).astype(np.float32),
+            "teacher": t.astype(np.float32),
+            "probs": (e / e.sum(-1, keepdims=True)).astype(np.float32)}
+
+
+def loss_of(name: str, x, inp: dict, tp=None):
+    """Loss `name` of `LOSSES` on logits x (2, B, S, C): the whole vocab
+    (tp None) or the rank's columns; inp's tensors whole."""
+    from repro_torch.core import kd
+    mask = inp["mask"] if name.endswith("_mask") else None
+    kind = name.removesuffix("_mask")
+    if kind == "hard":
+        return kd.hard_ce(x[0], inp["labels"], mask, tp=tp)
+    if kind == "sparse":
+        return kd.sparse_soft_ce(x[0], inp["ids"][0], inp["p"][0], mask, tp=tp)
+    if kind == "mckd":
+        return kd.mckd_loss(x, inp["ids"], inp["p"], tp=tp)
+    if kind == "soft":
+        probs = inp["probs"] if tp is None else tp.local(inp["probs"], -1)
+        return kd.soft_ce(x[0], probs, mask, tp=tp)
+    return kd.kd_from_teacher_logits(x[0], inp["teacher"], LOSS_T, mask, tp=tp)
+
+
+def loss_cases_on(tp) -> dict:
+    """{case: {loss: (value, gradient of the rank's columns, "loss" bytes)}}."""
+    from repro_torch.dist import spmd
+    out = {}
+    for case in LOSS_CASES:
+        inp = {k: torch.from_numpy(v) for k, v in loss_inputs(case).items()}
+        out[case] = {}
+        for name in LOSSES:
+            x = tp.local(inp["x"], -1).clone().requires_grad_(True)
+            spmd.reset_moved_bytes()
+            loss = loss_of(name, x, inp, tp)
+            moved = spmd.moved_bytes_by_use().get("loss", 0)
+            (g,) = torch.autograd.grad(loss, x)
+            assert spmd.moved_bytes_by_use().get("loss", 0) == moved  # none backward
+            out[case][name] = (float(loss.detach()), g, moved)
+    return out
+
+
+def vocab_step(sp, kd_mode: str, full: dict) -> dict:
+    """Step 0 of the reduced qwen1.5-0.5b on `sp` (this rank's slices of
+    `full`; whole where sp is WHOLE): loss_main over the data ranks, the
+    gathered gradient of the tied table, the bytes by use and the shape of
+    every all-gather launched."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.data.mckd_store import synthetic_kd_labels
+    from repro_torch.data.synthetic import DataConfig, sample_batch
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.launch import cost
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.train_step import make_grad_fn
+    cfg = reduced_config(get_config("qwen1.5-0.5b"))
+    tcfg = TrainConfig(kd=kd_mode)
+    batch = sample_batch(cfg, DataConfig(), 0, *VOCAB_STEP)
+    if kd_mode == "mckd":
+        batch["kd_idx"], batch["kd_p"] = synthetic_kd_labels(
+            batch["labels"], cfg.vocab_size, tcfg.kd_topk)
+    params = full
+    if not sp.whole:
+        batch = sp.rows(batch)
+        params = sharding.shard_tree(full, sp.pspecs, sp.mesh, sp.mesh.coords)
+    gathers = []
+    record = cost.record_collective
+
+    def spy(kind, out):
+        if kind == "gather":
+            gathers.append(tuple(out.shape))
+        record(kind, out)
+
+    cost.record_collective = spy
+    spmd.reset_moved_bytes()
+    try:
+        _, metrics, grads = make_grad_fn(cfg, get_preset("w4a4"), tcfg, spmd=sp)(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()},
+            torch.zeros((), dtype=torch.int32))
+    finally:
+        cost.record_collective = record
+    by_use = spmd.moved_bytes_by_use()
+    if not sp.whole:
+        grads = spmd.gather_tree(grads, sp.pspecs, sp.mesh)
+    return {"loss_main": float(sp.mean(metrics["loss_main"])),
+            "table_grad": grads["embed"]["w"], "by_use": by_use,
+            "gathers": gathers, "rows": int(batch["tokens"].size)}
+
+
+def vocab_rank(rank: int, port: int, out_dir: str) -> None:
+    _env(rank, VOCAB_RANKS, port)
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    cfg = reduced_config(get_config("qwen1.5-0.5b"))
+    full = M.init_params(cfg, get_preset("w4a4"), torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    for m in VOCAB_MODELS:
+        mesh = make_host_mesh(m, "cpu")
+        sp = spmd.Spmd(mesh, sharding.param_pspecs(full, mesh))
+        tp = spmd.TPSplit(mesh.group(("model",)), mesh.coords["model"], m)
+        res[m] = {"coords": mesh.coords, "losses": loss_cases_on(tp),
+                  "head_tp": M.vocab_tp(sp, cfg)[1] is not None,
+                  "step": {k: vocab_step(sp, k, full) for k in ("mckd", "none")}}
+    if rank == 0:
+        res["one"] = {k: vocab_step(spmd.WHOLE, k, full) for k in ("mckd", "none")}
+    torch.save(res, os.path.join(out_dir, f"vocab{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -476,6 +645,9 @@ if __name__ == "__main__":
                  nprocs=TRAIN_RANKS, join=True)
     elif sys.argv[1] == "--archs":
         mp.spawn(archs_rank, args=(free_port(), sys.argv[2]), nprocs=ARCH_RANKS,
+                 join=True)
+    elif sys.argv[1] == "--vocab":
+        mp.spawn(vocab_rank, args=(free_port(), sys.argv[2]), nprocs=VOCAB_RANKS,
                  join=True)
     elif sys.argv[1] == "--serve":
         mp.spawn(serve_rank, args=(free_port(), sys.argv[2]), nprocs=SERVE_RANKS,

@@ -460,10 +460,12 @@ def test_dry_run_rank0_counts_its_slices(kind):
     over heads first), n_layers x (2 B H C^2 D) for the scores plus as
     much for P.V at prefill (C = seq_len), and the scores alone at decode
     (one key: P.V is a broadcast multiply, not a dot). Training has none.
-    Rank 0 also records the model axis's collectives: all-reduces and
-    all-gathers in training, all-gathers in serving (its row-parallel
-    partials are gathered and summed in rank order; what all-reduces
-    remain there are g factors' l1)."""
+    Rank 0 also records the model axis's collectives: in training
+    all-reduces and no all-gather (the loss reads rank 0's logit columns,
+    each row's max and its two sums all-reduced under the use "loss":
+    tokens x 3 x 4 B), all-gathers in serving (its row-parallel partials
+    are gathered and summed in rank order, and the logits gathered whole;
+    what all-reduces remain there are g factors' l1)."""
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config, reduced_config
     cfg = reduced_config(get_config("qwen1.5-0.5b"))
@@ -483,6 +485,9 @@ def test_dry_run_rank0_counts_its_slices(kind):
     assert 4 * four["cost"]["flops"] - 3 * whole == one["cost"]["flops"]
     assert one["cost"]["flops"] > 4 * whole  # the split dots dominate
     by = four["collectives"]["count_by_op"]
-    assert by.get("all-gather", 0) > 0
-    assert kind != "train" or by.get("all-reduce", 0) > 0
+    if kind == "train":
+        assert by.get("all-gather", 0) == 0 and by.get("all-reduce", 0) > 0
+        assert four["collectives"]["bytes_by_use"]["loss"] == four["tokens_per_step"] * 3 * 4
+    else:
+        assert by.get("all-gather", 0) > 0
     assert one["collectives"]["total_count"] == 0
