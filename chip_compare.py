@@ -40,6 +40,13 @@ with the four results, in run order. Tasks, on the shapes of
              profiler off: s/step, losses, peak memory.
   steps_moe  granite-moe-1b-a400m w3a3 + OBR, 5 steps through
              `run_training` (`chip_smoke.moe_train_phase`).
+  steps_xlstm_tp
+             `repro_torch.launch.train --model-parallel 2` on four gloo
+             ranks sharing the card, a (2, 2) mesh: xlstm-350m one period
+             (8 layers) w4a4, 8 x 512, 4 steps (cell V, `chip_smoke.py`
+             phase 28): rank 0's s/step, losses, gradient norms, peak
+             memory, collective bytes a step by kind and by use, and host
+             seconds inside `spmd.collect`.
   prof_qwen, prof_moe
              `repro_torch.launch.profile_train` on the two archs: device
              busy ms a step and each QAT kernel's device ms, losses; and the
@@ -93,7 +100,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "quant_bits", "steps_qwen", "steps_moe",
-         "prof_qwen", "prof_moe", "serving", "quantizer", "head_plans", "prof_decode")
+         "steps_xlstm_tp", "prof_qwen", "prof_moe", "serving", "quantizer", "head_plans",
+         "prof_decode")
 ROW_TASKS = ("head", "tiles", "f32_bwd", "bwd_bits", "quant_bits", "serving", "quantizer",
              "head_plans")
 # the serving kernels' device kernels, by name, in either checkout
@@ -103,6 +111,55 @@ DECODE_KERNELS = {"int4_matmul": ("int4_tc_kernel", "int_matmul_kernel<true"),
                                               "flash_decode_kernel")}
 # int_matmul at the kernel bench's shape (cell E), beside phase 2's rows
 KERNEL_BENCH_INT8 = (256, 1024, 512)
+# steps_xlstm_tp: the CLI's arguments and the ranks of one card
+XLSTM_TP_ARGV = ["--arch", "xlstm-350m", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
+                 "--seq", "512", "--layers", "8", "--steps", "4",
+                 "--save-every", str(10 ** 6), "--model-parallel", "2"]
+XLSTM_TP_RANKS = 4
+
+
+def tp_rank(rank: int, port: int, root: Path, out: Path) -> None:
+    """One of steps_xlstm_tp's ranks: the checkout's training CLI on its
+    slices; writes its numbers to OUT/rank{R}.json."""
+    import os
+    os.environ.update(WORLD_SIZE=str(XLSTM_TP_RANKS), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.dist import spmd
+    from repro_torch.launch import train
+    rep = train.main(XLSTM_TP_ARGV + ["--ckpt", str(out / f"ckpt{rank}")])
+    steps = len(rep.losses)
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "step_seconds": rep.step_seconds, "losses": rep.losses, "grad_norms": rep.grad_norms,
+        "peak_gib": (rep.peak_bytes or 0) / 2**30,
+        "moved_per_step": {k: v / steps for k, v in spmd.moved_bytes().items()},
+        "moved_by_use_per_step": {k: v / steps for k, v in spmd.moved_bytes_by_use().items()},
+        "collect_s": spmd.collect_seconds()}))
+
+
+def xlstm_tp_steps(root: Path) -> dict:
+    """steps_xlstm_tp: XLSTM_TP_RANKS processes of `tp_rank` on the
+    checkout; rank 0's numbers."""
+    import socket
+    out = root / "build" / "chip_compare_tp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank",
+                               str(r), str(port), str(root), str(out)])
+             for r in range(XLSTM_TP_RANKS)]
+    rcs = [p.wait(timeout=600) for p in procs]
+    if any(rcs):
+        raise SystemExit(f"chip_compare: steps_xlstm_tp ranks exited {rcs}")
+    res = json.loads((out / "rank0.json").read_text())
+    shutil.rmtree(out, ignore_errors=True)
+    return res
 
 
 def own_rows():
@@ -361,6 +418,8 @@ def run_one(root: Path, task: str) -> dict:
         rep = run["report"]
         out.update(step_seconds=rep.step_seconds, losses=rep.losses,
                    peak_gib=(rep.peak_bytes or 0) / 2**30)
+    elif task == "steps_xlstm_tp":
+        out.update(xlstm_tp_steps(root))
     elif task == "steps_moe":
         run = cs.moe_train_phase(torch, ops, steps=5)
         rep = run["report"]
@@ -382,6 +441,9 @@ def run_one(root: Path, task: str) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--rank"]:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5]))
+        return
     if sys.argv[1:2] == ["--one"]:
         print("RESULT " + json.dumps(run_one(Path(sys.argv[2]).resolve(), sys.argv[3])),
               flush=True)

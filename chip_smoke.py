@@ -1545,14 +1545,15 @@ def step_profile(torch, prof, window_s: float, collect_s: float) -> dict:
 
 
 # the four-process cells, in the order each rank runs them (`cells_rank`)
-CELLS = ("S", "T", "U", "V")
+CELLS = ("S", "T", "U", "VL", "V")
 
 
 def cells_rank(rank: int, port: int, out_dir: str) -> None:
     """One of the SHARDED_RANKS processes of phases 24, 26 and 27
     (`chip_smoke.py --cells-rank R PORT DIR`): one interpreter, CUDA
-    context and process group run cells S, T and U and phase 26 (d)'s
-    vocab-parallel losses ("V") in turn, each writing into DIR/<cell>/;
+    context and process group run cells S, T and U, phase 26 (d)'s
+    vocab-parallel losses ("VL") and cell V in turn, each writing into
+    DIR/<cell>/;
     DIR/start{R}.json holds the seconds from the spawn
     (`_spawn_ranks` puts its clock in CHIP_SMOKE_SPAWNED) to this line and
     to torch with a CUDA context, and each cell's wall seconds."""
@@ -1569,7 +1570,8 @@ def cells_rank(rank: int, port: int, out_dir: str) -> None:
     spawned = float(os.environ["CHIP_SMOKE_SPAWNED"])
     start = {"interpreter_s": round(t_entry - spawned, 3),
              "torch_cuda_s": round(time.time() - spawned, 3), "cells_s": {}}
-    runs = {"S": sharded_rank, "T": tp_rank, "U": ep_rank, "V": vocab_loss_rank}
+    runs = {"S": sharded_rank, "T": tp_rank, "U": ep_rank, "VL": vocab_loss_rank,
+            "V": recurrent_tp_rank}
     for cell in CELLS:
         t0 = time.perf_counter()
         runs[cell](torch, rank, str(Path(out_dir) / cell))
@@ -2293,6 +2295,262 @@ def cell_u_phase(torch, ops, M, serve, qmm, ref, one: dict, ranks: list,
                   "peak_gib": [s["peak_bytes"] / 2**30 for s in sv]},
         "layer": {"bit_equal": layer, "scale_gaps": scale_gaps},
         "slices": qat}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: tensor-parallel recurrent blocks and cross-attention (cell V)
+# ---------------------------------------------------------------------------
+
+RT_TRAIN_MODEL, RT_BLOCK_MODEL = 2, 4
+# (a): cell K's run (phase 16) on the (2, 2) mesh, 3 steps
+RT_TRAIN = ["--arch", "xlstm-350m", "--quant", "w4a4", "--kd", "mckd", "--batch", "8",
+            "--seq", "512", "--layers", str(8), "--steps", "3",
+            "--save-every", str(10 ** 6)]
+# cell V against cell K, relative: step 0's loss, every loss (the
+# reference's 5 %), the gradient norm of steps 0 and 1 (tests/test_torch_tp.py's
+# bars; the reordered sums and the data ranks' halves move them)
+RT_LOSS0_BAR, RT_LOSS_BAR, RT_GNORM_BAR = 1e-3, 0.05, 2e-3
+# (b) / (c): one full-width block, seeded alike in the ranks and here, at
+# 4 x 512 rows; the activation quantizers calibrated as the CPU tests do
+# (scale 0.1, offset -0.5: at the init's 1 and 0 nearly every normalised
+# input clips), the cross gate at 0.5 (tanh(0) shuts the sublayer)
+RT_BLOCK_SEED = 100 * SEED + 28
+RT_BLOCK_ROWS = (4, 512)
+# the gradients' bars (tests/test_torch_tp.py): a leaf with axes within
+# 2e-2 relative L2, a 0-d scale within 0.2 of its kind's RMS over the
+# block; the output, whose only cross-rank sum is the row-parallel g_out /
+# xo, mostly bit-equal: 90 % of |d| below 1e-3, the mean below 0.05
+RT_GRAD_BAR, RT_SCALAR_BAR = 2e-2, 0.2
+
+
+def rt_block(torch, kind: str, mesh=None) -> dict:
+    """(b) kind "rglru": one full-width RG-LRU block of recurrentgemma-9b
+    (d 4096, lru_width 4096, conv 4), (c) "cross": one full-width
+    cross-attention sublayer of llama-3.2-vision-11b (32 q / 8 kv heads of
+    128, 1024 stub patches), w4a4, bf16, seeded (`RT_BLOCK_SEED`): its
+    output, the input's gradient and every leaf's for a seeded cotangent,
+    whole (mesh None) or on `mesh`'s model ranks, the split linears cut to
+    this rank's slices by the sharding rules (`layer_tp`'s names; the rest
+    whole, as `Spmd.gather` gives it). Returns host tensors and each leaf's
+    model-split axis (None: replicated)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding as shard
+    from repro_torch.dist.spmd import Spmd
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+    qcfg = get_preset("w4a4")
+    gen = torch.Generator(device="cuda").manual_seed(RT_BLOCK_SEED)
+    bf16 = torch.bfloat16
+    if kind == "rglru":
+        cfg = get_config("recurrentgemma-9b")
+        p, names = R.rglru_init(gen, cfg, qcfg, device="cuda"), M.RGLRU_LINEARS
+    else:
+        cfg = get_config("llama-3.2-vision-11b")
+        p, names = M._attn_init(gen, cfg, qcfg, "cuda", cross=True), M.CROSS_LINEARS
+        p["xgate"] = torch.full((), 0.5, device="cuda")
+    for sub in p.values():
+        if isinstance(sub, dict) and "a_scale" in sub:
+            sub["a_scale"] = torch.full((), 0.1, device="cuda")
+            sub["a_offset"] = torch.full((), -0.5, device="cuda")
+    b, s = RT_BLOCK_ROWS
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    dy = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    embeds = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+                          device="cuda").to(bf16) if kind == "cross" else None)
+    tp, dims = None, {}
+    if mesh is not None:
+        specs = shard.param_pspecs(p, mesh)
+        tp = Spmd(mesh, specs).tp((), names)
+        if tp is None:
+            fail(f"({kind}) the rules do not split {names} over {mesh.shape}")
+        for name in names:
+            p[name] = {k: shard.local_shard(v, specs[name][k], mesh, mesh.coords).clone()
+                       for k, v in p[name].items()}
+            for k in p[name]:
+                dims[f"{name}/{k}"] = next((i for i, e in enumerate(specs[name][k] or ())
+                                            if "model" in shard.spec_axes(e)), None)
+    leaves = [(f"{name}/{k}" if isinstance(sub, dict) else name, v)
+              for name, sub in sorted(p.items())
+              for k, v in (sorted(sub.items()) if isinstance(sub, dict) else [(None, sub)])]
+    for _, v in leaves:
+        v.requires_grad_(True)
+    x.requires_grad_(True)
+    if kind == "rglru":
+        y, _ = R.rglru_block(p, x, cfg, qcfg, bf16, tp=tp)
+    else:
+        kv = M.cross_kv(p, embeds, cfg, qcfg, bf16, tp)
+        y = M._cross_sublayer(p, x, kv, cfg, qcfg, bf16, tp)
+    gs = torch.autograd.grad(torch.sum(y.float() * dy.float()), [v for _, v in leaves] + [x])
+    out = {"y": y.detach().float().cpu(), "dx": gs[-1].float().cpu(),
+           "grads": {k: g.cpu() for (k, _), g in zip(leaves, gs)}, "dims": dims,
+           "x": x.detach().float().cpu()}
+    del p, leaves, gs, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_tp_rank(torch, rank: int, out_dir: str) -> None:
+    """Phase 28's part of a rank (`cells_rank`): cell K's QAT on a (2, 2)
+    mesh, tensor-parallel (the mLSTM on heads, the sLSTM's FFN on d_ff),
+    then (b) and (c) on a (1, 4) mesh; writes its numbers to
+    DIR/rank{R}.json and its blocks' results to DIR/{kind}{R}.pt."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    ops.reset_launch_counts()
+    spmd.reset_moved_bytes()
+    t0 = time.perf_counter()
+    rep = train.main(RT_TRAIN + ["--ckpt", str(Path(out_dir) / "ckpt"),
+                                 "--model-parallel", str(RT_TRAIN_MODEL)])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    cfg = get_config("xlstm-350m").replace(n_layers=8)
+    like = M.init_params(cfg, get_preset("w4a4"), torch.Generator(), "meta")
+    sp = spmd.Spmd(rep.mesh, sharding.param_pspecs(like, rep.mesh))
+    res = {"train": {"wall_s": time.perf_counter() - t0, "losses": rep.losses,
+                     "grad_norms": rep.grad_norms, "healths": rep.healths,
+                     "step_seconds": rep.step_seconds, "state_bytes": rep.state_bytes,
+                     "peak_bytes": rep.peak_bytes, "moved_bytes": spmd.moved_bytes(),
+                     "moved_by_use": spmd.moved_bytes_by_use(),
+                     "collect_s": spmd.collect_seconds(), "launches": launches,
+                     "coords": rep.mesh.coords, "mesh": rep.mesh.shape,
+                     "tp": [[t is not None for t in M.layer_tp(sp, cfg, i)[:3]]
+                            for i in range(cfg.n_layers)]}}
+    del rep
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(RT_BLOCK_MODEL, "cuda")
+    for kind in ("rglru", "cross"):
+        t0 = time.perf_counter()
+        torch.save(rt_block(torch, kind, mesh), Path(out_dir) / f"{kind}{rank}.pt")
+        res[f"{kind}_s"] = time.perf_counter() - t0
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def rt_block_check(torch, kind: str, out_dir: Path) -> dict:
+    """(b) / (c): the ranks' block (`rt_block` on the (1, 4) mesh) against
+    the whole block here: the output and the input's gradient the same
+    bits on every rank, held to RT's output bar; every leaf's gradient,
+    the slices concatenated in rank order (a replicated leaf's the same
+    bits on every rank), to the gradient bars."""
+    parts = [torch.load(out_dir / f"{kind}{r}.pt") for r in range(SHARDED_RANKS)]
+    whole = rt_block(torch, kind)
+    for key in ("y", "dx", "x"):
+        if not all(torch.equal(p[key], parts[0][key]) for p in parts[1:]):
+            fail(f"({kind}) the ranks' {key} differ")
+    if not torch.equal(parts[0]["x"], whole["x"]):
+        fail(f"({kind}) the ranks' input is not the whole block's")
+    d = (parts[0]["y"] - whole["y"]).abs()
+    fwd = {"q90": float(d.quantile(0.9)) if d.numel() <= 2 ** 24 else
+           float(d.flatten()[::4].quantile(0.9)),
+           "mean": float(d.mean()), "max": float(d.max()),
+           "bit_equal": float((d == 0).float().mean())}
+    grads = {"dx": (parts[0]["dx"], whole["dx"])}
+    for key, w in whole["grads"].items():
+        dim = parts[0]["dims"].get(key)
+        if dim is None:
+            if not all(torch.equal(p["grads"][key], parts[0]["grads"][key])
+                       for p in parts[1:]):
+                fail(f"({kind}) {key}'s gradient differs between the ranks")
+            grads[key] = (parts[0]["grads"][key], w)
+        else:
+            grads[key] = (torch.cat([p["grads"][key] for p in parts], dim), w)
+    rels, kinds = {}, {}
+    for key, (g, w) in grads.items():
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"({kind}) {key}'s gradient: shape {tuple(g.shape)} vs "
+                 f"{tuple(w.shape)}, or not finite")
+        if g.dim() == 0 and key.split("/")[-1] in ("w_scale", "a_scale", "a_offset"):
+            kinds.setdefault(key.split("/")[-1], []).append((key, float(g), float(w)))
+        else:
+            rels[key] = float((g.float() - w.float()).norm() / max(float(w.float().norm()),
+                                                                  1e-30))
+    scal = {}
+    for name, leaves in kinds.items():
+        rms = (sum(w * w for _, _, w in leaves) / len(leaves)) ** 0.5
+        scal[name] = max((abs(g - w) / rms, key) for key, g, w in leaves)
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    log(f"  ({kind}) over {SHARDED_RANKS} ranks vs the whole block: output {fwd}; "
+        f"worst gradient {worst} (bar {RT_GRAD_BAR}), every leaf "
+        f"{ {k: round(v, 6) for k, v in rels.items()} }; scales (of their kind's RMS, bar "
+        f"{RT_SCALAR_BAR}) {scal}")
+    if (fwd["q90"] >= 1e-3 or fwd["mean"] >= 0.05 or worst[1] >= RT_GRAD_BAR
+            or any(v[0] >= RT_SCALAR_BAR for v in scal.values())):
+        fail(f"({kind}) the tensor-parallel block departs from the whole block")
+    return {"forward": fwd, "grad_rel": rels, "worst": worst, "scales": scal}
+
+
+def cell_v_phase(torch, cell_k: dict, ranks: list, out_dir: Path, wall: float) -> dict:
+    """Phase 28's checks (see the docstring): (a) against cell K (phase
+    16), (b) and (c) against the whole block; `ranks`, `out_dir` and
+    `wall` as for `cell_s_phase`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import get_preset
+    base, gbase = cell_k["losses"][:3], cell_k["grad_norms"][:3]
+    tr0 = ranks[0]["train"]
+    losses, gnorms = tr0["losses"], tr0["grad_norms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+    grel = [abs(a - b) / abs(b) for a, b in zip(gnorms, gbase)]
+    cfg = get_config("xlstm-350m").replace(n_layers=8)
+    tokens = 8 * 512 // (SHARDED_RANKS // RT_TRAIN_MODEL)
+    per_step = None
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        steady = tr["step_seconds"][1:] or tr["step_seconds"]
+        log(f"  rank {r} {tr['coords']}: train {tr['wall_s']:.1f} s, s/step "
+            f"{[round(x, 3) for x in tr['step_seconds']]} (median after the first "
+            f"{statistics.median(steady):.3f}), state {tr['state_bytes'] / 2**30:.3f} GiB, "
+            f"peak {tr['peak_bytes'] / 2**30:.2f} GiB, collectives a step "
+            f"{ {k: v / len(losses) for k, v in tr['moved_bytes'].items()} } B by kind, "
+            f"{ {k: v / len(losses) for k, v in tr['moved_by_use'].items()} } B by use, "
+            f"{tr['collect_s']:.1f} s inside spmd.collect; split (mixer, FFN, cross) "
+            f"{tr['tp']}")
+        if (tr["losses"] != losses or tr["grad_norms"] != gnorms
+                or any(tr["healths"])):
+            fail(f"cell V rank {r}'s losses / norms / health differ: {tr['losses']} "
+                 f"{tr['grad_norms']} {tr['healths']}")
+        want_tp = [[cfg.block_at(i).attn == "mlstm", cfg.block_at(i).attn == "slstm",
+                    False] for i in range(cfg.n_layers)]
+        if tr["tp"] != want_tp:
+            fail(f"cell V rank {r}: the mLSTM / sLSTM FFN not split: {tr['tp']}")
+        per_step = check_launches({"cfg": cfg, "qcfg": get_preset("w4a4"), "counts": {
+            k: tr["launches"][k] for k in QAT_KERNELS}}, len(losses), tokens,
+            tp_parts=RT_TRAIN_MODEL)
+    if per_step != cell_k["launches_per_step"]:
+        fail(f"cell V's launches a step {per_step} != cell K's "
+             f"{cell_k['launches_per_step']}")
+    log(f"  cell V losses {losses} vs cell K's {base}: rel {rel} (bars: step 0 "
+        f"{RT_LOSS0_BAR}, every step {RT_LOSS_BAR}); gradient norms {gnorms} vs "
+        f"{gbase}: gap {grel[:2]} at steps 0-1 (bar {RT_GNORM_BAR})")
+    if (not all(x == x for x in losses + gnorms) or rel[0] > RT_LOSS0_BAR
+            or max(rel) > RT_LOSS_BAR or max(grel[:2]) > RT_GNORM_BAR):
+        fail(f"cell V losses {losses} / norms {gnorms} vs {base} / {gbase}")
+    blocks = {kind: rt_block_check(torch, kind, out_dir) for kind in ("rglru", "cross")}
+    steady = [statistics.median(r["train"]["step_seconds"][1:]) for r in ranks]
+    log(f"  cell V s/step a rank (median after the first) {steady} vs cell K's "
+        f"{cell_k['s_per_step']:.3f} (one process); peaks "
+        f"{[round(r['train']['peak_bytes'] / 2**30, 3) for r in ranks]} GiB vs K's "
+        f"{cell_k['peak_gib']:.2f}; blocks' seconds a rank "
+        f"{[(r['rglru_s'], r['cross_s']) for r in ranks]}; wall {wall:.1f} s")
+    n = len(losses)
+    return {"wall_s": wall, "train": {
+        "losses": losses, "losses_k": base, "rel": rel, "grad_norms": gnorms,
+        "grad_norm_rel": grel[:2], "launches_per_step": per_step,
+        "s_per_step": steady,
+        "step_seconds": [r["train"]["step_seconds"] for r in ranks],
+        "state_gib": [r["train"]["state_bytes"] / 2**30 for r in ranks],
+        "peak_gib": [r["train"]["peak_bytes"] / 2**30 for r in ranks],
+        "moved_per_step": [{k: v / n for k, v in r["train"]["moved_bytes"].items()}
+                           for r in ranks],
+        "moved_by_use_per_step": [{k: v / n for k, v in r["train"]["moved_by_use"].items()}
+                                  for r in ranks],
+        "collect_s": [r["train"]["collect_s"] for r in ranks]},
+        "blocks": blocks}
 
 
 # ---------------------------------------------------------------------------
@@ -3057,12 +3315,15 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
     head (untied, or tied as the transposed per-tensor embedding). Block
     linears run their forward twice (remat recomputes the block in the
     backward); the head once. tp_parts: one rank's slices of a
-    tensor-parallel run (`dist.spmd.Spmd.tp`): the attention's and the
-    dense FFN's linears and the head cut over that many model ranks, on N
-    for the column-parallel ones and on K for wo and w_out; an MoE FFN's
-    experts over them where they divide (expert parallelism: the rank's
-    experts at the same shapes), else each expert's d_ff as the dense
-    FFN's."""
+    tensor-parallel run (`dist.spmd.Spmd.tp`): the attention's, the dense
+    FFN's, the mLSTM's, the sLSTM FFN's, the RG-LRU's and the cross
+    layer's linears and the head cut over that many model ranks, on N for
+    the column-parallel ones and on K for the row-parallel wo, w_out,
+    m_down, g_out and xo (the sLSTM's s_z / s_i / s_f / s_o stay whole);
+    an MoE FFN's experts over them where they divide (expert parallelism:
+    the rank's experts at the same shapes), else each expert's d_ff as the
+    dense FFN's. Every count cut here must divide: a sublayer the rules
+    keep whole (an attention whose kv heads do not split) is not cut."""
     from repro_torch.core.policy import act_spec, weight_spec
     from repro_torch.models.common import NAME2KIND
     from repro_torch.models.moe import capacity
@@ -3091,8 +3352,10 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
     for name, k, n in (("wq", d, h * hd // p), ("wk", d, hkv * hd // p),
                        ("wv", d, hkv * hd // p), ("wo", h * hd // p, d)):
         add(name, attn, tokens, k, n)
-    for name, m, k, n in (("xq", tokens, d, h * hd), ("xk", frontend_rows, d, hkv * hd),
-                          ("xv", frontend_rows, d, hkv * hd), ("xo", tokens, h * hd, d)):
+    for name, m, k, n in (("xq", tokens, d, h * hd // p),
+                          ("xk", frontend_rows, d, hkv * hd // p),
+                          ("xv", frontend_rows, d, hkv * hd // p),
+                          ("xo", tokens, h * hd // p, d)):
         add(name, cross, m, k, n)
     ffn = (("w_gate", d, f),) if cfg.ffn_gated else ()
     ffn += (("w_in", d, f), ("w_out", f, d))
@@ -3109,17 +3372,18 @@ def qat_linears(cfg, qcfg, tokens: int, frontend_rows: int = 0,
                 ek, en = (k // p, n) if name == "w_out" else (k, n // p)
             out.append((moe_name, moe, rows, ek, en, False, e, True))
     mlstm = n_of(lambda bd: bd.attn == "mlstm")
-    for name, k, n in (("m_up_gate", d, du), ("m_up", d, du), ("mq", du, du),
-                       ("mk", du, du), ("mv", du, du), ("m_i", du, h), ("m_f", du, h),
-                       ("m_down", du, d)):
+    for name, k, n in (("m_up_gate", d, du // p), ("m_up", d, du // p),
+                       ("mq", du, du // p), ("mk", du, du // p), ("mv", du, du // p),
+                       ("m_i", du, h // p), ("m_f", du, h // p), ("m_down", du // p, d)):
         add(name, mlstm, tokens, k, n)
     slstm, f_ff = n_of(lambda bd: bd.attn == "slstm"), slstm_ff(d)
     for name, k, n in (("s_z", d, d), ("s_i", d, d), ("s_f", d, d), ("s_o", d, d),
-                       ("w_gate", d, f_ff), ("w_in", d, f_ff), ("w_out", f_ff, d)):
+                       ("w_gate", d, f_ff // p), ("w_in", d, f_ff // p),
+                       ("w_out", f_ff // p, d)):
         add(name, slstm, tokens, k, n, name + (" (sLSTM)" if name.startswith("w_") else ""))
     rglru = n_of(lambda bd: bd.attn == "rglru")
-    for name, k, n in (("g_gate", d, w), ("g_in", d, w), ("g_a", w, w), ("g_x", w, w),
-                       ("g_out", w, d)):
+    for name, k, n in (("g_gate", d, w // p), ("g_in", d, w // p), ("g_a", w, w // p),
+                       ("g_x", w, w // p), ("g_out", w // p, d)):
         add(name, rglru, tokens, k, n)
     tied_ok = (cfg.tie_embeddings and fused("lm_head", "embed")
                and weight_spec(qcfg, "embed").granularity == "per_tensor")
@@ -3594,6 +3858,7 @@ def recurrent_phases(torch, ops, train) -> dict:
         per_step = check_launches(run, n, 8 * 512)
     out["K"] = {"s_per_step": first["s_step"], "tokens_per_s": first["tokens_s"],
                 "step_seconds": first["report"].step_seconds,
+                "grad_norms": first["report"].grad_norms,
                 "peak_gib": (first["report"].peak_bytes or 0) / 2**30,
                 "losses": first["report"].losses + resumed["report"].losses,
                 "launches_per_step": per_step, "counts": first["counts"]}
@@ -4545,11 +4810,11 @@ def cell_c_state_bytes(torch, cfg, qcfg) -> int:
 
 
 def sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r: dict,
-                        cell_c: dict) -> dict:
-    """Phases 24, 26 and 27: cell U's one process first (`cell_u_one`: the
-    card is the ranks' after it), then one spawn of the four ranks that
-    run cells S, T and U in turn (`cells_rank`), then each cell's checks
-    here."""
+                        cell_c: dict, cell_k: dict) -> dict:
+    """Phases 24, 26, 27 and 28: cell U's one process first (`cell_u_one`:
+    the card is the ranks' after it), then one spawn of the four ranks
+    that run cells S, T, U and V in turn (`cells_rank`), then each cell's
+    checks here."""
     import shutil
     out_dir = ROOT / "build" / "chip_smoke_cells"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -4565,15 +4830,19 @@ def sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r: dict,
     log("tensor-parallel compute, four ranks sharing the card (cell T):")
     cell_t = cell_t_phase(torch, M, serve, qmm, ref, cell_r, cell_s, cell_c, ranks["T"],
                           out_dir / "T", walls["T"])
-    cell_t["vocab_loss"] = vocab_loss_phase(ranks["V"])
+    cell_t["vocab_loss"] = vocab_loss_phase(ranks["VL"])
     torch.cuda.empty_cache()
     log("expert-parallel MoE, four ranks sharing the card (cell U):")
     cell_u = cell_u_phase(torch, ops, M, serve, qmm, ref, one, ranks["U"], out_dir / "U",
                           walls["U"])
     cell_t.pop("finish")()  # cell T's CPU logits, computed meanwhile
+    torch.cuda.empty_cache()
+    log("tensor-parallel recurrent blocks and cross-attention, four ranks sharing "
+        "the card (cell V):")
+    cell_v = cell_v_phase(torch, cell_k, ranks["V"], out_dir / "V", walls["V"])
     shutil.rmtree(out_dir, ignore_errors=True)
     cell_u["rank_start"] = start
-    return {"S": cell_s, "T": cell_t, "U": cell_u}
+    return {"S": cell_s, "T": cell_t, "U": cell_u, "V": cell_v}
 
 
 def main() -> None:
@@ -4946,12 +5215,15 @@ def main() -> None:
     log("dry run and roofline (cells C and A):")
     dry = dryrun_phase(torch, first, dryrun_cli)
     torch.cuda.empty_cache()
-    mark("phases 24, 26, 27")
-    # 24, 26, 27. four ranks sharing the card over gloo, one spawn: cell C's
-    #     QAT and cell A's serving on the gathered runtime (S), both
+    mark("phases 24, 26, 27, 28")
+    # 24, 26, 27, 28. four ranks sharing the card over gloo, one spawn: cell
+    #     C's QAT and cell A's serving on the gathered runtime (S), both
     #     tensor-parallel (T), cell D's QAT and cell F's serving with the
-    #     experts split (U); then T's and U's kernels at the slices' shapes
-    cells = sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r, first)
+    #     experts split (U), cell K's QAT with its recurrent blocks split
+    #     and one full-width RG-LRU block and cross sublayer (V); then T's
+    #     and U's kernels at the slices' shapes
+    cells = sharded_cells_phase(torch, ops, M, serve, qmm, ref, cell_r, first,
+                                recurrent["K"])
     cell_s, cell_t, cell_u = cells["S"], cells["T"], cells["U"]
     for name, rs in cell_t["slices"]["qat"].items():
         qat_rows[name].extend(rs)
@@ -5025,6 +5297,8 @@ def main() -> None:
         if name in QAT_KERNELS:
             kernels[-1]["launches_ep_train_per_rank_step"] = cell_u["train"][
                 "launches_per_step"][name]
+            kernels[-1]["launches_recurrent_tp_train_per_rank_step"] = cells["V"][
+                "train"]["launches_per_step"][name]
         if name in ("int4_matmul", "pooled_decode_attention"):
             kernels[-1]["launches_ep_serve_per_rank"] = [
                 x[name] for x in cell_u["serve"]["launches"]]

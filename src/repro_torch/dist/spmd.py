@@ -24,8 +24,10 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
 * Tensor-parallel compute (`tp_compute=True`, the default). Where the
   model names a sublayer that may run so (`models.model.layer_tp`: a
   block's attention, wq / wk / wv / wo on heads, and its dense FFN,
-  w_in / w_gate / w_out on d_ff, or its MoE FFN's experts; the embedding
-  and the head on vocab) and the rules split every weight of it over
+  w_in / w_gate / w_out on d_ff, or its MoE FFN's experts; in training
+  also an mLSTM on heads, an RG-LRU on channels, an sLSTM's FFN on d_ff
+  and cross-attention on heads; the embedding and the head on vocab)
+  and the rules split every weight of it over
   `model` (`Spmd.tp`), its leaves are gathered over the data axes only
   and each rank runs the kernels on its own slices, as GSPMD partitions
   the reference's einsums: a
@@ -55,10 +57,17 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   gather, not a sum, so the expert products keep their bits. Where only
   d_ff divides, each expert splits as the dense FFN does (moe_in /
   moe_gate column-parallel, moe_out row-parallel). The router stays
-  gathered whole (top-k reads every expert's f32 logit). Everything else
-  (the recurrent blocks, cross-attention, a weight that does not divide,
-  no_tp, `tp_compute=False`) keeps the gathered path above, so every
-  model rank computes it whole.
+  gathered whole (top-k reads every expert's f32 logit). A recurrent
+  block's depthwise conv runs on the rank's channels and its output is
+  all-gathered for the linears that contract all of them (`gather_sum`:
+  they read it through column-parallel slices, so its backward is a
+  reduce-scatter of their partial gradients); its replicated conv_w,
+  lam and hn_g are read on the rank's slice through `split_model`.
+  Everything else (the sLSTM's cell, whose recurrent mix contracts the
+  dh axis the rules split; serving's recurrent blocks and cross layers,
+  held whole with their states; a weight that does not divide, no_tp,
+  `tp_compute=False`) keeps the gathered path above, so every model rank
+  computes it whole.
 * Global decisions come out of all-reduces: the loss and metrics (means
   over the data ranks), the gradient norm (each element counted once),
   compression's per-leaf amax, and the sentinel's non-finite and scale
@@ -363,6 +372,25 @@ class _GatherModel(torch.autograd.Function):
         return None, None, None, g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
 
 
+class _GatherModelSum(torch.autograd.Function):
+    """All-gather along `dim` in rank order; the backward sums the model
+    ranks' partial gradients of the whole tensor (in f32, cast back to the
+    gradient's dtype) and keeps this rank's part: a reduce-scatter. For a
+    tensor every rank then reads only through its own column-parallel
+    slices, so each holds a partial gradient of it."""
+
+    @staticmethod
+    def forward(ctx, group, dim, x):
+        ctx.group, ctx.dim, ctx.use = group, dim, _USE[0]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with counted_as(ctx.use):
+            out = collect([("scatter", g.to(torch.float32), ctx.group, ctx.dim)])[0]
+        return None, None, out.contiguous().to(g.dtype)
+
+
 class _SplitModel(torch.autograd.Function):
     """This rank's part along `dim` forward; the backward all-gathers the
     parts' gradients in rank order (every model rank holds the same whole
@@ -387,13 +415,18 @@ class TPSplit(NamedTuple):
     `greedy_generate`'s whatever rows a call batches). `dim`: the weight
     axis a linear's slice is cut along (set by `models.common` per
     linear). experts: an MoE FFN split on its expert axis (expert
-    parallelism); otherwise its experts split on d_ff."""
+    parallelism); otherwise its experts split on d_ff. summed: a
+    column-parallel linear's input already went through a model-axis
+    operator whose backward sums the ranks' partial gradients (one
+    `to_model` shared by several linears, or `gather_sum`), so `qlinear`
+    applies none of its own."""
     group: Any
     index: int
     parts: int
     ordered: bool = False
     dim: Optional[int] = None
     experts: bool = False
+    summed: bool = False
 
     def to_model(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(self.group, x)
@@ -403,6 +436,12 @@ class TPSplit(NamedTuple):
 
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _GatherModel.apply(self.group, self.index, dim % x.dim(), x)
+
+    def gather_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model ranks' parts of a tensor concatenated along `dim`, for
+        column-parallel linears only (they take it with `summed`): the
+        backward reduce-scatters their partial gradients."""
+        return _GatherModelSum.apply(self.group, dim % x.dim(), x)
 
     def split_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's part of a whole tensor that every model rank holds,
@@ -508,7 +547,9 @@ class Spmd:
         `path` itself, names empty) splits over the model axis; else None
         (the caller runs the sublayer whole, on gathered leaves). Which
         sublayers may run so is the model's decision (`models.model.
-        layer_tp`)."""
+        layer_tp`: attention, the FFNs, the mLSTM, the RG-LRU, the sLSTM's
+        FFN, cross-attention; a path into the layer, ("layers", i, "rg"),
+        for the RG-LRU's linears)."""
         if self._split is None:
             return None
         key = (path, names)

@@ -14,10 +14,13 @@ separately.
 The engine serves on a (world // M, M) `launch.mesh.make_host_mesh` mesh,
 M = --model-parallel, over torchrun's process group (WORLD_SIZE): each rank
 holds its slices of the codes by `dist.sharding.param_pspecs`; the
-attention, the dense FFN, the embedding and the head compute
+attention, the dense and MoE FFNs, the embedding and the head compute
 tensor-parallel on those slices where the rules split them over the model
 axis (`dist.spmd`; `main(tp_compute=False)`, no CLI flag, gathers every
-layer whole instead), and the rest is gathered layer by layer; the caches
+layer whole instead), and the rest is gathered layer by layer: a
+recurrent block or a cross layer (which `greedy_generate` serves; the
+engine refuses them) runs whole on every rank, as its state and cross K /
+V are held (`models.model.layer_tp(training=False)`); the caches
 go through `cache_pspecs(shard_batch=False)`, so the KV sequence axis
 splits over the model ranks (each runs the decode kernel over its rows,
 every head, and the ranks' partial softmax triples are merged) and the

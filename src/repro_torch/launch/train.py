@@ -21,10 +21,12 @@ process group (WORLD_SIZE): the state held as this rank's slices by
 `dist.sharding.state_pspecs`, every rank drawing the global batch and
 keeping its rows, checkpoints written as full arrays by rank 0 and restored
 as each rank's slices (so a run may resume on another mesh). On a model
-axis M > 1 the attention, the dense FFN, the embedding and the head compute
-tensor-parallel on each rank's weight slices wherever the rules split them
-(`dist.spmd`); `run_training(tp_compute=False)` (no CLI flag) gathers every
-layer whole instead. One process is a world of one, which holds the whole
+axis M > 1 the attention, the dense and MoE FFNs, the mLSTM (on heads), the
+RG-LRU (on channels), the sLSTM's FFN (its cell runs whole),
+cross-attention, the embedding and the head compute tensor-parallel on
+each rank's weight slices wherever the rules split them (`dist.spmd`,
+`models.model.layer_tp`); `run_training(tp_compute=False)` (no CLI flag)
+gathers every layer whole instead. One process is a world of one, which holds the whole
 state.
 """
 from __future__ import annotations

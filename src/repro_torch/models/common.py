@@ -453,13 +453,15 @@ def _tp_inputs(p: dict, x: torch.Tensor, name: str, tp):
     with the weight axis the slice is cut along (`_tp_dim`), the
     replicated leaves through `to_model`; a column-parallel linear's input
     through `to_model` too and its (replicated) bias cut to this rank's
-    columns. An expert-parallel linear takes this rank's experts' rows of
-    the capacity buffer (`models.moe.moe_ffn` cuts them) and gives their
-    outputs."""
+    columns (an input the caller fed through a model-axis operator,
+    `TPSplit.summed`, takes none). An expert-parallel linear takes this
+    rank's experts' rows of the capacity buffer (`models.moe.moe_ffn` cuts
+    them) and gives their outputs."""
     tp = tp._replace(dim=_tp_dim(name, tp))
     q = _tp_replicated(p, tp)
     if not tp.experts and name not in ROW_PARALLEL:
-        x = tp.to_model(x)
+        if not tp.summed:
+            x = tp.to_model(x)
         if "b" in q:
             q["b"] = tp.local(tp.to_model(q["b"]), 0)
     return q, x, tp

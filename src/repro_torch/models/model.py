@@ -34,13 +34,15 @@ attention's K, V) for a cross layer. As in the reference, no step writes
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockDef
 from repro_torch.core.policy import QuantConfig, weight_spec
 from repro_torch.core.sdam import sdam as sdam_metric
-from repro_torch.dist.spmd import WHOLE, Spmd
+from repro_torch.dist.spmd import WHOLE, Spmd, TPSplit, counted_as
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -186,47 +188,55 @@ def _attn_sublayer(p, x, cfg: ArchConfig, qcfg: QuantConfig, bd: BlockDef,
     return x + out
 
 
-def _cross_sublayer(p, x, kv, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
+def _cross_sublayer(p, x, kv, cfg: ArchConfig, qcfg: QuantConfig, cdtype,
+                    tp=None):
     """x + tanh(xgate) * xo(attend(xq(ln_x(x)), K, V)), non-causal over the
-    frontend's K / V (model.py:169-178)."""
+    frontend's K / V (model.py:169-178). tp: tensor-parallel on heads (K /
+    V `cross_kv` of the same split), xo row-parallel; the replicated xgate
+    and ln_x act on whole tensors."""
     xn = apply_norm(p["ln_x"], x, cfg.norm)
-    q = qlinear(p["xq"], xn, "xq", qcfg, "bsd,dhk->bshk", cdtype)
+    q = qlinear(p["xq"], xn, "xq", qcfg, "bsd,dhk->bshk", cdtype, tp)
     k, v = kv
     o = attn.attend_full(q, k, v, causal=False, window=0, softcap=0.0,
                          q_positions=torch.arange(x.shape[1], device=x.device),
                          k_positions=torch.arange(k.shape[1], device=x.device),
                          q_per_kv=cfg.q_per_kv)
-    out = qlinear(p["xo"], o, "xo", qcfg, "bshk,hkd->bsd", cdtype)
+    out = qlinear(p["xo"], o, "xo", qcfg, "bshk,hkd->bsd", cdtype, tp)
     return x + torch.tanh(p["xgate"]).to(cdtype) * out
 
 
-def cross_kv(p, embeds, cfg: ArchConfig, qcfg: QuantConfig, cdtype):
-    """The cross-attention K / V of the frontend embeddings (B, P, d)."""
-    k = qlinear(p["xk"], embeds, "xk", qcfg, "bsd,dhk->bshk", cdtype)
-    v = qlinear(p["xv"], embeds, "xv", qcfg, "bsd,dhk->bshk", cdtype)
+def cross_kv(p, embeds, cfg: ArchConfig, qcfg: QuantConfig, cdtype, tp=None):
+    """The cross-attention K / V of the frontend embeddings (B, P, d); tp:
+    this rank's kv heads."""
+    k = qlinear(p["xk"], embeds, "xk", qcfg, "bsd,dhk->bshk", cdtype, tp)
+    v = qlinear(p["xv"], embeds, "xv", qcfg, "bsd,dhk->bshk", cdtype, tp)
     return k, v
 
 
 def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                 qcfg: QuantConfig, positions: torch.Tensor, cross_embeds,
-                cdtype, tp_attn=None, tp_ffn=None):
+                cdtype, tp_attn=None, tp_ffn=None, tp_cross=None):
     """One training block: (x, sdam, lb_loss, drop_frac) with sdam the
     block output's SDAM (a metric: no gradient flows through it) and the
     MoE FFN's load-balance loss and drop fraction (zeros otherwise).
     cross_embeds: the vision patches (B, P, d) a cross layer attends to.
-    tp_attn / tp_ffn: the attention / the FFN (dense or MoE) run
-    tensor-parallel on this rank's slices (`dist.spmd.Spmd.tp`)."""
-    if bd.attn == "mlstm":
-        x, _ = rec.mlstm_block(p, x, cfg, qcfg, cdtype)
-    elif bd.attn == "slstm":
-        x, _ = rec.slstm_block(p, x, cfg, qcfg, cdtype)
-    elif bd.attn == "rglru":
-        x, _ = rec.rglru_block(p["rg"], x, cfg, qcfg, cdtype)
+    tp_attn / tp_ffn / tp_cross: the block's mixer (attention, mLSTM or
+    RG-LRU) / its FFN (dense, MoE or the sLSTM's) / its cross-attention run
+    tensor-parallel on this rank's slices (`layer_tp`); the collectives a
+    recurrent block or a cross sublayer launches are counted under the use
+    "recurrent" / "cross" (`dist.spmd.moved_bytes_by_use`)."""
+    if bd.attn in RECURRENT:
+        block = {"mlstm": rec.mlstm_block, "slstm": rec.slstm_block,
+                 "rglru": rec.rglru_block}[bd.attn]
+        with counted_as("recurrent"):
+            x, _ = block(p["rg"] if bd.attn == "rglru" else p, x, cfg, qcfg, cdtype,
+                         tp=tp_ffn if bd.attn == "slstm" else tp_attn)
     else:
         x = _attn_sublayer(p, x, cfg, qcfg, bd, positions, cdtype, tp_attn)
     if bd.cross_attn:
-        x = _cross_sublayer(p, x, cross_kv(p, cross_embeds, cfg, qcfg, cdtype),
-                            cfg, qcfg, cdtype)
+        with counted_as("cross"):
+            kv = cross_kv(p, cross_embeds, cfg, qcfg, cdtype, tp_cross)
+            x = _cross_sublayer(p, x, kv, cfg, qcfg, cdtype, tp_cross)
     lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     if bd.ffn == "moe":
         xn = apply_norm(p["ln2"], x, cfg.norm)
@@ -253,33 +263,63 @@ def _token_inputs(params, tokens, fe, cfg: ArchConfig, qcfg: QuantConfig,
 
 
 ATTN_LINEARS = ("wq", "wk", "wv", "wo")
+MLSTM_LINEARS = ("m_up_gate", "m_up", "mq", "mk", "mv", "m_i", "m_f", "m_down")
+RGLRU_LINEARS = ("g_gate", "g_in", "g_a", "g_x", "g_out")
+# the sLSTM's own FFN is always gated (`recurrent.slstm_init`)
+SLSTM_FFN = ("w_gate", "w_in", "w_out")
+CROSS_LINEARS = ("xq", "xk", "xv", "xo")
 
 
-def layer_tp(spmd: Spmd, cfg: ArchConfig, i: int) -> tuple:
-    """(attention, FFN, split) of layer i: this rank's `dist.spmd.TPSplit`
-    for each sublayer the block has and whose weights the rules split over
-    the model axis, else None, and the linears that keep their model
-    slices (`Spmd.gather`'s split). A block's own attention, its dense FFN
-    and its MoE FFN's experts run tensor-parallel (the experts split on
-    their expert axis where it divides, `TPSplit.experts`, else on d_ff;
-    the router stays whole); a recurrent block (an sLSTM's FFN inside it)
-    and cross-attention run whole."""
+class LayerTP(NamedTuple):
+    """A layer's tensor-parallel sublayers (`layer_tp`): this rank's
+    `dist.spmd.TPSplit` for its mixer (attention, mLSTM or RG-LRU), its FFN
+    (dense, MoE or the sLSTM's) and its cross-attention, each None where it
+    runs whole, and the linears that keep their model slices
+    (`Spmd.gather`'s split)."""
+    attn: Optional[TPSplit]
+    ffn: Optional[TPSplit]
+    cross: Optional[TPSplit]
+    split: tuple
+
+
+def layer_tp(spmd: Spmd, cfg: ArchConfig, i: int, training: bool = True
+             ) -> LayerTP:
+    """Layer i's sublayers that run tensor-parallel: those the block has
+    and whose linears the rules all split over the model axis. A block's
+    attention (on heads), its dense FFN (on d_ff) and its MoE FFN's experts
+    (on their expert axis where it divides, `TPSplit.experts`, else on
+    d_ff; the router stays whole); in training (`training`) also the mLSTM
+    (on heads), the RG-LRU (on channels; its linears under "rg"), the
+    sLSTM's FFN (on d_ff: its cell runs whole) and cross-attention (on
+    heads). Serving (`prefill_step`) runs those four whole: its recurrent
+    states and cross K / V are held whole on every model rank."""
     bd = cfg.block_at(i)
-    ffn = ("w_in", "w_gate", "w_out") if cfg.ffn_gated else ("w_in", "w_out")
-    ta = (spmd.tp(("layers", i), ATTN_LINEARS)
-          if bd.attn in ("global", "local") else None)
-    tf, split = None, ()
+    here = ("layers", i)
+    ta, mixer = None, ()
+    if bd.attn in ("global", "local"):
+        ta, mixer = spmd.tp(here, ATTN_LINEARS), ATTN_LINEARS
+    elif training and bd.attn == "mlstm":
+        ta, mixer = spmd.tp(here, MLSTM_LINEARS), MLSTM_LINEARS
+    elif training and bd.attn == "rglru":
+        ta = spmd.tp(here + ("rg",), RGLRU_LINEARS)
+        mixer = tuple(("rg", n) for n in RGLRU_LINEARS)
+    tf, ffn = None, ()
     if bd.ffn == "dense":
-        tf = spmd.tp(("layers", i), ffn)
-        split = ffn
+        ffn = ("w_in", "w_gate", "w_out") if cfg.ffn_gated else ("w_in", "w_out")
+        tf = spmd.tp(here, ffn)
     elif bd.ffn == "moe":
         names = (("moe_in", "moe_gate", "moe_out") if cfg.ffn_gated
                  else ("moe_in", "moe_out"))
-        tf = spmd.tp(("layers", i, "moe"), names)
+        tf = spmd.tp(here + ("moe",), names)
         if tf is not None:
-            tf = tf._replace(experts=spmd.experts(("layers", i, "moe", "moe_in")))
-        split = tuple(("moe", n) for n in names)
-    return ta, tf, (ATTN_LINEARS if ta else ()) + (split if tf else ())
+            tf = tf._replace(experts=spmd.experts(here + ("moe", "moe_in")))
+        ffn = tuple(("moe", n) for n in names)
+    elif training and bd.attn == "slstm":
+        ffn = SLSTM_FFN
+        tf = spmd.tp(here, ffn)
+    tx = spmd.tp(here, CROSS_LINEARS) if training and bd.cross_attn else None
+    return LayerTP(ta, tf, tx, (mixer if ta else ()) + (ffn if tf else ())
+                   + (CROSS_LINEARS if tx else ()))
 
 
 def vocab_tp(spmd: Spmd, cfg: ArchConfig) -> tuple:
@@ -303,9 +343,9 @@ def _gathered_block(spmd: Spmd, i: int, p: dict, x, bd: BlockDef,
     """block_apply on layer i's leaves (`spmd.gather`: whole, or over the
     data axes only for its tensor-parallel sublayers), inside the block's
     checkpoint, so a remat backward gathers again."""
-    ta, tf, split = layer_tp(spmd, cfg, i)
-    return block_apply(spmd.gather(("layers", i), p, split), x, bd, cfg, *args,
-                       tp_attn=ta, tp_ffn=tf)
+    lt = layer_tp(spmd, cfg, i)
+    return block_apply(spmd.gather(("layers", i), p, lt.split), x, bd, cfg, *args,
+                       tp_attn=lt.attn, tp_ffn=lt.ffn, tp_cross=lt.cross)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,
@@ -653,10 +693,11 @@ def prefill_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
     pending = []
     seqs = [spmd.seq(i) for i in range(cfg.n_layers)]
     for i, p in enumerate(params["layers"]):
-        ta, tf, split = layer_tp(spmd, cfg, i)
-        x, pend = block_decode(spmd.gather(("layers", i), p, split), x,
+        lt = layer_tp(spmd, cfg, i, training=False)
+        x, pend = block_decode(spmd.gather(("layers", i), p, lt.split), x,
                                cfg.block_at(i), cfg, qcfg, cache["layers"][i],
-                               pos, cdtype, seq=seqs[i], tp_attn=ta, tp_ffn=tf)
+                               pos, cdtype, seq=seqs[i], tp_attn=lt.attn,
+                               tp_ffn=lt.ffn)
         pending.append(pend)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_apply(

@@ -230,29 +230,57 @@ def mlstm_fresh_state(cfg: ArchConfig, batch: int, device=None) -> dict:
                                 dtype=torch.float32, device=device)}
 
 
+def _whole_only(tp, state, collect: bool) -> None:
+    if tp is not None and (state is not None or collect):
+        raise ValueError("a tensor-parallel recurrent block is for training: it "
+                         "takes no state and collects none")
+
+
+def _shared_input(tp):
+    """The split of column-parallel linears whose one input the block fed
+    through a model-axis operator (`TPSplit.summed`), or None."""
+    return None if tp is None else tp._replace(summed=True)
+
+
 def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
                 cdtype=torch.bfloat16, state=None, collect: bool = False,
-                chunk: int = 64):
-    """Full mLSTM residual block; any S (decode: S = 1 with a state)."""
+                chunk: int = 64, tp=None):
+    """Full mLSTM residual block; any S (decode: S = 1 with a state).
+
+    tp (a `dist.spmd.TPSplit`, training only): the block on this rank's
+    heads. m_up_gate / m_up give the rank's du columns (the channels of its
+    heads: hs is head-major), the conv runs on them with its slice of
+    conv_w, and the conv's output is all-gathered (`gather_sum`) for mq /
+    mk / mv / m_i / m_f, which contract the whole du and give the rank's
+    heads; the chunk scan and the head norm run on those heads, and
+    m_down is row-parallel. The replicated conv_w and hn_g are read
+    through `split_model`, so every rank holds their whole gradient."""
+    _whole_only(tp, state, collect)
     b, s, d = x.shape
-    h = cfg.n_heads
-    du = 2 * d
-    dh = du // h
+    parts = 1 if tp is None else tp.parts
+    h = cfg.n_heads // parts
+    du = 2 * d // parts
+    dh = 2 * d // cfg.n_heads
     exact = state is not None
     if state is None and collect:
         state = mlstm_fresh_state(cfg, b, x.device)
+    col = _shared_input(tp)
     xn = apply_norm(p["ln"], x, cfg.norm)
-    zg = qlinear(p["m_up_gate"], xn, "m_up_gate", qcfg, "bsd,du->bsu", cdtype)
-    xi = qlinear(p["m_up"], xn, "m_up", qcfg, "bsd,du->bsu", cdtype)
-    xc, new_conv = causal_conv(xi, p["conv_w"],
-                               None if state is None else state["conv"])
+    if tp is not None:
+        xn = tp.to_model(xn)
+    zg = qlinear(p["m_up_gate"], xn, "m_up_gate", qcfg, "bsd,du->bsu", cdtype, col)
+    xi = qlinear(p["m_up"], xn, "m_up", qcfg, "bsd,du->bsu", cdtype, col)
+    conv_w = p["conv_w"] if tp is None else tp.split_model(p["conv_w"], 0)
+    xc, new_conv = causal_conv(xi, conv_w, None if state is None else state["conv"])
     xc = silu(xc)
-    q = qlinear(p["mq"], xc, "mq", qcfg, "bsu,uhd->bshd", cdtype)
-    k = qlinear(p["mk"], xc, "mk", qcfg, "bsu,uhd->bshd", cdtype)
+    if tp is not None:
+        xc = tp.gather_sum(xc, -1)
+    q = qlinear(p["mq"], xc, "mq", qcfg, "bsu,uhd->bshd", cdtype, col)
+    k = qlinear(p["mk"], xc, "mk", qcfg, "bsu,uhd->bshd", cdtype, col)
     k = k * _scalar(dh ** -0.5, k)
-    v = qlinear(p["mv"], xc, "mv", qcfg, "bsu,uhd->bshd", cdtype)
-    i_raw = qlinear(p["m_i"], xc, "m_i", qcfg, "bsu,uh->bsh", cdtype)
-    f_raw = qlinear(p["m_f"], xc, "m_f", qcfg, "bsu,uh->bsh", cdtype)
+    v = qlinear(p["mv"], xc, "mv", qcfg, "bsu,uhd->bshd", cdtype, col)
+    i_raw = qlinear(p["m_i"], xc, "m_i", qcfg, "bsu,uh->bsh", cdtype, col)
+    f_raw = qlinear(p["m_f"], xc, "m_f", qcfg, "bsu,uh->bsh", cdtype, col)
 
     carry = (mlstm_state_init(b, h, dh, x.device) if state is None
              else (state["C"], state["n"], state["m"]))
@@ -261,9 +289,10 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
     if state is not None:
         new_state = {"C": carry[0], "n": carry[1], "m": carry[2],
                      "conv": new_conv}
-    hs = _head_norm(hs) * p["hn_g"][None, None]
+    hn_g = p["hn_g"] if tp is None else tp.split_model(p["hn_g"], 0)
+    hs = _head_norm(hs) * hn_g[None, None]
     hs = hs.reshape(b, s, du).to(cdtype) * silu(zg)
-    out = qlinear(p["m_down"], hs, "m_down", qcfg, "bsu,ud->bsd", cdtype)
+    out = qlinear(p["m_down"], hs, "m_down", qcfg, "bsu,ud->bsd", cdtype, tp)
     return x + out, new_state
 
 
@@ -307,8 +336,15 @@ def slstm_state_init(batch: int, n_heads: int, dh: int, device=None) -> dict:
 
 
 def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
-                cdtype=torch.bfloat16, state=None, collect: bool = False):
-    """sLSTM residual block + its 4/3-GLU FFN sublayer (xLSTM recipe)."""
+                cdtype=torch.bfloat16, state=None, collect: bool = False,
+                tp=None):
+    """sLSTM residual block + its 4/3-GLU FFN sublayer (xLSTM recipe).
+
+    tp (a `dist.spmd.TPSplit`, training only): the FFN on this rank's d_ff
+    slice (w_gate / w_in column-parallel, w_out row-parallel). The cell
+    runs whole on every rank: the rules cut s_z / s_i / s_f / s_o and s_r
+    along dh, which every token's recurrent mix contracts."""
+    _whole_only(tp, state, collect)
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
@@ -344,10 +380,13 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
     hs = (_head_norm(hs) * p["gn_g"][None, None]).reshape(b, s, d).to(cdtype)
     x = x + hs
     # FFN sublayer (4/3 GLU)
+    col = _shared_input(tp)
     xn2 = apply_norm(p["ln2"], x, cfg.norm)
-    g = qlinear(p["w_gate"], xn2, "w_gate", qcfg, "bsd,df->bsf", cdtype)
-    u = qlinear(p["w_in"], xn2, "w_in", qcfg, "bsd,df->bsf", cdtype)
-    y = qlinear(p["w_out"], silu(g) * u, "w_out", qcfg, "bsf,fd->bsd", cdtype)
+    if tp is not None:
+        xn2 = tp.to_model(xn2)
+    g = qlinear(p["w_gate"], xn2, "w_gate", qcfg, "bsd,df->bsf", cdtype, col)
+    u = qlinear(p["w_in"], xn2, "w_in", qcfg, "bsd,df->bsf", cdtype, col)
+    y = qlinear(p["w_out"], silu(g) * u, "w_out", qcfg, "bsf,fd->bsd", cdtype, tp)
     new_state = {"c": c, "n": n, "h": hh, "m": m} if want_state else None
     return x + y, new_state
 
@@ -415,17 +454,32 @@ def assoc_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def rglru_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
-                cdtype=torch.bfloat16, state=None, collect: bool = False):
+                cdtype=torch.bfloat16, state=None, collect: bool = False,
+                tp=None):
+    """RG-LRU residual block. tp (a `dist.spmd.TPSplit`, training only):
+    the block on this rank's channels. g_gate / g_in give the rank's w
+    columns, the conv runs on them with its slice of conv_w; g_a / g_x read
+    the conv's whole output (`gather_sum`) and give the rank's channels,
+    which meet its own slice of it in the gated input; the scan runs per
+    channel, lam is read on the rank's channels (`split_model`) and g_out
+    is row-parallel."""
+    _whole_only(tp, state, collect)
     b, s, d = x.shape
     f32 = torch.float32
+    col = _shared_input(tp)
     xn = apply_norm(p["ln"], x, cfg.norm)
-    gate = qlinear(p["g_gate"], xn, "g_gate", qcfg, "bsd,dw->bsw", cdtype)
-    xi = qlinear(p["g_in"], xn, "g_in", qcfg, "bsd,dw->bsw", cdtype)
-    xc, new_conv = causal_conv(xi, p["conv_w"],
-                               None if state is None else state["conv"])
-    r = sigmoid(qlinear(p["g_a"], xc, "g_a", qcfg, "bsw,wv->bsv", f32))
-    i = sigmoid(qlinear(p["g_x"], xc, "g_x", qcfg, "bsw,wv->bsv", f32))
-    sp = softplus(p["lam"])
+    if tp is not None:
+        xn = tp.to_model(xn)
+    gate = qlinear(p["g_gate"], xn, "g_gate", qcfg, "bsd,dw->bsw", cdtype, col)
+    xi = qlinear(p["g_in"], xn, "g_in", qcfg, "bsd,dw->bsw", cdtype, col)
+    conv_w, lam = p["conv_w"], p["lam"]
+    if tp is not None:
+        conv_w, lam = tp.split_model(conv_w, 0), tp.split_model(lam, 0)
+    xc, new_conv = causal_conv(xi, conv_w, None if state is None else state["conv"])
+    xw = xc if tp is None else tp.gather_sum(xc, -1)
+    r = sigmoid(qlinear(p["g_a"], xw, "g_a", qcfg, "bsw,wv->bsv", f32, col))
+    i = sigmoid(qlinear(p["g_x"], xw, "g_x", qcfg, "bsw,wv->bsv", f32, col))
+    sp = softplus(lam)
     log_a = (_scalar(-LRU_C, sp) * sp) * r                   # (B, S, w)
     a = torch.exp(log_a)
     gated_x = i * xc.to(f32)
@@ -438,5 +492,5 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantConfig,
     _, hseq = assoc_scan(a, beta)
     new_state = {"h": hseq[:, -1], "conv": new_conv} if want_state else None
     out = (gelu(gate.to(f32)) * hseq).to(cdtype)
-    y = qlinear(p["g_out"], out, "g_out", qcfg, "bsw,wd->bsd", cdtype)
+    y = qlinear(p["g_out"], out, "g_out", qcfg, "bsw,wd->bsd", cdtype, tp)
     return x + y, new_state

@@ -5,6 +5,7 @@ compute on gloo ranks of the CPU.
     PYTHONPATH=src python tests/_torch_tp_harness.py --train SRC_CKPT OUT_DIR
     PYTHONPATH=src python tests/_torch_tp_harness.py --serve OUT_DIR
     PYTHONPATH=src python tests/_torch_tp_harness.py --vocab OUT_DIR
+    PYTHONPATH=src python tests/_torch_tp_harness.py --recurrent DIR
 
 --linears: every case of LINEAR_CASES on a (1, 2) and then a (1, 4) mesh:
 each rank cuts the case's whole parameters to its slices by the sharding
@@ -38,6 +39,17 @@ qwen1.5-0.5b (`VOCAB_STEP`) with kd "mckd" and "none", tensor-parallel,
 against one process: loss_main, the tied head's gradient, the "loss"
 bytes and every all-gather's shape. Each rank writes
 OUT_DIR/vocab{R}.pt.
+
+--recurrent DIR: every case of BLOCK_CASES on a (1, 2) and then a (1, 4)
+mesh: the mLSTM, sLSTM and RG-LRU blocks and the cross-attention sublayer
+of the reduced xlstm-350m, recurrentgemma-9b and llama-3.2-vision-11b, on
+the parameters the test wrote to DIR/blocks.pt (the JAX package's init),
+cut to the rank's slices by the sharding rules and run tensor-parallel
+(`run_block`); each rank writes the output and the gradients of its
+leaves and input to DIR/rec_m{M}_rank{R}.pt. The 2-rank run also serves
+the reduced xlstm-350m sharded (a prefill and 3 decode steps, `prefill_step`
+on the rank's slices) beside one process on the gathered params: rank 0
+writes both logits to DIR/rec_serve.pt.
 
 --serve: 4 ranks on a (1, 4) mesh: the serving CLI (`launch.serve.main`,
 reduced granite-8b, w4a4, int8 KV) with heads, d_ff and vocab split four
@@ -436,7 +448,7 @@ def arch_case(arch: str, sp=None, full=None, route: str = "auto") -> dict:
     params, out = full, {}
     if sp is not None:
         params = sharding.shard_tree(full, sp.pspecs, sp.mesh, sp.mesh.coords)
-        out["tp"] = [[t is not None for t in M.layer_tp(sp, cfg, i)[:2]]
+        out["tp"] = [[t is not None for t in M.layer_tp(sp, cfg, i)[:3]]
                      for i in range(cfg.n_layers)]
         out["head_tp"] = M.vocab_tp(sp, cfg)[1] is not None
     kw = {} if sp is None else {"spmd": sp}
@@ -467,6 +479,147 @@ def archs_rank(rank: int, port: int, out_dir: str) -> None:
         res[arch] = arch_case(arch, sp, full)
     if rank == 0:
         torch.save(res, os.path.join(out_dir, "archs.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks and the cross-attention sublayer on their slices
+# ---------------------------------------------------------------------------
+
+BLOCK_ARCH = {"mlstm": "xlstm-350m", "slstm": "xlstm-350m",
+              "rglru": "recurrentgemma-9b", "cross": "llama-3.2-vision-11b"}
+# mode -> (quantization, compute dtype, fused route): fp weights at f32;
+# w4a4 MDQ at bf16 unfused (the JAX package's route on the CPU) and on the
+# kernel route (its plain versions here; the card's route)
+BLOCK_MODES = {"f32": ("fp", "float32", "auto"), "w4a4": ("w4a4", "bfloat16", "off"),
+               "w4a4_kernel": ("w4a4", "bfloat16", "auto")}
+BLOCK_CASES = tuple((b, m) for b in BLOCK_ARCH for m in BLOCK_MODES)
+BLOCK_B, BLOCK_S, BLOCK_CHUNK = 2, 16, 8
+BLOCK_RANKS = (2, 4)
+SERVE_PROMPT, SERVE_FORCED = 8, 3
+
+
+def block_setup(block: str, mode: str) -> tuple:
+    """(cfg, qcfg, compute dtype) of a case: the arch's reduced config
+    (d_model 64, 4 heads, lru_width 64) at the mode's dtype."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import QuantConfig
+    quant, dtype, route = BLOCK_MODES[mode]
+    cfg = reduced_config(get_config(BLOCK_ARCH[block])).replace(dtype=dtype)
+    qcfg = (QuantConfig(mode="off") if quant == "fp" else
+            QuantConfig(w_bits=4, a_bits=4, mode="mdq", fused_matmul=route))
+    return cfg, qcfg, torch.float32 if dtype == "float32" else torch.bfloat16
+
+
+def block_inputs(block: str, mode: str) -> dict:
+    """Seeded numpy f32 inputs of a case: x and the output cotangent dy (B,
+    S, d), and for the cross sublayer the patch embeddings (B, P, d)."""
+    cfg, _, _ = block_setup(block, mode)
+    rng = np.random.default_rng(BLOCK_CASES.index((block, mode)) + 101)
+    d = cfg.d_model
+    out = {"x": rng.standard_normal((BLOCK_B, BLOCK_S, d)).astype(np.float32) * 0.5,
+           "dy": rng.standard_normal((BLOCK_B, BLOCK_S, d)).astype(np.float32)}
+    if block == "cross":
+        out["embeds"] = rng.standard_normal(
+            (BLOCK_B, cfg.n_frontend_tokens, d)).astype(np.float32) * 0.5
+    return out
+
+
+def block_names(block: str) -> tuple:
+    """The linears a case splits (`models.model.layer_tp`'s names)."""
+    from repro_torch.models import model as M
+    return {"mlstm": M.MLSTM_LINEARS, "slstm": M.SLSTM_FFN, "rglru": M.RGLRU_LINEARS,
+            "cross": M.CROSS_LINEARS}[block]
+
+
+def run_block(block: str, mode: str, tree: dict, mesh=None) -> dict:
+    """A case's output and gradients (`block_inputs`' dy as the output
+    cotangent): the whole block on `tree` (mesh None), or on `mesh`
+    tensor-parallel, its split linears cut to this rank's slices by the
+    sharding rules. Returns {"y" (f32), "dx", "grads": {leaf path:
+    gradient}, "specs": {a split leaf's path: its spec}}."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.spmd import Spmd
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+    cfg, qcfg, cd = block_setup(block, mode)
+    inp = {k: torch.from_numpy(v) for k, v in block_inputs(block, mode).items()}
+    tp = specs = None
+    if mesh is not None:  # the split linears' slices; the rest whole, as
+        names = block_names(block)  # `Spmd.gather` gives it
+        specs = sharding.param_pspecs(tree, mesh)
+        tp = Spmd(mesh, specs).tp((), names)
+        assert tp is not None, block
+        specs = {k: v for k, v in specs.items() if k in names}
+        tree = {k: sharding.shard_tree(v, specs[k], mesh, mesh.coords) if k in names
+                else v for k, v in tree.items()}
+    live = {k: v.clone().requires_grad_(True) for k, v in _walk(tree)}
+    p: dict = {}
+    for k, v in live.items():
+        node = p
+        for key in k[:-1]:
+            node = node.setdefault(key, {})
+        node[k[-1]] = v
+    x = inp["x"].to(cd).requires_grad_(True)
+    if block == "mlstm":
+        y, _ = R.mlstm_block(p, x, cfg, qcfg, cd, chunk=BLOCK_CHUNK, tp=tp)
+    elif block == "slstm":
+        y, _ = R.slstm_block(p, x, cfg, qcfg, cd, tp=tp)
+    elif block == "rglru":
+        y, _ = R.rglru_block(p, x, cfg, qcfg, cd, tp=tp)
+    else:
+        kv = M.cross_kv(p, inp["embeds"].to(cd), cfg, qcfg, cd, tp)
+        y = M._cross_sublayer(p, x, kv, cfg, qcfg, cd, tp)
+    gs = torch.autograd.grad(torch.sum(y.float() * inp["dy"]), list(live.values()) + [x],
+                             allow_unused=True)  # the sLSTM's s_r reads no activation
+    return {"y": y.detach().float(), "dx": gs[-1].float(),
+            "grads": {"/".join(k): g for k, g in zip(live, gs) if g is not None},
+            "specs": None if specs is None else {"/".join(k): s for k, s in _walk_specs(specs)}}
+
+
+def xlstm_serving(sp, full: dict) -> torch.Tensor:
+    """Logits of a one-chunk prefill and SERVE_FORCED decode steps of the
+    reduced xlstm-350m (w4a4 serving params `full`), on `sp`'s mesh (this
+    rank's slices) or whole."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding
+    from repro_torch.models import model as M
+    cfg, qcfg = reduced_config(get_config("xlstm-350m")), get_preset("w4a4")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, SERVE_PROMPT + SERVE_FORCED))
+                            .astype(np.int32))
+    params = full if sp.whole else sharding.shard_tree(full, sp.pspecs, sp.mesh,
+                                                       sp.mesh.coords)
+    cache = M.init_cache(cfg, qcfg, 2, SERVE_PROMPT + SERVE_FORCED, "cpu", spmd=sp)
+    return teacher_forced(params, cache, toks[:, :SERVE_PROMPT], toks[:, SERVE_PROMPT:],
+                          cfg, qcfg, sp)
+
+
+def recurrent_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    _env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    mesh = make_host_mesh(world, "cpu")
+    trees = torch.load(os.path.join(out_dir, "blocks.pt"))
+    res = {case: run_block(*case, trees[case], mesh) for case in BLOCK_CASES}
+    torch.save(res, os.path.join(out_dir, f"rec_m{world}_rank{rank}.pt"))
+    if world == BLOCK_RANKS[0]:
+        cfg, qcfg = reduced_config(get_config("xlstm-350m")), get_preset("w4a4")
+        full = M.init_serving_params(cfg, qcfg, torch.Generator().manual_seed(0), "cpu")
+        sp = spmd.Spmd(mesh, sharding.param_pspecs(full, mesh), ordered_sums=True)
+        split = [M.layer_tp(sp, cfg, i, training=False)[:3] for i in range(cfg.n_layers)]
+        logits = xlstm_serving(sp, full)
+        if rank == 0:
+            torch.save({"sharded": logits, "one": xlstm_serving(spmd.WHOLE, full),
+                        "split": [[t is not None for t in lt] for lt in split],
+                        "head_tp": M.vocab_tp(sp, cfg)[1] is not None},
+                       os.path.join(out_dir, "rec_serve.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -649,6 +802,10 @@ if __name__ == "__main__":
     elif sys.argv[1] == "--vocab":
         mp.spawn(vocab_rank, args=(free_port(), sys.argv[2]), nprocs=VOCAB_RANKS,
                  join=True)
+    elif sys.argv[1] == "--recurrent":
+        for m in BLOCK_RANKS:
+            mp.spawn(recurrent_rank, args=(m, free_port(), sys.argv[2]), nprocs=m,
+                     join=True)
     elif sys.argv[1] == "--serve":
         mp.spawn(serve_rank, args=(free_port(), sys.argv[2]), nprocs=SERVE_RANKS,
                  join=True)

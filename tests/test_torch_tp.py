@@ -33,9 +33,10 @@ its own wall-time bar, as tests/_torch_spmd_harness.py does):
   one-device run.
 * Every block family on a (1, 2) mesh (MoE, its experts
   expert-parallel, gemma2's local / global attention, musicgen's learned
-  positions and audio frames, xlstm's mLSTM / sLSTM, recurrentgemma's
-  RG-LRU with local attention, llama-vision's cross-attention): which sublayers run tensor-parallel
-  and which stay gathered, the forward's logits, and every leaf's step-0
+  positions and audio frames, xlstm's mLSTM on heads and sLSTM FFN on
+  d_ff, recurrentgemma's RG-LRU on channels with its local attention
+  whole, llama-vision's cross-attention on heads): which sublayers run
+  tensor-parallel and which stay gathered, the forward's logits, and every leaf's step-0
   gradient against one process: a tensor-parallel sublayer's leaves to
   2e-2 relative L2 and its scales to 0.2 of their kind's RMS; a gathered
   sublayer's to 2e-2 or twice the kernel route's own gap against the
@@ -285,47 +286,63 @@ def families(tmp_path_factory):
     return torch.load(out / "archs.pt"), wall
 
 
-# per family: the sublayers that must run tensor-parallel, (attention,
-# FFN) by layer, on 2 model ranks of the reduced configs (4 heads, d_ff 96,
-# padded vocab 272 split in 2; an MoE FFN's 4 experts split 2 a rank,
-# expert-parallel): the mLSTM / sLSTM blocks (the sLSTM's own FFN with
-# them), an attention whose one kv head does not split and the cross
-# layer's xq / xk / xv / xo stay gathered
+# per family: the sublayers that must run tensor-parallel, (mixer, FFN,
+# cross-attention) by layer (`models.model.layer_tp`), on 2 model ranks of
+# the reduced configs (4 heads, d_ff 96, padded vocab 272 split in 2; an
+# MoE FFN's 4 experts split 2 a rank, expert-parallel; lru_width 64): the
+# mLSTM on its heads, the sLSTM's own FFN on its d_ff (its cell stays
+# whole: no mixer split), the RG-LRU on its channels and the cross layer's
+# xq / xk / xv / xo on heads; an attention whose one kv head does not
+# split (recurrentgemma's local layer) stays gathered
 FAMILY_TP = {
-    "granite-moe-1b-a400m": [(True, True)] * 2,
-    "gemma2-2b": [(True, True)] * 2,
-    "musicgen-medium": [(True, True)] * 2,
-    "xlstm-350m": [(False, False)] * 8,
-    "recurrentgemma-9b": [(False, True)] * 4,
-    "llama-3.2-vision-11b": [(True, True)] * 5,
+    "granite-moe-1b-a400m": [(True, True, False)] * 2,
+    "gemma2-2b": [(True, True, False)] * 2,
+    "musicgen-medium": [(True, True, False)] * 2,
+    "xlstm-350m": [(True, False, False)] * 7 + [(False, True, False)],
+    "recurrentgemma-9b": [(True, True, False)] * 2 + [(False, True, False),
+                                                      (True, True, False)],
+    "llama-3.2-vision-11b": [(True, True, False)] * 4 + [(True, True, True)],
 }
 
 
 # the route-gap allowance's readings (the bf16 w4a4 reduced configs, seed
 # 0, 2 x 16 tokens): a gathered leaf's step-0 gap to one process, against
 # its kernel route's own gap to the unfused route. Every leaf of a gathered
-# sublayer past 2e-2: 19 of xlstm's, from 0.021 (mq a_offset,
-# route 0.017) to s_i's bias 1.392 (1.573: the stabilised input gate's
-# gradient cancels) and w_gate's a_scale 0.267 (5.554); 15 of
-# recurrentgemma's (the RG-LRU and its attention, whose one kv head does
-# not split), up to layer 3's g_in a_offset 2.990 (2.809) and layer 1's
-# 0.926 (2.451). No leaf of a tensor-parallel sublayer takes it.
+# sublayer past 2e-2: 3 of xlstm's sLSTM cell, s_o's a_scale 0.028 (route
+# 0.045), s_f's 0.059 (0.067) and s_i's bias 1.775 (1.573: the stabilised
+# input gate's gradient cancels); 3 of recurrentgemma's local attention
+# (whose one kv head does not split), wv's w_scale 0.030 (0.432), wk's
+# a_offset 0.030 (1.146) and w_scale 0.054 (0.851). No leaf of a
+# tensor-parallel sublayer takes it: the worst of those are xlstm's mv w
+# 0.012, recurrentgemma's lam 0.016 and llama-vision's wq w 0.010 (bar
+# 2e-2), and their scales' 0.051 of their kind's RMS (bar 0.2).
 ROUTE_GAP_FACTOR = 2.0
 _SCALES = ("w_scale", "a_scale", "a_offset")
 
 
+# a split mixer's leaves: the attention's, the mLSTM's, the RG-LRU's
+# (under "rg", beside the block's unread ln1)
+MIXER_LEAVES = ("ln1", "wq", "wk", "wv", "wo", "ln", "m_up_gate", "m_up", "conv_w",
+                "mq", "mk", "mv", "m_i", "m_f", "hn_g", "m_down", "rg")
+CROSS_LEAVES = ("ln_x", "xq", "xk", "xv", "xo", "xgate")
+
+
 def _in_tp_sublayer(path: tuple, tp: list, head_tp: bool) -> bool:
     """The leaf at `path` belongs to a sublayer that ran tensor-parallel:
-    the embedding / head, or a split attention's (ln1, wq / wk / wv / wo),
-    dense FFN's (ln2, w_in / w_gate / w_out) or MoE FFN's (ln2, and the
-    router and experts under moe) leaves."""
+    the embedding / head, or a split mixer's (`MIXER_LEAVES`: an
+    attention's ln1, wq / wk / wv / wo; an mLSTM's leaves; an RG-LRU's),
+    dense or sLSTM FFN's (ln2, w_in / w_gate / w_out), MoE FFN's (ln2, and
+    the router and experts under moe) or cross-attention's (ln_x, xq / xk /
+    xv / xo, xgate) leaves. An sLSTM's cell leaves (its mixer runs whole)
+    are not."""
     if path[0] in ("embed", "lm_head"):
         return head_tp
     if path[0] != "layers":
         return False
-    attn, ffn = tp[path[1]]
-    return ((attn and path[2] in ("ln1", "wq", "wk", "wv", "wo"))
-            or (ffn and path[2] in ("ln2", "w_in", "w_gate", "w_out", "moe")))
+    mixer, ffn, cross = tp[path[1]]
+    return ((mixer and path[2] in MIXER_LEAVES)
+            or (ffn and path[2] in ("ln2", "w_in", "w_gate", "w_out", "moe"))
+            or (cross and path[2] in CROSS_LEAVES))
 
 
 @pytest.mark.parametrize("arch", list(FAMILY_TP))
@@ -339,8 +356,9 @@ def test_every_block_family_tensor_parallel(families, arch):
     Eq. 7 terms cancel, so the reordered sums move them by a share of
     their own size, as in the training test) each element within 0.2 of
     the RMS of its kind over those sublayers, which a missing sum or a g
-    factor from a slice breaks. A leaf of a gathered sublayer (recurrent,
-    cross-attention), where no tensor-parallel code runs and only
+    factor from a slice breaks. A leaf of a gathered sublayer (the sLSTM's
+    cell, an attention whose kv heads do not split), where no
+    tensor-parallel code runs and only
     the reordered backward reaching it moves it: within 2e-2 or twice the
     gap the kernel route itself leaves against the unfused route on that
     leaf (`ROUTE_GAP_FACTOR`, readings above)."""
@@ -434,24 +452,41 @@ def test_serving_harness_wall_time(serving):
 # ---------------------------------------------------------------------------
 
 DRY_SHAPES = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
+# the recurrent families' training cells, each cut to blocks that split
+# whole (the sLSTM's cell and recurrentgemma's one-kv-head local attention
+# stay whole on every rank, so their dots do not shrink): (arch, the
+# pattern it is cut to, or None for its own)
+DRY_RECURRENT = {"train-xlstm": ("xlstm-350m", "mlstm"),
+                 "train-recurrentgemma": ("recurrentgemma-9b", "rglru"),
+                 "train-llama-vision": ("llama-3.2-vision-11b", None)}
 
 
 def _dry(kind: str, mesh: tuple) -> dict:
     from repro_torch.configs import shapes as shp
+    from repro_torch.configs.base import BlockDef
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.launch import dryrun as D
-    rec = D.lower_cell("qwen1.5-0.5b", DRY_SHAPES[kind], multi_pod=False, preset="w4a4",
-                       grad_accum=8, serve_kv_bits=8, mesh_sizes=mesh,
-                       cfg=reduced_config(get_config("qwen1.5-0.5b")),
-                       shape=shp.get_shape(DRY_SHAPES[kind], smoke=True))
+    arch, mixer = DRY_RECURRENT.get(kind, ("qwen1.5-0.5b", None))
+    cfg = reduced_config(get_config(arch))
+    if mixer is not None:
+        ffn = "dense" if mixer == "rglru" else "none"
+        cfg = cfg.replace(pattern=(BlockDef(attn=mixer, ffn=ffn),), n_layers=2)
+    shape = DRY_SHAPES.get(kind, "train_4k")
+    rec = D.lower_cell(arch, shape, multi_pod=False, preset="w4a4",
+                       grad_accum=8, serve_kv_bits=8, mesh_sizes=mesh, cfg=cfg,
+                       shape=shp.get_shape(shape, smoke=True))
     assert rec["status"] == "ok", rec.get("traceback")
     return rec
 
 
-@pytest.mark.parametrize("kind", list(DRY_SHAPES))
+@pytest.mark.parametrize("kind", list(DRY_SHAPES) + list(DRY_RECURRENT))
 def test_dry_run_rank0_counts_its_slices(kind):
     """Reduced qwen1.5-0.5b (4 heads, d_ff 96, padded vocab 272: each
-    splits in 4) at smoke shapes: rank 0's dot FLOPs on a (1, 4) mesh, x 4,
+    splits in 4) at smoke shapes, and the training step of the reduced
+    recurrent families (`DRY_RECURRENT`: two mLSTM blocks of xlstm-350m,
+    two RG-LRU blocks with their FFN of recurrentgemma-9b, llama-3.2-vision
+    with its cross layer; heads, lru_width 64 and d_ff split in 4): rank
+    0's dot FLOPs on a (1, 4) mesh, x 4,
     equal the one-rank count exactly, op by op (each kernel and each aten
     dot), except the dots that stay whole on every rank, pinned: a
     serving chunk's attention over its own keys (`attend_chunk`'s
@@ -465,11 +500,23 @@ def test_dry_run_rank0_counts_its_slices(kind):
     each row's max and its two sums all-reduced under the use "loss":
     tokens x 3 x 4 B), all-gathers in serving (its row-parallel partials
     are gathered and summed in rank order, and the logits gathered whole;
-    what all-reduces remain there are g factors' l1)."""
+    what all-reduces remain there are g factors' l1). An mLSTM or RG-LRU
+    block all-gathers its conv's output over the model ranks (and the
+    gradients of its conv_w / hn_g / lam parts); the cross layer gathers
+    nothing."""
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config, reduced_config
-    cfg = reduced_config(get_config("qwen1.5-0.5b"))
     one, four = _dry(kind, (1, 1)), _dry(kind, (1, 4))
+    if kind in DRY_RECURRENT:
+        for op in set(one["cost"]["by_op"]) | set(four["cost"]["by_op"]):
+            assert 4 * four["cost"]["by_op"].get(op, {}).get("flops", 0) == (
+                one["cost"]["by_op"].get(op, {}).get("flops", 0)), op
+        assert 4 * four["cost"]["flops"] == one["cost"]["flops"] > 0
+        gathers = four["collectives"]["count_by_op"].get("all-gather", 0)
+        assert (gathers > 0) == (DRY_RECURRENT[kind][1] is not None), gathers
+        assert one["collectives"]["total_count"] == 0
+        return
+    cfg = reduced_config(get_config("qwen1.5-0.5b"))
     spec = shp.get_shape(DRY_SHAPES[kind], smoke=True)
     b, h, d = spec.global_batch, cfg.n_heads, cfg.head_dim_
     c = spec.seq_len if kind == "prefill" else 1
