@@ -9,7 +9,11 @@ rank runs the same program on its own shards over a `launch.mesh.HostMesh`:
   replicated (`init_sharded_state`).
 * Batch. Every rank draws the global batch and keeps its rows by
   `sharding.batch_pspecs` (`Spmd.rows`): over the data axes, and over the
-  model axis too with no_tp (the weights then whole on every model rank).
+  model axis too with no_tp (the weights then whole on every model rank);
+  under gradient accumulation its share of each microbatch, so that
+  microbatch i over the ranks is the reference's. `Spmd.dp` names that
+  split (a `DPSplit`): the MoE FFN routes the global batch over it
+  (`models.moe`).
 * Gather on use. `Spmd.gather` all-gathers a layer's leaves just before
   the layer runs (`models.model.forward(spmd=...)`, inside the block's
   checkpoint, so a remat backward gathers again) through `_GatherMany`,
@@ -460,6 +464,15 @@ class TPSplit(NamedTuple):
         return x.narrow(dim, self.index * n, n)
 
 
+class DPSplit(NamedTuple):
+    """A batch's rows split over the `parts` data ranks of `group`: this
+    rank holds share `index` of each (micro)batch's rows, the shares in
+    global row order (`Spmd.dp`)."""
+    group: Any
+    index: int
+    parts: int
+
+
 def _strip_model(spec: tuple) -> tuple:
     """`spec` without the model axis: the leaf gathered over the data axes
     only."""
@@ -524,6 +537,9 @@ class Spmd:
         # made with no_tp, so no weight splits over it)
         self.no_tp = no_tp
         self.data_axes = tuple(shard.batch_axes(mesh)) + (("model",) if no_tp else ())
+        # the data axes the batch's rows split over: all of them, unless
+        # `batch_specs` found a batch that splits over fewer
+        self.row_axes = self.data_axes
         self.seq_parts: Optional[list] = None  # set by local_cache
         self._owners = None  # per leaf of pspecs: counted in the norm here
         # tp_compute: model-split sublayers run on this rank's slices;
@@ -567,21 +583,63 @@ class Spmd:
         return bool(spec) and "model" in shard.spec_axes(spec[0])
 
     # -- batch ---------------------------------------------------------------
-    def rows(self, batch: dict) -> dict:
+    def batch_specs(self, batch: dict) -> dict:
+        """`sharding.batch_pspecs` of a global batch (every entry's leading
+        axis the rows); the data axes they split the rows over become
+        `row_axes`."""
+        specs = shard.batch_pspecs(batch, self.mesh, extra_model_dp=self.no_tp)
+        axes = {shard.spec_axes(sp[0]) if sp else () for sp in specs.values()}
+        if len(axes) > 1:
+            raise ValueError(f"the batch's entries split their rows over {axes}")
+        if axes:
+            self.row_axes = axes.pop()
+        return specs
+
+    @property
+    def dp(self) -> Optional[DPSplit]:
+        """The batch's rows split over data ranks (`models.moe.moe_ffn`
+        routes the global batch over them), None where one rank holds them
+        all."""
+        parts = self.mesh.size(self.row_axes)
+        if self.whole or parts == 1:
+            return None
+        if tuple(self.row_axes) != self.mesh.axes(self.row_axes):
+            raise ValueError(f"row axes {self.row_axes} are not in mesh order")
+        return DPSplit(self.mesh.group(self.row_axes),
+                       shard.axes_index(self.row_axes, self.mesh, self.mesh.coords),
+                       parts)
+
+    def rows(self, batch: dict, accum: int = 1) -> dict:
         """This rank's rows of a global numpy batch (every entry's leading
-        axis must split over the data axes)."""
+        axis must split over the data axes). accum > 1: its share of each
+        of the batch's `accum` microbatches of consecutive rows, in order,
+        so that where the step cuts its rows into `accum` microbatches,
+        microbatch i over the data ranks is the global batch's microbatch
+        i (each microbatch's rows must split over the data axes)."""
         if self.whole:
             return batch
-        specs = shard.batch_pspecs(batch, self.mesh, extra_model_dp=self.no_tp)
+        specs = self.batch_specs(batch)
+        parts = self.mesh.size(self.row_axes)
         out = {}
         for k, v in batch.items():
             split = shard.split_dims(specs[k], self.mesh)
             if self.mesh.size(self.data_axes) > 1 and not split:
                 raise ValueError(f"batch entry {k} {v.shape} does not split "
                                  f"over {self.data_axes}")
-            out[k] = np.ascontiguousarray(shard.local_shard(
-                torch.from_numpy(np.ascontiguousarray(v)), specs[k], self.mesh,
-                self.mesh.coords).numpy())
+            v = np.ascontiguousarray(v)
+            if accum > 1 and parts > 1:  # (accum, rows of a microbatch, ...)
+                n = v.shape[0]
+                if n % accum or (n // accum) % parts:
+                    raise ValueError(f"batch entry {k} {v.shape}: {accum} microbatches "
+                                     f"do not split over {self.row_axes}")
+                local = shard.local_shard(
+                    torch.from_numpy(v.reshape((accum, n // accum) + v.shape[1:])),
+                    (None,) + tuple(specs[k]), self.mesh, self.mesh.coords).numpy()
+                local = local.reshape((-1,) + local.shape[2:])
+            else:
+                local = shard.local_shard(torch.from_numpy(v), specs[k], self.mesh,
+                                          self.mesh.coords).numpy()
+            out[k] = np.ascontiguousarray(local)
         return out
 
     # -- params --------------------------------------------------------------

@@ -37,6 +37,13 @@ sublayer whose weights do not split (MoE experts, recurrent blocks,
 cross-attention, a weight that does not divide) is gathered whole and
 counted whole on every rank, as is a serving chunk's attention over its
 own keys (the cache's rows split over the model axis, its heads do not).
+A training MoE FFN routes the global microbatch over the data ranks
+(`models.moe`): each layer's forward all-gathers the ranks' per-group,
+per-expert counts (int32, counted under "experts"); meta tensors hold no
+counts, so where a group spans ranks the rank's capacity buffer is the
+group's capacity over its ranks, rounded up to 8 (the balanced load).
+The record's "moe" says so: the dispatch groups, the data ranks, the
+buffers' rows ({rows: calls}) and the count gathers' bytes.
 
 Memory, per rank: `argument_size_in_bytes` is this rank's state (params,
 moments, telemetry) or serving params and cache, plus its batch rows, from
@@ -82,6 +89,7 @@ from repro_torch.launch import cost
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import HostMesh, make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.state import TrainConfig
 from repro_torch.train.train_step import make_train_step
@@ -218,8 +226,20 @@ def train_inputs(cfg, shape, tcfg, qcfg, mesh, extra_dp: bool, gen) -> tuple:
 def _train_cell(cfg, shape, tcfg, qcfg, mesh, extra_dp, device, gen):
     state, batch, specs = train_inputs(cfg, shape, tcfg, qcfg, mesh, extra_dp, gen)
     sp = S.Spmd(mesh, specs["params"], osc_specs=specs["osc"], no_tp=extra_dp)
+    sp.batch_specs(shp.token_specs(cfg, shape, kd_topk=tcfg.kd_topk))  # its row axes
     step = make_train_step(cfg, qcfg, tcfg, spmd=sp)
+    moe.reset_buffer_rows()
     res, secs = _run_counted(step, state, batch)
+    if cfg.n_experts:
+        dp = sp.dp
+        res["moe"] = {
+            "dispatch_groups": cfg.moe_dispatch_groups,
+            "data_ranks": 1 if dp is None else dp.parts,
+            "buffer_rows": moe.buffer_rows(),
+            "count_gather_bytes": moe.count_gather_bytes(),
+            "local_capacity": ("where a group spans ranks, its capacity over its "
+                               "ranks, rounded up to 8 (meta tensors hold no counts)"
+                               if dp is not None else "the group's capacity")}
     return res, secs, {"state": S.tree_bytes(state), "batch": S.tree_bytes(batch)}
 
 
@@ -351,6 +371,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, preset: str,
                  "kernels": res["kernels"], "by_op": res["by_op"]},
         "grad_accum": (_train_cfg(cfg, shape, grad_accum, bf16_moments)
                        .grad_accum if shape.kind == "train" else None),
+        **({"moe": res["moe"]} if "moe" in res else {}),
     }
 
 

@@ -19,7 +19,9 @@ The loop runs the step of `dist.spmd` on a (world // M, M)
 `launch.mesh.make_host_mesh` mesh, M = --model-parallel, over torchrun's
 process group (WORLD_SIZE): the state held as this rank's slices by
 `dist.sharding.state_pspecs`, every rank drawing the global batch and
-keeping its rows, checkpoints written as full arrays by rank 0 and restored
+keeping its share of each microbatch's rows (the MoE FFN routes the
+global microbatch over the data ranks, as the reference's jitted step
+does: `models.moe`), checkpoints written as full arrays by rank 0 and restored
 as each rank's slices (so a run may resume on another mesh). On a model
 axis M > 1 the attention, the dense and MoE FFNs, the mLSTM (on heads), the
 RG-LRU (on channels), the sLSTM's FFN (its cell runs whole),
@@ -148,7 +150,8 @@ def run_training(cfg, qcfg, tcfg: TrainConfig, dcfg: DataConfig, *,
             idx, p = synthetic_kd_labels(batch["labels"], cfg.vocab_size,
                                          tcfg.kd_topk, seed=i)
             batch.update(kd_idx=idx, kd_p=p)
-        batch = sp.rows(batch)  # every rank drew the global batch
+        # every rank drew the global batch: its share of each microbatch
+        batch = sp.rows(batch, tcfg.grad_accum)
         state, m = step_fn(state, _to_device(batch, device))
         loss = float(m["loss"])
         if device.type == "cuda":

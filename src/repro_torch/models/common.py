@@ -299,9 +299,11 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(e, g, c, -1).transpose(0, 1)
 
 
-# Serving contractions outside FUSED_EQS that must not let the library pick
-# a summation order by row count: the MoE router (f32, a 2D contraction
-# through `_row_matmul`) and the expert einsums (`_expert_matmul`).
+# Contractions outside FUSED_EQS that must not let the library pick a
+# summation order by row count: the MoE router (f32, a 2D contraction
+# through `_row_matmul`, in training too: a data rank routing its share of
+# the batch must take the whole batch's logits bit for bit) and the serving
+# expert einsums (`_expert_matmul`).
 ROW_BLOCK_EQS = {"td,de->te": 1}
 
 
@@ -515,7 +517,8 @@ def qlinear(p: dict, x: torch.Tensor, name: str, qcfg: QuantConfig, eq: str,
         if wspec is not None:
             w = fake_quant(w, p["w_scale"], wspec, tp=tp)
         y = _einsum(eq, x.to(cdtype), w.to(cdtype),
-                    torch.float32 if row else None, row_blocks=not latent)
+                    torch.float32 if row else None,
+                    row_blocks=not latent or eq in ROW_BLOCK_EQS)
         if row:
             y = tp.from_model(y).to(cdtype)
     if "b" in p:

@@ -215,7 +215,7 @@ def cross_kv(p, embeds, cfg: ArchConfig, qcfg: QuantConfig, cdtype, tp=None):
 
 def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
                 qcfg: QuantConfig, positions: torch.Tensor, cross_embeds,
-                cdtype, tp_attn=None, tp_ffn=None, tp_cross=None):
+                cdtype, tp_attn=None, tp_ffn=None, tp_cross=None, dp=None):
     """One training block: (x, sdam, lb_loss, drop_frac) with sdam the
     block output's SDAM (a metric: no gradient flows through it) and the
     MoE FFN's load-balance loss and drop fraction (zeros otherwise).
@@ -224,7 +224,9 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     RG-LRU) / its FFN (dense, MoE or the sLSTM's) / its cross-attention run
     tensor-parallel on this rank's slices (`layer_tp`); the collectives a
     recurrent block or a cross sublayer launches are counted under the use
-    "recurrent" / "cross" (`dist.spmd.moved_bytes_by_use`)."""
+    "recurrent" / "cross" (`dist.spmd.moved_bytes_by_use`). dp: the
+    batch's rows split over data ranks (`dist.spmd.Spmd.dp`): the MoE FFN
+    routes the global batch."""
     if bd.attn in RECURRENT:
         block = {"mlstm": rec.mlstm_block, "slstm": rec.slstm_block,
                  "rglru": rec.rglru_block}[bd.attn]
@@ -240,7 +242,7 @@ def block_apply(p: dict, x: torch.Tensor, bd: BlockDef, cfg: ArchConfig,
     lb = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     if bd.ffn == "moe":
         xn = apply_norm(p["ln2"], x, cfg.norm)
-        y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype, tp_ffn)
+        y, maux = moe_mod.moe_ffn(p["moe"], xn, cfg, qcfg, cdtype, tp_ffn, dp)
         x = x + y
         lb, drop = maux["lb_loss"], maux["drop_frac"]
     elif bd.ffn == "dense":
@@ -345,7 +347,7 @@ def _gathered_block(spmd: Spmd, i: int, p: dict, x, bd: BlockDef,
     checkpoint, so a remat backward gathers again."""
     lt = layer_tp(spmd, cfg, i)
     return block_apply(spmd.gather(("layers", i), p, lt.split), x, bd, cfg, *args,
-                       tp_attn=lt.attn, tp_ffn=lt.ffn, tp_cross=lt.cross)
+                       tp_attn=lt.attn, tp_ffn=lt.ffn, tp_cross=lt.cross, dp=spmd.dp)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, qcfg: QuantConfig, *,

@@ -13,12 +13,16 @@ Without a mode, two groups of ranks run at once:
   granite-moe's, 4 experts, from the JAX package's test: expert-parallel)
   and OUT_DIR/moe_case_tp.npz (the same cut to 3 experts: d_ff split) on
   both of the port's routes, and the reduced granite-moe's cut to 3
-  experts from the port's init (`moe_ffn_tp`, with its input's gradient).
-  Each rank writes OUT_DIR/m2_rank{R}.pt.
+  experts from the port's init (`moe_ffn_tp`, with its input's gradient);
+  then the MoE FFN of OUT_DIR/dp_case.npz routed over 2 data ranks
+  (DP_CASES on a (2, 1) mesh: `dp_moe`). Each rank writes
+  OUT_DIR/m2_rank{R}.pt.
 * 4 ranks: the cases on a (1, 4) mesh (EP_EXPERTS experts, then 6); the
+  DP_CASES of 4 ranks ((4, 1), and (2, 2) with the experts split); the
   reduced granite-moe's QAT (`run_training(model_parallel=2)`, a (2, 2)
   mesh, TRAIN_STEPS steps) from the checkpoint in OUT_DIR/src (the JAX
-  package's init state, bridged); and the serving CLI on a (1, 4) mesh
+  package's init state, bridged), with the capacity buffers' rows it ran
+  (`models.moe.buffer_rows`); and the serving CLI on a (1, 4) mesh
   (each rank 1 expert) with the expert-parallel `greedy_generate` of the
   same prompts. Each rank writes OUT_DIR/m4_rank{R}.pt.
 
@@ -283,6 +287,115 @@ def moe_ffn_tp(mesh, n_experts: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the MoE FFN on data ranks: the global batch routed over them
+# ---------------------------------------------------------------------------
+
+# the reduced granite-moe's FFN (4 experts, top 2) at a capacity factor that
+# drops, on DP_ROWS x DP_SEQ tokens (OUT_DIR/dp_case.npz)
+DP_CAPACITY_FACTOR = 1.0
+DP_ROWS, DP_SEQ = 8, 16
+# case -> (data ranks, model ranks, dispatch groups, microbatches)
+DP_CASES = {"d2_g1": (2, 1, 1, 1), "d2_g2": (2, 1, 2, 1), "d2_g4": (2, 1, 4, 1),
+            "d2_g1_accum2": (2, 1, 1, 2), "d4_g1": (4, 1, 1, 1),
+            "d4_g2": (4, 1, 2, 1), "d2x2_g1": (2, 2, 1, 1)}
+
+
+def dp_config(groups: int):
+    return moe_config().replace(capacity_factor=DP_CAPACITY_FACTOR,
+                                moe_dispatch_groups=groups)
+
+
+def _dp_params(data) -> dict:
+    p: dict = {}
+    for key in data.files:
+        if "/" in key:
+            lin, leaf = key.split("/")
+            p.setdefault(lin, {})[leaf] = torch.from_numpy(data[key])
+    return p
+
+
+def dp_one(path: str, groups: int, accum: int) -> list:
+    """`dp_moe`'s microbatches in one process (the whole batch's routing):
+    per microbatch the gradient of sum(y * ct) + lb_loss for its input."""
+    from repro_torch.core.policy import get_preset
+    from repro_torch.models.moe import moe_ffn
+    data = np.load(path)
+    p, n = _dp_params(data), DP_ROWS // accum
+    out = []
+    for i in range(accum):
+        x = torch.from_numpy(data["x"][i * n:(i + 1) * n]).to(torch.bfloat16)
+        x.requires_grad_(True)
+        y, aux = moe_ffn(p, x, dp_config(groups), get_preset("w4a4"), torch.bfloat16)
+        (dx,) = torch.autograd.grad(torch.sum(y.float() * torch.from_numpy(
+            data["ct"][i * n:(i + 1) * n])) + aux["lb_loss"], [x])
+        out.append(dx.float())
+    return out
+
+
+def dp_moe(path: str, mesh, groups: int, accum: int) -> dict:
+    """The port's `moe_ffn` on this data rank's share of each microbatch of
+    the numpy batch in `path` (x and a cotangent ct, (DP_ROWS, DP_SEQ, d),
+    and the params of `moe_ffn_split`'s file), routed over the data ranks
+    (`Spmd.dp`), the experts split over the model ranks where the mesh has
+    them: per microbatch its output, keep mask, lb_loss and drop_frac
+    (each the data ranks' mean, as the train step takes them) and the keep
+    mask that routing the rank's own rows (dp=None) gives; and the
+    gradient of sum(y * ct) + lb_loss (the rank's lb_loss over the data
+    ranks, so the ranks' losses add up to the batch's) for its rows."""
+    from repro_torch.core.policy import get_preset
+    from repro_torch.dist import sharding, spmd
+    from repro_torch.models import moe
+    data = np.load(path)
+    p = _dp_params(data)
+    cfg = dp_config(groups)
+    qcfg = get_preset("w4a4")
+    tree = {"moe": p}
+    specs = sharding.param_pspecs(tree, mesh)
+    sp = spmd.Spmd(mesh, specs)
+    names = ("moe_in", "moe_gate", "moe_out")
+    tp = sp.tp(("moe",), names)
+    if tp is not None:
+        tp = tp._replace(experts=sp.experts(("moe", "moe_in")))
+    full = sp.gather(("moe",), sharding.shard_tree(tree, specs, mesh, mesh.coords)["moe"],
+                     names if tp is not None else ())
+    rows = sp.rows({"x": data["x"], "ct": data["ct"]}, accum)
+    dp = sp.dp
+    x = torch.from_numpy(rows["x"]).to(torch.bfloat16).requires_grad_(True)
+    ct = torch.from_numpy(rows["ct"])
+    n = x.shape[0] // accum
+    out = {"coords": dict(mesh.coords), "experts": tp is not None and tp.experts,
+           "parts": dp.parts, "index": dp.index, "y": [], "keep": [], "own_keep": [],
+           "lb_loss": [], "drop_frac": [], "rows": []}
+    loss = 0.0
+    for i in range(accum):
+        moe.reset_buffer_rows()
+        y, aux = moe.moe_ffn(full, x[i * n:(i + 1) * n], cfg, qcfg, torch.bfloat16, tp,
+                             dp, keep_mask=True)
+        out["rows"].append(moe.buffer_rows())
+        loss = loss + torch.sum(y.float() * ct[i * n:(i + 1) * n]) + aux["lb_loss"] / dp.parts
+        with torch.no_grad():
+            own = moe.moe_ffn(full, x[i * n:(i + 1) * n], cfg, qcfg, torch.bfloat16, tp,
+                              keep_mask=True)[1]["keep"]
+        out["y"].append(y.detach().float())
+        out["keep"].append(aux["keep"])
+        out["own_keep"].append(own)
+        out["lb_loss"].append(float(sp.mean(aux["lb_loss"].detach())))
+        out["drop_frac"].append(float(sp.mean(aux["drop_frac"])))
+    (dx,) = torch.autograd.grad(loss, [x])
+    out["dx"] = dx.float()
+    return out
+
+
+def dp_cases_on(world: int, out_dir: str) -> dict:
+    """Every case of DP_CASES on `world` ranks."""
+    from repro_torch.launch.mesh import make_host_mesh
+    path = os.path.join(out_dir, "dp_case.npz")
+    return {case: dp_moe(path, make_host_mesh(model, "cpu"), groups, accum)
+            for case, (data, model, groups, accum) in DP_CASES.items()
+            if data * model == world}
+
+
+# ---------------------------------------------------------------------------
 # training on (2, 2) and serving on (1, 4)
 # ---------------------------------------------------------------------------
 
@@ -360,8 +473,10 @@ def group_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     import torch.distributed as dist
     from repro_torch.dist import spmd
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
     t0 = time.perf_counter()
-    res = {"cases": cases_on(make_host_mesh(world, "cpu"))}
+    res = {"cases": cases_on(make_host_mesh(world, "cpu")),
+           "dp": dp_cases_on(world, out_dir)}
     if world == 2:
         mesh = make_host_mesh(world, "cpu")
         res["moe_ffn"] = {case: moe_ffn_split(os.path.join(out_dir, f"{case}.npz"), mesh)
@@ -374,11 +489,14 @@ def group_rank(rank: int, world: int, port: int, out_dir: str) -> None:
             shutil.copytree(os.path.join(out_dir, "src"), run_dir)
         dist.barrier()
         spmd.reset_moved_bytes()
+        moe.reset_buffer_rows()
         rep = train(moe_config(), run_dir, TRAIN_MODEL)
         res["train"] = {"losses": rep.losses, "grad_norms": rep.grad_norms,
                         "metrics": rep.metrics, "healths": rep.healths,
                         "mesh": rep.mesh.shape, "moved": spmd.moved_bytes(),
-                        "moved_by_use": spmd.moved_bytes_by_use()}
+                        "moved_by_use": spmd.moved_bytes_by_use(),
+                        "buffer_rows": moe.buffer_rows(),
+                        "count_bytes": moe.count_gather_bytes()}
         res["serve"] = serve_ranks(world)
     res["wall_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(out_dir, f"m{world}_rank{rank}.pt"))

@@ -36,20 +36,25 @@ own wall-time bar):
 * The reduced granite-moe's QAT (w3a3: OBR, oscillation tracked; edges
   and router at 4 bits, so that XLA compiles the JAX package's run in
   ~20 s) on a (2, 2) mesh, experts and attention split over the 2 model
-  ranks, from the JAX package's init state, against one process with
-  `moe_dispatch_groups=2` (its groups are the data ranks' rows, so
-  routing and capacity match): step 0's drop_frac bit-equal, its
-  loss_main within 1e-6 relative (the attention's row-parallel wo sums
-  its f32 partials over the model ranks, and the loss is a mean over the
-  data ranks: one f32 ulp apart from the JAX init); its lb_loss, which the sharded run takes as the mean over
-  the data ranks of each rank's Switch loss, within 1e-6 relative of
-  that mean computed by one process on each data rank's rows (one process
-  over both groups takes the product of the means instead); step 0's
-  loss within 1e-6 relative of that loss; the 4 losses within the
+  ranks, from the JAX package's init state, against one process at the
+  configuration's one dispatch group (the data ranks route the global
+  batch, as the reference's jitted step does): step 0's drop_frac
+  bit-equal, its loss_main, lb_loss (the batch's Switch loss) and loss
+  within 1e-6 relative (the attention's row-parallel wo sums its f32
+  partials over the model ranks, and the loss is a mean over the data
+  ranks: one f32 ulp apart from the JAX init); the 4 losses within the
   reference's 5 % (tests/test_spmd.py) of one process's and of the JAX
-  package's one-device run (2 dispatch groups too); the gradient norm of
+  package's one-device run (one dispatch group too); the gradient norm of
   steps 0 and 1 within 2e-3 relative. `spmd.moved_bytes_by_use()` counts
-  the expert buffers' gathers under "experts" to the byte.
+  the expert buffers' gathers, at the local capacities the ranks report,
+  and the routing counts' gathers under "experts" to the byte.
+* The MoE FFN routed over data ranks (`moe_ffn(dp=...)`: 2 ranks at 1, 2
+  and 4 dispatch groups and at 2 microbatches, 4 ranks at 1 and 2 groups,
+  and (2, 2) with the experts split) against the JAX package's on the
+  whole batch, at a capacity that drops: the keep mask and the output bit
+  for bit on each rank's rows, lb_loss within 1e-6 relative, drop_frac
+  exactly, the input's gradient equal to the port's in one process; each
+  case shows that routing each rank's own rows keeps other pairs.
 * Serving on a (1, 4) mesh (one expert a rank, the vocabulary split; the
   attention, whose 2 kv heads do not split in 4, gathered): the engine's
   streams equal the expert-parallel `greedy_generate` of each prompt alone
@@ -85,7 +90,7 @@ LOSS_BAR, GNORM_BAR, GRAD_BAR = 0.05, 2e-3, 2e-2
 def _jax_training(state_only: bool = False):
     """The JAX package's init state of the (2, 2) run's configuration
     (`_torch_ep_harness.train_setup`) as numpy, and its one-device losses
-    over TRAIN_STEPS steps with 2 dispatch groups (the data ranks' rows).
+    over TRAIN_STEPS steps (the configuration's one dispatch group).
     The reference runs unrolled, its pattern repeated so that its two
     layers stay out of a lax.scan (as tests/_torch_parity.train_states
     does): a scanned leaf stacks the layers, and the reference's Eq. 10
@@ -106,13 +111,60 @@ def _jax_training(state_only: bool = False):
     state0 = jax.tree.map(np.asarray, state)
     if state_only:
         return state0, None
-    g2 = cfg.replace(moe_dispatch_groups=2)
-    step = jax.jit(make_train_step(g2, qcfg, tcfg))
+    step = jax.jit(make_train_step(cfg, qcfg, tcfg))
     losses = []
     for i in range(H.TRAIN_STEPS):
-        state, m = step(state, sample_batch(g2, DataConfig(seed=0), i, H.BATCH, H.SEQ))
+        state, m = step(state, sample_batch(cfg, DataConfig(seed=0), i, H.BATCH, H.SEQ))
         losses.append(float(m["loss"]))
     return state0, losses
+
+
+def _jax_dp(p, x, ct, groups: int, accum: int) -> list:
+    """The JAX package's `moe_ffn` (w4a4, the fused route, exact bf16) on
+    each of `accum` microbatches of consecutive rows of the whole batch x,
+    at `groups` dispatch groups and H.DP_CAPACITY_FACTOR: per microbatch
+    its output, keep mask (T, k), lb_loss, drop_frac and the gradient of
+    sum(y * ct) + lb_loss with respect to its input."""
+    import jax
+    import jax.numpy as jnp
+    import test_torch_moe as TM
+    from repro.models import common as JC
+    from repro.models import moe as JMoe
+    jc = TM.configs(TM.ARCH)[0].replace(capacity_factor=H.DP_CAPACITY_FACTOR,
+                                        moe_dispatch_groups=groups)
+    jq = TM.get_preset("w4a4").replace(fused_matmul="on")
+    e, k = jc.n_experts, jc.moe_top_k
+    pj = jax.tree.map(jnp.asarray, p)
+
+    def keep_of(pp, xx):
+        xt = xx.reshape(-1, jc.d_model)
+        lg = JC.qlinear(pp["router"], xt, "router", jq, "td,de->te", cdtype=jnp.float32)
+        _, idx = jax.lax.top_k(jax.nn.softmax(lg, -1), k)
+        t = xt.shape[0]
+        grp = groups if groups > 1 and t % groups == 0 else 1
+        c = JMoe.capacity(t // grp, jc)
+        keep = jax.vmap(lambda xg, ig: JMoe._route_group(xg, None, ig, c, e, k, jnp.bfloat16)[2])(
+            xt.reshape(grp, -1, jc.d_model), idx.reshape(grp, -1, k))
+        return keep.reshape(t, k)
+
+    def loss(pp, xx, cc):
+        y, aux = JMoe.moe_ffn(pp, xx, jc, jq, jnp.bfloat16)
+        return jnp.sum(y.astype(jnp.float32) * cc) + aux["lb_loss"]
+
+    fwd = jax.jit(lambda pp, xx: JMoe.moe_ffn(pp, xx, jc, jq, jnp.bfloat16))
+    n = x.shape[0] // accum
+    out = []
+    for i in range(accum):
+        xb = jnp.asarray(x[i * n:(i + 1) * n], jnp.bfloat16)
+        cb = jnp.asarray(ct[i * n:(i + 1) * n])
+        y, aux = fwd.lower(pj, xb).compile(TM.EXACT_BF16)(pj, xb)
+        keep = jax.jit(keep_of).lower(pj, xb).compile(TM.EXACT_BF16)(pj, xb)
+        dx = jax.jit(jax.grad(loss, argnums=1)).lower(pj, xb, cb).compile(
+            TM.EXACT_BF16)(pj, xb, cb)
+        out.append({"y": np.asarray(y.astype(jnp.float32)), "keep": np.asarray(keep),
+                    "lb_loss": float(aux["lb_loss"]), "drop_frac": float(aux["drop_frac"]),
+                    "dx": np.asarray(dx.astype(jnp.float32))})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -136,6 +188,13 @@ def ranks(tmp_path_factory):
         np.savez(out / f"{case}.npz", x=x, **{f"{lin}/{leaf}": np.asarray(v)
                                               for lin, d in p.items() for leaf, v in d.items()})
         moe[case] = (p, jce)
+    rng = np.random.default_rng(34)
+    dp_x = rng.standard_normal((H.DP_ROWS, H.DP_SEQ, jc.d_model)).astype(np.float32)
+    dp_ct = rng.standard_normal(dp_x.shape).astype(np.float32)
+    dp_p = moe["moe_case"][0]
+    np.savez(out / "dp_case.npz", x=dp_x, ct=dp_ct,
+             **{f"{lin}/{leaf}": np.asarray(v) for lin, d in dp_p.items()
+                for leaf, v in d.items()})
     cfg, qcfg, _, _ = H.train_setup()
     state0, _ = _jax_training(state_only=True)
     ckpt.save(str(out / "src"), bridge.state_from_jax(
@@ -156,6 +215,8 @@ def ranks(tmp_path_factory):
     waiter.start()
     try:
         jax_moe = {case: TM._jax_moe(p, x, jce, jq) for case, (p, jce) in moe.items()}
+        jax_dp = {(g, n): _jax_dp(dp_p, dp_x, dp_ct, g, n)
+                  for _, _, g, n in H.DP_CASES.values()}
         _, losses_ref = _jax_training()
     finally:
         waiter.join(timeout=330)
@@ -164,7 +225,7 @@ def ranks(tmp_path_factory):
     wall = done["wall"]
     res = {m: [torch.load(out / f"m{m}_rank{r}.pt") for r in range(m)] for m in (2, 4)}
     return {"res": res, "wall": wall, "jax": jax_moe, "losses_ref": losses_ref,
-            "dir": out}
+            "dir": out, "jax_dp": jax_dp}
 
 
 # ---------------------------------------------------------------------------
@@ -289,39 +350,77 @@ def test_tp_within_experts_moe_ffn_matches_whole(ranks):
 
 
 # ---------------------------------------------------------------------------
+# the MoE FFN on data ranks against the JAX package's on the whole batch
+# ---------------------------------------------------------------------------
+
+def _dp_results(ranks, case: str) -> list:
+    data, model, _, _ = H.DP_CASES[case]
+    return [r["dp"][case] for r in ranks["res"][data * model]]
+
+
+@pytest.mark.parametrize("case", list(H.DP_CASES))
+def test_data_ranks_route_the_global_batch(ranks, case):
+    """The MoE FFN (H.DP_CAPACITY_FACTOR: it drops) on a case's data ranks,
+    each holding its share of every microbatch, against the JAX package's
+    `moe_ffn` on the whole microbatch: on each rank's rows the keep mask
+    and the output bit for bit (tests/test_torch_moe.py's bar), the data
+    ranks' mean lb_loss within 1e-6 relative and their mean drop_frac
+    exactly; and routing each rank's own rows (the per-rank routing this
+    replaces) keeps another set of pairs. The gradient of sum(y * ct) +
+    lb_loss for the rank's rows (its lb_loss over the data ranks) within
+    1e-6 of its largest value of the port's on the whole batch in one
+    process (the JAX package's bf16 backward sums in other orders: its gap,
+    up to two bf16 ulps on one process too, is printed)."""
+    data, model, groups, accum = H.DP_CASES[case]
+    ref = ranks["jax_dp"][(groups, accum)]
+    one = H.dp_one(str(ranks["dir"] / "dp_case.npz"), groups, accum)
+    outs = _dp_results(ranks, case)
+    n = H.DP_ROWS // accum // data  # a rank's rows of a microbatch
+    k = H.moe_config().moe_top_k
+    own_differs = False
+    for o in outs:
+        r = o["coords"]["data"]
+        assert o["parts"] == data and o["index"] == r
+        assert o["experts"] == (model > 1)
+        dx = []
+        for i, want in enumerate(ref):
+            lo = r * n
+            keep = want["keep"].reshape(H.DP_ROWS // accum, H.DP_SEQ, k)[lo:lo + n]
+            np.testing.assert_array_equal(o["keep"][i].numpy(), keep.reshape(-1, k))
+            np.testing.assert_array_equal(o["y"][i].numpy(), want["y"][lo:lo + n])
+            assert abs(o["lb_loss"][i] - want["lb_loss"]) <= 1e-6 * abs(want["lb_loss"]), (
+                o["lb_loss"][i], want["lb_loss"])
+            assert o["drop_frac"][i] == want["drop_frac"], (o["drop_frac"][i], want)
+            assert 0 < want["drop_frac"] < 1
+            own_differs |= not torch.equal(o["own_keep"][i], o["keep"][i])
+            dx.append(one[i][lo:lo + n])
+        want_dx = torch.cat(dx)
+        err = float((o["dx"] - want_dx).abs().max())
+        assert err <= 1e-6 * float(torch.cat(one).abs().max()), err
+        jax_gap = max(float(np.abs(one[i].numpy() - w["dx"]).max()) for i, w in enumerate(ref))
+        print(f"{case} rank {r}: dx gap {err} to one process; one process to the JAX "
+              f"package {jax_gap}; drop_frac {[w['drop_frac'] for w in ref]}")
+    assert own_differs, "per-rank routing keeps the same pairs: the case shows nothing"
+
+
+# ---------------------------------------------------------------------------
 # the reduced granite-moe's QAT on (2, 2) against one process
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def one_process(ranks):
-    """One process with moe_dispatch_groups=2 (4 steps) from the same
-    checkpoint, and the lb_loss the sharded run reports at step 0: the mean
-    over the data ranks of each rank's rows' Switch loss, each from one
-    process's forward."""
+    """One process at the configuration's one dispatch group (4 steps) from
+    the same checkpoint."""
     import shutil
-    from repro_torch.data.synthetic import sample_batch
-    from repro_torch.models import model as M
-    from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.state import init_state
-    cfg, qcfg, tcfg, dcfg = H.train_setup()
+    cfg, _, _, _ = H.train_setup()
     src, one = ranks["dir"] / "src", ranks["dir"] / "one"
     shutil.copytree(src, one)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        rep = H.train(cfg.replace(moe_dispatch_groups=2), str(one))
-        like = init_state(cfg, qcfg, tcfg, torch.Generator().manual_seed(0), "cpu")
-        params = ckpt.restore(str(src), like, step=0)["params"]
-        batch = sample_batch(cfg, dcfg, 0, H.BATCH, H.SEQ)
-        half = H.BATCH // 2
-        lbs = []
-        with torch.no_grad():
-            for lo in (0, half):
-                rows = {k: torch.from_numpy(v[lo:lo + half]) for k, v in batch.items()}
-                lbs.append(M.forward(params, rows, cfg, qcfg)[1]["lb_loss"])
+        return H.train(cfg, str(one))
     finally:
         torch.set_num_threads(threads)
-    return rep, float((lbs[0] + lbs[1]) / 2)
 
 
 def test_training_runs_expert_parallel(ranks):
@@ -336,9 +435,13 @@ def test_training_counts_the_expert_buffers(ranks):
     """`spmd.moved_bytes_by_use()["experts"]` counts the expert buffers'
     collectives: each MoE layer's bf16 output buffer all-gathered along the
     experts in each of the step's 2 forwards (the block's checkpoint runs
-    it again in the backward) and its input buffer's gradient all-gathered
-    from the parts once; beyond those, only f32 scalars (the replicated
-    scales' partial gradients and the g factors' sums over the ranks).
+    it again in the backward, at the same local capacity) and its input
+    buffer's gradient all-gathered from the parts once, at the rows each
+    call reported (`models.moe.buffer_rows`: the rank's local capacity,
+    from its data group's counts), and each forward's gather of the data
+    ranks' int32 (group, expert) counts; beyond those, only f32 scalars
+    (the replicated scales' partial gradients and the g factors' sums over
+    the ranks).
     "obr" and "oscillation" count only the leaves' sums
     (`_torch_ep_harness.stats_bytes`, one read of the fraction a step: no
     sentinel), no gathered leaf or EMA."""
@@ -352,13 +455,19 @@ def test_training_counts_the_expert_buffers(ranks):
     like = init_state(cfg, qcfg, tcfg, torch.Generator(), "meta")
     stats = {k: v * H.TRAIN_STEPS for k, v in H.stats_bytes(
         like["params"], state_specs(cfg, qcfg, tcfg, mesh), qcfg, mesh).items()}
-    g = cfg.moe_dispatch_groups
-    tokens = H.BATCH * H.SEQ // 2  # a data rank's rows
-    rows = g * capacity(tokens // g, cfg)
-    buffers = 3 * cfg.n_layers * cfg.n_experts * rows * cfg.d_model * 2 * H.TRAIN_STEPS
-    for r in ranks["res"][4]:
+    calls = 2 * cfg.n_layers * H.TRAIN_STEPS  # each layer's 2 forwards a step
+    c = capacity(H.BATCH * H.SEQ, cfg)  # the global batch's one group
+    for j, r in enumerate(ranks["res"][4]):
         tr = r["train"]
-        rest = tr["moved_by_use"]["experts"] - buffers
+        assert sum(tr["buffer_rows"].values()) == calls, tr["buffer_rows"]
+        assert all(8 <= rows <= c and rows % 8 == 0 for rows in tr["buffer_rows"])
+        # the model ranks of a data group (ranks 2 d, 2 d + 1) hold the same rows
+        assert tr["buffer_rows"] == ranks["res"][4][j - j % 2]["train"]["buffer_rows"]
+        # 1.5: the output gathers of both forwards, the gradient gather once
+        buffers = sum(rows * n for rows, n in tr["buffer_rows"].items()) * (
+            3 * cfg.n_experts * cfg.d_model * 2) // 2
+        assert tr["count_bytes"] == calls * 2 * cfg.n_experts * 4  # 2 ranks, 1 group
+        rest = tr["moved_by_use"]["experts"] - buffers - tr["count_bytes"]
         assert 0 <= rest <= 16 * 4 * cfg.n_layers * H.TRAIN_STEPS, (tr["moved_by_use"], buffers)
         assert rest % 4 == 0
         assert sum(tr["moved_by_use"].values()) <= sum(tr["moved"].values())
@@ -369,27 +478,32 @@ def test_training_counts_the_expert_buffers(ranks):
 
 
 def test_training_step0_matches_one_process(ranks, one_process):
-    rep, lb_ranks = one_process
+    """Step 0 on (2, 2) routes the global batch as one process does: its
+    drop_frac bit-equal, its lb_loss (the data ranks' mean of each rank's
+    mean probabilities against the batch's choice counts: the batch's
+    Switch loss) within 1e-6 relative, and its loss within 1e-6
+    relative."""
+    rep = one_process
     got = ranks["res"][4][0]["train"]["metrics"][0]
     want = rep.metrics[0]
     assert abs(got["loss_main"] - want["loss_main"]) <= SUM_BAR * abs(want["loss_main"]), (
         got, want)
     assert got["drop_frac"] == want["drop_frac"], (got, want)
-    assert abs(got["lb_loss"] - lb_ranks) <= 1e-6 * abs(lb_ranks), (got["lb_loss"], lb_ranks)
-    print(f"lb_loss: the ranks' mean {got['lb_loss']}, one process over both groups "
-          f"{want['lb_loss']}")
-    _, _, tcfg, _ = H.train_setup()
+    assert abs(got["lb_loss"] - want["lb_loss"]) <= 1e-6 * abs(want["lb_loss"]), (
+        got["lb_loss"], want["lb_loss"])
+    print(f"lb_loss: the ranks' mean {got['lb_loss']}, one process {want['lb_loss']}; "
+          f"drop_frac {got['drop_frac']}")
     loss0 = ranks["res"][4][0]["train"]["losses"][0]
-    expect = want["loss_main"] + tcfg.lb_coef * lb_ranks
-    assert abs(loss0 - expect) <= 1e-6 * abs(expect), (loss0, expect, rep.losses[0])
+    assert abs(loss0 - rep.losses[0]) <= 1e-6 * abs(rep.losses[0]), (loss0, rep.losses[0])
 
 
 def test_training_losses_within_the_reference_bar(ranks, one_process):
     """The 4 losses within the reference's 5 % (tests/test_spmd.py) of the
-    one-process port's and of the JAX package's one-device run (both with 2
-    dispatch groups, from the same init state); the gradient norm at steps
-    0 and 1 within 2e-3 relative of one process's."""
-    rep, _ = one_process
+    one-process port's and of the JAX package's one-device run (both at
+    the configuration's one dispatch group, from the same init state); the
+    gradient norm at steps 0 and 1 within 2e-3 relative of one
+    process's."""
+    rep = one_process
     tr = ranks["res"][4][0]["train"]
     print(f"losses: (2, 2) {tr['losses']}, one process {rep.losses}, "
           f"the JAX package {ranks['losses_ref']}")
@@ -453,3 +567,53 @@ def test_dry_run_rank0_counts_its_experts(experts):
                "kernel::quant_matmul_batched", "kernel::quant_matmul_bwd_batched"):
         one, four = recs[0][op]["flops"], recs[1][op]["flops"]
         assert one > 0 and 4 * four == one, (op, one, four)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_dry_run_gathers_the_routing_counts(groups):
+    """The dry run on a (2, 1) mesh routes the global batch over the 2 data
+    ranks: each MoE layer's forward (2 a step: the block's checkpoint runs
+    it again) all-gathers the ranks' int32 (group, expert) counts, the only
+    collective counted under "experts" here (no model axis); rank 0's
+    buffer holds the group's capacity over its ranks, rounded up to 8,
+    where the one group spans both ranks (meta tensors hold no counts: the
+    balanced load), and the group's capacity where it holds a whole
+    group."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.moe import capacity
+    cfg = H.moe_config().replace(moe_dispatch_groups=groups)
+    shape = shp.get_shape("train_4k", smoke=True)
+    rec = D.lower_cell("granite-moe-1b-a400m", "train_4k", multi_pod=False,
+                       preset="w4a4", grad_accum=8, serve_kv_bits=8, mesh_sizes=(2, 1),
+                       cfg=cfg, shape=shape)
+    assert rec["status"] == "ok", rec.get("traceback")
+    m = rec["moe"]
+    assert m["data_ranks"] == 2 and m["dispatch_groups"] == groups
+    calls = 2 * cfg.n_layers * rec["grad_accum"]
+    assert m["count_gather_bytes"] == calls * 2 * groups * cfg.n_experts * 4
+    assert rec["collectives"]["bytes_by_use"]["experts"] == m["count_gather_bytes"]
+    c = capacity(shape.global_batch * shape.seq_len // rec["grad_accum"] // groups, cfg)
+    local = c if groups == 2 else max(8, (-(-c // 2) + 7) // 8 * 8)
+    assert m["buffer_rows"] == {local: calls}, (m, c)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_rows_take_a_share_of_each_microbatch(accum):
+    """`Spmd.rows(batch, accum)` on data rank 0 of 2: its half of each of
+    the `accum` microbatches of consecutive rows, in order (the step cuts
+    them again, so microbatch i over the ranks is the batch's microbatch
+    i, as the reference's train step cuts it); a microbatch whose rows do
+    not split over the data ranks is refused."""
+    from repro_torch.dist.spmd import Spmd
+    from repro_torch.launch import dryrun as D
+    batch = {"tokens": np.arange(8 * 3).reshape(8, 3), "labels": np.arange(8)}
+    with D.rank0_mesh(("data", "model"), (2, 1), "cpu") as mesh:
+        sp = Spmd(mesh)
+        rows = sp.rows(batch, accum)
+        assert sp.dp.parts == 2 and sp.dp.index == 0
+        want = [0, 1, 2, 3] if accum == 1 else [0, 1, 4, 5]
+        np.testing.assert_array_equal(rows["labels"], want)
+        np.testing.assert_array_equal(rows["tokens"], batch["tokens"][want])
+        with pytest.raises(ValueError, match="microbatches"):
+            sp.rows({"labels": np.arange(8)}, 8)  # one row a microbatch

@@ -202,8 +202,9 @@ def test_sharded_moe_equals_one_process(tmp_path):
     (expert-parallel expert weights, OBR on gathered leaves, the
     oscillation state on slices, compression's all-reduced amax, the
     sentinel's flags) give one process's losses and metrics bit for bit.
-    (Where the data axis splits the rows, each rank routes its own rows,
-    with a capacity of its own: ROADMAP Queue 3.)"""
+    (Where the data axis splits the rows, the data ranks route the global
+    batch together: tests/test_torch_ep.py holds that against the JAX
+    package's `moe_ffn` and one process.)"""
     env = dict(os.environ, PYTHONPATH=SRC)
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
